@@ -1,0 +1,64 @@
+"""Carry parameters and masks across from the JAX package.
+
+The JAX package keeps its parameters as a pytree of nested dicts; given
+with numpy leaves (``jax.tree.map(np.asarray, params)``), the same tree
+becomes the port's parameters here, leaf for leaf, in the same layout:
+linear kernels stored (in, out), ``patch_embed.kernel`` ``[P, P, C, D]``,
+per-block tensors stacked on a leading layer axis.  The counterpart in
+role of ``uvc_tpu/models/convert.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises when it names CUDA and there is no
+    usable card (the port never carries on on the CPU instead)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def _to_tensor(leaf, device, dtype):
+    t = torch.from_numpy(np.array(leaf))        # a writable copy
+    if t.is_floating_point() and dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def tree_to_torch(tree: Any, device, dtype: Optional[torch.dtype]) -> Any:
+    """Nested dicts / lists of array-likes -> the same structure of tensors
+    (floating leaves cast to ``dtype`` unless it is None)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_torch(v, device, dtype) for v in tree)
+    if isinstance(tree, (int, float, bool, str)) or tree is None:
+        return tree
+    return _to_tensor(tree, device, dtype)
+
+
+def params_from_numpy(tree: Dict[str, Any], device="cuda",
+                      dtype: Optional[torch.dtype] = torch.float32) -> dict:
+    """The JAX package's parameter pytree (numpy leaves) as the port's
+    parameters on ``device``.  Floating leaves become ``dtype`` (f32 by
+    default, as the JAX package keeps them; the forward casts to its
+    compute dtype)."""
+    return tree_to_torch(tree, resolve_device(device), dtype)
+
+
+def masks_from_numpy(masks: Optional[Dict[str, Any]], device="cuda"
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+    """Structural keep masks ``{"attn": [L, D], "mlp": [L, F]}`` as f32
+    tensors on ``device`` (None stays None)."""
+    if masks is None:
+        return None
+    return tree_to_torch(dict(masks), resolve_device(device), torch.float32)

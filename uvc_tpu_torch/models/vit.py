@@ -1,0 +1,283 @@
+"""DeiT / ViT eval forward (counterpart of ``uvc_tpu/models/vit.py``).
+
+Parameters are plain nested dicts of tensors in the JAX package's layout:
+per-block tensors stacked on a leading layer axis, linear kernels stored
+(in, out), ``patch_embed.kernel`` ``[P, P, C, D]``; images are NHWC.  The
+block stack is a Python loop over layers whose two sublayers are the
+LN-fused kernels of ``uvc_tpu_torch.ops`` (the block-gating blend fused
+into the MLP sublayer when a gating distribution is given).
+
+This slice is the eval / serving forward.  Part gating and drop-path run
+the un-fused sublayer (``_layer_fwd_kernel`` in the JAX package) and the
+Gumbel token draw is a training path; all three raise
+``NotImplementedError`` until their slice is ported (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from uvc_tpu_torch.configs import ViTConfig
+from uvc_tpu_torch.interop import resolve_device
+from uvc_tpu_torch.ops.attention import layer_attention_ln
+from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
+                                      physical_topk_indices, token_scores,
+                                      topk_token_mask)
+from uvc_tpu_torch.ops.mlp import mlp_ln, mlp_ln_blend
+
+_NOT_PORTED = ("{} is not ported yet: it runs the un-fused sublayer "
+               "(_layer_fwd_kernel) or the Gumbel draw of training; see "
+               "ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# initialization
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal(gen, shape, std=0.02):
+    t = torch.empty(shape)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return std * t
+
+
+def _linear(gen, fan_in, fan_out):
+    return {"kernel": _trunc_normal(gen, (fan_in, fan_out)),
+            "bias": torch.zeros(fan_out)}
+
+
+def _stack(items):
+    return {k: torch.stack([it[k] for it in items]) for k in items[0]}
+
+
+def init_params(generator: torch.Generator, cfg: ViTConfig, *,
+                patch_gating: bool = False, device="cuda") -> dict:
+    """A DeiT/ViT parameter tree in the JAX package's layout and init rules
+    (``uvc_tpu/models/vit.py::init_params``): truncated normal (std 0.02,
+    cut at 2 std) for kernels and tokens, zero biases, unit LayerNorm
+    scales, zero-initialised classifier heads, gating logits ``[-1, 1]``
+    per layer.  ``generator`` is a CPU ``torch.Generator``; the tensors are
+    made on the CPU and moved to ``device``.  The draws differ from
+    ``jax.random``'s: tests carry JAX weights across with
+    ``interop.params_from_numpy`` instead."""
+    dev = resolve_device(device)
+    if cfg.hybrid or cfg.tokens_type != "none" or cfg.cls_attn_layers:
+        raise NotImplementedError(_NOT_PORTED.format(f"backbone {cfg.name}"))
+    d, l, f, p = cfg.embed_dim, cfg.depth, cfg.mlp_hidden, cfg.patch_size
+    gen = generator
+    params = {
+        "patch_embed": {
+            "kernel": _trunc_normal(gen, (p, p, cfg.in_chans, d)),
+            "bias": torch.zeros(d)},
+        "cls_token": _trunc_normal(gen, (1, 1, d)),
+        "pos_embed": _trunc_normal(gen, (1, cfg.seq_len, d)),
+        "blocks": {
+            "ln1": {"scale": torch.ones(l, d), "bias": torch.zeros(l, d)},
+            "qkv": _stack([_linear(gen, d, 3 * d) for _ in range(l)]),
+            "proj": _stack([_linear(gen, d, d) for _ in range(l)]),
+            "ln2": {"scale": torch.ones(l, d), "bias": torch.zeros(l, d)},
+            "fc1": _stack([_linear(gen, d, f) for _ in range(l)]),
+            "fc2": _stack([_linear(gen, f, d) for _ in range(l)]),
+        },
+        "norm": {"scale": torch.ones(d), "bias": torch.zeros(d)},
+        "head": {"kernel": torch.zeros(d, cfg.num_classes),
+                 "bias": torch.zeros(cfg.num_classes)},
+        "block_gating": torch.tensor([-1.0, 1.0]).repeat(l, 1),
+        "attn_gating": torch.tensor([-1.0, 1.0]).repeat(l, 1),
+        "mlp_gating": torch.tensor([-1.0, 1.0]).repeat(l, 1),
+        "token_scorer": _linear(gen, d, 1),
+    }
+    if cfg.distilled:
+        params["dist_token"] = _trunc_normal(gen, (1, 1, d))
+        params["head_dist"] = {"kernel": torch.zeros(d, cfg.num_classes),
+                               "bias": torch.zeros(cfg.num_classes)}
+    if patch_gating:
+        params["patch_gating"] = torch.full((1, cfg.num_patches, 1), 3.0)
+    return _to_device(params, dev)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_norm(x, scale, bias, eps):
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _attention_ln(x, blk, num_heads, scale, attn_mask_row, eps, dtype):
+    mask = (attn_mask_row.to(dtype) if attn_mask_row is not None
+            else torch.ones(x.shape[-1], dtype=dtype, device=x.device))
+    return layer_attention_ln(
+        x, blk["ln1"]["scale"], blk["ln1"]["bias"],
+        blk["qkv"]["kernel"].to(dtype), blk["qkv"]["bias"].to(dtype),
+        blk["proj"]["kernel"].to(dtype), blk["proj"]["bias"].to(dtype), mask,
+        num_heads=num_heads, scale=scale, eps=eps)
+
+
+def _mlp_args(blk, mlp_mask_row, dtype, device):
+    f = blk["fc1"]["kernel"].shape[-1]
+    mask = (mlp_mask_row.to(dtype) if mlp_mask_row is not None
+            else torch.ones(f, dtype=dtype, device=device))
+    return (blk["ln2"]["scale"], blk["ln2"]["bias"],
+            blk["fc1"]["kernel"].to(dtype), blk["fc1"]["bias"].to(dtype),
+            blk["fc2"]["kernel"].to(dtype), blk["fc2"]["bias"].to(dtype),
+            mask)
+
+
+def patch_embed(params: dict, x: torch.Tensor, cfg: ViTConfig,
+                dtype=torch.float32) -> torch.Tensor:
+    """Non-overlapping patchify of NHWC images as reshape + one matmul, in
+    the JAX package's patch order (row-major patches, (p, p, C) inside)."""
+    if cfg.hybrid:
+        raise NotImplementedError(_NOT_PORTED.format("the R50 hybrid stem"))
+    b = x.shape[0]
+    p = cfg.patch_size
+    g = cfg.img_size // p
+    x = x.reshape(b, g, p, g, p, cfg.in_chans)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * cfg.in_chans)
+    kernel = params["patch_embed"]["kernel"].reshape(
+        p * p * cfg.in_chans, cfg.embed_dim)
+    return (x.to(dtype) @ kernel.to(dtype)
+            + params["patch_embed"]["bias"].to(dtype))
+
+
+class ForwardOutput(NamedTuple):
+    logits: torch.Tensor
+    logits_kd: torch.Tensor    # distillation-head logits (== logits when
+                               # there is no dist head)
+    token_mask: Optional[torch.Tensor]
+
+
+def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
+          gating_distrib: Optional[torch.Tensor] = None,
+          attn_distrib: Optional[torch.Tensor] = None,
+          mlp_distrib: Optional[torch.Tensor] = None,
+          masks: Optional[Dict[str, torch.Tensor]] = None,
+          tau: float = -1.0,
+          patch_ratio: float = 0.9,
+          patch_gate_mode: int = 0,
+          patch_hard: bool = False,
+          patch_physical: bool = False,
+          jumping: bool = False,
+          rng=None,
+          train: bool = False,
+          drop_path_rate: float = 0.0,
+          dtype=torch.float32) -> ForwardOutput:
+    """Eval forward with the JAX ``apply``'s arguments and semantics.
+
+    gating_distrib: ``[L, 2]`` per-block (skip, keep) distribution, or None
+    for ungated blocks.  masks: ``{"attn": [L, D], "mlp": [L, F]}`` or None.
+    patch_gate_mode 1 applies the sigmoid patch gate (hard with
+    ``patch_hard``); mode 2 (or a positive ``tau``) selects
+    ``int(patch_ratio * N)`` tokens by the deterministic top-k, zero-masked
+    or, with ``patch_physical``, gathered.  Part gating
+    (``attn_distrib`` / ``mlp_distrib``), drop-path and the Gumbel draw
+    (``rng``) raise NotImplementedError."""
+    if attn_distrib is not None or mlp_distrib is not None:
+        raise NotImplementedError(_NOT_PORTED.format("part gating"))
+    if train and drop_path_rate > 0:
+        raise NotImplementedError(_NOT_PORTED.format("drop-path"))
+    eps = cfg.layer_norm_eps
+    b = x.shape[0]
+    x = patch_embed(params, x, cfg, dtype)  # [B, N, D]
+
+    if patch_gate_mode == 1 and "patch_gating" in params:
+        gate = torch.sigmoid(params["patch_gating"]).to(dtype)
+        if patch_hard:
+            hard = (gate >= 0.5).to(dtype)
+            hard[:, 0] = 1.0
+            x = x * hard
+        else:
+            x = x * gate
+
+    token_mask = None
+    token_select = patch_gate_mode == 2 or (
+        isinstance(tau, (int, float)) and tau > 0)
+    if token_select and rng is not None:
+        raise NotImplementedError(_NOT_PORTED.format("Gumbel token selection"))
+    physical = token_select and patch_physical
+    idx = None
+    if token_select:
+        k = int(patch_ratio * cfg.num_patches)
+        scores = token_scores(x, params["token_scorer"])  # [B, N]
+        if physical:
+            idx = physical_topk_indices(scores, k)
+        else:
+            token_mask = topk_token_mask(scores, k)
+            x = x * token_mask[..., None].to(dtype)
+
+    tokens = [params["cls_token"].expand(b, 1, cfg.embed_dim).to(dtype)]
+    if cfg.distilled:
+        tokens.append(params["dist_token"].expand(
+            b, 1, cfg.embed_dim).to(dtype))
+    if physical:
+        x = gather_tokens_with_pos(x, idx, tokens, params["pos_embed"], dtype)
+    else:
+        x = torch.cat(tokens + [x], dim=1) + params["pos_embed"].to(dtype)
+
+    x = transformer_encode(params, x, cfg, gating_distrib=gating_distrib,
+                           masks=masks, jumping=jumping, dtype=dtype)
+
+    cls = x[:, 0].float()
+    logits = cls @ params["head"]["kernel"] + params["head"]["bias"]
+    if cfg.distilled:
+        dist = x[:, 1].float()
+        logits_kd = dist @ params["head_dist"]["kernel"] \
+            + params["head_dist"]["bias"]
+    else:
+        logits_kd = logits
+    return ForwardOutput(logits=logits, logits_kd=logits_kd,
+                         token_mask=token_mask)
+
+
+def transformer_encode(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
+                       gating_distrib=None, masks=None, jumping: bool = False,
+                       dtype=torch.float32) -> torch.Tensor:
+    """The block stack + final LN.  Each block is the LN-fused attention
+    sublayer, then the LN-fused MLP sublayer, with the block-gating blend
+    ``d1 * block(h) + d0 * h`` fused into the MLP sublayer when
+    ``gating_distrib`` is given.  ``jumping`` sums every block's output
+    into the final representation."""
+    eps = cfg.layer_norm_eps
+    scale = cfg.qk_scale if cfg.qk_scale is not None else cfg.head_size ** -0.5
+    blocks = params["blocks"]
+    h = x
+    accum = torch.zeros_like(x) if jumping else None
+    for i in range(cfg.depth):
+        blk = {name: {k: v[i] for k, v in sub.items()}
+               for name, sub in blocks.items()}
+        attn_m = None if masks is None else masks["attn"][i]
+        mlp_m = None if masks is None else masks["mlp"][i]
+        z = _attention_ln(h, blk, cfg.num_heads, scale, attn_m, eps, dtype)
+        mlp_args = _mlp_args(blk, mlp_m, dtype, x.device)
+        if gating_distrib is not None:
+            h = mlp_ln_blend(z, h, gating_distrib[i].float(), *mlp_args,
+                             eps=eps)
+        else:
+            h = mlp_ln(z, *mlp_args, eps=eps)
+        if jumping:
+            accum = accum + h
+    if jumping:
+        h = accum
+    return _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"],
+                       eps)
+
+
+def eval_logits(out: ForwardOutput, cfg: ViTConfig) -> torch.Tensor:
+    """Average of the cls and dist predictions for distilled models."""
+    if cfg.distilled:
+        return (out.logits + out.logits_kd) / 2.0
+    return out.logits

@@ -1,0 +1,25 @@
+"""Sublayer ops of the port and their launch counters.
+
+Each kernel wrapper keeps a plain integer ``launches`` that it raises by one
+where it launches its kernel; ``launch_counts`` reads them and
+``reset_launch_counts`` sets them to 0, so a run can show that its main
+path went through the kernels.
+"""
+
+from uvc_tpu_torch.ops.attention import layer_attention_ln
+from uvc_tpu_torch.ops.mlp import mlp_ln, mlp_ln_blend
+
+KERNEL_WRAPPERS = {
+    "layer_attention_ln": layer_attention_ln,
+    "mlp_ln": mlp_ln,
+    "mlp_ln_blend": mlp_ln_blend,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
