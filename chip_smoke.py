@@ -8,12 +8,14 @@ Phases, each of which stops the run with a non-zero exit on failure:
 1. device  -- the card's name and power limit; exits 1 without CUDA.
 2. build   -- compiles the hand-written kernels (``uvc_tpu_torch/csrc``).
 3. kernels -- each kernel against its plain PyTorch version on the card,
-   at the shapes the serving paths give it (B=64, dm=384: "eval", the
-   masked-dense eval step after the token drop, N=138, 6 heads, F=1536;
-   "compact", the compacted layers, N=138, 3 heads, F=768) and at the
-   dense shape without the token drop (N=197, 6 heads, F=1536), with its
-   time, the plain version's, one PyTorch library composition's (a
-   yardstick only) and the least time the card could take.
+   with its time, the plain version's, one PyTorch library composition's
+   (a yardstick only) and the least time the card could take.  Forward
+   kernels at the shapes the serving paths give them (B=64, dm=384:
+   "eval", the masked-dense eval step after the token drop, N=138, 6
+   heads, F=1536; "compact", the compacted layers, N=138, 3 heads, F=768)
+   and at the dense shape without the token drop (N=197, 6 heads,
+   F=1536); backward kernels at the stage-1 train shape ("train": B=64,
+   N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591).
 4. serving -- DeiT-Small at full width with seeded random weights and a
    seeded discovered architecture (3 of 6 heads, random within-head dims
    and half the MLP units pruned; 2 of 12 blocks gated off): 5 passes
@@ -23,12 +25,21 @@ Phases, each of which stops the run with a non-zero exit on failure:
    then compact vs masked-dense logits, device time by kernel for one
    batch of each path (torch.profiler), and the card vs the plain path on
    the CPU.
+5. training -- the stage-1 UVC step (``build_stage1_step``) on DeiT-Small
+   at full width, seeded random student and teacher, bench.py's flagship
+   settings (Gumbel block gating, Gumbel token top-k at ratio 0.9,
+   mixup / cutmix, soft distillation, bf16, tau 5.0) at batch 64: 3
+   untimed steps, then 10 steps timed as one window with their kernel
+   launches counted; a gating-warmup step that must leave the gating
+   logits unchanged; 2 steps with block gating off (the A6 path); peak
+   memory; device time by kernel for one step; and one step at batch 8 on
+   the card against the same step on the CPU plain path.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
-"compact"; its other shapes under "other_shapes"), and
-``{"ok": true, "device": {...}}``.
+"compact", the backward kernels at "train"; its other shapes under
+"other_shapes"), and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -87,6 +98,12 @@ def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if torch.is_tensor(tree) else tree
 
 
 def card_line():
@@ -222,6 +239,123 @@ def kernel_phase(eps):
                   f"da={da} F={f}] rel_fro={rel:.2e} max_abs={mx:.2e} "
                   f"(tol {KERNEL_REL_TOL:g} / {max_tol:.2e}) "
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f} "
+                  f"bound={bound_ms * 1e3:.1f}us ({bound_by})", flush=True)
+    return results
+
+
+# backward kernels against their plain backwards at the stage-1 train shape
+# and a ragged one (B*N = 591 rows, not a multiple of 8, as K of the weight
+# gradient products): every output of the kernel against the plain version
+# on the same inputs, both on the card.  They round at the same places and
+# sum in another order: f32 partial sums over 128-row blocks and
+# tensor-core tiles against PyTorch's reductions, so a bf16 intermediate
+# (dctx, probs, ds, dqkv, am, dh) now and then rounds the other way and
+# carries a one-ulp difference (2**-8 relative) into the sums after it.
+# Each output's relative Frobenius error stays below 1e-2.
+BWD_REL_TOL = 1e-2
+BWD_SHAPES = {"train": (BATCH, 197), "ragged": (3, 197)}
+
+
+def _library_backward(run, leaves, do):
+    """One PyTorch autograd backward through a library composition (the
+    forward built once, its graph kept): the yardstick of a backward
+    kernel."""
+    out = run()
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def backward_kernel_phase(eps):
+    from uvc_tpu_torch.ops.attention import (layer_attention_ln_bwd,
+                                             layer_attention_ln_bwd_plain)
+    from uvc_tpu_torch.ops.mlp import (mlp_ln_blend_bwd,
+                                       mlp_ln_blend_bwd_plain, mlp_ln_bwd,
+                                       mlp_ln_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {}
+    for shape, (b, n) in BWD_SHAPES.items():
+        t = _inputs(gen, b, n, 384, 6, 1536)
+        do = (torch.randn(b, n, 384, generator=gen, device="cuda")
+              * 0.1).to(torch.bfloat16)
+        dm, heads, da, f = 384, 6, 384, 1536
+        rows = b * n
+        act = rows * dm * 2
+        akw = dict(num_heads=heads, scale=64 ** -0.5, eps=eps)
+        aargs = (t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
+                 t["bproj"], t["amask"], do)
+        margs = (t["g"], t["b"], t["w1"], t["b1"], t["w2"], t["b2"],
+                 t["fmask"])
+        # work: recompute qkv, t, dWproj, d a_in, dWqkv; the attention core
+        # recomputes the logits and forms ctx, dv, dp, dq, dk: 12 N^2 dh
+        a_flops = (2 * rows * dm * 3 * da * 3 + 2 * rows * dm * da * 2
+                   + 12 * b * heads * n * n * 64)
+        a_bytes = (3 * act + 2 * (4 * da * dm + 3 * da + dm + da) * 2
+                   + 4 * dm * 4)
+        m_flops = 5 * 2 * rows * dm * f
+        m_bytes = 3 * act + 2 * (2 * dm * f + f + dm + f) * 2 + 4 * dm * 4
+        leaves = {k: v.detach().requires_grad_() if torch.is_tensor(v)
+                  and v.is_floating_point() else v for k, v in t.items()}
+        names = ("g", "b", "wqkv", "bqkv", "wproj", "bproj", "amask")
+        lib_a = _library_backward(_library_attention(leaves, eps),
+                                  [leaves["x"]] + [leaves[k] for k in names],
+                                  do)
+        mnames = ("g", "b", "w1", "b1", "w2", "b2", "fmask")
+        lib_m = _library_backward(_library_mlp(leaves, eps, blend=False),
+                                  [leaves["x"]] + [leaves[k] for k in mnames],
+                                  do)
+        lib_b = _library_backward(
+            _library_mlp(leaves, eps, blend=True),
+            [leaves["x"], leaves["xin"], leaves["d"]]
+            + [leaves[k] for k in mnames], do)
+        cases = {
+            "layer_attention_ln_bwd": (
+                lambda: layer_attention_ln_bwd(*aargs, **akw),
+                lambda: layer_attention_ln_bwd_plain(*aargs, **akw),
+                lib_a, a_flops, a_bytes),
+            "mlp_ln_blend_bwd": (
+                lambda: mlp_ln_blend_bwd(t["x"], t["xin"], t["d"], *margs, do,
+                                         eps=eps),
+                lambda: mlp_ln_blend_bwd_plain(t["x"], t["xin"], t["d"],
+                                               *margs, do, eps=eps),
+                lib_b, m_flops, m_bytes + 2 * act + 16),
+            "mlp_ln_bwd": (
+                lambda: mlp_ln_bwd(t["x"], *margs, do, eps=eps),
+                lambda: mlp_ln_bwd_plain(t["x"], *margs, do, eps=eps),
+                lib_m, m_flops, m_bytes),
+        }
+        for name, (kern, plain, library, flops, nbytes) in cases.items():
+            outs = kern()
+            torch.cuda.synchronize()
+            again = kern()
+            refs = plain()
+            errs = []
+            for i, (o, r) in enumerate(zip(outs, refs)):
+                check(o.shape == r.shape and o.dtype == r.dtype,
+                      f"{name} [{shape}] output {i}: {o.shape} {o.dtype} vs "
+                      f"{r.shape} {r.dtype}")
+                check(torch.isfinite(o).all().item(),
+                      f"{name} [{shape}] output {i}: non-finite")
+                check(torch.equal(o, again[i]),
+                      f"{name} [{shape}] output {i}: two launches differ")
+                errs.append(rel_err(o, r))
+            worst = max(e[0] for e in errs)
+            mx = max(e[1] for e in errs)
+            check(worst <= BWD_REL_TOL,
+                  f"{name} [{shape}]: kernel vs plain rel_fro per output "
+                  f"{[f'{e[0]:.2e}' for e in errs]} (tol {BWD_REL_TOL})")
+            bound_ms, bound_by = bound(flops, nbytes)
+            r = dict(shape=shape, rel_fro=worst, max_abs_err=mx,
+                     rel_fro_per_output=[e[0] for e in errs],
+                     ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
+                     library_ms=time_ms(library, 20), bound_ms=bound_ms,
+                     bound_by=bound_by, flops=flops, bytes=nbytes)
+            results[(name, shape)] = r
+            print(f"kernel {name:22s} [{shape:6s} B={b} N={n} dm={dm} "
+                  f"da={da} F={f}] rel_fro per output "
+                  f"{' '.join(f'{e[0]:.1e}' for e in errs)} (tol "
+                  f"{BWD_REL_TOL:g}) max_abs={mx:.2e} ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by})", flush=True)
     return results
@@ -383,13 +517,9 @@ def serving_phase(card):
                                                cfg, hp)})
 
         # the card against the plain path on the CPU, on 8 images
-        def to_cpu(tree):
-            if isinstance(tree, dict):
-                return {k: to_cpu(v) for k, v in tree.items()}
-            return tree.cpu() if torch.is_tensor(tree) else tree
-        layers_cpu = [to_cpu(blk) for blk in layers]
-        ref = apply_compact(layers_cpu, to_cpu(top), x0[:8].cpu(), cfg,
-                            token_ratio=TOKEN_RATIO).logits
+        layers_cpu = [_tree_to(blk, "cpu") for blk in layers]
+        ref = apply_compact(layers_cpu, _tree_to(top, "cpu"), x0[:8].cpu(),
+                            cfg, token_ratio=TOKEN_RATIO).logits
         rel, mx = rel_err(logits[0][:8].cpu(), ref)
         print(f"compact serving, card vs CPU plain path (8 images): "
               f"rel_fro={rel:.2e} max_abs={mx:.2e} (tol {MODEL_REL_TOL})")
@@ -397,11 +527,14 @@ def serving_phase(card):
     return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
 
 
-def profile_phase(card, runs):
+def profile_phase(card, runs, top=8):
     """Device time by kernel for one batch of each path (torch.profiler),
     and the device's busy share of the wall time (the profiler's own host
     overhead is inside the wall time, so the busy share is a lower
-    bound)."""
+    bound).  Only events on the device are summed: a CPU range (an
+    autograd Function, an aten op) is charged the time of the kernels
+    launched inside it, which would count them twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for label, fn in runs.items():
@@ -413,17 +546,182 @@ def profile_phase(card, runs):
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = sorted(((e.self_device_time_total, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.self_device_time_total > 0), reverse=True)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+                t, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.device_time_total, n + 1)
+        rows = sorted(((t, n, key) for key, (t, n) in by_name.items()),
+                      reverse=True)
         busy = sum(r[0] for r in rows)
         check(busy > 0, f"profile of {label}: no device time recorded")
         print(f"profile {label} (batch {BATCH}): device busy {busy:.1f} us "
-              f"of {wall_us:.1f} us wall ({100 * busy / wall_us:.1f}%) "
-              f"[{card}]")
-        for t, n, key in rows[:8]:
+              f"of {wall_us:.1f} us wall ({100 * busy / wall_us:.1f}%), "
+              f"{sum(r[1] for r in rows)} device events [{card}]")
+        for t, n, key in rows[:top]:
             print(f"  {100 * t / busy:5.1f}%  {t:9.1f} us  x{n:<3d} "
                   f"{key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+TRAIN_WARM, TRAIN_TIMED, TRAIN_TAU = 3, 10, 5.0
+# card vs CPU plain path, one bf16 step from one state with one set of
+# draws: the kernels and the plain versions round at the same places, and
+# the differences of summation order (one-ulp bf16 flips) pass through
+# 12 blocks forward and back into the loss, the global gradient norm and
+# the resource
+TRAIN_REL_TOL = 2e-2
+
+
+def _state_to(state, device):
+    """A TrainState (dataclasses of tensors and trees) on ``device``."""
+    import dataclasses
+
+    def conv(v):
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{
+                f.name: conv(getattr(v, f.name))
+                for f in dataclasses.fields(v)})
+        if isinstance(v, dict):
+            return _tree_to(v, device)
+        return v.to(device) if torch.is_tensor(v) else v
+
+    return conv(state)
+
+
+def training_phase(card):
+    import dataclasses
+
+    from uvc_tpu_torch.compress.minimax import init_compression_state
+    from uvc_tpu_torch.compress.resource import build_macs_table
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
+                                   reset_launch_counts)
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
+
+    cfg = get_config("deit_small_patch16_224")
+    ln = cfg.depth
+    # bench.py's flagship: MinimaxHParams(enable_patch_gating=2,
+    # gating_interval=100), default TrainHParams (bf16)
+    hp = MinimaxHParams(enable_patch_gating=2, gating_interval=100)
+    thp = TrainHParams()
+    gen = torch.Generator().manual_seed(5)
+    params = vit.init_params(gen, cfg)
+    teacher = vit.init_params(gen, cfg)
+    # zero-initialised heads would give all-zero logits; randomise them
+    for tree in (params, teacher):
+        tree["head"]["kernel"] = 0.05 * torch.randn(
+            tree["head"]["kernel"].shape, generator=gen).cuda()
+    table = build_macs_table(cfg)
+    state = create_train_state(params, thp,
+                               init_compression_state(cfg, hp, "cuda"))
+    step = build_stage1_step(cfg, table, hp, thp, warmup=False)
+    igen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(7)       # every draw of every step
+
+    def run(st, fn, hps, n, b=BATCH, xb=x, yb=labels, device="cuda"):
+        losses = []
+        for _ in range(n):
+            noise = draw_stage1_noise(ngen, cfg, hps, thp, b, device)
+            st, m = fn(st, teacher, xb, yb, noise, TRAIN_TAU)
+            losses.append(m["loss"])
+        return st, losses, m
+
+    t0 = time.perf_counter()
+    state, _, _ = run(state, step, hp, TRAIN_WARM)
+    torch.cuda.synchronize()
+    print(f"train: {TRAIN_WARM} untimed steps in "
+          f"{time.perf_counter() - t0:.2f} s (first-call set-up included)",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, m = run(state, step, hp, TRAIN_TIMED)
+    issued = time.perf_counter() - t0      # the host's share: no sync yet
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    counts = {**launch_counts(), **backward_launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"layer_attention_ln": 2 * ln * TRAIN_TIMED,   # student, teacher
+            "mlp_ln": ln * TRAIN_TIMED,                   # teacher
+            "mlp_ln_blend": ln * TRAIN_TIMED,             # gated student
+            "layer_attention_ln_bwd": ln * TRAIN_TIMED,
+            "mlp_ln_blend_bwd": ln * TRAIN_TIMED, "mlp_ln_bwd": 0}
+    print(f"launches stage-1 train   {counts} (expected {want})")
+    check(counts == want, "stage-1 step launch counts differ")
+    losses = torch.stack(losses).float().cpu()
+    check(torch.isfinite(losses).all().item(),
+          f"non-finite stage-1 losses {losses.tolist()}")
+    print(f"stage-1 train step (DeiT-Small, batch {BATCH}, bf16): "
+          f"{TRAIN_TIMED * BATCH / window:.1f} img/s ({TRAIN_TIMED} steps in "
+          f"{window:.4f} s, {1e3 * window / TRAIN_TIMED:.2f} ms/step; the "
+          f"host had issued them after {issued:.4f} s) [{card}]")
+    print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
+          f"grad_norm={float(m['grad_norm']):.4f} "
+          f"resource={float(m['resource']):.4f} z={float(m['z']):.4f}")
+    print(f"  s[0]={state.cstate.s[0].tolist()} "
+          f"r[0]={state.cstate.r[0].tolist()}")
+    print(f"train max_memory_allocated={peak} bytes "
+          f"({peak / 2**20:.1f} MiB) [{card}]")
+
+    # gating warmup: the gating logits must not move, bit for bit
+    wstep = build_stage1_step(cfg, table, hp, thp, warmup=True)
+    before = state.params["block_gating"].clone()
+    wstate, wl, _ = run(state, wstep, hp, 1)
+    check(torch.equal(wstate.params["block_gating"], before),
+          "the warmup step moved block_gating")
+    check(torch.isfinite(wl[0]).item(), "non-finite warmup loss")
+    print(f"warmup step: block_gating unchanged bit for bit, "
+          f"loss={float(wl[0]):.4f}")
+
+    # block gating off: the ungated student runs K2 forward and A6 back
+    hp_off = dataclasses.replace(hp, enable_block_gating=False)
+    ostep = build_stage1_step(cfg, table, hp_off, thp, warmup=False)
+    reset_launch_counts()
+    _, ol, _ = run(state, ostep, hp_off, 2)
+    torch.cuda.synchronize()
+    off_counts = {**launch_counts(), **backward_launch_counts()}
+    want_off = {"layer_attention_ln": 4 * ln, "mlp_ln": 4 * ln,
+                "mlp_ln_blend": 0, "layer_attention_ln_bwd": 2 * ln,
+                "mlp_ln_blend_bwd": 0, "mlp_ln_bwd": 2 * ln}
+    print(f"launches gating off      {off_counts} (expected {want_off})")
+    check(off_counts == want_off, "gating-off launch counts differ")
+    check(all(torch.isfinite(v).item() for v in ol),
+          "non-finite gating-off loss")
+
+    profile_phase(card, {"stage-1 train step": lambda: run(
+        state, step, hp, 1)}, top=14)
+
+    # the card against the CPU plain path: one step at batch 8 from the
+    # same state with the same draws
+    small = 8
+    noise = draw_stage1_noise(ngen, cfg, hp, thp, small, "cpu")
+    cuda_noise = type(noise)(*(
+        type(v)(*(t.cuda() for t in v)) if isinstance(v, tuple)
+        else (v.cuda() if torch.is_tensor(v) else v) for v in noise))
+    _, gm = step(state, teacher, x[:small], labels[:small], cuda_noise,
+                 TRAIN_TAU)
+    cpu_state = _state_to(state, "cpu")
+    _, cm = step(cpu_state, _tree_to(teacher, "cpu"), x[:small].cpu(),
+                 labels[:small].cpu(), noise, TRAIN_TAU)
+    for k in ("loss", "grad_norm", "resource"):
+        a, b = float(gm[k]), float(cm[k])
+        rel = abs(a - b) / abs(b)
+        print(f"stage-1 step card vs CPU plain path (batch {small}): {k} "
+              f"{a:.6f} vs {b:.6f}, rel {rel:.2e} (tol {TRAIN_REL_TOL})")
+        check(rel <= TRAIN_REL_TOL, f"card and CPU disagree on {k}")
+    return counts, off_counts
 
 
 def main():
@@ -447,7 +745,14 @@ def main():
 
     eps = get_config("deit_small_patch16_224").layer_norm_eps
     res = kernel_phase(eps)
+    res.update(backward_kernel_phase(eps))
     launches = serving_phase(card)
+    train_counts, off_counts = training_phase(card)
+    # launches on the main paths: serving and eval, the timed stage-1
+    # window, and the gating-off steps (the only path of A6)
+    for counts in (train_counts, off_counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
 
     # each kernel's headline shape is that of the path that launches it
     # most: K1 runs in both (12 blocks at "eval", 10 at "compact")
@@ -458,6 +763,12 @@ def main():
                    "compact"),
         "mlp_ln_blend": ("uvc_tpu_torch/csrc/mlp.cu",
                          "uvc_tpu/ops/mlp.py:147", "eval"),
+        "layer_attention_ln_bwd": ("uvc_tpu_torch/csrc/attention.cu",
+                                   "uvc_tpu/ops/attention.py:790", "train"),
+        "mlp_ln_blend_bwd": ("uvc_tpu_torch/csrc/mlp.cu",
+                             "uvc_tpu/ops/mlp.py:179", "train"),
+        "mlp_ln_bwd": ("uvc_tpu_torch/csrc/mlp.cu", "uvc_tpu/ops/mlp.py:90",
+                       "train"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

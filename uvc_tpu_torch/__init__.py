@@ -6,8 +6,9 @@ port imports ``torch`` and ``numpy`` only, never JAX or ``uvc_tpu``.  Its
 sublayer kernels are hand-written CUDA C++ for ``sm_90a``
 (``uvc_tpu_torch/csrc``), built with ``nvcc`` at first use.
 
-This slice serves a compressed ViT/DeiT: physical compaction
-(``infer.compact``) and the masked-dense eval step (``train.step``).
+It serves a compressed ViT/DeiT (physical compaction, ``infer.compact``,
+and the masked-dense eval step) and trains it: the stage-1 UVC step
+(``train.step.build_stage1_step``) with the sublayers' backward kernels.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
-"""Closed-form MACs table (counterpart of ``uvc_tpu/compress/resource.py``,
-the numpy part).
+"""Closed-form MACs table and the differentiable FLOPs fraction
+(counterpart of ``uvc_tpu/compress/resource.py``).
 
 ``build_macs_table`` reproduces the reference's runtime MACs probe for a
-config (golden value: DeiT-Tiny dense probe 2506.98 MFLOPs).  The
-differentiable resource functions belong to training and come with it.
+config (golden value: DeiT-Tiny dense probe 2506.98 MFLOPs);
+``flops_fraction`` and ``flops2_fraction`` are the resource functions of
+the minimax update, with straight-through gradients through the integer
+rounding.
 """
 
 from __future__ import annotations
@@ -11,8 +13,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from uvc_tpu_torch.configs import ViTConfig
+from uvc_tpu_torch.interop import host_to_device
+from uvc_tpu_torch.ops.stes import (bottom_k_mask, ste_ceil, ste_floor,
+                                    torch_clamp)
 
 
 class MacsTable(NamedTuple):
@@ -27,6 +33,18 @@ class MacsTable(NamedTuple):
     embed: float          # patch-embedding (or T2T stem) MACs
     block: np.ndarray     # [L, 6] float64 per-block MACs
     dense_flops: float    # 2 * (embed + block.sum()) — the normalizer
+
+    @property
+    def m01(self) -> np.ndarray:
+        return self.block[:, 0] + self.block[:, 1]
+
+    @property
+    def m23(self) -> np.ndarray:
+        return self.block[:, 2] + self.block[:, 3]
+
+    @property
+    def m45(self) -> np.ndarray:
+        return self.block[:, 4] + self.block[:, 5]
 
 
 def _t2t_stem_macs(cfg: ViTConfig) -> float:
@@ -90,3 +108,54 @@ def build_macs_table(cfg: ViTConfig) -> MacsTable:
     block = np.tile(row, (cfg.depth, 1))
     dense = 2.0 * (embed + float(block.sum()))
     return MacsTable(embed=embed, block=block, dense_flops=dense)
+
+
+def flops_fraction(s: torch.Tensor, r: torch.Tensor, scores2: torch.Tensor,
+                   distrib1, table: MacsTable, cfg: ViTConfig
+                   ) -> torch.Tensor:
+    """Compressed FLOPs over dense FLOPs, differentiable in ``s`` ``[L, 2]``
+    (heads, MLP units removed), ``r`` ``[L, H]`` (within-head dims removed)
+    and ``distrib1`` (``[L]`` block keep probabilities, or 1.0).  The heads
+    in the bottom ``ceil(s0)`` by ``scores2`` count as wholly removed, the
+    rest lose ``r`` dims each.  The ratios are clamped with
+    ``torch_clamp`` so that at s = 0 (ratio exactly 1) they still pass the
+    full gradient."""
+    hs, d = cfg.head_size, cfg.embed_dim
+    s_c, r_c = ste_ceil(s), ste_ceil(r)
+    s_ub = (float(cfg.num_heads), float(cfg.mlp_hidden))
+    s_ratio = torch_clamp(torch.stack(
+        [(u - s_c[:, i]) / u for i, u in enumerate(s_ub)], dim=-1),
+        0.0, 1.0)                                              # [L, 2]
+    k_heads = torch.ceil(s[:, 0].detach()).long()
+    pruned_head = bottom_k_mask(scores2, k_heads)             # [L, H]
+    attn_keep = (d - s_c[:, 0] * hs
+                 - torch.where(pruned_head, torch.zeros_like(r_c),
+                               r_c).sum(dim=-1))
+    r_ratio = torch_clamp(attn_keep / d, 0.0, 1.0)            # [L]
+
+    def col(m):
+        return host_to_device(torch.as_tensor(m, dtype=s.dtype), s.device)
+
+    per_block = (col(table.m01) * s_ratio[:, 0] + col(table.m23) * r_ratio
+                 + col(table.m45) * s_ratio[:, 1])
+    macs = table.embed + (distrib1 * per_block).sum()
+    return 2.0 * macs / table.dense_flops
+
+
+def flops2_fraction(s: torch.Tensor, r: torch.Tensor, scores2: torch.Tensor,
+                    cfg: ViTConfig) -> torch.Tensor:
+    """The W1 / W3 linear-layer cost of ``--flops_with_mhsa 0`` (fc2 and
+    the attention projection only, no gating), normalised by its value at
+    s = r = 0; ``ste_floor`` keeps the identity gradients."""
+    d, dff, hs = float(cfg.embed_dim), float(cfg.mlp_hidden), \
+        float(cfg.head_size)
+    term_w3 = 2.0 * ste_floor(dff - s[:, 1]) * d + d
+    k_heads = torch.ceil(s[:, 0].detach()).long()
+    pruned_head = bottom_k_mask(scores2, k_heads)
+    r_f = ste_floor(r)
+    attn_in = (d - ste_floor(s[:, 0]) * hs
+               - torch.where(pruned_head, torch.zeros_like(r_f),
+                             r_f).sum(dim=-1))
+    term_w1 = 2.0 * attn_in * d + d
+    ub = cfg.depth * (2.0 * dff * d + d + 2.0 * d * d + d)
+    return (term_w3 + term_w1).sum() / ub

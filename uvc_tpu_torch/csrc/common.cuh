@@ -1,10 +1,13 @@
 // Shared device code of the sublayer kernels (attention.cu, mlp.cu): the
-// LayerNorm pass and one bf16 tensor-core GEMM (mma.sync m16n8k16, f32
-// accumulators) with the epilogues the three forward sublayers need.
+// LayerNorm pass and its backward, one bf16 tensor-core GEMM (mma.sync
+// m16n8k16, f32 accumulators) in the three operand layouts the forward and
+// backward sublayers need with their epilogues, and the deterministic
+// column sums of the backward.
 //
 // Numerics follow the Pallas bodies (uvc_tpu/ops/attention.py
-// _layer_ln_fwd_kernel, uvc_tpu/ops/mlp.py _mlp_ln_fwd_kernel /
-// _mlp_ln_blend_fwd_kernel): f32 LayerNorm whose output is rounded to
+// _layer_ln_fwd_kernel / _layer_ln_bwd_kernel, uvc_tpu/ops/mlp.py
+// _mlp_ln_fwd_kernel / _mlp_ln_bwd_kernel / _mlp_ln_blend_fwd_kernel /
+// _mlp_ln_blend_bwd_kernel): f32 LayerNorm whose output is rounded to
 // bf16 before the matmul, bf16 matmul inputs with f32 accumulation, the
 // bias added in f32, and one rounding to bf16 where the Pallas body
 // casts.
@@ -147,11 +150,21 @@ static inline cudaError_t launch_layer_norm(const bf16* x, const float* gamma,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: out[M, N] = epilogue(A[M, K] @ W[K, N]); W is stored (in, out) as
-// the JAX package stores linear kernels.  128x64 output tile per CTA, four
-// warps of 64x32, k-step 32; a three-stage cp.async ring keeps two tiles
-// in flight while the tensor cores work on the third, and fragments come
-// from shared memory through ldmatrix.  K and N are multiples of 8.
+// GEMM: out[M, N] = epilogue(op(A) @ op(B)), bf16 inputs, f32 accumulators.
+// Three operand layouts (template flags):
+//   A_KM = false: A stored [M][K];  A_KM = true: A stored [K][M] (A^T @ ..)
+//   B_NK = false: B stored [K][N] (linear kernels, stored (in, out) as the
+//                 JAX package stores them);  B_NK = true: B stored [N][K]
+//                 (.. @ W^T)
+// 128x64 output tile per CTA, four warps of 64x32, k-step 32; a
+// three-stage cp.async ring keeps two tiles in flight while the tensor
+// cores work on the third, and fragments come from shared memory through
+// ldmatrix (.trans where the stored layout is the transpose of the mma
+// fragment's).  The contiguous dimension of each stored operand must be
+// a multiple of 8 (16-byte copies); the other one may be ragged: rows
+// past the end are zero-filled.  So K may be ragged when A_KM and !B_NK
+// (the weight-gradient products over B*N rows), and must be a multiple of
+// 8 otherwise.  N is a multiple of 8 always.
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
@@ -159,18 +172,22 @@ enum Epilogue {
   EPI_GELU_MASK = 1,  // bf16(gelu_erf(acc + bias) * mask)       (fc1)
   EPI_RESID = 2,      // bf16(resid + (acc + bias))              (proj, fc2)
   EPI_BLEND = 3,      // bf16(d1 * (resid + (acc + bias)) + d0 * xin)  (fc2)
+  EPI_F32 = 4,        // out32 = acc (+ bias when bias is given)
+  EPI_F32_MASK = 5,   // out32 = acc, out = bf16(acc * mask)     (do @ Wproj^T)
+  EPI_SCALE = 6,      // bf16(acc * d[1]), or bf16(acc) when d is null
 };
 
 struct GemmArgs {
-  const bf16* a;      // [M, K]
-  const bf16* w;      // [K, N]
+  const bf16* a;      // [M, K] or [K, M]
+  const bf16* w;      // [K, N] or [N, K]
   const bf16* bias;   // [N]
   bf16* out;          // [M, N]
   int M, N, K;
-  const bf16* mask;   // [N]  (EPI_GELU_MASK)
+  const bf16* mask;   // [N]  (EPI_GELU_MASK, EPI_F32_MASK)
   const bf16* resid;  // [M, N] (EPI_RESID, EPI_BLEND)
   const bf16* xin;    // [M, N] (EPI_BLEND)
-  const float* d;     // [2]  (EPI_BLEND): (skip, keep)
+  const float* d;     // [2]  (EPI_BLEND, EPI_SCALE): (skip, keep)
+  float* out32;       // [M, N] (EPI_F32, EPI_F32_MASK)
 };
 
 constexpr int GEMM_BM = 128;
@@ -178,15 +195,19 @@ constexpr int GEMM_BN = 64;
 constexpr int GEMM_BK = 32;
 constexpr int GEMM_STAGES = 3;
 constexpr int GEMM_THREADS = 128;
-// padded row strides (elements): 80 and 144 bytes, so the eight rows an
-// ldmatrix phase reads fall in distinct 16-byte bank groups
-constexpr int GEMM_LDA = GEMM_BK + 8;
-constexpr int GEMM_LDB = GEMM_BN + 8;
+// padded row strides (elements): 80, 144 and 272 bytes, so the eight rows
+// an ldmatrix phase reads fall in distinct 16-byte bank groups
+constexpr int GEMM_LDA = GEMM_BK + 8;    // A tile [m][k]
+constexpr int GEMM_LDAT = GEMM_BM + 8;   // A tile [k][m]
+constexpr int GEMM_LDB = GEMM_BN + 8;    // B tile [k][n]
+constexpr int GEMM_LDBT = GEMM_BK + 8;   // B tile [n][k]
 
-template <int EPI>
+template <int EPI, bool A_KM, bool B_NK>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(16) bf16 As[GEMM_STAGES][GEMM_BM * GEMM_LDA];
-  __shared__ __align__(16) bf16 Bs[GEMM_STAGES][GEMM_BK * GEMM_LDB];
+  constexpr int A_TILE = A_KM ? GEMM_BK * GEMM_LDAT : GEMM_BM * GEMM_LDA;
+  constexpr int B_TILE = B_NK ? GEMM_BN * GEMM_LDBT : GEMM_BK * GEMM_LDB;
+  __shared__ __align__(16) bf16 As[GEMM_STAGES][A_TILE];
+  __shared__ __align__(16) bf16 Bs[GEMM_STAGES][B_TILE];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -199,24 +220,51 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
   auto load_tile = [&](int stage, int kt) {
     const int k0 = kt * GEMM_BK;
-    // A: 128 rows x 4 chunks of 8; W: 32 rows x 8 chunks of 8
+    if (A_KM) {
+      // 32 rows (k) x 16 chunks of 8 (m)
 #pragma unroll
-    for (int i = 0; i < GEMM_BM * GEMM_BK / 8 / GEMM_THREADS; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gr = m0 + r, gk = k0 + kc;
-      const bool ok = gr < p.M && gk < p.K;
-      cp_async16(&As[stage][r * GEMM_LDA + kc],
-                 p.a + (ok ? (size_t)gr * p.K + gk : 0), ok);
+      for (int i = 0; i < GEMM_BM * GEMM_BK / 8 / GEMM_THREADS; ++i) {
+        const int c = tid + i * GEMM_THREADS;
+        const int r = c >> 4, mc = (c & 15) * 8;
+        const int gk = k0 + r, gm = m0 + mc;
+        const bool ok = gk < p.K && gm < p.M;
+        cp_async16(&As[stage][r * GEMM_LDAT + mc],
+                   p.a + (ok ? (size_t)gk * p.M + gm : 0), ok);
+      }
+    } else {
+      // 128 rows (m) x 4 chunks of 8 (k)
+#pragma unroll
+      for (int i = 0; i < GEMM_BM * GEMM_BK / 8 / GEMM_THREADS; ++i) {
+        const int c = tid + i * GEMM_THREADS;
+        const int r = c >> 2, kc = (c & 3) * 8;
+        const int gr = m0 + r, gk = k0 + kc;
+        const bool ok = gr < p.M && gk < p.K;
+        cp_async16(&As[stage][r * GEMM_LDA + kc],
+                   p.a + (ok ? (size_t)gr * p.K + gk : 0), ok);
+      }
     }
+    if (B_NK) {
+      // 64 rows (n) x 4 chunks of 8 (k)
 #pragma unroll
-    for (int i = 0; i < GEMM_BK * GEMM_BN / 8 / GEMM_THREADS; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int r = c >> 3, nc = (c & 7) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      const bool ok = gk < p.K && gn < p.N;
-      cp_async16(&Bs[stage][r * GEMM_LDB + nc],
-                 p.w + (ok ? (size_t)gk * p.N + gn : 0), ok);
+      for (int i = 0; i < GEMM_BK * GEMM_BN / 8 / GEMM_THREADS; ++i) {
+        const int c = tid + i * GEMM_THREADS;
+        const int r = c >> 2, kc = (c & 3) * 8;
+        const int gn = n0 + r, gk = k0 + kc;
+        const bool ok = gn < p.N && gk < p.K;
+        cp_async16(&Bs[stage][r * GEMM_LDBT + kc],
+                   p.w + (ok ? (size_t)gn * p.K + gk : 0), ok);
+      }
+    } else {
+      // 32 rows (k) x 8 chunks of 8 (n)
+#pragma unroll
+      for (int i = 0; i < GEMM_BK * GEMM_BN / 8 / GEMM_THREADS; ++i) {
+        const int c = tid + i * GEMM_THREADS;
+        const int r = c >> 3, nc = (c & 7) * 8;
+        const int gk = k0 + r, gn = n0 + nc;
+        const bool ok = gk < p.K && gn < p.N;
+        cp_async16(&Bs[stage][r * GEMM_LDB + nc],
+                   p.w + (ok ? (size_t)gk * p.N + gn : 0), ok);
+      }
     }
   };
 
@@ -236,9 +284,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     cp_async_commit();
   }
 
-  // ldmatrix lane offsets: A rows (l % 16), column block (l / 16) * 8;
-  // W ([k][n]) rows k = (l % 16), column block n = (l / 16) * 8
+  // ldmatrix lane offsets.  Row-major source ([m][k] A, [n][k] B): lane l
+  // addresses row (l % 8) + 8 * (l / 16), column block 8 * ((l / 8) % 2)
+  // for B and row l % 16, column block 8 * (l / 16) for A; transposed
+  // source ([k][m] A, [k][n] B): the roles of rows and columns swap.
   const int lrow = lane & 15, lcol = (lane >> 4) * 8;
+  const int l8 = lane & 7, lhi = (lane >> 4) * 8, lmid = ((lane >> 3) & 1) * 8;
 
   for (int kt = 0; kt < ktiles; ++kt) {
     cp_async_wait<GEMM_STAGES - 2>();
@@ -254,14 +305,23 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     for (int kk = 0; kk < GEMM_BK; kk += 16) {
       uint32_t af[4][4], bfr[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi],
-                    A + (wm * 64 + mi * 16 + lrow) * GEMM_LDA + kk + lcol);
+      for (int mi = 0; mi < 4; ++mi) {
+        const int mrow = wm * 64 + mi * 16;
+        if (A_KM)
+          ldmatrix_x4_trans(af[mi],
+                            A + (kk + lhi + l8) * GEMM_LDAT + mrow + lmid);
+        else
+          ldmatrix_x4(af[mi], A + (mrow + lrow) * GEMM_LDA + kk + lcol);
+      }
       // bfr[j] = {b0, b1} of n-tile 2j, then {b0, b1} of n-tile 2j + 1
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4_trans(bfr[j],
-                          B + (kk + lrow) * GEMM_LDB + wn * 32 + j * 16 + lcol);
+      for (int j = 0; j < 2; ++j) {
+        const int ncol = wn * 32 + j * 16;
+        if (B_NK)
+          ldmatrix_x4(bfr[j], B + (ncol + lhi + l8) * GEMM_LDBT + kk + lmid);
+        else
+          ldmatrix_x4_trans(bfr[j], B + (kk + lrow) * GEMM_LDB + ncol + lcol);
+      }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -274,18 +334,24 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
   // epilogue: accumulator element e of tile (mi, ni) sits at
   // row g + 8 * (e / 2), column 2 * t + (e % 2)
-  float d0 = 0.f, d1 = 0.f;
+  float d0 = 0.f, d1 = 1.f;
   if (EPI == EPI_BLEND) {
     d0 = p.d[0];
     d1 = p.d[1];
   }
+  if (EPI == EPI_SCALE && p.d != nullptr) d1 = p.d[1];
+  const bool has_bias = EPI <= EPI_BLEND || (EPI == EPI_F32 && p.bias);
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn * 32 + ni * 8 + 2 * t;
     if (col >= p.N) continue;
-    const float bias0 = bf2f(p.bias[col]), bias1 = bf2f(p.bias[col + 1]);
+    float bias0 = 0.f, bias1 = 0.f;
+    if (has_bias) {
+      bias0 = bf2f(p.bias[col]);
+      bias1 = bf2f(p.bias[col + 1]);
+    }
     float mask0 = 1.f, mask1 = 1.f;
-    if (EPI == EPI_GELU_MASK) {
+    if (EPI == EPI_GELU_MASK || EPI == EPI_F32_MASK) {
       mask0 = bf2f(p.mask[col]);
       mask1 = bf2f(p.mask[col + 1]);
     }
@@ -298,7 +364,15 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const size_t off = (size_t)row * p.N + col;
         float v0 = acc[mi][ni][2 * hh] + bias0;
         float v1 = acc[mi][ni][2 * hh + 1] + bias1;
-        if (EPI == EPI_GELU_MASK) {
+        if (EPI == EPI_F32 || EPI == EPI_F32_MASK) {
+          *reinterpret_cast<float2*>(p.out32 + off) = make_float2(v0, v1);
+          if (EPI == EPI_F32) continue;
+          v0 *= mask0;
+          v1 *= mask1;
+        } else if (EPI == EPI_SCALE) {
+          v0 *= d1;
+          v1 *= d1;
+        } else if (EPI == EPI_GELU_MASK) {
           v0 = v0 * (0.5f * (1.f + erff(v0 * 0.70710678118654752f))) * mask0;
           v1 = v1 * (0.5f * (1.f + erff(v1 * 0.70710678118654752f))) * mask1;
         } else if (EPI == EPI_RESID || EPI == EPI_BLEND) {
@@ -319,11 +393,276 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
-template <int EPI>
+template <int EPI, bool A_KM = false, bool B_NK = false>
 static inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
+  gemm_kernel<EPI, A_KM, B_NK><<<grid, GEMM_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward helpers.  Every sum over the B*N rows is taken in a fixed order:
+// per-CTA partials over a fixed block of rows, then a second pass that adds
+// the partials in index order.  No float atomics, so a run on the card is
+// reproducible bit for bit.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) { return bf2f(*p); }
+
+// LayerNorm backward with the residual, one warp per row, in f32 (the LN
+// VJP of _layer_ln_bwd_kernel / _mlp_ln_bwd_kernel):
+//   xhat, inv recomputed from x;  dg = dy * gamma
+//   dx = bf16(inv * (dg - mean(dg) - xhat * mean(dg * xhat)) + c * resid)
+// with c = d[1] when d is given (the blend), else 1.  Per CTA it writes the
+// partial column sums of dy * xhat and dy (dgamma, dbeta) over its rows.
+// With xin (the blend): dxin = bf16(d[0] * resid) and the partial sums of
+// resid * x and resid * xin (terms of dd1 and dd0).  dm is a multiple of 8
+// and at most LNB_MAX_DM.
+constexpr int LNB_WARPS = 8;
+constexpr int LNB_ROWS_PER_WARP = 16;
+constexpr int LNB_ROWS = LNB_WARPS * LNB_ROWS_PER_WARP;   // rows per CTA
+constexpr int LNB_MAX_DM = 1024;
+
+struct LnBwdArgs {
+  const bf16* x;        // [rows, dm]
+  const float* gamma;   // [dm]
+  const float* dy;      // [rows, dm] f32: d(LN output)
+  const bf16* resid;    // [rows, dm]: the sublayer's output cotangent
+  const float* d;       // [2] or null
+  const bf16* xin;      // [rows, dm] or null
+  bf16* dx;             // [rows, dm]
+  bf16* dxin;           // [rows, dm] (with xin)
+  float* part_dg;       // [CTAs, dm]
+  float* part_db;       // [CTAs, dm]
+  float* part_dot;      // [CTAs, 2] (with xin)
+  int rows, dm;
+  float eps;
+};
+
+static __global__ void __launch_bounds__(LNB_WARPS * 32)
+    ln_bwd_kernel(LnBwdArgs p) {
+  __shared__ float red[LNB_WARPS][LNB_MAX_DM];
+  __shared__ float red2[LNB_WARPS][2];
+  constexpr int CH = LNB_MAX_DM / 256;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int dm = p.dm;
+  const float c_res = p.d ? p.d[1] : 1.f;
+  const float d0 = p.d ? p.d[0] : 0.f;
+  float accg[CH][8], accb[CH][8];
+#pragma unroll
+  for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) accg[ch][j] = accb[ch][j] = 0.f;
+  float sx = 0.f, sxin = 0.f;
+
+  for (int i = 0; i < LNB_ROWS_PER_WARP; ++i) {
+    const int row = blockIdx.x * LNB_ROWS + warp * LNB_ROWS_PER_WARP + i;
+    if (row >= p.rows) break;
+    const size_t base = (size_t)row * dm;
+    float xv[CH][8];
+    float s = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const int c = lane * 8 + ch * 256;
+      if (c < dm) {
+        const uint4 v = *reinterpret_cast<const uint4*>(p.x + base + c);
+        const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          xv[ch][j] = bf2f(e[j]);
+          s += xv[ch][j];
+        }
+      }
+    }
+    const float mean = warp_sum(s) / dm;
+    float q = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch)
+      if (lane * 8 + ch * 256 < dm)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dv = xv[ch][j] - mean;
+          q += dv * dv;
+        }
+    const float inv = rsqrtf(warp_sum(q) / dm + p.eps);
+    // xv becomes xhat; dgv holds dy * gamma
+    float dgv[CH][8];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const int c = lane * 8 + ch * 256;
+      if (c < dm) {
+        const float4 y0 = *reinterpret_cast<const float4*>(p.dy + base + c);
+        const float4 y1 = *reinterpret_cast<const float4*>(p.dy + base + c + 4);
+        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = (xv[ch][j] - mean) * inv;
+          xv[ch][j] = xh;
+          const float dg = yv[j] * p.gamma[c + j];
+          dgv[ch][j] = dg;
+          s1 += dg;
+          s2 += dg * xh;
+          accg[ch][j] += yv[j] * xh;
+          accb[ch][j] += yv[j];
+        }
+      }
+    }
+    const float m1 = warp_sum(s1) / dm;
+    const float m2 = warp_sum(s2) / dm;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const int c = lane * 8 + ch * 256;
+      if (c < dm) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + base + c);
+        const bf16* re = reinterpret_cast<const bf16*>(&rv);
+        uint4 o;
+        bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dz = (dgv[ch][j] - m1 - xv[ch][j] * m2) * inv;
+          oe[j] = f2bf(dz + c_res * bf2f(re[j]));
+        }
+        *reinterpret_cast<uint4*>(p.dx + base + c) = o;
+        if (p.xin) {
+          const uint4 iv = *reinterpret_cast<const uint4*>(p.xin + base + c);
+          const uint4 xr = *reinterpret_cast<const uint4*>(p.x + base + c);
+          const bf16* ie = reinterpret_cast<const bf16*>(&iv);
+          const bf16* xe = reinterpret_cast<const bf16*>(&xr);
+          uint4 di;
+          bf16* de = reinterpret_cast<bf16*>(&di);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float r = bf2f(re[j]);
+            sx += r * bf2f(xe[j]);
+            sxin += r * bf2f(ie[j]);
+            de[j] = f2bf(d0 * r);
+          }
+          *reinterpret_cast<uint4*>(p.dxin + base + c) = di;
+        }
+      }
+    }
+  }
+
+  // fixed-order reduction over the CTA's warps
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const int c = lane * 8 + ch * 256;
+      if (c < dm)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          red[warp][c + j] = pass == 0 ? accg[ch][j] : accb[ch][j];
+    }
+    __syncthreads();
+    float* out = (pass == 0 ? p.part_dg : p.part_db) + (size_t)blockIdx.x * dm;
+    for (int c = threadIdx.x; c < dm; c += blockDim.x) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < LNB_WARPS; ++w) v += red[w][c];
+      out[c] = v;
+    }
+    __syncthreads();
+  }
+  if (p.xin) {
+    sx = warp_sum(sx);
+    sxin = warp_sum(sxin);
+    if (lane == 0) {
+      red2[warp][0] = sx;
+      red2[warp][1] = sxin;
+    }
+    __syncthreads();
+    if (threadIdx.x < 2) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < LNB_WARPS; ++w) v += red2[w][threadIdx.x];
+      p.part_dot[blockIdx.x * 2 + threadIdx.x] = v;
+    }
+  }
+}
+
+static inline int ln_bwd_ctas(int rows) {
+  return (rows + LNB_ROWS - 1) / LNB_ROWS;
+}
+
+static inline cudaError_t launch_ln_bwd(const LnBwdArgs& p,
+                                        cudaStream_t stream) {
+  ln_bwd_kernel<<<ln_bwd_ctas(p.rows), LNB_WARPS * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Partial column sums of a (times b when b is given) over blocks of
+// CS_ROWS rows: part[blockIdx.y, c] = sum_r a[r, c] * b[r, c].
+constexpr int CS_ROWS = 128;
+constexpr int CS_THREADS = 128;
+
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(CS_THREADS)
+    colsum_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
+                  int rows, int cols, float* __restrict__ part) {
+  const int c = blockIdx.x * CS_THREADS + threadIdx.x;
+  if (c >= cols) return;
+  const int r0 = blockIdx.y * CS_ROWS;
+  const int r1 = min(rows, r0 + CS_ROWS);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t off = (size_t)r * cols + c;
+    float v = ldf(a + off);
+    if (b) v *= ldf(b + off);
+    s += v;
+  }
+  part[(size_t)blockIdx.y * cols + c] = s;
+}
+
+static inline int colsum_parts(int rows) {
+  return (rows + CS_ROWS - 1) / CS_ROWS;
+}
+
+template <typename TA, typename TB>
+static inline cudaError_t launch_colsum(const TA* a, const TB* b, int rows,
+                                        int cols, float* part,
+                                        cudaStream_t stream) {
+  const dim3 grid((cols + CS_THREADS - 1) / CS_THREADS, colsum_parts(rows));
+  colsum_kernel<TA, TB><<<grid, CS_THREADS, 0, stream>>>(a, b, rows, cols,
+                                                         part);
+  return cudaGetLastError();
+}
+
+// out[c] = scale * sum_p part[p, c], the partials added in index order;
+// scale = d[1] when d is given, else 1.  Written as f32 and / or bf16.
+static __global__ void reduce_parts_kernel(const float* __restrict__ part,
+                                           int nparts, int cols,
+                                           const float* d, float* out32,
+                                           bf16* out16) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float s = 0.f;
+  for (int i = 0; i < nparts; ++i) s += part[(size_t)i * cols + c];
+  if (d) s *= d[1];
+  if (out32) out32[c] = s;
+  if (out16) out16[c] = f2bf(s);
+}
+
+static inline cudaError_t launch_reduce(const float* part, int nparts,
+                                        int cols, const float* d,
+                                        float* out32, bf16* out16,
+                                        cudaStream_t stream) {
+  reduce_parts_kernel<<<(cols + 127) / 128, 128, 0, stream>>>(
+      part, nparts, cols, d, out32, out16);
+  return cudaGetLastError();
+}
+
+// colsum -> reduce: out = scale * sum_r a[r, :] (* b[r, :])
+template <typename TA, typename TB>
+static inline cudaError_t column_sum(const TA* a, const TB* b, int rows,
+                                     int cols, float* part, const float* d,
+                                     float* out32, bf16* out16,
+                                     cudaStream_t stream) {
+  cudaError_t err = launch_colsum(a, b, rows, cols, part, stream);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(part, colsum_parts(rows), cols, d, out32, out16,
+                       stream);
 }
 
 }  // namespace uvc

@@ -1,4 +1,5 @@
-"""Carry parameters and masks across from the JAX package.
+"""Carry parameters, masks and the minimax state across from the JAX
+package.
 
 The JAX package keeps its parameters as a pytree of nested dicts; given
 with numpy leaves (``jax.tree.map(np.asarray, params)``), the same tree
@@ -15,6 +16,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from uvc_tpu_torch.compress.state import CompressionState, OptState
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``; raises when it names CUDA and there is no
@@ -25,6 +28,16 @@ def resolve_device(device) -> torch.device:
             f"device {dev} requested but CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``.  To a card it goes through pinned
+    memory as an asynchronous copy, so the host does not wait for the
+    card's queue to drain (a copy from pageable memory would)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _to_tensor(leaf, device, dtype):
@@ -62,3 +75,23 @@ def masks_from_numpy(masks: Optional[Dict[str, Any]], device="cuda"
     if masks is None:
         return None
     return tree_to_torch(dict(masks), resolve_device(device), torch.float32)
+
+
+def cstate_from_numpy(cstate: Any, device="cuda"):
+    """The JAX package's ``CompressionState`` with numpy leaves
+    (``jax.tree.map(np.asarray, cstate)``) as the port's
+    ``CompressionState`` on ``device``: the same fields, f32 tensors, the
+    optimizers' counts as ints."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else _to_tensor(a, dev, torch.float32)
+
+    def opt(o):
+        return OptState(m=t(o.m), v=t(o.v), count=int(np.asarray(o.count)))
+
+    return CompressionState(
+        s=t(cstate.s), r=t(cstate.r), y=t(cstate.y), p=t(cstate.p),
+        z=t(cstate.z), eps=t(cstate.eps), zlr=t(cstate.zlr),
+        gating_accum=t(cstate.gating_accum), s_opt=opt(cstate.s_opt),
+        r_opt=opt(cstate.r_opt), gating_opt=opt(cstate.gating_opt))

@@ -1,16 +1,18 @@
-"""DeiT / ViT eval forward (counterpart of ``uvc_tpu/models/vit.py``).
+"""DeiT / ViT forward for training, eval and serving (counterpart of
+``uvc_tpu/models/vit.py``).
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
 per-block tensors stacked on a leading layer axis, linear kernels stored
 (in, out), ``patch_embed.kernel`` ``[P, P, C, D]``; images are NHWC.  The
 block stack is a Python loop over layers whose two sublayers are the
-LN-fused kernels of ``uvc_tpu_torch.ops`` (the block-gating blend fused
-into the MLP sublayer when a gating distribution is given).
+LN-fused kernels of ``uvc_tpu_torch.ops`` behind their autograd wrappers
+(the block-gating blend fused into the MLP sublayer when a gating
+distribution is given), so the same forward trains and serves.
 
-This slice is the eval / serving forward.  Part gating and drop-path run
-the un-fused sublayer (``_layer_fwd_kernel`` in the JAX package) and the
-Gumbel token draw is a training path; all three raise
-``NotImplementedError`` until their slice is ported (see ROADMAP.md).
+The Gumbel token draw takes its ``[B, N]`` noise as ``rng``.  Part gating
+and drop-path run the un-fused sublayer (``_layer_fwd_kernel`` in the JAX
+package, kernel A7) and raise ``NotImplementedError`` until it is ported
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,15 +23,15 @@ import torch
 
 from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.interop import resolve_device
-from uvc_tpu_torch.ops.attention import layer_attention_ln
+from uvc_tpu_torch.ops.attention import fused_layer_attention_ln
 from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
+                                      gumbel_topk_mask,
                                       physical_topk_indices, token_scores,
                                       topk_token_mask)
-from uvc_tpu_torch.ops.mlp import mlp_ln, mlp_ln_blend
+from uvc_tpu_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_blend
 
 _NOT_PORTED = ("{} is not ported yet: it runs the un-fused sublayer "
-               "(_layer_fwd_kernel) or the Gumbel draw of training; see "
-               "ROADMAP.md")
+               "(_layer_fwd_kernel) or a PRNG-key draw; see ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +122,7 @@ def _layer_norm(x, scale, bias, eps):
 def _attention_ln(x, blk, num_heads, scale, attn_mask_row, eps, dtype):
     mask = (attn_mask_row.to(dtype) if attn_mask_row is not None
             else torch.ones(x.shape[-1], dtype=dtype, device=x.device))
-    return layer_attention_ln(
+    return fused_layer_attention_ln(
         x, blk["ln1"]["scale"], blk["ln1"]["bias"],
         blk["qkv"]["kernel"].to(dtype), blk["qkv"]["bias"].to(dtype),
         blk["proj"]["kernel"].to(dtype), blk["proj"]["bias"].to(dtype), mask,
@@ -176,20 +178,26 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
           train: bool = False,
           drop_path_rate: float = 0.0,
           dtype=torch.float32) -> ForwardOutput:
-    """Eval forward with the JAX ``apply``'s arguments and semantics.
+    """Forward with the JAX ``apply``'s arguments and semantics;
+    differentiable (the sublayers are ``torch.autograd.Function``s).
 
     gating_distrib: ``[L, 2]`` per-block (skip, keep) distribution, or None
     for ungated blocks.  masks: ``{"attn": [L, D], "mlp": [L, F]}`` or None.
     patch_gate_mode 1 applies the sigmoid patch gate (hard with
     ``patch_hard``); mode 2 (or a positive ``tau``) selects
-    ``int(patch_ratio * N)`` tokens by the deterministic top-k, zero-masked
-    or, with ``patch_physical``, gathered.  Part gating
-    (``attn_distrib`` / ``mlp_distrib``), drop-path and the Gumbel draw
-    (``rng``) raise NotImplementedError."""
+    ``int(patch_ratio * N)`` tokens: with ``rng`` None by the deterministic
+    top-k, zero-masked or, with ``patch_physical``, gathered; with ``rng``
+    the ``[B, N]`` Gumbel noise of the straight-through top-k mask at
+    temperature ``tau`` (``x * mask``, never gathered).  Part gating
+    (``attn_distrib`` / ``mlp_distrib``), drop-path and a PRNG key as
+    ``rng`` raise NotImplementedError."""
     if attn_distrib is not None or mlp_distrib is not None:
         raise NotImplementedError(_NOT_PORTED.format("part gating"))
     if train and drop_path_rate > 0:
         raise NotImplementedError(_NOT_PORTED.format("drop-path"))
+    if rng is not None and not torch.is_tensor(rng):
+        raise NotImplementedError(_NOT_PORTED.format(
+            "a PRNG key as rng (pass the [B, N] Gumbel token noise)"))
     eps = cfg.layer_norm_eps
     b = x.shape[0]
     x = patch_embed(params, x, cfg, dtype)  # [B, N, D]
@@ -206,9 +214,7 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
     token_mask = None
     token_select = patch_gate_mode == 2 or (
         isinstance(tau, (int, float)) and tau > 0)
-    if token_select and rng is not None:
-        raise NotImplementedError(_NOT_PORTED.format("Gumbel token selection"))
-    physical = token_select and patch_physical
+    physical = token_select and patch_physical and rng is None
     idx = None
     if token_select:
         k = int(patch_ratio * cfg.num_patches)
@@ -216,7 +222,10 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
         if physical:
             idx = physical_topk_indices(scores, k)
         else:
-            token_mask = topk_token_mask(scores, k)
+            if rng is None:
+                token_mask = topk_token_mask(scores, k)
+            else:
+                token_mask = gumbel_topk_mask(rng, scores, k, tau)
             x = x * token_mask[..., None].to(dtype)
 
     tokens = [params["cls_token"].expand(b, 1, cfg.embed_dim).to(dtype)]
@@ -264,10 +273,10 @@ def transformer_encode(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
         z = _attention_ln(h, blk, cfg.num_heads, scale, attn_m, eps, dtype)
         mlp_args = _mlp_args(blk, mlp_m, dtype, x.device)
         if gating_distrib is not None:
-            h = mlp_ln_blend(z, h, gating_distrib[i].float(), *mlp_args,
-                             eps=eps)
+            h = fused_mlp_ln_blend(z, h, gating_distrib[i].float(),
+                                   *mlp_args, eps=eps)
         else:
-            h = mlp_ln(z, *mlp_args, eps=eps)
+            h = fused_mlp_ln(z, *mlp_args, eps=eps)
         if jumping:
             accum = accum + h
     if jumping:

@@ -1,18 +1,26 @@
 """Sublayer ops of the port and their launch counters.
 
 Each kernel wrapper keeps a plain integer ``launches`` that it raises by one
-where it launches its kernel; ``launch_counts`` reads them and
-``reset_launch_counts`` sets them to 0, so a run can show that its main
-path went through the kernels.
+where it launches its kernel.  ``launch_counts`` reads the forward kernels'
+(the serving path's), ``backward_launch_counts`` the backward kernels'
+(the training path's), and ``reset_launch_counts`` sets them all to 0, so a
+run can show that its main path went through the kernels.
 """
 
-from uvc_tpu_torch.ops.attention import layer_attention_ln
-from uvc_tpu_torch.ops.mlp import mlp_ln, mlp_ln_blend
+from uvc_tpu_torch.ops.attention import (layer_attention_ln,
+                                         layer_attention_ln_bwd)
+from uvc_tpu_torch.ops.mlp import (mlp_ln, mlp_ln_blend, mlp_ln_blend_bwd,
+                                   mlp_ln_bwd)
 
 KERNEL_WRAPPERS = {
     "layer_attention_ln": layer_attention_ln,
     "mlp_ln": mlp_ln,
     "mlp_ln_blend": mlp_ln_blend,
+}
+BACKWARD_KERNEL_WRAPPERS = {
+    "layer_attention_ln_bwd": layer_attention_ln_bwd,
+    "mlp_ln_bwd": mlp_ln_bwd,
+    "mlp_ln_blend_bwd": mlp_ln_blend_bwd,
 }
 
 
@@ -20,6 +28,11 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def backward_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in
+            BACKWARD_KERNEL_WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
+    for fn in (*KERNEL_WRAPPERS.values(), *BACKWARD_KERNEL_WRAPPERS.values()):
         fn.launches = 0

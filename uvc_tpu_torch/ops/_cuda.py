@@ -35,10 +35,14 @@ _LIBS = {
     "attention": ("attention.cu", {
         "uvc_layer_attention_ln":
             [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+        "uvc_layer_attention_ln_bwd":
+            [_P] * 26 + [_I] * 5 + [_F, _F, _P],
     }),
     "mlp": ("mlp.cu", {
         "uvc_mlp_ln": [_P] * 11 + [_I] * 3 + [_F, _P],
         "uvc_mlp_ln_blend": [_P] * 13 + [_I] * 3 + [_F, _P],
+        "uvc_mlp_ln_bwd": [_P] * 24 + [_I] * 3 + [_F, _P],
+        "uvc_mlp_ln_blend_bwd": [_P] * 29 + [_I] * 3 + [_F, _P],
     }),
 }
 

@@ -1,11 +1,14 @@
-"""LN-fused attention sublayer, forward (counterpart of
+"""LN-fused attention sublayer, forward and backward (counterpart of
 ``uvc_tpu/ops/attention.py``).
 
 ``layer_attention_ln`` computes ``x + proj(mask * MHA(LN1(x)))`` for a
-``[B, N, dm]`` residual stream.  A CUDA tensor goes to the hand-written
-kernel (``csrc/attention.cu``, the port of ``_layer_ln_fwd_kernel``); a CPU
-tensor goes to ``layer_attention_ln_plain``, the same function in plain
-PyTorch with the kernel's rounding order.  There is no other route.
+``[B, N, dm]`` residual stream and ``layer_attention_ln_bwd`` its
+gradients; ``fused_layer_attention_ln`` is the two as one
+``torch.autograd.Function``.  A CUDA tensor goes to the hand-written
+kernels (``csrc/attention.cu``, the ports of ``_layer_ln_fwd_kernel`` and
+``_layer_ln_bwd_kernel``); a CPU tensor goes to ``layer_attention_ln_plain``
+/ ``layer_attention_ln_bwd_plain``, the same functions in plain PyTorch
+with the kernels' rounding order.  There is no other route.
 """
 
 from __future__ import annotations
@@ -14,9 +17,14 @@ import torch
 
 from uvc_tpu_torch.ops import _cuda
 
-# the kernel's limits: head dim, and keys held in shared memory at once
+# the kernels' limits: head dim, and keys held in shared memory at once
+# (the backward holds two whole-sequence operands beside two 64-row tiles)
 _HEAD_DIM = 64
 _MAX_TOKENS = 768
+_MAX_TOKENS_BWD = 736
+# the LayerNorm backward keeps a row in registers (LNB_MAX_DM in
+# csrc/common.cuh)
+_MAX_DM_BWD = 1024
 
 
 def _ln_rows(x32, gamma, beta, eps):
@@ -70,26 +78,36 @@ def _check_cuda(x, named, dtypes):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
-                             num_heads, scale, eps):
+def _check_attention(x, named, num_heads, max_tokens, max_dm=None):
+    """The kernels' checks of the attention sublayer's operands; returns
+    (B, N, dm, da)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
-                 bproj=bproj, mask=mask)
-    _check_cuda(x, named, dict(x=bf16, g1=f32, b1=f32, wqkv=bf16, bqkv=bf16,
-                               wproj=bf16, bproj=bf16, mask=bf16))
+    _check_cuda(x, named, {k: f32 if k in ("g1", "b1") else bf16
+                           for k in named})
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, dm], got {tuple(x.shape)}")
     b, n, dm = x.shape
     da = num_heads * _HEAD_DIM
     want = dict(g1=(dm,), b1=(dm,), wqkv=(dm, 3 * da), bqkv=(3 * da,),
-                wproj=(da, dm), bproj=(dm,), mask=(da,))
-    for name, shape in want.items():
-        if tuple(named[name].shape) != shape:
-            raise ValueError(f"{name} must be {shape} for {num_heads} heads "
-                             f"of {_HEAD_DIM}, got {tuple(named[name].shape)}")
-    if dm % 8 or not 0 < n <= _MAX_TOKENS or b == 0:
+                wproj=(da, dm), bproj=(dm,), mask=(da,), do=tuple(x.shape))
+    for name, t in named.items():
+        if name != "x" and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]} for {num_heads} "
+                             f"heads of {_HEAD_DIM}, got {tuple(t.shape)}")
+    if (dm % 8 or not 0 < n <= max_tokens or b == 0
+            or (max_dm and dm > max_dm)):
+        limit = "" if max_dm is None else f" and <= {max_dm}"
         raise ValueError(f"unsupported x shape {tuple(x.shape)}: dm must be "
-                         f"a multiple of 8 and 0 < N <= {_MAX_TOKENS}")
+                         f"a multiple of 8{limit}, 0 < N <= {max_tokens}")
+    return b, n, dm, da
+
+
+def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
+                             num_heads, scale, eps):
+    bf16 = torch.bfloat16
+    named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
+                 bproj=bproj, mask=mask)
+    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS)
     lib = _cuda.library("attention")
     rows = b * n
     a_in = torch.empty((rows, dm), dtype=bf16, device=x.device)
@@ -130,3 +148,158 @@ def layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
 
 
 layer_attention_ln.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def layer_attention_ln_bwd_plain(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                 do, *, num_heads: int, scale: float,
+                                 eps: float):
+    """Plain PyTorch version of the backward kernel, in the Pallas body's
+    rounding order (``_layer_ln_bwd_kernel``): LN1 and qkv recomputed as
+    the forward rounds them; ``t = do . Wproj^T`` in f32 and
+    ``dctx = bf16(t * mask)``; ``probs = p / s`` in f32 and
+    ``pb = bf16(probs)``; the recomputed ``ctx = pb . v`` (not the
+    forward's ``(p . v) / s``); ``ds = bf16(probs * (dp - rowsum(dp *
+    probs)))`` and ``dqkv`` in bf16; the LN VJP in f32 plus the residual
+    ``do``; ``dmask = sum(t * ctx)`` with the f32 ``t``.
+
+    Returns the gradients of (x, g1, b1, wqkv, bqkv, wproj, bproj, mask),
+    each in its input's dtype, as ``_fused_layer_ln_bwd`` returns them.  In
+    f32 every rounding is the identity and this is the autodiff of the JAX
+    CPU composition."""
+    dt = x.dtype
+    b, n, dm = x.shape
+    da = wqkv.shape[1] // 3
+    dh = da // num_heads
+    x32 = x.float()
+    a32, xhat, inv = _ln_rows(x32, g1.float(), b1.float(), eps)
+    a_in = a32.to(dt).float()
+    qkv = (a_in @ wqkv.float() + bqkv.float()).to(dt).float()
+    dob = do.to(dt).float()
+    maskv = mask.float()
+    t = dob @ wproj.float().T                             # [B, N, da] f32
+    dctx = (t * maskv).to(dt).float()
+    q, k, v = qkv.view(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    doh = dctx.view(b, n, num_heads, dh).transpose(1, 2)  # [B, H, N, dh]
+    logits = (q @ k.transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = p / p.sum(dim=-1, keepdim=True)
+    pb = probs.to(dt).float()
+    ctx = pb @ v
+    dv = pb.transpose(-1, -2) @ doh
+    dp = doh @ v.transpose(-1, -2)
+    row = (dp * probs).sum(dim=-1, keepdim=True)
+    ds = (probs * (dp - row)).to(dt).float()
+    dq = (ds @ k) * scale
+    dk = (ds.transpose(-1, -2) @ q) * scale
+    ctx = ctx.transpose(1, 2).reshape(b, n, da)
+    dqkv = torch.stack([dq, dk, dv], dim=2)               # [B, H, 3, N, dh]
+    dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(b, n, 3 * da).to(dt).float()
+    d_in = dqkv @ wqkv.float().T                          # [B, N, dm] f32
+    dg = d_in * g1.float()
+    m1 = dg.mean(dim=-1, keepdim=True)
+    m2 = (dg * xhat).mean(dim=-1, keepdim=True)
+    dz = (dg - m1 - xhat * m2) * inv
+    dx = (dz + do.float()).to(dt)
+    rows = (0, 1)
+    dwqkv = a_in.reshape(-1, dm).T @ dqkv.reshape(-1, 3 * da)
+    dwproj = ((ctx * maskv).to(dt).float().reshape(-1, da).T
+              @ dob.reshape(-1, dm))
+    grads = (dx, (d_in * xhat).sum(rows), d_in.sum(rows), dwqkv,
+             dqkv.sum(rows), dwproj, dob.sum(rows), (t * ctx).sum(rows))
+    return tuple(gr.to(ref.dtype) for gr, ref in zip(
+        grads, (x, g1, b1, wqkv, bqkv, wproj, bproj, mask)))
+
+
+def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                 do, *, num_heads, scale, eps):
+    bf16, f32 = torch.bfloat16, torch.float32
+    named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
+                 bproj=bproj, mask=mask, do=do)
+    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS_BWD,
+                                    _MAX_DM_BWD)
+    lib = _cuda.library("attention")
+    rows = b * n
+    parts = -(-rows // 128)
+
+    def new(*shape, dtype=bf16):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    scratch = dict(
+        a_in=new(rows, dm), qkv=new(rows, 3 * da), t=new(rows, da, dtype=f32),
+        dctx=new(rows, da), ctx=new(rows, da, dtype=f32), ctxm=new(rows, da),
+        stats=new(b * num_heads * n, 4, dtype=f32), dqkv=new(rows, 3 * da),
+        d_in=new(rows, dm, dtype=f32),
+        part=new(parts * max(2 * dm, 3 * da), dtype=f32))
+    grads = (torch.empty_like(x), new(dm, dtype=f32), new(dm, dtype=f32),
+             torch.empty_like(wqkv), torch.empty_like(bqkv),
+             torch.empty_like(wproj), torch.empty_like(bproj),
+             torch.empty_like(mask))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.uvc_layer_attention_ln_bwd(
+            x.data_ptr(), g1.data_ptr(), b1.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wproj.data_ptr(), mask.data_ptr(), do.data_ptr(),
+            *(t.data_ptr() for t in scratch.values()),
+            *(t.data_ptr() for t in grads), b, n, dm, da, num_heads,
+            float(scale), float(eps), stream)
+    _cuda.check(err, "layer_attention_ln_bwd")
+    layer_attention_ln_bwd.launches += 1
+    return grads
+
+
+def layer_attention_ln_bwd(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, *,
+                           num_heads: int, scale: float, eps: float):
+    """Gradients of ``layer_attention_ln`` with respect to its eight tensor
+    inputs, given the output cotangent ``do`` (same shape and dtype as
+    ``x``).  On CUDA: the forward's operand types, ``N <= 736``.
+    ``layer_attention_ln_bwd.launches`` counts kernel launches."""
+    kw = dict(num_heads=num_heads, scale=scale, eps=eps)
+    if x.device.type == "cpu":
+        return layer_attention_ln_bwd_plain(
+            x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_attention_ln_bwd runs on cpu or cuda, "
+                         f"not {x.device}")
+    return _layer_attention_ln_bwd_cuda(
+        x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, **kw)
+
+
+layer_attention_ln_bwd.launches = 0
+
+
+class _FusedLayerAttentionLN(torch.autograd.Function):
+    """``layer_attention_ln`` forward, ``layer_attention_ln_bwd`` backward
+    (the port of the JAX custom VJP ``_fused_layer_ln``)."""
+
+    @staticmethod
+    def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads,
+                scale, eps):
+        ctx.kw = dict(num_heads=num_heads, scale=scale, eps=eps)
+        ctx.save_for_backward(x, g1, b1, wqkv, bqkv, wproj, bproj, mask)
+        return layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                  **ctx.kw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        grads = layer_attention_ln_bwd(*ctx.saved_tensors, do.contiguous(),
+                                       **ctx.kw)
+        return (*grads, None, None, None)
+
+
+def fused_layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
+                             num_heads: int, scale: float, eps: float):
+    """``layer_attention_ln`` with its gradient: the forward kernel, and
+    the backward kernel when autograd asks for the gradients.  Under
+    ``torch.no_grad`` it is ``layer_attention_ln`` itself (no autograd
+    node, no saved inputs)."""
+    if not torch.is_grad_enabled():
+        return layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                  num_heads=num_heads, scale=scale, eps=eps)
+    return _FusedLayerAttentionLN.apply(x, g1, b1, wqkv, bqkv, wproj, bproj,
+                                        mask, num_heads, scale, eps)

@@ -1,19 +1,219 @@
-"""The eval step (counterpart of ``uvc_tpu/train/step.py::build_eval_step``).
+"""The stage-1 UVC train step and the eval step (counterpart of
+``uvc_tpu/train/step.py``).
 
-PyTorch runs eagerly, so the step is a plain function where the JAX
-package returns a jitted program.  The training steps come with their
-slice.
+PyTorch runs eagerly, so a step is a plain function where the JAX package
+returns a jitted program; the JAX ``bundle`` (several steps scanned in one
+program) and ``donate`` (buffer donation) are jit devices and have no
+counterpart here.
+
+The stage-1 step (``build_stage1_step``) runs
+
+  mixup -> student forward (Gumbel block gating + Gumbel token top-k) ->
+  teacher forward (no grad) -> soft distillation loss -> backward ->
+  global-norm clip -> AdamW -> prox -> s / r primal steps -> gating
+  interval step -> dual ascent
+
+through the LN-fused sublayer kernels and their backward kernels.  Every
+random number of a step is drawn up front by ``draw_stage1_noise`` from a
+CPU ``torch.Generator`` (a few kB: mixup, the gating and token Gumbel
+noise, the resource's two draws), so a run on the card and a run on the
+CPU from one seed see the same draws, and a test can hand the step the
+JAX package's own draws instead.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from uvc_tpu_torch.compress.minimax import arch_update
+from uvc_tpu_torch.compress.resource import MacsTable
 from uvc_tpu_torch.compress.state import MinimaxHParams
 from uvc_tpu_torch.configs import ViTConfig
+from uvc_tpu_torch.data.mixup import MixupDraw, mixup_cutmix, sample_mixup
+from uvc_tpu_torch.distill.losses import (distillation_loss,
+                                          label_smoothing_cross_entropy,
+                                          soft_target_cross_entropy)
+from uvc_tpu_torch.interop import host_to_device
 from uvc_tpu_torch.models import get_model
+from uvc_tpu_torch.ops.gumbel import block_gating_distrib, gumbel_noise
+from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
+                                       clip_global_norm,
+                                       make_weight_optimizer,
+                                       zero_frozen_updates)
+from uvc_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+class Stage1Noise(NamedTuple):
+    """Every random number of one stage-1 step (None where the
+    configuration draws none)."""
+
+    mixup: Optional[MixupDraw]      # the mixing decision(s)
+    gate: Optional[torch.Tensor]    # [L, 2] Gumbel noise of block gating
+    token: Optional[torch.Tensor]   # [B, N] Gumbel noise of the token top-k
+    res1: Optional[torch.Tensor]    # [L, 2] the resource's first draw
+    res2: Optional[torch.Tensor]    # [L, 2] the resource's second draw
+
+
+def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
+                      hp: MinimaxHParams, thp: TrainHParams, batch: int,
+                      device="cpu") -> Stage1Noise:
+    """Draw one step's noise from ``generator`` (on its device, usually
+    the CPU) and move it to ``device``.  Part gating is not ported and
+    draws nothing."""
+    mix = None
+    if thp.mixup > 0 or thp.cutmix > 0:
+        mix = sample_mixup(
+            generator, cfg.img_size, cfg.img_size,
+            decisions=None if thp.mixup_mode == "batch" else batch,
+            mixup_alpha=thp.mixup, cutmix_alpha=thp.cutmix,
+            prob=thp.mixup_prob, switch_prob=thp.mixup_switch_prob,
+            cutmix_minmax=thp.cutmix_minmax)
+        mix = MixupDraw(*(host_to_device(t, device) for t in mix))
+    gating = hp.enable_block_gating and hp.use_gumbel
+    l2 = (cfg.depth, 2)
+
+    def draw(shape, on):
+        if not on:
+            return None
+        return host_to_device(gumbel_noise(generator, shape), device)
+
+    return Stage1Noise(
+        mixup=mix, gate=draw(l2, gating),
+        token=draw((batch, cfg.num_patches), hp.enable_patch_gating == 2),
+        res1=draw(l2, gating), res2=draw(l2, gating))
+
+
+def _base_loss(logits, targets, labels, thp: TrainHParams):
+    """SoftTargetCE with mixup, else label-smoothing CE, else plain CE."""
+    if thp.mixup > 0 or thp.cutmix > 0:
+        return soft_target_cross_entropy(logits, targets)
+    if thp.smoothing > 0:
+        return label_smoothing_cross_entropy(logits, labels, thp.smoothing)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels[:, None]).mean()
+
+
+@torch.no_grad()
+def _teacher_logits(teacher_params, x, cfg: ViTConfig, dtype):
+    """Dense teacher forward in eval mode, without gradients."""
+    model = get_model(cfg)
+    out = model.apply(teacher_params, x, cfg, dtype=dtype, train=False)
+    return model.eval_logits(out, cfg)
+
+
+def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
+                      thp: TrainHParams, *, warmup: bool,
+                      micro: bool = False):
+    """Returns ``step(state, teacher_params, x, labels, noise, tau) ->
+    (state', metrics)``, ``noise`` a ``Stage1Noise``.
+
+    ``warmup`` selects the phase: the gating distribution pinned to
+    (0.5, 0.5), the hard Gumbel draw, the constant ``thp.warmup_lr``, and
+    the block gating frozen (its gradient and its AdamW update, decay
+    included, zeroed).  ``micro=True`` is the gradient-accumulation
+    micro-step: it only adds ``grad / accum_steps`` into
+    ``state.grad_accum``; the full step folds the buffer into its own
+    gradient, applies clip + AdamW + the architecture update and clears
+    it.  The new state holds new tensors; ``state`` is not modified."""
+    if hp.enable_part_gating:
+        raise NotImplementedError(
+            "part gating is not ported yet (kernel A7); see ROADMAP.md")
+    if warmup:
+        def lr_fn(step):
+            return torch.tensor(thp.warmup_lr, dtype=torch.float32)
+    else:
+        lr_fn = thp.lr_schedule()
+    tx = make_weight_optimizer(thp, lr_fn=lr_fn)
+    gumbel_hard = warmup
+    dtype = thp.compute_dtype
+    accum = thp.accum_steps
+    model = get_model(cfg)
+
+    def loss_fn(params, cstate, teacher_params, x, targets, labels, noise,
+                tau):
+        gating_distrib = None
+        if hp.enable_block_gating:
+            gating_distrib = block_gating_distrib(
+                noise.gate, params["block_gating"], use_gumbel=hp.use_gumbel,
+                gumbel_hard=gumbel_hard, eps=cstate.eps, warmup=warmup)
+        out = model.apply(
+            params, x, cfg, gating_distrib=gating_distrib,
+            tau=tau if hp.enable_patch_gating == 2 else -1.0,
+            patch_ratio=hp.patch_ratio,
+            patch_gate_mode=hp.enable_patch_gating,
+            jumping=hp.enable_jumping, rng=noise.token, train=True,
+            dtype=dtype)
+        base = _base_loss(out.logits, targets, labels, thp)
+        t_logits = _teacher_logits(teacher_params, x, cfg, dtype)
+        return distillation_loss(
+            base, out.logits_kd, t_logits, kind=thp.distillation_type,
+            alpha=thp.distillation_alpha, tau=thp.distillation_tau)
+
+    def step(state: TrainState, teacher_params, x: torch.Tensor,
+             labels: torch.Tensor, noise: Stage1Noise, tau):
+        if thp.mixup > 0 or thp.cutmix > 0:
+            x, targets = mixup_cutmix(x, labels, noise.mixup,
+                                      num_classes=thp.num_classes,
+                                      smoothing=thp.smoothing,
+                                      mode=thp.mixup_mode)
+        else:
+            targets = torch.nn.functional.one_hot(
+                labels.long(), thp.num_classes).float()
+
+        leaves = [p.detach().requires_grad_() for p in
+                  tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        with torch.enable_grad():
+            loss = loss_fn(params, state.cstate, teacher_params, x, targets,
+                           labels, noise, tau)
+            # leaves the forward does not read (part-gating logits, ...)
+            # get zero gradients, as under jax.grad
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(state.params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        loss = loss.detach()
+
+        with torch.no_grad():
+            if micro:
+                new_accum = tree_map(lambda a, g: a + g / accum,
+                                     state.grad_accum, grads)
+                return state.replace(grad_accum=new_accum), {"loss": loss}
+            if accum > 1:
+                grads = tree_map(lambda a, g: a + g / accum,
+                                 state.grad_accum, grads)
+            if warmup:
+                grads = dict(grads, block_gating=torch.zeros_like(
+                    grads["block_gating"]))
+            grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params)
+            updates = zero_frozen_updates(updates)
+            if warmup:
+                # decoupled weight decay would still move the frozen logits
+                updates = dict(updates, block_gating=torch.zeros_like(
+                    updates["block_gating"]))
+            new_params = tree_map(lambda p, u: p + u, state.params, updates)
+        lr = lr_fn(state.step)
+        new_params, cstate, arch_metrics = arch_update(
+            new_params, state.cstate, noise=(noise.res1, noise.res2),
+            step=state.step,
+            gating_loss_grad=(grads["block_gating"]
+                              if hp.enable_block_gating else None),
+            main_lr=float(lr), hp=hp, cfg=cfg, table=table,
+            warmup=warmup, gumbel_hard=gumbel_hard)
+        metrics = {"loss": loss, "grad_norm": grad_norm, "lr": lr,
+                   **arch_metrics}
+        grad_accum = state.grad_accum
+        if accum > 1:
+            grad_accum = tree_map(torch.zeros_like, state.grad_accum)
+        return TrainState(step=state.step + 1, params=new_params,
+                          opt_state=opt_state, cstate=cstate,
+                          grad_accum=grad_accum), metrics
+
+    return step
 
 
 @torch.no_grad()
