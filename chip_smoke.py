@@ -31,15 +31,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
    mixup / cutmix, soft distillation, bf16, tau 5.0) at batch 64: 3
    untimed steps, then 10 steps timed as one window with their kernel
    launches counted; a gating-warmup step that must leave the gating
-   logits unchanged; 2 steps with block gating off (the A6 path); peak
-   memory; device time by kernel for one step; and one step at batch 8 on
-   the card against the same step on the CPU plain path.
+   logits unchanged; 2 steps with block gating off (the A6 path); 2 steps
+   with part gating on (the bare attention sublayer, A7, and the composed
+   MLP in the student); peak memory; device time by kernel for one step;
+   and one step at batch 8 on the card against the same step on the CPU
+   plain path, for the flagship and the part-gated settings.
+6. baseline -- the baseline fine-tune step (``build_baseline_step``) on
+   DeiT-Small at full width and batch 64, seeded random weights, a
+   one-shot global magnitude mask at half density and the DeiT recipe of
+   the baseline CLI (drop-path 0.1, pixel random erasing at 0.25, mixup /
+   cutmix, label smoothing 0.1, AdamW, bf16, no teacher, no EMA): 3
+   untimed steps, then 10 timed as one window with their launches
+   counted, the masked coordinates' gradients checked to be exactly zero,
+   peak memory, device time by kernel for one step, and one step at batch
+   8 on the card against the CPU plain path.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
-"compact", the backward kernels at "train"; its other shapes under
-"other_shapes"), and ``{"ok": true, "device": {...}}``.
+"compact", A7's forward at "dense", the backward kernels at "train"; its
+other shapes under "other_shapes"), and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -159,6 +170,23 @@ def _library_attention(t, eps):
     return run
 
 
+def _library_sublayer(t):
+    """One PyTorch composition of the bare attention sublayer (no
+    LayerNorm, no residual): the yardstick of kernel A7."""
+    x = t["x"]
+    b, n, dm = x.shape
+    heads = t["heads"]
+    wqkv_t, wproj_t = t["wqkv"].t().contiguous(), t["wproj"].t().contiguous()
+
+    def run():
+        qkv = F.linear(x, wqkv_t, t["bqkv"])
+        q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        ctx = F.scaled_dot_product_attention(q, k, v, scale=64 ** -0.5)
+        ctx = ctx.transpose(1, 2).reshape(b, n, 64 * heads) * t["amask"]
+        return F.linear(ctx, wproj_t, t["bproj"])
+    return run
+
+
 def _library_mlp(t, eps, blend):
     x = t["x"]
     dm = x.shape[-1]
@@ -175,8 +203,10 @@ def _library_mlp(t, eps, blend):
 
 
 def kernel_phase(eps):
-    from uvc_tpu_torch.ops.attention import (layer_attention_ln,
-                                             layer_attention_ln_plain)
+    from uvc_tpu_torch.ops.attention import (layer_attention,
+                                             layer_attention_ln,
+                                             layer_attention_ln_plain,
+                                             layer_attention_plain)
     from uvc_tpu_torch.ops.mlp import (mlp_ln, mlp_ln_blend,
                                        mlp_ln_blend_plain, mlp_ln_plain)
 
@@ -193,6 +223,8 @@ def kernel_phase(eps):
         akw = dict(num_heads=heads, scale=64 ** -0.5, eps=eps)
         aargs = (x, t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
                  t["bproj"], t["amask"])
+        sargs = (x, t["wqkv"], t["bqkv"], t["wproj"], t["bproj"], t["amask"])
+        skw = dict(num_heads=heads, scale=64 ** -0.5)
         margs = (t["g"], t["b"], t["w1"], t["b1"], t["w2"], t["b2"],
                  t["fmask"])
         act = rows * dm * 2
@@ -207,6 +239,11 @@ def kernel_phase(eps):
                 lambda: layer_attention_ln(*aargs, **akw),
                 lambda: layer_attention_ln_plain(*aargs, **akw),
                 _library_attention(t, eps), a_flops, a_bytes),
+            # A7: no LayerNorm parameters to read
+            "layer_attention": (
+                lambda: layer_attention(*sargs, **skw),
+                lambda: layer_attention_plain(*sargs, **skw),
+                _library_sublayer(t), a_flops, a_bytes - 2 * dm * 4),
             "mlp_ln": (
                 lambda: mlp_ln(x, *margs, eps=eps),
                 lambda: mlp_ln_plain(x, *margs, eps=eps),
@@ -266,7 +303,9 @@ def _library_backward(run, leaves, do):
 
 
 def backward_kernel_phase(eps):
-    from uvc_tpu_torch.ops.attention import (layer_attention_ln_bwd,
+    from uvc_tpu_torch.ops.attention import (layer_attention_bwd,
+                                             layer_attention_bwd_plain,
+                                             layer_attention_ln_bwd,
                                              layer_attention_ln_bwd_plain)
     from uvc_tpu_torch.ops.mlp import (mlp_ln_blend_bwd,
                                        mlp_ln_blend_bwd_plain, mlp_ln_bwd,
@@ -284,6 +323,9 @@ def backward_kernel_phase(eps):
         akw = dict(num_heads=heads, scale=64 ** -0.5, eps=eps)
         aargs = (t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
                  t["bproj"], t["amask"], do)
+        sargs = (t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
+                 t["amask"], do)
+        skw = dict(num_heads=heads, scale=64 ** -0.5)
         margs = (t["g"], t["b"], t["w1"], t["b1"], t["w2"], t["b2"],
                  t["fmask"])
         # work: recompute qkv, t, dWproj, d a_in, dWqkv; the attention core
@@ -300,6 +342,9 @@ def backward_kernel_phase(eps):
         lib_a = _library_backward(_library_attention(leaves, eps),
                                   [leaves["x"]] + [leaves[k] for k in names],
                                   do)
+        lib_s = _library_backward(
+            _library_sublayer(leaves),
+            [leaves["x"]] + [leaves[k] for k in names[2:]], do)
         mnames = ("g", "b", "w1", "b1", "w2", "b2", "fmask")
         lib_m = _library_backward(_library_mlp(leaves, eps, blend=False),
                                   [leaves["x"]] + [leaves[k] for k in mnames],
@@ -313,6 +358,12 @@ def backward_kernel_phase(eps):
                 lambda: layer_attention_ln_bwd(*aargs, **akw),
                 lambda: layer_attention_ln_bwd_plain(*aargs, **akw),
                 lib_a, a_flops, a_bytes),
+            # A7: the same products, no LayerNorm parameters or their
+            # gradients
+            "layer_attention_bwd": (
+                lambda: layer_attention_bwd(*sargs, **skw),
+                lambda: layer_attention_bwd_plain(*sargs, **skw),
+                lib_s, a_flops, a_bytes - 4 * dm * 4),
             "mlp_ln_blend_bwd": (
                 lambda: mlp_ln_blend_bwd(t["x"], t["xin"], t["d"], *margs, do,
                                          eps=eps),
@@ -463,9 +514,9 @@ def serving_phase(card):
 
     runs = N_PASSES * N_BATCHES
     want_serve = {"layer_attention_ln": kept * runs, "mlp_ln": kept * runs,
-                  "mlp_ln_blend": 0}
+                  "mlp_ln_blend": 0, "layer_attention": 0}
     want_eval = {"layer_attention_ln": ln * runs, "mlp_ln": 0,
-                 "mlp_ln_blend": ln * runs}
+                 "mlp_ln_blend": ln * runs, "layer_attention": 0}
     print(f"launches compact serving {serve_counts} (expected {want_serve})")
     print(f"launches eval_step       {eval_counts} (expected {want_eval})")
     check(serve_counts == want_serve, "compact serving launch counts differ")
@@ -558,6 +609,12 @@ def profile_phase(card, runs, top=8):
         print(f"profile {label} (batch {BATCH}): device busy {busy:.1f} us "
               f"of {wall_us:.1f} us wall ({100 * busy / wall_us:.1f}%), "
               f"{sum(r[1] for r in rows)} device events [{card}]")
+        own = [r for r in rows if "uvc::" in r[2]]
+        own_us = sum(r[0] for r in own)
+        print(f"  the port's kernels {own_us:.1f} us "
+              f"({100 * own_us / busy:.1f}%) in {sum(r[1] for r in own)} "
+              f"events; PyTorch's and the libraries' {busy - own_us:.1f} us "
+              f"in {sum(r[1] for r in rows) - sum(r[1] for r in own)}")
         for t, n, key in rows[:top]:
             print(f"  {100 * t / busy:5.1f}%  {t:9.1f} us  x{n:<3d} "
                   f"{key[:70]}")
@@ -657,7 +714,8 @@ def training_phase(card):
             "mlp_ln": ln * TRAIN_TIMED,                   # teacher
             "mlp_ln_blend": ln * TRAIN_TIMED,             # gated student
             "layer_attention_ln_bwd": ln * TRAIN_TIMED,
-            "mlp_ln_blend_bwd": ln * TRAIN_TIMED, "mlp_ln_bwd": 0}
+            "mlp_ln_blend_bwd": ln * TRAIN_TIMED, "mlp_ln_bwd": 0,
+            "layer_attention": 0, "layer_attention_bwd": 0}
     print(f"launches stage-1 train   {counts} (expected {want})")
     check(counts == want, "stage-1 step launch counts differ")
     losses = torch.stack(losses).float().cpu()
@@ -694,11 +752,30 @@ def training_phase(card):
     off_counts = {**launch_counts(), **backward_launch_counts()}
     want_off = {"layer_attention_ln": 4 * ln, "mlp_ln": 4 * ln,
                 "mlp_ln_blend": 0, "layer_attention_ln_bwd": 2 * ln,
-                "mlp_ln_blend_bwd": 0, "mlp_ln_bwd": 2 * ln}
+                "mlp_ln_blend_bwd": 0, "mlp_ln_bwd": 2 * ln,
+                "layer_attention": 0, "layer_attention_bwd": 0}
     print(f"launches gating off      {off_counts} (expected {want_off})")
     check(off_counts == want_off, "gating-off launch counts differ")
     check(all(torch.isfinite(v).item() for v in ol),
           "non-finite gating-off loss")
+
+    # part gating on: the student's sublayers run A7 and the composed MLP,
+    # the block-gating blend after the block; the teacher the fused kernels
+    hp_part = dataclasses.replace(hp, enable_part_gating=True)
+    pstep = build_stage1_step(cfg, table, hp_part, thp, warmup=False)
+    reset_launch_counts()
+    _, pl, _ = run(state, pstep, hp_part, 2)
+    torch.cuda.synchronize()
+    part_counts = {**launch_counts(), **backward_launch_counts()}
+    want_part = {name: 0 for name in part_counts}
+    want_part.update(layer_attention=2 * ln, layer_attention_bwd=2 * ln,
+                     layer_attention_ln=2 * ln, mlp_ln=2 * ln)
+    print(f"launches part-gated      {part_counts} (expected {want_part})")
+    check(part_counts == want_part, "part-gated launch counts differ")
+    check(all(torch.isfinite(v).item() for v in pl),
+          "non-finite part-gated loss")
+    print(f"part-gated stage-1 steps: losses "
+          f"{[round(float(v), 4) for v in pl]}")
 
     profile_phase(card, {"stage-1 train step": lambda: run(
         state, step, hp, 1)}, top=14)
@@ -706,22 +783,149 @@ def training_phase(card):
     # the card against the CPU plain path: one step at batch 8 from the
     # same state with the same draws
     small = 8
-    noise = draw_stage1_noise(ngen, cfg, hp, thp, small, "cpu")
-    cuda_noise = type(noise)(*(
-        type(v)(*(t.cuda() for t in v)) if isinstance(v, tuple)
-        else (v.cuda() if torch.is_tensor(v) else v) for v in noise))
-    _, gm = step(state, teacher, x[:small], labels[:small], cuda_noise,
-                 TRAIN_TAU)
-    cpu_state = _state_to(state, "cpu")
-    _, cm = step(cpu_state, _tree_to(teacher, "cpu"), x[:small].cpu(),
-                 labels[:small].cpu(), noise, TRAIN_TAU)
-    for k in ("loss", "grad_norm", "resource"):
+    for label, fn, hps in (("stage-1", step, hp),
+                           ("part-gated stage-1", pstep, hp_part)):
+        noise = draw_stage1_noise(ngen, cfg, hps, thp, small, "cpu")
+        _, gm = fn(state, teacher, x[:small], labels[:small],
+                   _noise_to(noise, "cuda"), TRAIN_TAU)
+        _, cm = fn(_state_to(state, "cpu"), _tree_to(teacher, "cpu"),
+                   x[:small].cpu(), labels[:small].cpu(), noise, TRAIN_TAU)
+        card_vs_cpu(f"{label} step", small, gm, cm,
+                    ("loss", "grad_norm", "resource"))
+    return counts, off_counts, part_counts
+
+
+def _noise_to(noise, device):
+    """A step's noise (named tuples of tensors, None where nothing was
+    drawn) on ``device``."""
+    if isinstance(noise, tuple):
+        return type(noise)(*(_noise_to(v, device) for v in noise))
+    return noise.to(device) if torch.is_tensor(noise) else noise
+
+
+def card_vs_cpu(label, small, gm, cm, keys):
+    for k in keys:
         a, b = float(gm[k]), float(cm[k])
         rel = abs(a - b) / abs(b)
-        print(f"stage-1 step card vs CPU plain path (batch {small}): {k} "
+        print(f"{label} card vs CPU plain path (batch {small}): {k} "
               f"{a:.6f} vs {b:.6f}, rel {rel:.2e} (tol {TRAIN_REL_TOL})")
-        check(rel <= TRAIN_REL_TOL, f"card and CPU disagree on {k}")
-    return counts, off_counts
+        check(rel <= TRAIN_REL_TOL, f"{label}: card and CPU disagree on {k}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the baseline fine-tune
+# ---------------------------------------------------------------------------
+
+# the baseline CLI's DeiT recipe (uvc_tpu/cli/baseline_train.py defaults)
+BASE_DROP_PATH, BASE_REPROB, BASE_DENSITY = 0.1, 0.25, 0.5
+
+
+def baseline_phase(card):
+    from uvc_tpu_torch.baselines.finetune import (build_baseline_step,
+                                                  create_baseline_state,
+                                                  draw_baseline_noise)
+    from uvc_tpu_torch.baselines.pruning import (global_threshold_mask,
+                                                 magnitude_scores,
+                                                 mask_sparsity)
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
+                                   reset_launch_counts)
+    from uvc_tpu_torch.train.state import TrainHParams
+    from uvc_tpu_torch.utils.tree import tree_leaves_with_path
+
+    cfg = get_config("deit_small_patch16_224")
+    ln = cfg.depth
+    thp = TrainHParams()                   # AdamW, mixup / cutmix, bf16
+    gen = torch.Generator().manual_seed(8)
+    params = vit.init_params(gen, cfg)
+    params["head"]["kernel"] = 0.05 * torch.randn(
+        params["head"]["kernel"].shape, generator=gen).cuda()
+    wmasks = global_threshold_mask(magnitude_scores(params), BASE_DENSITY)
+    density = mask_sparsity(wmasks)
+    check(abs(density - BASE_DENSITY) < 1e-3, f"mask density {density}")
+    recipe = dict(drop_path_rate=BASE_DROP_PATH, re_prob=BASE_REPROB)
+    step = build_baseline_step(cfg, thp, **recipe)
+    state = create_baseline_state(params, thp)
+    igen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(10)
+
+    def run(st, n, b=BATCH):
+        losses = []
+        for _ in range(n):
+            noise = draw_baseline_noise(ngen, cfg, thp, b, device="cuda",
+                                        **recipe)
+            st, m = step(st, None, wmasks, x[:b], labels[:b], noise, -1.0)
+            losses.append(m["loss"])
+        return st, losses, m
+
+    t0 = time.perf_counter()
+    state, _, _ = run(state, TRAIN_WARM)
+    torch.cuda.synchronize()
+    print(f"baseline: {TRAIN_WARM} untimed steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, m = run(state, TRAIN_TIMED)
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    counts = {**launch_counts(), **backward_launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in counts}
+    want.update(layer_attention=ln * TRAIN_TIMED,
+                layer_attention_bwd=ln * TRAIN_TIMED)
+    print(f"launches baseline        {counts} (expected {want})")
+    check(counts == want, "baseline step launch counts differ")
+    losses = torch.stack(losses).float().cpu()
+    check(torch.isfinite(losses).all().item(),
+          f"non-finite baseline losses {losses.tolist()}")
+    print(f"baseline fine-tune step (DeiT-Small, batch {BATCH}, bf16, mask "
+          f"density {density:.4f}, drop-path {BASE_DROP_PATH}, reprob "
+          f"{BASE_REPROB}): {TRAIN_TIMED * BATCH / window:.1f} img/s "
+          f"({TRAIN_TIMED} steps in {window:.4f} s, "
+          f"{1e3 * window / TRAIN_TIMED:.2f} ms/step; the host had issued "
+          f"them after {issued:.4f} s) [{card}]")
+    print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
+          f"grad_norm={float(m['grad_norm']):.4f}")
+    print(f"baseline max_memory_allocated={peak} bytes "
+          f"({peak / 2**20:.1f} MiB) [{card}]")
+
+    # a gradient at a masked coordinate is exactly zero in every step:
+    # AdamW's first moment there has stayed exactly zero
+    masked = leaked = 0
+    for path, mk in tree_leaves_with_path(wmasks):
+        if mk is None:
+            continue
+        mu = state.opt_state.mu
+        for k in path:
+            mu = mu[k]
+        off = mk == 0
+        masked += int(off.sum())
+        leaked += int((mu[off] != 0).sum())
+    print(f"baseline masked coordinates: {masked}, with a nonzero gradient "
+          f"moment: {leaked}")
+    check(masked > 0 and leaked == 0,
+          "a masked coordinate received a gradient")
+
+    profile_phase(card, {"baseline fine-tune step": lambda: run(state, 1)},
+                  top=14)
+
+    small = 8
+    noise = draw_baseline_noise(ngen, cfg, thp, small, device="cpu",
+                                **recipe)
+    _, gm = step(state, None, wmasks, x[:small], labels[:small],
+                 _noise_to(noise, "cuda"), -1.0)
+    _, cm = step(_state_to(state, "cpu"), None, _tree_to(wmasks, "cpu"),
+                 x[:small].cpu(), labels[:small].cpu(), noise, -1.0)
+    card_vs_cpu("baseline step", small, gm, cm, ("loss", "grad_norm"))
+    return counts
 
 
 def main():
@@ -747,10 +951,12 @@ def main():
     res = kernel_phase(eps)
     res.update(backward_kernel_phase(eps))
     launches = serving_phase(card)
-    train_counts, off_counts = training_phase(card)
+    train_counts, off_counts, part_counts = training_phase(card)
+    base_counts = baseline_phase(card)
     # launches on the main paths: serving and eval, the timed stage-1
-    # window, and the gating-off steps (the only path of A6)
-    for counts in (train_counts, off_counts):
+    # window, the gating-off steps (the only path of A6), the part-gated
+    # steps and the timed baseline window (the paths of A7)
+    for counts in (train_counts, off_counts, part_counts, base_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -769,6 +975,10 @@ def main():
                              "uvc_tpu/ops/mlp.py:179", "train"),
         "mlp_ln_bwd": ("uvc_tpu_torch/csrc/mlp.cu", "uvc_tpu/ops/mlp.py:90",
                        "train"),
+        "layer_attention": ("uvc_tpu_torch/csrc/attention.cu",
+                            "uvc_tpu/ops/attention.py:349", "dense"),
+        "layer_attention_bwd": ("uvc_tpu_torch/csrc/attention.cu",
+                                "uvc_tpu/ops/attention.py:446", "train"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -34,6 +34,7 @@ from uvc_tpu.ops import mlp as jmlp
 from uvc_tpu_torch import ops as tops
 from uvc_tpu_torch.ops import _cuda
 from uvc_tpu_torch.ops.attention import (fused_layer_attention_ln,
+                                         layer_attention_bwd,
                                          layer_attention_ln_bwd,
                                          layer_attention_ln_bwd_plain,
                                          layer_attention_ln_plain)
@@ -311,14 +312,18 @@ def test_cpu_backward_calls_leave_launch_counters_at_zero():
     a = attention_inputs(21, 2, 13, 16, 16)
     layer_attention_ln_bwd(*as_torch(a, ATTN_ORDER + ("do",),
                                      torch.bfloat16), **_attention_kw(16, 2))
+    layer_attention_bwd(*as_torch(a, ("x", "wqkv", "bqkv", "wproj", "bproj",
+                                      "mask", "do"), torch.bfloat16),
+                        num_heads=2, scale=0.25)
     m = mlp_inputs(22, 2, 13, 16, 64)
     mlp_ln_bwd(*as_torch(m, MLP_ORDER + ("do",), torch.bfloat16), eps=EPS)
     mlp_ln_blend_bwd(*as_torch(m, BLEND_ORDER + ("do",), torch.bfloat16),
                      eps=EPS)
     assert tops.backward_launch_counts() == {
-        "layer_attention_ln_bwd": 0, "mlp_ln_bwd": 0, "mlp_ln_blend_bwd": 0}
+        "layer_attention_ln_bwd": 0, "mlp_ln_bwd": 0, "mlp_ln_blend_bwd": 0,
+        "layer_attention_bwd": 0}
     assert tops.launch_counts() == {"layer_attention_ln": 0, "mlp_ln": 0,
-                                    "mlp_ln_blend": 0}
+                                    "mlp_ln_blend": 0, "layer_attention": 0}
     assert _cuda._loaded == {}
 
 

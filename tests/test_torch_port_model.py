@@ -271,11 +271,11 @@ def test_apply_matches_pallas_interpret_bf16(monkeypatch):
 
 
 def test_training_paths_raise_not_implemented():
+    """A PRNG key as rng is refused (the port takes its draws as tensors);
+    drop-path without its keep decisions is refused too."""
     _, _, tparams, _ = setup_model()
     x = torch.from_numpy(images(5, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvit.apply(tparams, x, TCFG, attn_distrib=torch.ones(3, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvit.apply(tparams, x, TCFG, train=True, drop_path_rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvit.apply(tparams, x, TCFG, patch_gate_mode=2, rng=0)
+    with pytest.raises(ValueError, match="drop_path"):
+        tvit.apply(tparams, x, TCFG, train=True, drop_path_rate=0.1)

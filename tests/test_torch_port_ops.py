@@ -26,7 +26,7 @@ from uvc_tpu.ops import attention as jattn
 from uvc_tpu.ops import mlp as jmlp
 from uvc_tpu_torch import ops as tops
 from uvc_tpu_torch.ops import _cuda
-from uvc_tpu_torch.ops.attention import (layer_attention_ln,
+from uvc_tpu_torch.ops.attention import (layer_attention, layer_attention_ln,
                                          layer_attention_ln_plain)
 from uvc_tpu_torch.ops.mlp import (mlp_ln, mlp_ln_blend, mlp_ln_blend_plain,
                                    mlp_ln_plain)
@@ -213,12 +213,14 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     layer_attention_ln(a["x"], a["g1"], a["b1"], a["wqkv"], a["bqkv"],
                        a["wproj"], a["bproj"], a["mask"], num_heads=2,
                        scale=0.35, eps=EPS)
+    layer_attention(a["x"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"],
+                    a["mask"], num_heads=2, scale=0.35)
     m = cast_all(mlp_inputs(8, 2, 13, 16, 64), to_torch, torch.bfloat16,
                  torch.float32)
     _torch_mlp(m, plain=False)
     _torch_mlp(m, d=torch.tensor([0.5, 0.5]), plain=False)
     assert tops.launch_counts() == {"layer_attention_ln": 0, "mlp_ln": 0,
-                                    "mlp_ln_blend": 0}
+                                    "mlp_ln_blend": 0, "layer_attention": 0}
     assert _cuda._loaded == {}
 
 

@@ -460,7 +460,8 @@ def test_cstate_from_numpy_carries_every_field():
     jhp = JHParams(soptim="adam")
     jc = jminimax.init_compression_state(JCFG, jhp)
     tc = cstate_from_numpy(_np_tree(jc), device="cpu")
-    ref = tminimax.init_compression_state(TCFG, THParams(soptim="adam"))
+    ref = tminimax.init_compression_state(TCFG, THParams(soptim="adam"),
+                                          device="cpu")
     for f in dataclasses.fields(ref):
         a, b = getattr(tc, f.name), getattr(ref, f.name)
         if isinstance(b, OptState):
@@ -537,10 +538,27 @@ def test_unported_paths_raise():
     thp = tstate.TrainHParams(opt="sgd")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstate.make_weight_optimizer(thp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_stage1_step(TCFG, tresource.build_macs_table(TCFG),
-                          THParams(enable_part_gating=True),
-                          tstate.TrainHParams(), warmup=False)
+    # part gating is ported: the step builds
+    build_stage1_step(TCFG, tresource.build_macs_table(TCFG),
+                      THParams(enable_part_gating=True),
+                      tstate.TrainHParams(), warmup=False)
+
+
+@pytest.mark.parametrize("entry", ["draw_stage1_noise",
+                                   "init_compression_state",
+                                   "s_r_upper_bounds"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a device argument a tensor-making entry point asks for the
+    card, and raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "draw_stage1_noise": lambda: draw_stage1_noise(
+            torch.Generator(), TCFG, THParams(), tstate.TrainHParams(), 2),
+        "init_compression_state": lambda: tminimax.init_compression_state(
+            TCFG, THParams()),
+        "s_r_upper_bounds": lambda: tminimax.s_r_upper_bounds(TCFG)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +587,7 @@ def _setup_step(hp_fields, thp_fields, batch, seed=0):
 
 def _jax_noise(key, jthp, jhp, batch):
     """The draws of one JAX step, along its key chain."""
-    k_mix, k_gate, _, _, k_tok, k_arch = jax.random.split(key, 6)
+    k_mix, k_gate, k_part1, k_part2, k_tok, k_arch = jax.random.split(key, 6)
     k_res1, k_res2, _ = jax.random.split(k_arch, 3)
     mix = None
     if jthp.mixup > 0 or jthp.cutmix > 0:
@@ -583,7 +601,9 @@ def _jax_noise(key, jthp, jhp, batch):
         mixup=mix, gate=t_(jgumbel_noise(k_gate, l2)),
         token=t_(jgumbel_noise(k_tok, (batch, JCFG.num_patches))),
         res1=t_(jgumbel_noise(k_res1, l2)),
-        res2=t_(jgumbel_noise(k_res2, l2)))
+        res2=t_(jgumbel_noise(k_res2, l2)),
+        part_attn=t_(jgumbel_noise(k_part1, l2)),
+        part_mlp=t_(jgumbel_noise(k_part2, l2)))
 
 
 def _compare_states(tst, jst, tol):
@@ -712,8 +732,10 @@ def test_stage1_micro_step_then_boundary_step_match():
 def test_draw_stage1_noise_shapes_and_reproducibility():
     hp = THParams(enable_patch_gating=2)
     thp = tstate.TrainHParams()
-    a = draw_stage1_noise(torch.Generator().manual_seed(7), TCFG, hp, thp, 5)
-    b = draw_stage1_noise(torch.Generator().manual_seed(7), TCFG, hp, thp, 5)
+    a = draw_stage1_noise(torch.Generator().manual_seed(7), TCFG, hp, thp, 5,
+                          device="cpu")
+    b = draw_stage1_noise(torch.Generator().manual_seed(7), TCFG, hp, thp, 5,
+                          device="cpu")
     assert a.gate.shape == a.res1.shape == a.res2.shape == (3, 2)
     assert a.token.shape == (5, TCFG.num_patches)
     assert a.mixup.box.shape == (32, 32)
@@ -723,8 +745,13 @@ def test_draw_stage1_noise_shapes_and_reproducibility():
     assert torch.equal(a.mixup.box, b.mixup.box)
     off = draw_stage1_noise(torch.Generator(), TCFG,
                             THParams(use_gumbel=False, enable_patch_gating=0),
-                            tstate.TrainHParams(mixup=0.0, cutmix=0.0), 5)
+                            tstate.TrainHParams(mixup=0.0, cutmix=0.0), 5,
+                            device="cpu")
     assert off == Stage1Noise(None, None, None, None, None)
+    part = draw_stage1_noise(torch.Generator(), TCFG,
+                             THParams(enable_part_gating=True), thp, 5,
+                             device="cpu")
+    assert part.part_attn.shape == part.part_mlp.shape == (3, 2)
 
 
 # ---------------------------------------------------------------------------

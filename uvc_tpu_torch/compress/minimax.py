@@ -35,13 +35,17 @@ from uvc_tpu_torch.compress.resource import (MacsTable, flops2_fraction,
 from uvc_tpu_torch.compress.scores import group_scores
 from uvc_tpu_torch.compress.state import (CompressionState, MinimaxHParams)
 from uvc_tpu_torch.configs import ViTConfig
+from uvc_tpu_torch.interop import resolve_device
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib
 from uvc_tpu_torch.ops.stes import least_k_sum, ste_ceil, torch_clamp
 
 
 def init_compression_state(cfg: ViTConfig, hp: MinimaxHParams,
-                           device="cpu") -> CompressionState:
+                           device="cuda") -> CompressionState:
+    """The initial minimax state on ``device`` (the card unless the caller
+    asks for the CPU; raises when CUDA is asked for and absent)."""
     l, h = cfg.depth, cfg.num_heads
+    device = resolve_device(device)
 
     def full(shape, v):
         return torch.full(shape, float(v), dtype=torch.float32,
@@ -58,9 +62,10 @@ def init_compression_state(cfg: ViTConfig, hp: MinimaxHParams,
         gating_opt=optim.init_opt_state("sgd", full((l, 2), 0.0)))
 
 
-def s_r_upper_bounds(cfg: ViTConfig, device="cpu"
+def s_r_upper_bounds(cfg: ViTConfig, device="cuda"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """s_ub = [H, d_ff] per layer, r_ub = head_size."""
+    """s_ub = [H, d_ff] per layer, r_ub = head_size, on ``device``."""
+    device = resolve_device(device)
     s_ub = torch.stack(
         [torch.full((cfg.depth,), float(v), device=device)
          for v in (cfg.num_heads, cfg.mlp_hidden)], dim=-1)

@@ -3,15 +3,17 @@
 //
 // Replaces uvc_tpu/ops/attention.py::_layer_ln_fwd_kernel (called through
 // _call_layer_ln_fwd).  The backward, uvc_layer_attention_ln_bwd, replaces
-// _layer_ln_bwd_kernel; its note (bound, design) is at its entry point at
-// the end of this file.
+// _layer_ln_bwd_kernel, and uvc_layer_attention / uvc_layer_attention_bwd
+// replace _layer_fwd_kernel / _layer_bwd_kernel (the same sublayer without
+// LayerNorm and residual); their notes (bound, design) are at their entry
+// points at the end of this file.
 //
 // What bounds it on the H100: at DeiT-Small widths (dm = 384, N = 197,
 // head dim 64) the three matrix products carry ~18.7 GFLOP per batch of 64
 // against ~20 MB of input and output, so the tensor cores, not the 3.35 TB/s
 // of device memory, set the floor (~19 us at 989 TFLOP/s).
 //
-// Design: four launches on the caller's stream.
+// Design: four launches on the caller's stream (2-4 are sublayer_fwd).
 //   1. layer_norm_kernel: a_in = bf16(LN1(x)) in f32 -> [B*N, dm].
 //   2. gemm_kernel<EPI_BIAS>: qkv = bf16(a_in @ Wqkv + bqkv) -> [B*N, 3*da].
 //   3. attention_kernel (below): one CTA per (64-query tile, head, image);
@@ -513,6 +515,164 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launch sequences shared by the LN-fused sublayer (K1 / A2) and the bare
+// sublayer (A7): everything between the qkv projection's input `a` and the
+// output projection, forward and backward.
+// ---------------------------------------------------------------------------
+
+// qkv = bf16(a . Wqkv + bqkv); ctx = bf16(bf16(MHA(qkv)) * mask);
+// out = bf16(resid + (ctx . Wproj + bproj)), or bf16(ctx . Wproj + bproj)
+// when resid is null.  Three launches.
+static cudaError_t sublayer_fwd(const bf16* a, const bf16* wqkv,
+                                const bf16* bqkv, const bf16* wproj,
+                                const bf16* bproj, const bf16* mask,
+                                const bf16* resid, bf16* qkv, bf16* ctx,
+                                bf16* out, int batch, int n, int dm, int da,
+                                int heads, float scale, cudaStream_t s) {
+  const int rows = batch * n;
+  GemmArgs p = {};
+  p.a = a;
+  p.w = wqkv;
+  p.bias = bqkv;
+  p.out = qkv;
+  p.M = rows;
+  p.N = 3 * da;
+  p.K = dm;
+  cudaError_t err = launch_gemm<EPI_BIAS>(p, s);
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = attention_smem_bytes(n);
+  err = cudaFuncSetAttribute(attention_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + ATT_QT - 1) / ATT_QT, heads, batch);
+  attention_kernel<<<grid, ATT_THREADS, smem, s>>>(qkv, mask, ctx, n, da,
+                                                    scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  GemmArgs q = {};
+  q.a = ctx;
+  q.w = wproj;
+  q.bias = bproj;
+  q.out = out;
+  q.M = rows;
+  q.N = dm;
+  q.K = da;
+  q.resid = resid;
+  return resid ? launch_gemm<EPI_RESID>(q, s) : launch_gemm<EPI_BIAS>(q, s);
+}
+
+// Scratch and outputs of the sublayer backward below the qkv input.
+struct SublayerBwd {
+  const bf16 *a, *wqkv, *bqkv, *wproj, *mask, *dout;
+  bf16* qkv;       // [rows, 3 da]
+  float* t32;      // [rows, da]   do . Wproj^T
+  bf16* dctx;      // [rows, da]   bf16(t * mask)
+  float* ctx;      // [rows, da]   bf16(probs) . V
+  bf16* ctxm;      // [rows, da]   bf16(ctx * mask)
+  float4* stats;   // [B * heads * N]  (max, s, row) per query
+  bf16* dqkv;      // [rows, 3 da]
+  float* part;     // column-sum partials
+  bf16 *dwqkv, *dbqkv, *dwproj, *dbproj, *dmask;
+  int batch, n, dm, da, heads;
+  float scale;
+};
+
+// Recomputes qkv from a, then emits dqkv (attention core), dWqkv, dWproj,
+// dbqkv, dbproj and dmask = sum(t * ctx).  Twelve launches:
+//   1. gemm <EPI_BIAS>: qkv = bf16(a . Wqkv + bqkv).
+//   2. gemm <EPI_F32_MASK, [N][K] B>: t = do . Wproj^T (f32),
+//      dctx = bf16(t * mask).
+//   3. attention_bwd_q_kernel: ctx (f32), bf16(ctx * mask), dq, and the
+//      per-query (max, s, row) -- per (query tile, head, image).
+//   4. attention_bwd_kv_kernel: dk, dv -- per (key tile, head, image),
+//      a loop over the queries takes the place of the Pallas kernel's
+//      sequential accumulation, so no two CTAs write one output.
+//   5. gemm <EPI_SCALE, [K][M] A>: dWqkv = a^T . dqkv over the B*N rows
+//      (ragged K), summed in f32 and rounded once.
+//   6. gemm <EPI_SCALE, [K][M] A>: dWproj = bf16(ctx * mask)^T . do.
+//   7-12. three column sums, each partials per 128 rows and then an
+//      in-order pass: dbqkv, dbproj, dmask.
+// The caller takes d a = dqkv . Wqkv^T from dqkv.
+static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
+  const int rows = b.batch * b.n;
+  GemmArgs p = {};
+  p.a = b.a;
+  p.w = b.wqkv;
+  p.bias = b.bqkv;
+  p.out = b.qkv;
+  p.M = rows;
+  p.N = 3 * b.da;
+  p.K = b.dm;
+  cudaError_t err = launch_gemm<EPI_BIAS>(p, s);
+  if (err != cudaSuccess) return err;
+
+  p = {};
+  p.a = b.dout;
+  p.w = b.wproj;
+  p.mask = b.mask;
+  p.out32 = b.t32;
+  p.out = b.dctx;
+  p.M = rows;
+  p.N = b.da;
+  p.K = b.dm;
+  err = launch_gemm<EPI_F32_MASK, false, true>(p, s);
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = attention_bwd_smem_bytes(b.n);
+  const dim3 grid((b.n + ATT_QT - 1) / ATT_QT, b.heads, b.batch);
+  err = cudaFuncSetAttribute(attention_bwd_q_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_q_kernel<<<grid, ATT_THREADS, smem, s>>>(
+      b.qkv, b.dctx, b.mask, b.ctx, b.ctxm, b.dqkv, b.stats, b.n, b.da,
+      b.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_kv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_kv_kernel<<<grid, ATT_THREADS, smem, s>>>(
+      b.qkv, b.dctx, b.stats, b.dqkv, b.n, b.da, b.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  p = {};
+  p.a = b.a;
+  p.w = b.dqkv;
+  p.out = b.dwqkv;
+  p.M = b.dm;
+  p.N = 3 * b.da;
+  p.K = rows;
+  err = launch_gemm<EPI_SCALE, true, false>(p, s);
+  if (err != cudaSuccess) return err;
+
+  p = {};
+  p.a = b.ctxm;
+  p.w = b.dout;
+  p.out = b.dwproj;
+  p.M = b.da;
+  p.N = b.dm;
+  p.K = rows;
+  err = launch_gemm<EPI_SCALE, true, false>(p, s);
+  if (err != cudaSuccess) return err;
+
+  err = column_sum(b.dqkv, static_cast<const bf16*>(nullptr), rows, 3 * b.da,
+                   b.part, nullptr, nullptr, b.dbqkv, s);
+  if (err != cudaSuccess) return err;
+  err = column_sum(b.dout, static_cast<const bf16*>(nullptr), rows, b.dm,
+                   b.part, nullptr, nullptr, b.dbproj, s);
+  if (err != cudaSuccess) return err;
+  return column_sum(static_cast<const float*>(b.t32),
+                    static_cast<const float*>(b.ctx), rows, b.da, b.part,
+                    nullptr, nullptr, b.dmask, s);
+}
+
 }  // namespace uvc
 
 using uvc::bf16;
@@ -526,46 +686,42 @@ extern "C" int uvc_layer_attention_ln(
     void* a_in, void* qkv, void* ctx, void* out, int batch, int n, int dm,
     int da, int heads, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = batch * n;
   cudaError_t err = uvc::launch_layer_norm(
       static_cast<const bf16*>(x), static_cast<const float*>(g1),
-      static_cast<const float*>(b1), rows, dm, eps, static_cast<bf16*>(a_in),
-      s);
+      static_cast<const float*>(b1), batch * n, dm, eps,
+      static_cast<bf16*>(a_in), s);
   if (err != cudaSuccess) return (int)err;
+  return (int)uvc::sublayer_fwd(
+      static_cast<const bf16*>(a_in), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const bf16*>(bproj), static_cast<const bf16*>(mask),
+      static_cast<const bf16*>(x), static_cast<bf16*>(qkv),
+      static_cast<bf16*>(ctx), static_cast<bf16*>(out), batch, n, dm, da,
+      heads, scale, s);
+}
 
-  uvc::GemmArgs p = {};
-  p.a = static_cast<const bf16*>(a_in);
-  p.w = static_cast<const bf16*>(wqkv);
-  p.bias = static_cast<const bf16*>(bqkv);
-  p.out = static_cast<bf16*>(qkv);
-  p.M = rows;
-  p.N = 3 * da;
-  p.K = dm;
-  err = uvc::launch_gemm<uvc::EPI_BIAS>(p, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t smem = uvc::attention_smem_bytes(n);
-  err = cudaFuncSetAttribute(uvc::attention_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + uvc::ATT_QT - 1) / uvc::ATT_QT, heads, batch);
-  uvc::attention_kernel<<<grid, uvc::ATT_THREADS, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(mask),
-      static_cast<bf16*>(ctx), n, da, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  uvc::GemmArgs q = {};
-  q.a = static_cast<const bf16*>(ctx);
-  q.w = static_cast<const bf16*>(wproj);
-  q.bias = static_cast<const bf16*>(bproj);
-  q.out = static_cast<bf16*>(out);
-  q.M = rows;
-  q.N = dm;
-  q.K = da;
-  q.resid = static_cast<const bf16*>(x);
-  return (int)uvc::launch_gemm<uvc::EPI_RESID>(q, s);
+// The attention sublayer without LayerNorm and residual, forward:
+//   out = (mask * MHA(x @ Wqkv + bqkv)) @ Wproj + bproj
+// The port of uvc_tpu/ops/attention.py::_layer_fwd_kernel (called through
+// _fused_layer), kernel A7: the separate-LN branch of a block whose
+// sublayer output is scaled before the residual add (part gating,
+// drop-path).  It is uvc_layer_attention_ln without launch 1 (the
+// LayerNorm pass) and with the bias epilogue in place of the residual one
+// in launch 4: three launches, the same bound (~18.7 GFLOP against ~20 MB
+// at B = 64, N = 197, dm = da = 384: the tensor cores, ~19 us).  qkv
+// [B*N, 3*da] and ctx [B*N, da] (bf16) are scratch that the caller
+// allocates.
+extern "C" int uvc_layer_attention(
+    const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+    const void* bproj, const void* mask, void* qkv, void* ctx, void* out,
+    int batch, int n, int dm, int da, int heads, float scale, void* stream) {
+  return (int)uvc::sublayer_fwd(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const bf16*>(bproj), static_cast<const bf16*>(mask),
+      nullptr, static_cast<bf16*>(qkv), static_cast<bf16*>(ctx),
+      static_cast<bf16*>(out), batch, n, dm, da, heads, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 
@@ -583,22 +739,11 @@ extern "C" int uvc_layer_attention_ln(
 //
 // Design: seventeen launches on the caller's stream, no float atomics.
 //   1. layer_norm_kernel: a_in = bf16(LN1(x)).
-//   2. gemm <EPI_BIAS>: qkv = bf16(a_in . Wqkv + bqkv).
-//   3. gemm <EPI_F32_MASK, [N][K] B>: t = do . Wproj^T (f32),
-//      dctx = bf16(t * mask).
-//   4. attention_bwd_q_kernel: ctx (f32), bf16(ctx * mask), dq, and the
-//      per-query (max, s, row) -- per (query tile, head, image).
-//   5. attention_bwd_kv_kernel: dk, dv -- per (key tile, head, image),
-//      a loop over the queries takes the place of the Pallas kernel's
-//      sequential accumulation, so no two CTAs write one output.
-//   6. gemm <EPI_F32, [N][K] B>: d a_in = dqkv . Wqkv^T (f32).
-//   7. ln_bwd_kernel: dx = bf16(LN VJP + do), partial dgamma1 / dbeta1;
-//      8-9. their fixed-order reductions.
-//  10. gemm <EPI_SCALE, [K][M] A>: dWqkv = a_in^T . dqkv over the B*N rows
-//      (ragged K), summed in f32 and rounded once.
-//  11. gemm <EPI_SCALE, [K][M] A>: dWproj = bf16(ctx * mask)^T . do.
-//  12-17. three column sums, each partials per 128 rows and then an
-//      in-order pass: dbqkv, dbproj, dmask = sum(t * ctx).
+//   2-13. sublayer_bwd above with a = a_in: qkv recompute, t and dctx, the
+//      two attention kernels, dWqkv, dWproj, dbqkv, dbproj, dmask.
+//  14. gemm <EPI_F32, [N][K] B>: d a_in = dqkv . Wqkv^T (f32).
+//  15. ln_bwd_kernel: dx = bf16(LN VJP + do), partial dgamma1 / dbeta1;
+//      16-17. their fixed-order reductions.
 // The TPU kernel kept every intermediate in VMEM.  Here a_in, qkv, t, dctx,
 // ctx, dqkv and d a_in make a round trip through device memory (~9.7 MB
 // each in bf16 at the train shape, twice that in f32); the logits and
@@ -616,63 +761,29 @@ extern "C" int uvc_layer_attention_ln_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = batch * n;
   const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* dob = static_cast<const bf16*>(dout);
   float* partf = static_cast<float*>(part);
   cudaError_t err = uvc::launch_layer_norm(
       xb, static_cast<const float*>(g1), static_cast<const float*>(b1), rows,
       dm, eps, static_cast<bf16*>(a_in), s);
   if (err != cudaSuccess) return (int)err;
 
+  const uvc::SublayerBwd b = {
+      static_cast<const bf16*>(a_in), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const bf16*>(mask), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(qkv), static_cast<float*>(t32),
+      static_cast<bf16*>(dctx), static_cast<float*>(ctx),
+      static_cast<bf16*>(ctxm), static_cast<float4*>(stats),
+      static_cast<bf16*>(dqkv), partf, static_cast<bf16*>(dwqkv),
+      static_cast<bf16*>(dbqkv), static_cast<bf16*>(dwproj),
+      static_cast<bf16*>(dbproj), static_cast<bf16*>(dmask), batch, n, dm,
+      da, heads, scale};
+  err = uvc::sublayer_bwd(b, s);
+  if (err != cudaSuccess) return (int)err;
+
   uvc::GemmArgs p = {};
-  p.a = static_cast<const bf16*>(a_in);
-  p.w = static_cast<const bf16*>(wqkv);
-  p.bias = static_cast<const bf16*>(bqkv);
-  p.out = static_cast<bf16*>(qkv);
-  p.M = rows;
-  p.N = 3 * da;
-  p.K = dm;
-  err = uvc::launch_gemm<uvc::EPI_BIAS>(p, s);
-  if (err != cudaSuccess) return (int)err;
-
-  p = {};
-  p.a = dob;
-  p.w = static_cast<const bf16*>(wproj);
-  p.mask = static_cast<const bf16*>(mask);
-  p.out32 = static_cast<float*>(t32);
-  p.out = static_cast<bf16*>(dctx);
-  p.M = rows;
-  p.N = da;
-  p.K = dm;
-  err = uvc::launch_gemm<uvc::EPI_F32_MASK, false, true>(p, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t smem = uvc::attention_bwd_smem_bytes(n);
-  const dim3 grid((n + uvc::ATT_QT - 1) / uvc::ATT_QT, heads, batch);
-  err = cudaFuncSetAttribute(uvc::attention_bwd_q_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  uvc::attention_bwd_q_kernel<<<grid, uvc::ATT_THREADS, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
-      static_cast<const bf16*>(mask), static_cast<float*>(ctx),
-      static_cast<bf16*>(ctxm), static_cast<bf16*>(dqkv),
-      static_cast<float4*>(stats), n, da, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(uvc::attention_bwd_kv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  uvc::attention_bwd_kv_kernel<<<grid, uvc::ATT_THREADS, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
-      static_cast<const float4*>(stats), static_cast<bf16*>(dqkv), n, da,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  p = {};
-  p.a = static_cast<const bf16*>(dqkv);
-  p.w = static_cast<const bf16*>(wqkv);
+  p.a = b.dqkv;
+  p.w = b.wqkv;
   p.out32 = static_cast<float*>(da_in);
   p.M = rows;
   p.N = dm;
@@ -685,7 +796,7 @@ extern "C" int uvc_layer_attention_ln_bwd(
   l.x = xb;
   l.gamma = static_cast<const float*>(g1);
   l.dy = static_cast<const float*>(da_in);
-  l.resid = dob;
+  l.resid = b.dout;
   l.dx = static_cast<bf16*>(dx);
   l.part_dg = partf;
   l.part_db = partf + (size_t)lnp * dm;
@@ -697,40 +808,49 @@ extern "C" int uvc_layer_attention_ln_bwd(
   err = uvc::launch_reduce(l.part_dg, lnp, dm, nullptr,
                            static_cast<float*>(dg1), nullptr, s);
   if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(l.part_db, lnp, dm, nullptr,
-                           static_cast<float*>(db1), nullptr, s);
+  return (int)uvc::launch_reduce(l.part_db, lnp, dm, nullptr,
+                                 static_cast<float*>(db1), nullptr, s);
+}
+
+// Backward of the bare attention sublayer: the port of
+// uvc_tpu/ops/attention.py::_layer_bwd_kernel (called through
+// _fused_layer_bwd, its ng == 1 branch), kernel A7.  Emits
+// dx = bf16(dqkv . Wqkv^T) (no residual, no LN VJP), dWqkv with x itself
+// as the A operand, dbqkv, dWproj, dbproj and dmask = sum(t * ctx).
+//
+// What bounds it: the same products as uvc_layer_attention_ln_bwd (~52.3
+// GFLOP at the train shape against ~30 MB: the tensor cores, ~53 us).
+// Design: sublayer_bwd with a = x (twelve launches), then one GEMM
+// <EPI_SCALE, [N][K] B> that rounds dx = dqkv . Wqkv^T to bf16 in its
+// epilogue: A2's sequence without the LayerNorm pass, the LN backward and
+// its two reductions.  Thirteen launches, no float atomics.
+extern "C" int uvc_layer_attention_bwd(
+    const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+    const void* mask, const void* dout, void* qkv, void* t32, void* dctx,
+    void* ctx, void* ctxm, void* stats, void* dqkv, void* part, void* dx,
+    void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dmask,
+    int batch, int n, int dm, int da, int heads, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uvc::SublayerBwd b = {
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const bf16*>(mask), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(qkv), static_cast<float*>(t32),
+      static_cast<bf16*>(dctx), static_cast<float*>(ctx),
+      static_cast<bf16*>(ctxm), static_cast<float4*>(stats),
+      static_cast<bf16*>(dqkv), static_cast<float*>(part),
+      static_cast<bf16*>(dwqkv), static_cast<bf16*>(dbqkv),
+      static_cast<bf16*>(dwproj), static_cast<bf16*>(dbproj),
+      static_cast<bf16*>(dmask), batch, n, dm, da, heads, scale};
+  cudaError_t err = uvc::sublayer_bwd(b, s);
   if (err != cudaSuccess) return (int)err;
 
-  p = {};
-  p.a = static_cast<const bf16*>(a_in);
-  p.w = static_cast<const bf16*>(dqkv);
-  p.out = static_cast<bf16*>(dwqkv);
-  p.M = dm;
-  p.N = 3 * da;
-  p.K = rows;
-  err = uvc::launch_gemm<uvc::EPI_SCALE, true, false>(p, s);
-  if (err != cudaSuccess) return (int)err;
-
-  p = {};
-  p.a = static_cast<const bf16*>(ctxm);
-  p.w = dob;
-  p.out = static_cast<bf16*>(dwproj);
-  p.M = da;
+  uvc::GemmArgs p = {};
+  p.a = b.dqkv;
+  p.w = b.wqkv;
+  p.out = static_cast<bf16*>(dx);
+  p.M = batch * n;
   p.N = dm;
-  p.K = rows;
-  err = uvc::launch_gemm<uvc::EPI_SCALE, true, false>(p, s);
-  if (err != cudaSuccess) return (int)err;
-
-  err = uvc::column_sum(static_cast<const bf16*>(dqkv),
-                        static_cast<const bf16*>(nullptr), rows, 3 * da,
-                        partf, nullptr, nullptr, static_cast<bf16*>(dbqkv),
-                        s);
-  if (err != cudaSuccess) return (int)err;
-  err = uvc::column_sum(dob, static_cast<const bf16*>(nullptr), rows, dm,
-                        partf, nullptr, nullptr, static_cast<bf16*>(dbproj),
-                        s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)uvc::column_sum(static_cast<const float*>(t32),
-                              static_cast<const float*>(ctx), rows, da, partf,
-                              nullptr, nullptr, static_cast<bf16*>(dmask), s);
+  p.K = 3 * da;
+  return (int)uvc::launch_gemm<uvc::EPI_SCALE, false, true>(p, s);
 }

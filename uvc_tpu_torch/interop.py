@@ -77,6 +77,16 @@ def masks_from_numpy(masks: Optional[Dict[str, Any]], device="cuda"
     return tree_to_torch(dict(masks), resolve_device(device), torch.float32)
 
 
+def wmasks_from_numpy(masks: Optional[Dict[str, Any]], device="cuda"
+                      ) -> Optional[dict]:
+    """The JAX package's weight-mask tree of the pruning baselines (numpy
+    masks at the maskable kernels, None at every other leaf) as f32
+    tensors on ``device``, the None leaves kept (None stays None)."""
+    if masks is None:
+        return None
+    return tree_to_torch(masks, resolve_device(device), torch.float32)
+
+
 def cstate_from_numpy(cstate: Any, device="cuda"):
     """The JAX package's ``CompressionState`` with numpy leaves
     (``jax.tree.map(np.asarray, cstate)``) as the port's

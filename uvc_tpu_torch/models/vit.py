@@ -9,10 +9,15 @@ LN-fused kernels of ``uvc_tpu_torch.ops`` behind their autograd wrappers
 (the block-gating blend fused into the MLP sublayer when a gating
 distribution is given), so the same forward trains and serves.
 
-The Gumbel token draw takes its ``[B, N]`` noise as ``rng``.  Part gating
-and drop-path run the un-fused sublayer (``_layer_fwd_kernel`` in the JAX
-package, kernel A7) and raise ``NotImplementedError`` until it is ported
-(see ROADMAP.md).
+A block whose sublayer output is scaled before the residual add (part
+gating, drop-path) runs the separate-LN branch instead: the LayerNorm in
+PyTorch, then the bare attention sublayer kernel (``fused_layer_attention``,
+the port of ``_layer_fwd_kernel``) and the composed MLP (library matmuls,
+as in the JAX package).
+
+Random numbers come in as tensors: the Gumbel token draw's ``[B, N]``
+noise as ``rng``, the drop-path keep decisions as ``drop_path`` ``[L, 2,
+B]`` (``sample_drop_path`` draws them).
 """
 
 from __future__ import annotations
@@ -23,15 +28,15 @@ import torch
 
 from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.interop import resolve_device
-from uvc_tpu_torch.ops.attention import fused_layer_attention_ln
+from uvc_tpu_torch.ops.attention import (fused_layer_attention,
+                                         fused_layer_attention_ln)
 from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
                                       gumbel_topk_mask,
                                       physical_topk_indices, token_scores,
                                       topk_token_mask)
 from uvc_tpu_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_blend
 
-_NOT_PORTED = ("{} is not ported yet: it runs the un-fused sublayer "
-               "(_layer_fwd_kernel) or a PRNG-key draw; see ROADMAP.md")
+_NOT_PORTED = "{} is not ported yet; see ROADMAP.md"
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +134,52 @@ def _attention_ln(x, blk, num_heads, scale, attn_mask_row, eps, dtype):
         num_heads=num_heads, scale=scale, eps=eps)
 
 
+def _attention(x, blk, num_heads, scale, attn_mask_row, dtype):
+    """The bare attention sublayer ``proj(mask * MHA(x))`` (kernel A7), no
+    LayerNorm, no residual."""
+    mask = (attn_mask_row.to(dtype) if attn_mask_row is not None
+            else torch.ones(x.shape[-1], dtype=dtype, device=x.device))
+    return fused_layer_attention(
+        x, blk["qkv"]["kernel"].to(dtype), blk["qkv"]["bias"].to(dtype),
+        blk["proj"]["kernel"].to(dtype), blk["proj"]["bias"].to(dtype), mask,
+        num_heads=num_heads, scale=scale)
+
+
+def _mlp(x, blk, mlp_mask_row, dtype):
+    """The composed MLP branch: fc1, exact GELU in the compute dtype, the
+    structural unit mask, fc2 (library matmuls, as in the JAX package)."""
+    h = x @ blk["fc1"]["kernel"].to(dtype) + blk["fc1"]["bias"].to(dtype)
+    h = torch.nn.functional.gelu(h)
+    if mlp_mask_row is not None:
+        h = h * mlp_mask_row.to(dtype)
+    return h @ blk["fc2"]["kernel"].to(dtype) + blk["fc2"]["bias"].to(dtype)
+
+
+def _drop_path(branch, keep_row, rate: float):
+    """Stochastic depth on a residual branch (timm DropPath): the ``[B]``
+    keep decisions zero whole samples, survivors are divided by ``1 -
+    rate`` rounded to the branch dtype, as the JAX body divides."""
+    keep = float(torch.tensor(1.0 - rate, dtype=torch.float32).to(
+        branch.dtype))
+    return branch * keep_row.to(branch.dtype)[:, None, None] / keep
+
+
+def drop_path_rates(depth: int, rate: float) -> list:
+    """Per-layer drop rates ``linspace(0, rate, depth)`` in f32."""
+    return torch.linspace(0.0, rate, depth, dtype=torch.float32).tolist()
+
+
+def sample_drop_path(generator: torch.Generator, depth: int, rate: float,
+                     batch: int) -> torch.Tensor:
+    """``[L, 2, B]`` bool keep decisions (layer, attention / MLP branch,
+    image), each kept with probability ``1 - rates[layer]``; drawn on the
+    generator's device."""
+    keep = 1.0 - torch.tensor(drop_path_rates(depth, rate))
+    u = torch.rand((depth, 2, batch), generator=generator,
+                   device=generator.device)
+    return u < keep.to(u.device)[:, None, None]
+
+
 def _mlp_args(blk, mlp_mask_row, dtype, device):
     f = blk["fc1"]["kernel"].shape[-1]
     mask = (mlp_mask_row.to(dtype) if mlp_mask_row is not None
@@ -177,24 +228,25 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
           rng=None,
           train: bool = False,
           drop_path_rate: float = 0.0,
+          drop_path: Optional[torch.Tensor] = None,
           dtype=torch.float32) -> ForwardOutput:
     """Forward with the JAX ``apply``'s arguments and semantics;
     differentiable (the sublayers are ``torch.autograd.Function``s).
 
     gating_distrib: ``[L, 2]`` per-block (skip, keep) distribution, or None
-    for ungated blocks.  masks: ``{"attn": [L, D], "mlp": [L, F]}`` or None.
+    for ungated blocks.  attn_distrib / mlp_distrib: ``[L, 2]`` part-gating
+    distributions, the sublayer output scaled by ``[1]`` and its input by
+    ``[0]``.  masks: ``{"attn": [L, D], "mlp": [L, F]}`` or None.
     patch_gate_mode 1 applies the sigmoid patch gate (hard with
     ``patch_hard``); mode 2 (or a positive ``tau``) selects
     ``int(patch_ratio * N)`` tokens: with ``rng`` None by the deterministic
     top-k, zero-masked or, with ``patch_physical``, gathered; with ``rng``
     the ``[B, N]`` Gumbel noise of the straight-through top-k mask at
-    temperature ``tau`` (``x * mask``, never gathered).  Part gating
-    (``attn_distrib`` / ``mlp_distrib``), drop-path and a PRNG key as
-    ``rng`` raise NotImplementedError."""
-    if attn_distrib is not None or mlp_distrib is not None:
-        raise NotImplementedError(_NOT_PORTED.format("part gating"))
-    if train and drop_path_rate > 0:
-        raise NotImplementedError(_NOT_PORTED.format("drop-path"))
+    temperature ``tau`` (``x * mask``, never gathered).  With ``train`` and
+    ``drop_path_rate > 0``, stochastic depth at the per-layer rates
+    ``linspace(0, drop_path_rate, L)``, whose keep decisions ``drop_path``
+    ``[L, 2, B]`` must be given.  A PRNG key as ``rng`` raises
+    NotImplementedError."""
     if rng is not None and not torch.is_tensor(rng):
         raise NotImplementedError(_NOT_PORTED.format(
             "a PRNG key as rng (pass the [B, N] Gumbel token noise)"))
@@ -237,8 +289,12 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
     else:
         x = torch.cat(tokens + [x], dim=1) + params["pos_embed"].to(dtype)
 
-    x = transformer_encode(params, x, cfg, gating_distrib=gating_distrib,
-                           masks=masks, jumping=jumping, dtype=dtype)
+    x = transformer_encode(
+        params, x, cfg, gating_distrib=gating_distrib,
+        attn_distrib=attn_distrib, mlp_distrib=mlp_distrib, masks=masks,
+        jumping=jumping,
+        drop_path_rate=drop_path_rate if train else 0.0,
+        drop_path=drop_path, dtype=dtype)
 
     cls = x[:, 0].float()
     logits = cls @ params["head"]["kernel"] + params["head"]["bias"]
@@ -253,15 +309,28 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
 
 
 def transformer_encode(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
-                       gating_distrib=None, masks=None, jumping: bool = False,
+                       gating_distrib=None, attn_distrib=None,
+                       mlp_distrib=None, masks=None, jumping: bool = False,
+                       drop_path_rate: float = 0.0,
+                       drop_path: Optional[torch.Tensor] = None,
                        dtype=torch.float32) -> torch.Tensor:
-    """The block stack + final LN.  Each block is the LN-fused attention
-    sublayer, then the LN-fused MLP sublayer, with the block-gating blend
-    ``d1 * block(h) + d0 * h`` fused into the MLP sublayer when
-    ``gating_distrib`` is given.  ``jumping`` sums every block's output
-    into the final representation."""
+    """The block stack + final LN, routed as the JAX package routes it.
+
+    A sublayer without a branch coefficient (no part gating, no drop-path)
+    is one LN-fused kernel with the residual inside; with one, the
+    separate-LN branch (``_attention`` / ``_mlp``) is scaled before the
+    add.  The block-gating blend ``d1 * block(h) + d0 * h`` is fused into
+    the MLP sublayer when there is a gating distribution, no MLP part
+    gating and no drop-path; otherwise it runs after the block.
+    ``jumping`` sums every block's output into the final representation."""
     eps = cfg.layer_norm_eps
     scale = cfg.qk_scale if cfg.qk_scale is not None else cfg.head_size ** -0.5
+    use_dp = drop_path_rate > 0.0
+    if use_dp:
+        if drop_path is None:
+            raise ValueError("drop_path_rate > 0 needs the drop_path keep "
+                             "decisions [L, 2, B]")
+        rates = drop_path_rates(cfg.depth, drop_path_rate)
     blocks = params["blocks"]
     h = x
     accum = torch.zeros_like(x) if jumping else None
@@ -270,13 +339,42 @@ def transformer_encode(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
                for name, sub in blocks.items()}
         attn_m = None if masks is None else masks["attn"][i]
         mlp_m = None if masks is None else masks["mlp"][i]
-        z = _attention_ln(h, blk, cfg.num_heads, scale, attn_m, eps, dtype)
-        mlp_args = _mlp_args(blk, mlp_m, dtype, x.device)
-        if gating_distrib is not None:
-            h = fused_mlp_ln_blend(z, h, gating_distrib[i].float(),
-                                   *mlp_args, eps=eps)
+        distrib = None if gating_distrib is None else gating_distrib[i]
+        a_d = None if attn_distrib is None else attn_distrib[i]
+        m_d = None if mlp_distrib is None else mlp_distrib[i]
+
+        if a_d is None and not use_dp:
+            z = _attention_ln(h, blk, cfg.num_heads, scale, attn_m, eps,
+                              dtype)
         else:
-            h = fused_mlp_ln(z, *mlp_args, eps=eps)
+            a_in = _layer_norm(h, blk["ln1"]["scale"], blk["ln1"]["bias"],
+                               eps)
+            a_out = _attention(a_in, blk, cfg.num_heads, scale, attn_m,
+                               dtype)
+            if use_dp:
+                a_out = _drop_path(a_out, drop_path[i, 0], rates[i])
+            z = (a_d[0].to(dtype) * h + a_d[1].to(dtype) * a_out
+                 if a_d is not None else h + a_out)
+
+        if distrib is not None and m_d is None and not use_dp:
+            h = fused_mlp_ln_blend(z, h, distrib.float(),
+                                   *_mlp_args(blk, mlp_m, dtype, x.device),
+                                   eps=eps)
+        else:
+            if m_d is None and not use_dp:
+                out = fused_mlp_ln(z, *_mlp_args(blk, mlp_m, dtype, x.device),
+                                   eps=eps)
+            else:
+                m_in = _layer_norm(z, blk["ln2"]["scale"], blk["ln2"]["bias"],
+                                   eps)
+                m_out = _mlp(m_in, blk, mlp_m, dtype)
+                if use_dp:
+                    m_out = _drop_path(m_out, drop_path[i, 1], rates[i])
+                out = (m_d[0].to(dtype) * z + m_d[1].to(dtype) * m_out
+                       if m_d is not None else z + m_out)
+            if distrib is not None:
+                out = distrib[1].to(dtype) * out + distrib[0].to(dtype) * h
+            h = out
         if jumping:
             accum = accum + h
     if jumping:

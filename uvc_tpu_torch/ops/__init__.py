@@ -7,7 +7,8 @@ where it launches its kernel.  ``launch_counts`` reads the forward kernels'
 run can show that its main path went through the kernels.
 """
 
-from uvc_tpu_torch.ops.attention import (layer_attention_ln,
+from uvc_tpu_torch.ops.attention import (layer_attention, layer_attention_bwd,
+                                         layer_attention_ln,
                                          layer_attention_ln_bwd)
 from uvc_tpu_torch.ops.mlp import (mlp_ln, mlp_ln_blend, mlp_ln_blend_bwd,
                                    mlp_ln_bwd)
@@ -16,11 +17,13 @@ KERNEL_WRAPPERS = {
     "layer_attention_ln": layer_attention_ln,
     "mlp_ln": mlp_ln,
     "mlp_ln_blend": mlp_ln_blend,
+    "layer_attention": layer_attention,
 }
 BACKWARD_KERNEL_WRAPPERS = {
     "layer_attention_ln_bwd": layer_attention_ln_bwd,
     "mlp_ln_bwd": mlp_ln_bwd,
     "mlp_ln_blend_bwd": mlp_ln_blend_bwd,
+    "layer_attention_bwd": layer_attention_bwd,
 }
 
 

@@ -37,6 +37,8 @@ _LIBS = {
             [_P] * 12 + [_I] * 5 + [_F, _F, _P],
         "uvc_layer_attention_ln_bwd":
             [_P] * 26 + [_I] * 5 + [_F, _F, _P],
+        "uvc_layer_attention": [_P] * 9 + [_I] * 5 + [_F, _P],
+        "uvc_layer_attention_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
     }),
     "mlp": ("mlp.cu", {
         "uvc_mlp_ln": [_P] * 11 + [_I] * 3 + [_F, _P],

@@ -1,14 +1,18 @@
-"""LN-fused attention sublayer, forward and backward (counterpart of
-``uvc_tpu/ops/attention.py``).
+"""The attention sublayer, forward and backward (counterpart of
+``uvc_tpu/ops/attention.py``), in two forms.
 
 ``layer_attention_ln`` computes ``x + proj(mask * MHA(LN1(x)))`` for a
 ``[B, N, dm]`` residual stream and ``layer_attention_ln_bwd`` its
 gradients; ``fused_layer_attention_ln`` is the two as one
-``torch.autograd.Function``.  A CUDA tensor goes to the hand-written
-kernels (``csrc/attention.cu``, the ports of ``_layer_ln_fwd_kernel`` and
-``_layer_ln_bwd_kernel``); a CPU tensor goes to ``layer_attention_ln_plain``
-/ ``layer_attention_ln_bwd_plain``, the same functions in plain PyTorch
-with the kernels' rounding order.  There is no other route.
+``torch.autograd.Function`` (ports of ``_layer_ln_fwd_kernel`` and
+``_layer_ln_bwd_kernel``).  ``layer_attention`` / ``layer_attention_bwd``
+/ ``fused_layer_attention`` are the bare sublayer ``proj(mask * MHA(x))``
+without LayerNorm and residual, for blocks that scale the sublayer output
+before the residual add (ports of ``_layer_fwd_kernel`` and
+``_layer_bwd_kernel``).  A CUDA tensor goes to the hand-written kernels
+(``csrc/attention.cu``); a CPU tensor goes to the ``*_plain`` functions,
+the same functions in plain PyTorch with the kernels' rounding order.
+There is no other route.
 """
 
 from __future__ import annotations
@@ -38,6 +42,25 @@ def _ln_rows(x32, gamma, beta, eps):
     return xhat * gamma + beta, xhat, inv
 
 
+def _sublayer_plain(a, wqkv, bqkv, wproj, bproj, mask, num_heads, scale):
+    """qkv, attention, the ctx mask and the output projection from ``a``,
+    the qkv projection's input, rounded where the Pallas bodies round
+    (qkv, ctx and ctx * mask to ``a.dtype``; logits and softmax in f32,
+    normalised after P @ V).  Returns the f32 projection, bias added."""
+    dt = a.dtype
+    b, n, _ = a.shape
+    da = wqkv.shape[1] // 3            # attention width (!= dm when compact)
+    dh = da // num_heads
+    qkv = (a.float() @ wqkv.float() + bqkv.float()).to(dt)
+    q, k, v = qkv.view(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    ctx = ((p.to(dt).float() @ v.float()) / p.sum(dim=-1, keepdim=True))
+    ctx = ctx.to(dt).transpose(1, 2).reshape(b, n, da)
+    ctx = (ctx.float() * mask.to(dt).float()).to(dt)
+    return ctx.float() @ wproj.float() + bproj.float()
+
+
 def layer_attention_ln_plain(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
                              num_heads: int, scale: float, eps: float):
     """Plain PyTorch version of the kernel, rounded where the Pallas body
@@ -45,21 +68,22 @@ def layer_attention_ln_plain(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     softmax and the residual sum in f32, with the softmax normalisation
     applied after P @ V.  In f32 every rounding is the identity and this is
     the JAX CPU composition."""
-    dt = x.dtype
-    b, n, _ = x.shape
-    da = wqkv.shape[1] // 3            # attention width (!= dm when compact)
-    dh = da // num_heads
     x32 = x.float()
-    a_in = _ln_rows(x32, g1.float(), b1.float(), eps)[0].to(dt)
-    qkv = (a_in.float() @ wqkv.float() + bqkv.float()).to(dt)
-    q, k, v = qkv.view(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    ctx = ((p.to(dt).float() @ v.float()) / p.sum(dim=-1, keepdim=True))
-    ctx = ctx.to(dt).transpose(1, 2).reshape(b, n, da)
-    ctx = (ctx.float() * mask.to(dt).float()).to(dt)
-    out = ctx.float() @ wproj.float() + bproj.float()
-    return (x32 + out).to(dt)
+    a_in = _ln_rows(x32, g1.float(), b1.float(), eps)[0].to(x.dtype)
+    out = _sublayer_plain(a_in, wqkv, bqkv, wproj, bproj, mask, num_heads,
+                          scale)
+    return (x32 + out).to(x.dtype)
+
+
+def layer_attention_plain(x, wqkv, bqkv, wproj, bproj, mask, *,
+                          num_heads: int, scale: float):
+    """Plain PyTorch version of the bare-sublayer kernel
+    (``_layer_fwd_kernel``): qkv, ctx and ctx * mask rounded to
+    ``x.dtype``, logits and softmax in f32 normalised after P @ V, and the
+    output ``x.dtype(f32 projection + bias)`` with no residual.  In f32
+    this is the JAX CPU composition."""
+    return _sublayer_plain(x, wqkv, bqkv, wproj, bproj, mask, num_heads,
+                           scale).to(x.dtype)
 
 
 def _check_cuda(x, named, dtypes):
@@ -155,30 +179,22 @@ layer_attention_ln.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def layer_attention_ln_bwd_plain(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
-                                 do, *, num_heads: int, scale: float,
-                                 eps: float):
-    """Plain PyTorch version of the backward kernel, in the Pallas body's
-    rounding order (``_layer_ln_bwd_kernel``): LN1 and qkv recomputed as
-    the forward rounds them; ``t = do . Wproj^T`` in f32 and
-    ``dctx = bf16(t * mask)``; ``probs = p / s`` in f32 and
-    ``pb = bf16(probs)``; the recomputed ``ctx = pb . v`` (not the
-    forward's ``(p . v) / s``); ``ds = bf16(probs * (dp - rowsum(dp *
-    probs)))`` and ``dqkv`` in bf16; the LN VJP in f32 plus the residual
-    ``do``; ``dmask = sum(t * ctx)`` with the f32 ``t``.
-
-    Returns the gradients of (x, g1, b1, wqkv, bqkv, wproj, bproj, mask),
-    each in its input's dtype, as ``_fused_layer_ln_bwd`` returns them.  In
-    f32 every rounding is the identity and this is the autodiff of the JAX
-    CPU composition."""
-    dt = x.dtype
-    b, n, dm = x.shape
+def _sublayer_bwd_plain(a, wqkv, bqkv, wproj, mask, do, num_heads, scale):
+    """The backward of ``_sublayer_plain`` below its input ``a``, in the
+    Pallas bodies' rounding order: qkv recomputed as the forward rounds
+    it; ``t = do . Wproj^T`` in f32 and ``dctx = bf16(t * mask)``;
+    ``probs = p / s`` in f32 and ``pb = bf16(probs)``; the recomputed
+    ``ctx = pb . v`` (not the forward's ``(p . v) / s``);
+    ``ds = bf16(probs * (dp - rowsum(dp * probs)))`` and ``dqkv`` in
+    bf16; ``dmask = sum(t * ctx)`` with the f32 ``t`` ("bf16" standing for
+    ``a.dtype``).  Returns the f32 ``d a = dqkv . Wqkv^T`` and the f32
+    gradients of (wqkv, bqkv, wproj, bproj, mask)."""
+    dt = a.dtype
+    b, n, dm = a.shape
     da = wqkv.shape[1] // 3
     dh = da // num_heads
-    x32 = x.float()
-    a32, xhat, inv = _ln_rows(x32, g1.float(), b1.float(), eps)
-    a_in = a32.to(dt).float()
-    qkv = (a_in @ wqkv.float() + bqkv.float()).to(dt).float()
+    a32 = a.float()
+    qkv = (a32 @ wqkv.float() + bqkv.float()).to(dt).float()
     dob = do.to(dt).float()
     maskv = mask.float()
     t = dob @ wproj.float().T                             # [B, N, da] f32
@@ -200,19 +216,54 @@ def layer_attention_ln_bwd_plain(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
     dqkv = torch.stack([dq, dk, dv], dim=2)               # [B, H, 3, N, dh]
     dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(b, n, 3 * da).to(dt).float()
     d_in = dqkv @ wqkv.float().T                          # [B, N, dm] f32
+    rows = (0, 1)
+    dwqkv = a32.reshape(-1, dm).T @ dqkv.reshape(-1, 3 * da)
+    dwproj = ((ctx * maskv).to(dt).float().reshape(-1, da).T
+              @ dob.reshape(-1, dm))
+    return d_in, (dwqkv, dqkv.sum(rows), dwproj, dob.sum(rows),
+                  (t * ctx).sum(rows))
+
+
+def layer_attention_ln_bwd_plain(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                 do, *, num_heads: int, scale: float,
+                                 eps: float):
+    """Plain PyTorch version of the backward kernel, in the Pallas body's
+    rounding order (``_layer_ln_bwd_kernel``): LN1 recomputed and rounded
+    as the forward rounds it, ``_sublayer_bwd_plain`` below it, then the
+    LN VJP in f32 plus the residual ``do``.
+
+    Returns the gradients of (x, g1, b1, wqkv, bqkv, wproj, bproj, mask),
+    each in its input's dtype, as ``_fused_layer_ln_bwd`` returns them.  In
+    f32 every rounding is the identity and this is the autodiff of the JAX
+    CPU composition."""
+    a32, xhat, inv = _ln_rows(x.float(), g1.float(), b1.float(), eps)
+    d_in, wgrads = _sublayer_bwd_plain(a32.to(x.dtype), wqkv, bqkv, wproj,
+                                       mask, do, num_heads, scale)
     dg = d_in * g1.float()
     m1 = dg.mean(dim=-1, keepdim=True)
     m2 = (dg * xhat).mean(dim=-1, keepdim=True)
     dz = (dg - m1 - xhat * m2) * inv
-    dx = (dz + do.float()).to(dt)
+    dx = (dz + do.float()).to(x.dtype)
     rows = (0, 1)
-    dwqkv = a_in.reshape(-1, dm).T @ dqkv.reshape(-1, 3 * da)
-    dwproj = ((ctx * maskv).to(dt).float().reshape(-1, da).T
-              @ dob.reshape(-1, dm))
-    grads = (dx, (d_in * xhat).sum(rows), d_in.sum(rows), dwqkv,
-             dqkv.sum(rows), dwproj, dob.sum(rows), (t * ctx).sum(rows))
+    grads = (dx, (d_in * xhat).sum(rows), d_in.sum(rows), *wgrads)
     return tuple(gr.to(ref.dtype) for gr, ref in zip(
         grads, (x, g1, b1, wqkv, bqkv, wproj, bproj, mask)))
+
+
+def layer_attention_bwd_plain(x, wqkv, bqkv, wproj, bproj, mask, do, *,
+                              num_heads: int, scale: float):
+    """Plain PyTorch version of the bare-sublayer backward kernel
+    (``_layer_bwd_kernel``): ``_sublayer_bwd_plain`` with ``x`` itself as
+    the qkv input (``dWqkv = x^T . dqkv``), and ``dx = x.dtype(dqkv .
+    Wqkv^T)`` with no residual.
+
+    Returns the gradients of (x, wqkv, bqkv, wproj, bproj, mask), each in
+    its input's dtype, as ``_fused_layer_bwd`` returns them.  In f32 this
+    is the autodiff of the JAX CPU composition."""
+    d_in, wgrads = _sublayer_bwd_plain(x, wqkv, bqkv, wproj, mask, do,
+                                       num_heads, scale)
+    return tuple(gr.to(ref.dtype) for gr, ref in zip(
+        (d_in, *wgrads), (x, wqkv, bqkv, wproj, bproj, mask)))
 
 
 def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
@@ -303,3 +354,131 @@ def fused_layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
                                   num_heads=num_heads, scale=scale, eps=eps)
     return _FusedLayerAttentionLN.apply(x, g1, b1, wqkv, bqkv, wproj, bproj,
                                         mask, num_heads, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# the bare sublayer (kernel A7): no LayerNorm, no residual
+# ---------------------------------------------------------------------------
+
+
+def _layer_attention_cuda(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads,
+                          scale):
+    named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
+                 mask=mask)
+    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS)
+    lib = _cuda.library("attention")
+    rows = b * n
+    qkv = torch.empty((rows, 3 * da), dtype=x.dtype, device=x.device)
+    ctx = torch.empty((rows, da), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.uvc_layer_attention(
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+            bproj.data_ptr(), mask.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+            out.data_ptr(), b, n, dm, da, num_heads, float(scale), stream)
+    _cuda.check(err, "layer_attention")
+    layer_attention.launches += 1
+    return out
+
+
+def layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads: int,
+                    scale: float):
+    """``(mask * MHA(x @ wqkv + bqkv)) @ wproj + bproj``: the attention
+    sublayer without LayerNorm and residual (the port of
+    ``fused_layer_attention``).  Shapes as ``layer_attention_ln``; on
+    CUDA bf16 operands, head dim 64.  ``layer_attention.launches`` counts
+    kernel launches."""
+    kw = dict(num_heads=num_heads, scale=scale)
+    if x.device.type == "cpu":
+        return layer_attention_plain(x, wqkv, bqkv, wproj, bproj, mask, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_attention runs on cpu or cuda, not "
+                         f"{x.device}")
+    return _layer_attention_cuda(x, wqkv, bqkv, wproj, bproj, mask, **kw)
+
+
+layer_attention.launches = 0
+
+
+def _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do, *,
+                              num_heads, scale):
+    bf16, f32 = torch.bfloat16, torch.float32
+    named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
+                 mask=mask, do=do)
+    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS_BWD)
+    lib = _cuda.library("attention")
+    rows = b * n
+
+    def new(*shape, dtype=bf16):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    scratch = dict(
+        qkv=new(rows, 3 * da), t=new(rows, da, dtype=f32), dctx=new(rows, da),
+        ctx=new(rows, da, dtype=f32), ctxm=new(rows, da),
+        stats=new(b * num_heads * n, 4, dtype=f32), dqkv=new(rows, 3 * da),
+        part=new(-(-rows // 128) * max(dm, 3 * da), dtype=f32))
+    grads = tuple(torch.empty_like(t)
+                  for t in (x, wqkv, bqkv, wproj, bproj, mask))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.uvc_layer_attention_bwd(
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+            mask.data_ptr(), do.data_ptr(),
+            *(t.data_ptr() for t in scratch.values()),
+            *(t.data_ptr() for t in grads), b, n, dm, da, num_heads,
+            float(scale), stream)
+    _cuda.check(err, "layer_attention_bwd")
+    layer_attention_bwd.launches += 1
+    return grads
+
+
+def layer_attention_bwd(x, wqkv, bqkv, wproj, bproj, mask, do, *,
+                        num_heads: int, scale: float):
+    """Gradients of ``layer_attention`` with respect to its six tensor
+    inputs, given the output cotangent ``do``.  On CUDA: the forward's
+    operand types, ``N <= 736``.  ``layer_attention_bwd.launches`` counts
+    kernel launches."""
+    kw = dict(num_heads=num_heads, scale=scale)
+    if x.device.type == "cpu":
+        return layer_attention_bwd_plain(x, wqkv, bqkv, wproj, bproj, mask,
+                                         do, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_attention_bwd runs on cpu or cuda, not "
+                         f"{x.device}")
+    return _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do,
+                                     **kw)
+
+
+layer_attention_bwd.launches = 0
+
+
+class _FusedLayerAttention(torch.autograd.Function):
+    """``layer_attention`` forward, ``layer_attention_bwd`` backward (the
+    port of the JAX custom VJP ``_fused_layer``)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, mask, num_heads, scale):
+        ctx.kw = dict(num_heads=num_heads, scale=scale)
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, mask)
+        return layer_attention(x, wqkv, bqkv, wproj, bproj, mask, **ctx.kw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        grads = layer_attention_bwd(*ctx.saved_tensors, do.contiguous(),
+                                    **ctx.kw)
+        return (*grads, None, None)
+
+
+def fused_layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *,
+                          num_heads: int, scale: float):
+    """``layer_attention`` with its gradient: the forward kernel, and the
+    backward kernel when autograd asks for the gradients.  Under
+    ``torch.no_grad`` it is ``layer_attention`` itself (no autograd node,
+    no saved inputs)."""
+    if not torch.is_grad_enabled():
+        return layer_attention(x, wqkv, bqkv, wproj, bproj, mask,
+                               num_heads=num_heads, scale=scale)
+    return _FusedLayerAttention.apply(x, wqkv, bqkv, wproj, bproj, mask,
+                                      num_heads, scale)

@@ -13,11 +13,14 @@ The stage-1 step (``build_stage1_step``) runs
   global-norm clip -> AdamW -> prox -> s / r primal steps -> gating
   interval step -> dual ascent
 
-through the LN-fused sublayer kernels and their backward kernels.  Every
-random number of a step is drawn up front by ``draw_stage1_noise`` from a
-CPU ``torch.Generator`` (a few kB: mixup, the gating and token Gumbel
-noise, the resource's two draws), so a run on the card and a run on the
-CPU from one seed see the same draws, and a test can hand the step the
+through the LN-fused sublayer kernels and their backward kernels; with
+part gating (``hp.enable_part_gating``) the student's sublayers run the
+separate-LN branch instead (the bare attention kernel and the composed
+MLP, each scaled by its part-gating distribution).  Every random number of
+a step is drawn up front by ``draw_stage1_noise`` from a CPU
+``torch.Generator`` (a few kB: mixup, the gating, part-gating and token
+Gumbel noise, the resource's two draws), so a run on the card and a run on
+the CPU from one seed see the same draws, and a test can hand the step the
 JAX package's own draws instead.
 """
 
@@ -35,7 +38,7 @@ from uvc_tpu_torch.data.mixup import MixupDraw, mixup_cutmix, sample_mixup
 from uvc_tpu_torch.distill.losses import (distillation_loss,
                                           label_smoothing_cross_entropy,
                                           soft_target_cross_entropy)
-from uvc_tpu_torch.interop import host_to_device
+from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib, gumbel_noise
 from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
@@ -54,14 +57,17 @@ class Stage1Noise(NamedTuple):
     token: Optional[torch.Tensor]   # [B, N] Gumbel noise of the token top-k
     res1: Optional[torch.Tensor]    # [L, 2] the resource's first draw
     res2: Optional[torch.Tensor]    # [L, 2] the resource's second draw
+    part_attn: Optional[torch.Tensor] = None  # [L, 2] attention part gating
+    part_mlp: Optional[torch.Tensor] = None   # [L, 2] MLP part gating
 
 
 def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
                       hp: MinimaxHParams, thp: TrainHParams, batch: int,
-                      device="cpu") -> Stage1Noise:
+                      device="cuda") -> Stage1Noise:
     """Draw one step's noise from ``generator`` (on its device, usually
-    the CPU) and move it to ``device``.  Part gating is not ported and
-    draws nothing."""
+    the CPU) and move it to ``device`` (the card unless the caller asks
+    for the CPU)."""
+    device = resolve_device(device)
     mix = None
     if thp.mixup > 0 or thp.cutmix > 0:
         mix = sample_mixup(
@@ -82,7 +88,9 @@ def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
     return Stage1Noise(
         mixup=mix, gate=draw(l2, gating),
         token=draw((batch, cfg.num_patches), hp.enable_patch_gating == 2),
-        res1=draw(l2, gating), res2=draw(l2, gating))
+        res1=draw(l2, gating), res2=draw(l2, gating),
+        part_attn=draw(l2, hp.enable_part_gating),
+        part_mlp=draw(l2, hp.enable_part_gating))
 
 
 def _base_loss(logits, targets, labels, thp: TrainHParams):
@@ -116,10 +124,12 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
     micro-step: it only adds ``grad / accum_steps`` into
     ``state.grad_accum``; the full step folds the buffer into its own
     gradient, applies clip + AdamW + the architecture update and clears
-    it.  The new state holds new tensors; ``state`` is not modified."""
-    if hp.enable_part_gating:
-        raise NotImplementedError(
-            "part gating is not ported yet (kernel A7); see ROADMAP.md")
+    it.  The new state holds new tensors; ``state`` is not modified.
+
+    With ``hp.enable_part_gating`` the attention and MLP part-gating
+    distributions are hard-or-soft Gumbel draws (``noise.part_attn`` /
+    ``noise.part_mlp``, never the warmup's pinned (0.5, 0.5)); their logits
+    train under AdamW in both phases."""
     if warmup:
         def lr_fn(step):
             return torch.tensor(thp.warmup_lr, dtype=torch.float32)
@@ -138,8 +148,16 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
             gating_distrib = block_gating_distrib(
                 noise.gate, params["block_gating"], use_gumbel=hp.use_gumbel,
                 gumbel_hard=gumbel_hard, eps=cstate.eps, warmup=warmup)
+        attn_d = mlp_d = None
+        if hp.enable_part_gating:
+            attn_d, mlp_d = (block_gating_distrib(
+                n, params[k], use_gumbel=True, gumbel_hard=gumbel_hard,
+                eps=cstate.eps, warmup=False) for n, k in (
+                    (noise.part_attn, "attn_gating"),
+                    (noise.part_mlp, "mlp_gating")))
         out = model.apply(
             params, x, cfg, gating_distrib=gating_distrib,
+            attn_distrib=attn_d, mlp_distrib=mlp_d,
             tau=tau if hp.enable_patch_gating == 2 else -1.0,
             patch_ratio=hp.patch_ratio,
             patch_gate_mode=hp.enable_patch_gating,
