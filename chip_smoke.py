@@ -46,11 +46,29 @@ Phases, each of which stops the run with a non-zero exit on failure:
    peak memory, device time by kernel for one step, and one step at batch
    8 on the card against the CPU plain path.
 
+7. T2T-ViT-14 -- the token-performer kernels (``performer``, forward,
+   and ``performer_bwd``, the ports of A10 / A11) against their plain
+   versions at "t2t_stage1" (B=64, N=3136, dim 192 with the 147 live slots
+   of the space-to-depth layout), "t2t_stage2" (B=64, N=784, dim 576) and
+   "ragged" (B=3, N=50), every output, two backward launches bit for bit,
+   beside a PyTorch composition of the stage as the yardstick; then
+   T2T-ViT-14 at full width and depth with seeded random weights: the
+   stage-1 step with bench.py's flagship settings and a dense teacher (3
+   untimed + 10 timed steps, per step ``performer`` 4, ``performer_bwd``
+   2, ``layer_attention_ln`` 28, ``mlp_ln`` 14, ``mlp_ln_blend`` 14,
+   ``layer_attention_ln_bwd`` 14, ``mlp_ln_blend_bwd`` 14), a profiled
+   step and one batch-8 step against the CPU plain path; and serving a
+   seeded discovered architecture (3 of 6 heads, 576 of 1152 units, 2 of
+   14 blocks gated off) through ``compact_model`` + ``apply_compact`` and
+   ``eval_step`` (5 passes of 8 batches of 64, ``performer`` 2 per
+   batch), compact vs masked dense, and the card vs the CPU.
+
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
-"compact", A7's forward at "dense", the backward kernels at "train"; its
-other shapes under "other_shapes"), and ``{"ok": true, "device": {...}}``.
+"compact", A7's forward at "dense", the backward kernels at "train", the
+performer kernels at "t2t_stage1"; its other shapes under
+"other_shapes"), and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -417,6 +435,29 @@ def backward_kernel_phase(eps):
 # ---------------------------------------------------------------------------
 
 
+def passes(fn):
+    """N_PASSES passes over the request batches, timed as one window on the
+    host clock from an idle card to the last pass's synchronise, so that a
+    stall anywhere in it counts; CUDA events between the passes give each
+    pass's share.  Returns (window seconds, per-pass seconds, the first
+    pass's result)."""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(N_PASSES + 1)]
+    first = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(N_PASSES):
+        res = fn()
+        marks[i + 1].record()
+        if first is None:
+            first = res
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    return window, [a.elapsed_time(b) / 1e3
+                    for a, b in zip(marks, marks[1:])], first
+
+
 def serving_phase(card):
     from uvc_tpu_torch.compress.masks import build_masks
     from uvc_tpu_torch.compress.state import MinimaxHParams
@@ -475,28 +516,6 @@ def serving_phase(card):
             tot = {k: tot[k] + m[k] for k in tot}
         return {k: v.item() for k, v in tot.items()}
 
-    def passes(fn):
-        """N_PASSES passes over the request batches, timed as one window on
-        the host clock from an idle card to the last pass's synchronise, so
-        that a stall anywhere in it counts; CUDA events between the passes
-        give each pass's share.  Returns (window seconds, per-pass seconds,
-        the first pass's result)."""
-        marks = [torch.cuda.Event(enable_timing=True)
-                 for _ in range(N_PASSES + 1)]
-        first = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        marks[0].record()
-        for i in range(N_PASSES):
-            res = fn()
-            marks[i + 1].record()
-            if first is None:
-                first = res
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-        return window, [a.elapsed_time(b) / 1e3
-                        for a, b in zip(marks, marks[1:])], first
-
     with torch.no_grad():
         apply_compact(layers, top, images[0], cfg, token_ratio=TOKEN_RATIO)
         eval_step(params, masks, images[0], labels[0], cfg, hp)
@@ -514,9 +533,10 @@ def serving_phase(card):
 
     runs = N_PASSES * N_BATCHES
     want_serve = {"layer_attention_ln": kept * runs, "mlp_ln": kept * runs,
-                  "mlp_ln_blend": 0, "layer_attention": 0}
+                  "mlp_ln_blend": 0, "layer_attention": 0, "performer": 0}
     want_eval = {"layer_attention_ln": ln * runs, "mlp_ln": 0,
-                 "mlp_ln_blend": ln * runs, "layer_attention": 0}
+                 "mlp_ln_blend": ln * runs, "layer_attention": 0,
+                 "performer": 0}
     print(f"launches compact serving {serve_counts} (expected {want_serve})")
     print(f"launches eval_step       {eval_counts} (expected {want_eval})")
     check(serve_counts == want_serve, "compact serving launch counts differ")
@@ -715,7 +735,8 @@ def training_phase(card):
             "mlp_ln_blend": ln * TRAIN_TIMED,             # gated student
             "layer_attention_ln_bwd": ln * TRAIN_TIMED,
             "mlp_ln_blend_bwd": ln * TRAIN_TIMED, "mlp_ln_bwd": 0,
-            "layer_attention": 0, "layer_attention_bwd": 0}
+            "layer_attention": 0, "layer_attention_bwd": 0, "performer": 0,
+            "performer_bwd": 0}
     print(f"launches stage-1 train   {counts} (expected {want})")
     check(counts == want, "stage-1 step launch counts differ")
     losses = torch.stack(losses).float().cpu()
@@ -753,7 +774,8 @@ def training_phase(card):
     want_off = {"layer_attention_ln": 4 * ln, "mlp_ln": 4 * ln,
                 "mlp_ln_blend": 0, "layer_attention_ln_bwd": 2 * ln,
                 "mlp_ln_blend_bwd": 0, "mlp_ln_bwd": 2 * ln,
-                "layer_attention": 0, "layer_attention_bwd": 0}
+                "layer_attention": 0, "layer_attention_bwd": 0,
+                "performer": 0, "performer_bwd": 0}
     print(f"launches gating off      {off_counts} (expected {want_off})")
     check(off_counts == want_off, "gating-off launch counts differ")
     check(all(torch.isfinite(v).item() for v in ol),
@@ -927,6 +949,398 @@ def baseline_phase(card):
     card_vs_cpu("baseline step", small, gm, cm, ("loss", "grad_norm"))
     return counts
 
+# ---------------------------------------------------------------------------
+# phase 7: T2T-ViT-14, the token-performer kernels
+# ---------------------------------------------------------------------------
+
+# (B, N, dim, the stage-1 space-to-depth slot mask): stage 1 with 147 live
+# slots of 192, stage 2 dense, and a ragged shape (B * N = 150 rows)
+PERF_SHAPES = {"t2t_stage1": (BATCH, 3136, 192, True),
+               "t2t_stage2": (BATCH, 784, 576, False),
+               "ragged": (3, 50, 192, True)}
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+T2T_SKIPPED_BLOCKS = (4, 9)
+
+
+def _performer_inputs(gen, b, n, dim, masked):
+    """The kernels' operands as ``fused_performer`` builds them: dead slots
+    of the kqv rows and the LN1 affine zeroed, orthogonal random features
+    scaled by sqrt(m), f32 LayerNorm parameters."""
+    from uvc_tpu_torch.ops.performer import s2d_stage1_inputs
+
+    f32 = torch.float32
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(dtype)
+
+    fmask = torch.ones(dim, device="cuda")
+    if masked:
+        _, idx = s2d_stage1_inputs(torch.zeros(1, 8, 8, 3))
+        fmask = torch.as_tensor(idx >= 0, dtype=f32, device="cuda")
+    q, _ = torch.linalg.qr(torch.randn(64, 32, generator=gen, device="cuda"))
+    ops = [rn(b, n, dim), (1 + rn(dim, std=0.1, dtype=f32)) * fmask,
+           rn(dim, std=0.1, dtype=f32) * fmask,
+           (rn(dim, 192, std=dim ** -0.5).float() * fmask[:, None]).to(
+               torch.bfloat16), rn(192, std=0.1),
+           (q.T * 32 ** 0.5).contiguous(), fmask,
+           rn(64, 64, std=0.125), rn(64, std=0.1),
+           1 + rn(64, std=0.1, dtype=f32), rn(64, std=0.1, dtype=f32),
+           rn(64, 64, std=0.125), rn(64, std=0.1), rn(64, 64, std=0.125),
+           rn(64, std=0.1)]
+    return ops, float(fmask.sum().item())
+
+
+def _library_performer(ops):
+    """One PyTorch composition of the stage (a yardstick of time only, no
+    single call computes it): F.layer_norm over all slots (no slot mask),
+    F.linear, the random features and the linear attention as matmuls,
+    F.gelu."""
+    (x, g1, b1, wkqv, bkqv, w, _, wproj, bproj, g2, b2, wfc1, bfc1, wfc2,
+     bfc2) = ops
+    bf = torch.bfloat16
+    dim = x.shape[-1]
+    wk_t, wp_t, w1_t, w2_t = (t.t().contiguous()
+                              for t in (wkqv, wproj, wfc1, wfc2))
+
+    def prm(t):
+        t = t.float()
+        return torch.exp(t @ w.t() - (t * t).sum(-1, keepdim=True) / 2) \
+            / 32 ** 0.5
+
+    def run():
+        xn = F.layer_norm(x, (dim,), g1.to(bf), b1.to(bf), 1e-5)
+        k, q, v = F.linear(xn, wk_t, bkqv).chunk(3, dim=-1)
+        kp, qp = prm(k).to(bf), prm(q)
+        kptv = v.transpose(1, 2) @ kp
+        d = (qp * kp.float().sum(1, keepdim=True)).sum(-1, keepdim=True)
+        y = (qp.to(bf) @ kptv.transpose(1, 2)) / (d + 1e-8)
+        attn = v + F.linear(y.to(bf), wp_t, bproj)
+        h = F.layer_norm(attn, (64,), g2.to(bf), b2.to(bf), 1e-5)
+        return attn + F.linear(F.gelu(F.linear(h, w1_t, bfc1)), w2_t, bfc2)
+    return run
+
+
+def _performer_bound(b, n, dim, backward):
+    """(ms, "bytes" or "operations", bf16 FLOP, bytes) of the stage: the
+    larger of the bytes' time (inputs read once, outputs written once) and
+    the operations' time, itself the larger of the bf16 matrix products at
+    the tensor-core peak and the random features' f32 products at the f32
+    peak (the two kinds of unit run side by side)."""
+    rows, e, m = b * n, 64, 32
+    weights = (dim * 3 * e + 3 * e + 3 * e * e + 3 * e) * 2 \
+        + (2 * dim + 4 * e + m * e) * 4
+    if backward:
+        mm = 2 * rows * (3 * dim * e + e * m + 2 * e * e      # recompute
+                         + 6 * e * e + 6 * e * m + 8 * dim * e)
+        nbytes = 2 * rows * dim * 2 + rows * e * 2 + 2 * weights \
+            + b * (e * m + m) * 4
+    else:
+        mm = 2 * rows * (3 * dim * e + 2 * e * m + 3 * e * e)
+        nbytes = rows * dim * 2 + rows * e * 2 + weights \
+            + b * (e * m + m) * 4
+    t_ops = max(mm / PEAK_BF16_FLOPS, 2 * 2 * rows * e * m / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", mm, nbytes)
+
+
+def _check_outputs(name, shape, outs, refs, rel_tol, again=None):
+    """Each output finite, of the plain version's shape and type, within
+    rel_tol (relative Frobenius) and 1/64 of the largest reference value;
+    with ``again``, bit for bit equal to a second launch.  Returns the
+    (rel, max_abs) of each output."""
+    errs = []
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        check(o.shape == r.shape and o.dtype == r.dtype,
+              f"{name} [{shape}] output {i}: {o.shape} {o.dtype} vs "
+              f"{r.shape} {r.dtype}")
+        check(torch.isfinite(o).all().item(),
+              f"{name} [{shape}] output {i}: non-finite")
+        if again is not None:
+            check(torch.equal(o, again[i]),
+                  f"{name} [{shape}] output {i}: two launches differ")
+        rel, mx = rel_err(o, r)
+        max_tol = KERNEL_MAX_TOL * r.float().abs().max().item()
+        check(rel <= rel_tol and mx <= max_tol,
+              f"{name} [{shape}] output {i}: kernel vs plain rel_fro "
+              f"{rel:.3e} (tol {rel_tol}), max_abs {mx:.3e} (tol "
+              f"{max_tol:.3e})")
+        errs.append((rel, mx))
+    return errs
+
+
+def performer_kernel_phase():
+    from uvc_tpu_torch.ops.performer import (performer, performer_bwd,
+                                             performer_bwd_plain,
+                                             performer_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for shape, (b, n, dim, masked) in PERF_SHAPES.items():
+        ops, fc = _performer_inputs(gen, b, n, dim, masked)
+        do = (torch.randn(b, n, 64, generator=gen, device="cuda")
+              * 0.1).to(torch.bfloat16)
+        outs = performer(*ops, fcount=fc)
+        torch.cuda.synchronize()
+        refs = performer_plain(*ops, fcount=fc)
+        ferrs = _check_outputs("performer", shape, outs, refs,
+                               KERNEL_REL_TOL)
+        kptv, kpsum = refs[1], refs[2]
+        grads = performer_bwd(*ops, kptv, kpsum, do, fcount=fc)
+        torch.cuda.synchronize()
+        again = performer_bwd(*ops, kptv, kpsum, do, fcount=fc)
+        grefs = performer_bwd_plain(*ops, kptv, kpsum, do, fcount=fc)
+        berrs = _check_outputs("performer_bwd", shape, grads, grefs,
+                               BWD_REL_TOL, again=again)
+        library = _library_performer(ops)
+        names = ("x", "g1", "b1", "wkqv", "bkqv", "w", "fmask", "wproj",
+                 "bproj", "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
+        leaves = [t.detach().requires_grad_() if k not in ("w", "fmask")
+                  else t for k, t in zip(names, ops)]
+        lib_bwd = _library_backward(
+            _library_performer(leaves),
+            [t for k, t in zip(names, leaves) if k not in ("w", "fmask")],
+            do)
+        for name, errs, kern, plain, lib, bwd in (
+                ("performer", ferrs,
+                 lambda: performer(*ops, fcount=fc),
+                 lambda: performer_plain(*ops, fcount=fc), library, False),
+                ("performer_bwd", berrs,
+                 lambda: performer_bwd(*ops, kptv, kpsum, do, fcount=fc),
+                 lambda: performer_bwd_plain(*ops, kptv, kpsum, do,
+                                             fcount=fc), lib_bwd, True)):
+            bound_ms, bound_by, flops, nbytes = _performer_bound(b, n, dim,
+                                                                 bwd)
+            r = dict(shape=shape, rel_fro=max(e[0] for e in errs),
+                     max_abs_err=max(e[1] for e in errs),
+                     rel_fro_per_output=[e[0] for e in errs],
+                     ms=time_ms(kern, 10), plain_ms=time_ms(plain, 2),
+                     library_ms=time_ms(lib, 10), bound_ms=bound_ms,
+                     bound_by=bound_by, flops=flops, bytes=nbytes,
+                     library="composition")
+            results[(name, shape)] = r
+            print(f"kernel {name:13s} [{shape:10s} B={b} N={n} dim={dim} "
+                  f"live={int(fc)}] rel_fro per output "
+                  f"{' '.join(f'{e[0]:.1e}' for e in errs)} (tol "
+                  f"{KERNEL_REL_TOL:g}) max_abs={r['max_abs_err']:.2e} "
+                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms(composition)={r['library_ms']:.4f} "
+                  f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
+                  + (" two launches bit-identical" if bwd else ""),
+                  flush=True)
+    return results
+
+
+def _t2t_model(gen, cfg):
+    from uvc_tpu_torch.models import t2t_vit
+
+    params = t2t_vit.init_params(gen, cfg)
+    # the head is zero-initialised; randomise it so logits are not all 0
+    params["head"]["kernel"] = 0.05 * torch.randn(
+        params["head"]["kernel"].shape, generator=gen).cuda()
+    return params
+
+
+def t2t_training_phase(card):
+    from uvc_tpu_torch.compress.minimax import init_compression_state
+    from uvc_tpu_torch.compress.resource import build_macs_table
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
+                                   reset_launch_counts)
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
+
+    cfg = get_config("t2t_vit_14")
+    ln = cfg.depth
+    hp = MinimaxHParams(enable_patch_gating=2, gating_interval=100)
+    thp = TrainHParams()
+    gen = torch.Generator().manual_seed(12)
+    params, teacher = _t2t_model(gen, cfg), _t2t_model(gen, cfg)
+    state = create_train_state(params, thp,
+                               init_compression_state(cfg, hp, "cuda"))
+    step = build_stage1_step(cfg, build_macs_table(cfg), hp, thp,
+                             warmup=False)
+    igen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(14)
+
+    def run(st, n):
+        losses = []
+        for _ in range(n):
+            noise = draw_stage1_noise(ngen, cfg, hp, thp, BATCH, "cuda")
+            st, m = step(st, teacher, x, labels, noise, TRAIN_TAU)
+            losses.append(m["loss"])
+        return st, losses, m
+
+    t0 = time.perf_counter()
+    state, _, _ = run(state, TRAIN_WARM)
+    torch.cuda.synchronize()
+    print(f"t2t train: {TRAIN_WARM} untimed steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, m = run(state, TRAIN_TIMED)
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    counts = {**launch_counts(), **backward_launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in counts}
+    want.update(performer=4 * TRAIN_TIMED, performer_bwd=2 * TRAIN_TIMED,
+                layer_attention_ln=2 * ln * TRAIN_TIMED,
+                mlp_ln=ln * TRAIN_TIMED, mlp_ln_blend=ln * TRAIN_TIMED,
+                layer_attention_ln_bwd=ln * TRAIN_TIMED,
+                mlp_ln_blend_bwd=ln * TRAIN_TIMED)
+    print(f"launches T2T stage-1     {counts} (expected {want})")
+    check(counts == want, "T2T stage-1 step launch counts differ")
+    losses = torch.stack(losses).float().cpu()
+    check(torch.isfinite(losses).all().item(),
+          f"non-finite T2T stage-1 losses {losses.tolist()}")
+    w0 = params["t2t"]["attention1"]["prm_w"]
+    check(torch.equal(state.params["t2t"]["attention1"]["prm_w"], w0),
+          "the frozen random features moved")
+    print(f"stage-1 train step (T2T-ViT-14, batch {BATCH}, bf16): "
+          f"{TRAIN_TIMED * BATCH / window:.1f} img/s ({TRAIN_TIMED} steps in "
+          f"{window:.4f} s, {1e3 * window / TRAIN_TIMED:.2f} ms/step; the "
+          f"host had issued them after {issued:.4f} s) [{card}]")
+    print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
+          f"grad_norm={float(m['grad_norm']):.4f} "
+          f"resource={float(m['resource']):.4f}")
+    print(f"t2t train max_memory_allocated={peak} bytes "
+          f"({peak / 2**20:.1f} MiB) [{card}]")
+
+    profile_phase(card, {"T2T stage-1 train step": lambda: run(state, 1)},
+                  top=14)
+
+    small = 8
+    noise = draw_stage1_noise(ngen, cfg, hp, thp, small, "cpu")
+    _, gm = step(state, teacher, x[:small], labels[:small],
+                 _noise_to(noise, "cuda"), TRAIN_TAU)
+    _, cm = step(_state_to(state, "cpu"), _tree_to(teacher, "cpu"),
+                 x[:small].cpu(), labels[:small].cpu(), noise, TRAIN_TAU)
+    card_vs_cpu("T2T stage-1 step", small, gm, cm,
+                ("loss", "grad_norm", "resource"))
+    return counts
+
+
+def t2t_serving_phase(card):
+    from uvc_tpu_torch.compress.masks import build_masks
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.infer.compact import (apply_compact,
+                                             compact_flops_fraction,
+                                             compact_model)
+    from uvc_tpu_torch.models import t2t_vit
+    from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uvc_tpu_torch.train.step import eval_step
+
+    cfg = get_config("t2t_vit_14")
+    ln = cfg.depth
+    gen = torch.Generator().manual_seed(15)
+    params = _t2t_model(gen, cfg)
+    s = torch.tensor([[3.0, cfg.mlp_hidden / 2]] * ln)
+    r = torch.randint(0, cfg.head_size // 4 + 1, (ln, cfg.num_heads),
+                      generator=gen).float()
+    masks = build_masks(params, s.cuda(), r.cuda(), cfg)
+    for i in T2T_SKIPPED_BLOCKS:
+        params["block_gating"][i] = torch.tensor([1.0, -1.0])
+    kept = ln - len(T2T_SKIPPED_BLOCKS)
+    layers, top = compact_model(params, masks, cfg)
+    check(len(layers) == kept, f"compact T2T has {len(layers)} layers")
+    for blk in layers:
+        check(blk["num_heads"] == 3 and blk["fc1"]["kernel"].shape[1] == 640,
+              "compact T2T layers are not 3 heads / 576 units (padded 640)")
+    frac = compact_flops_fraction(layers, cfg)
+
+    igen = torch.Generator(device="cuda").manual_seed(16)
+    images = [torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                          generator=igen, device="cuda")
+              for _ in range(N_BATCHES)]
+    labels = [torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                            device="cuda") for _ in range(N_BATCHES)]
+    hp = MinimaxHParams(enable_block_gating=True)
+    n_img = N_BATCHES * BATCH
+
+    def serve():
+        return [apply_compact(layers, top, xb, cfg).logits for xb in images]
+
+    def evaluate():
+        tot = {"correct": 0, "loss_sum": 0.0, "count": 0}
+        for xb, yb in zip(images, labels):
+            m = eval_step(params, masks, xb, yb, cfg, hp)
+            tot = {k: tot[k] + m[k] for k in tot}
+        return {k: v.item() for k, v in tot.items()}
+
+    with torch.no_grad():
+        apply_compact(layers, top, images[0], cfg)
+        eval_step(params, masks, images[0], labels[0], cfg, hp)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        w_serve, p_serve, logits = passes(serve)
+        serve_counts = launch_counts()
+        reset_launch_counts()
+        w_eval, p_eval, ev = passes(evaluate)
+        eval_counts = launch_counts()
+
+    runs = N_PASSES * N_BATCHES
+    want_serve = {name: 0 for name in serve_counts}
+    want_serve.update(performer=2 * runs, layer_attention_ln=kept * runs,
+                      mlp_ln=kept * runs)
+    want_eval = {name: 0 for name in eval_counts}
+    want_eval.update(performer=2 * runs, layer_attention_ln=ln * runs,
+                     mlp_ln_blend=ln * runs)
+    print(f"launches T2T compact     {serve_counts} (expected {want_serve})")
+    print(f"launches T2T eval_step   {eval_counts} (expected {want_eval})")
+    check(serve_counts == want_serve, "T2T compact launch counts differ")
+    check(eval_counts == want_eval, "T2T eval_step launch counts differ")
+    for lg in logits:
+        check(lg.shape == (BATCH, cfg.num_classes)
+              and torch.isfinite(lg).all().item(),
+              "T2T compact logits not finite or of the wrong shape")
+    check(ev["count"] == n_img and 0 <= ev["correct"] <= ev["count"]
+          and ev["loss_sum"] == ev["loss_sum"], f"T2T eval metrics {ev}")
+    for label, window, secs in (("T2T-ViT-14 compact serving", w_serve,
+                                 p_serve),
+                                ("T2T-ViT-14 eval_step (masked dense)",
+                                 w_eval, p_eval)):
+        rates = ", ".join(f"{n_img / s:.1f}" for s in secs)
+        print(f"{label}: {N_PASSES * n_img / window:.1f} img/s "
+              f"({N_PASSES} passes of {N_BATCHES} batches of {BATCH} in "
+              f"{window:.4f} s; per pass, CUDA events: {rates} img/s) "
+              f"[{card}]")
+    print(f"T2T compact_flops_fraction={frac:.4f}")
+
+    keep = (params["block_gating"][:, 1] > params["block_gating"][:, 0])
+    gating = torch.stack([1.0 - keep.float(), keep.float()], dim=-1)
+    x0 = images[0]
+    with torch.no_grad():
+        dense = t2t_vit.apply(params, x0, cfg, gating_distrib=gating,
+                              masks=masks, dtype=torch.bfloat16).logits
+        comp = apply_compact(layers, top, x0, cfg).logits
+        rel, mx = rel_err(comp, dense)
+        print(f"T2T compact vs masked dense: rel_fro={rel:.2e} "
+              f"max_abs={mx:.2e} (tol {MODEL_REL_TOL})")
+        check(rel <= MODEL_REL_TOL, "T2T compact and masked dense disagree")
+        profile_phase(card, {
+            "T2T compact serving": lambda: apply_compact(layers, top, x0,
+                                                         cfg),
+            "T2T eval_step": lambda: eval_step(params, masks, x0, labels[0],
+                                               cfg, hp)})
+        ref = apply_compact([_tree_to(blk, "cpu") for blk in layers],
+                            _tree_to(top, "cpu"), x0[:8].cpu(), cfg).logits
+        rel, mx = rel_err(logits[0][:8].cpu(), ref)
+        print(f"T2T compact serving, card vs CPU plain path (8 images): "
+              f"rel_fro={rel:.2e} max_abs={mx:.2e} (tol {MODEL_REL_TOL})")
+        check(rel <= MODEL_REL_TOL, "T2T card and CPU plain path disagree")
+    return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -953,10 +1367,15 @@ def main():
     launches = serving_phase(card)
     train_counts, off_counts, part_counts = training_phase(card)
     base_counts = baseline_phase(card)
+    res.update(performer_kernel_phase())
+    t2t_train_counts = t2t_training_phase(card)
+    t2t_serve_counts = t2t_serving_phase(card)
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
-    # steps and the timed baseline window (the paths of A7)
-    for counts in (train_counts, off_counts, part_counts, base_counts):
+    # steps and the timed baseline window (the paths of A7), the timed
+    # T2T-ViT-14 stage-1 window and its serving (A10 / A11)
+    for counts in (train_counts, off_counts, part_counts, base_counts,
+                   t2t_train_counts, t2t_serve_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -979,7 +1398,16 @@ def main():
                             "uvc_tpu/ops/attention.py:349", "dense"),
         "layer_attention_bwd": ("uvc_tpu_torch/csrc/attention.cu",
                                 "uvc_tpu/ops/attention.py:446", "train"),
+        "performer": ("uvc_tpu_torch/csrc/performer.cu",
+                      "uvc_tpu/ops/performer.py:603", "t2t_stage1"),
+        "performer_bwd": ("uvc_tpu_torch/csrc/performer.cu",
+                          "uvc_tpu/ops/performer.py:670", "t2t_stage1"),
     }
+    # A11, the split form of the same function, ports into the same kernels
+    also = {"performer": ["uvc_tpu/ops/performer.py:153",
+                          "uvc_tpu/ops/performer.py:175"],
+            "performer_bwd": ["uvc_tpu/ops/performer.py:214",
+                              "uvc_tpu/ops/performer.py:330"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -989,6 +1417,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             **{k: r[k] for k in keys}, "shape": shape,
+            **({"also_replaces": also[name], "library": "composition"}
+               if name in also else {}),
             "other_shapes": {s: {k: o[k] for k in keys}
                              for (n, s), o in res.items()
                              if n == name and s != shape}})

@@ -161,6 +161,8 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'uvc_tpu'))\n"
         "assert not bad, bad\n"
+        "assert {'uvc_tpu_torch.ops.performer',"
+        " 'uvc_tpu_torch.models.t2t_vit'} <= set(sys.modules)\n"
         "print(len([n for n in sys.modules"
         " if n.startswith('uvc_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -186,6 +188,8 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_t2t_compact_serving_is_not_ported():
-    cfg = tconfigs.get_config("t2t_vit_7")
+    """The T2T stem of the plain T2T-ViT family serves (see
+    test_torch_port_t2t.py); the architecture ablations' stems do not."""
+    cfg = tconfigs.get_config("t2t_vit_14_se")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcompact.apply_compact([], {}, torch.zeros(1, 224, 224, 3), cfg)

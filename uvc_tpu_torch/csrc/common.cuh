@@ -1,4 +1,4 @@
-// Shared device code of the sublayer kernels (attention.cu, mlp.cu): the
+// Shared device code of the kernels (attention.cu, mlp.cu, performer.cu): the
 // LayerNorm pass and its backward, one bf16 tensor-core GEMM (mma.sync
 // m16n8k16, f32 accumulators) in the three operand layouts the forward and
 // backward sublayers need with their epilogues, and the deterministic
@@ -165,6 +165,10 @@ static inline cudaError_t launch_layer_norm(const bf16* x, const float* gamma,
 // past the end are zero-filled.  So K may be ragged when A_KM and !B_NK
 // (the weight-gradient products over B*N rows), and must be a multiple of
 // 8 otherwise.  N is a multiple of 8 always.
+// Split over K (kchunk > 0, a multiple of GEMM_BK, EPI_F32 only): CTA z of
+// the grid sums rows [z * kchunk, (z + 1) * kchunk) of K and writes its f32
+// partial to out32 + z * M * N, for a reduction in index order after it
+// (the weight-gradient products of few outputs over B*N rows).
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
@@ -175,6 +179,7 @@ enum Epilogue {
   EPI_F32 = 4,        // out32 = acc (+ bias when bias is given)
   EPI_F32_MASK = 5,   // out32 = acc, out = bf16(acc * mask)     (do @ Wproj^T)
   EPI_SCALE = 6,      // bf16(acc * d[1]), or bf16(acc) when d is null
+  EPI_RESID32 = 7,    // bf16(resid32 + (acc + bias))            (performer fc2)
 };
 
 struct GemmArgs {
@@ -183,11 +188,13 @@ struct GemmArgs {
   const bf16* bias;   // [N]
   bf16* out;          // [M, N]
   int M, N, K;
-  const bf16* mask;   // [N]  (EPI_GELU_MASK, EPI_F32_MASK)
+  const bf16* mask;   // [N]  (EPI_GELU_MASK, EPI_F32_MASK; null: all ones)
   const bf16* resid;  // [M, N] (EPI_RESID, EPI_BLEND)
   const bf16* xin;    // [M, N] (EPI_BLEND)
   const float* d;     // [2]  (EPI_BLEND, EPI_SCALE): (skip, keep)
-  float* out32;       // [M, N] (EPI_F32, EPI_F32_MASK)
+  float* out32;       // [M, N] (EPI_F32, EPI_F32_MASK); [K / kchunk, M, N]
+  const float* resid32;  // [M, N] (EPI_RESID32)
+  int kchunk;         // rows of K per CTA along z; 0: all of K
 };
 
 constexpr int GEMM_BM = 128;
@@ -216,10 +223,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * GEMM_BM;
   const int n0 = blockIdx.x * GEMM_BN;
-  const int ktiles = (p.K + GEMM_BK - 1) / GEMM_BK;
+  const int kbeg = p.kchunk ? blockIdx.z * p.kchunk : 0;
+  const int kend = p.kchunk ? min(p.K, kbeg + p.kchunk) : p.K;
+  const int ktiles = (kend - kbeg + GEMM_BK - 1) / GEMM_BK;
 
   auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * GEMM_BK;
+    const int k0 = kbeg + kt * GEMM_BK;
     if (A_KM) {
       // 32 rows (k) x 16 chunks of 8 (m)
 #pragma unroll
@@ -227,7 +236,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const int c = tid + i * GEMM_THREADS;
         const int r = c >> 4, mc = (c & 15) * 8;
         const int gk = k0 + r, gm = m0 + mc;
-        const bool ok = gk < p.K && gm < p.M;
+        const bool ok = gk < kend && gm < p.M;
         cp_async16(&As[stage][r * GEMM_LDAT + mc],
                    p.a + (ok ? (size_t)gk * p.M + gm : 0), ok);
       }
@@ -238,7 +247,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const int c = tid + i * GEMM_THREADS;
         const int r = c >> 2, kc = (c & 3) * 8;
         const int gr = m0 + r, gk = k0 + kc;
-        const bool ok = gr < p.M && gk < p.K;
+        const bool ok = gr < p.M && gk < kend;
         cp_async16(&As[stage][r * GEMM_LDA + kc],
                    p.a + (ok ? (size_t)gr * p.K + gk : 0), ok);
       }
@@ -250,7 +259,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const int c = tid + i * GEMM_THREADS;
         const int r = c >> 2, kc = (c & 3) * 8;
         const int gn = n0 + r, gk = k0 + kc;
-        const bool ok = gn < p.N && gk < p.K;
+        const bool ok = gn < p.N && gk < kend;
         cp_async16(&Bs[stage][r * GEMM_LDBT + kc],
                    p.w + (ok ? (size_t)gn * p.K + gk : 0), ok);
       }
@@ -261,7 +270,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const int c = tid + i * GEMM_THREADS;
         const int r = c >> 3, nc = (c & 7) * 8;
         const int gk = k0 + r, gn = n0 + nc;
-        const bool ok = gk < p.K && gn < p.N;
+        const bool ok = gk < kend && gn < p.N;
         cp_async16(&Bs[stage][r * GEMM_LDB + nc],
                    p.w + (ok ? (size_t)gk * p.N + gn : 0), ok);
       }
@@ -340,7 +349,9 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     d1 = p.d[1];
   }
   if (EPI == EPI_SCALE && p.d != nullptr) d1 = p.d[1];
-  const bool has_bias = EPI <= EPI_BLEND || (EPI == EPI_F32 && p.bias);
+  const bool has_bias =
+      EPI <= EPI_BLEND || EPI == EPI_RESID32 || (EPI == EPI_F32 && p.bias);
+  float* out32 = p.out32 ? p.out32 + (size_t)blockIdx.z * p.M * p.N : nullptr;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn * 32 + ni * 8 + 2 * t;
@@ -351,7 +362,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       bias1 = bf2f(p.bias[col + 1]);
     }
     float mask0 = 1.f, mask1 = 1.f;
-    if (EPI == EPI_GELU_MASK || EPI == EPI_F32_MASK) {
+    if ((EPI == EPI_GELU_MASK || EPI == EPI_F32_MASK) && p.mask) {
       mask0 = bf2f(p.mask[col]);
       mask1 = bf2f(p.mask[col + 1]);
     }
@@ -365,7 +376,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         float v0 = acc[mi][ni][2 * hh] + bias0;
         float v1 = acc[mi][ni][2 * hh + 1] + bias1;
         if (EPI == EPI_F32 || EPI == EPI_F32_MASK) {
-          *reinterpret_cast<float2*>(p.out32 + off) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(out32 + off) = make_float2(v0, v1);
           if (EPI == EPI_F32) continue;
           v0 *= mask0;
           v1 *= mask1;
@@ -375,6 +386,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         } else if (EPI == EPI_GELU_MASK) {
           v0 = v0 * (0.5f * (1.f + erff(v0 * 0.70710678118654752f))) * mask0;
           v1 = v1 * (0.5f * (1.f + erff(v1 * 0.70710678118654752f))) * mask1;
+        } else if (EPI == EPI_RESID32) {
+          const float2 r = *reinterpret_cast<const float2*>(p.resid32 + off);
+          v0 = r.x + v0;
+          v1 = r.y + v1;
         } else if (EPI == EPI_RESID || EPI == EPI_BLEND) {
           const __nv_bfloat162 r =
               *reinterpret_cast<const __nv_bfloat162*>(p.resid + off);
@@ -395,7 +410,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
 template <int EPI, bool A_KM = false, bool B_NK = false>
 static inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
-  const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM);
+  const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM,
+                  p.kchunk ? (p.K + p.kchunk - 1) / p.kchunk : 1);
   gemm_kernel<EPI, A_KM, B_NK><<<grid, GEMM_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }

@@ -21,7 +21,7 @@ import torch
 from uvc_tpu_torch.compress.resource import build_macs_table
 from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.interop import resolve_device
-from uvc_tpu_torch.models import vit
+from uvc_tpu_torch.models import get_model, vit
 from uvc_tpu_torch.models.vit import ForwardOutput, _layer_norm
 from uvc_tpu_torch.ops.attention import layer_attention_ln
 from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
@@ -136,10 +136,26 @@ def compact_model(params: dict, masks: Dict[str, torch.Tensor],
         })
 
     top_keys = ["patch_embed", "cls_token", "pos_embed", "norm", "head",
-                "dist_token", "head_dist", "token_scorer"]
+                "dist_token", "head_dist", "t2t", "token_scorer"]
     top = {k: _tree_to(params[k], dev, dtype if k in _TOP_CAST else None)
            for k in top_keys if k in params}
     return layers, top
+
+
+def _embed_vit(top, x, cfg, dtype, token_ratio):
+    """Patch embedding, class / distillation tokens and the learned position
+    embedding, with the physical token drop at ``token_ratio``."""
+    b = x.shape[0]
+    t = vit.patch_embed(top, x, cfg, dtype)
+    tokens = [top["cls_token"].expand(b, 1, cfg.embed_dim).to(dtype)]
+    if cfg.distilled and "dist_token" in top:
+        tokens.append(top["dist_token"].expand(b, 1, cfg.embed_dim).to(dtype))
+    if token_ratio is not None and token_ratio < 1.0 \
+            and "token_scorer" in top:
+        k = int(token_ratio * cfg.num_patches)
+        idx = physical_topk_indices(token_scores(t, top["token_scorer"]), k)
+        return gather_tokens_with_pos(t, idx, tokens, top["pos_embed"], dtype)
+    return torch.cat(tokens + [t], dim=1) + top["pos_embed"].to(dtype)
 
 
 def apply_compact(layers: List[dict], top: dict, x: torch.Tensor,
@@ -150,27 +166,19 @@ def apply_compact(layers: List[dict], top: dict, x: torch.Tensor,
     ``token_ratio`` physically drops tokens with the trained token scorer:
     only the top ``int(ratio * N)`` patch tokens per image (token 0
     force-kept) enter the transformer, by the same rule as the eval
-    forward's ``patch_physical`` selection.  ``dtype`` is the one the
-    model was compacted in.  ViT/DeiT family only."""
-    if cfg.tokens_type != "none":
-        raise NotImplementedError(
-            "compact serving of the T2T family needs the performer kernels, "
-            "which are not ported yet; see ROADMAP.md")
+    forward's ``patch_physical`` selection (ViT/DeiT family; the T2T
+    forward selects no tokens).  ``dtype`` is the one the model was
+    compacted in.  The T2T family runs its stem (``t2t_vit.embed``, the
+    performer kernels) before the kept layers; the attention scale is
+    ``cfg.qk_scale`` where the config sets it, as in the trained
+    forward."""
     eps = cfg.layer_norm_eps
-    b = x.shape[0]
-    t = vit.patch_embed(top, x, cfg, dtype)
-    tokens = [top["cls_token"].expand(b, 1, cfg.embed_dim).to(dtype)]
-    if cfg.distilled and "dist_token" in top:
-        tokens.append(top["dist_token"].expand(b, 1, cfg.embed_dim).to(dtype))
-    if token_ratio is not None and token_ratio < 1.0 \
-            and "token_scorer" in top:
-        k = int(token_ratio * cfg.num_patches)
-        idx = physical_topk_indices(token_scores(t, top["token_scorer"]), k)
-        t = gather_tokens_with_pos(t, idx, tokens, top["pos_embed"], dtype)
+    if cfg.tokens_type != "none":
+        t = get_model(cfg).embed(top, x, cfg, dtype)
     else:
-        t = torch.cat(tokens + [t], dim=1) + top["pos_embed"].to(dtype)
+        t = _embed_vit(top, x, cfg, dtype, token_ratio)
 
-    scale = cfg.head_size ** -0.5
+    scale = cfg.qk_scale if cfg.qk_scale is not None else cfg.head_size ** -0.5
     for blk in layers:
         t = layer_attention_ln(
             t, blk["ln1"]["scale"], blk["ln1"]["bias"],

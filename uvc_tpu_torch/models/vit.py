@@ -72,6 +72,15 @@ def init_params(generator: torch.Generator, cfg: ViTConfig, *,
     dev = resolve_device(device)
     if cfg.hybrid or cfg.tokens_type != "none" or cfg.cls_attn_layers:
         raise NotImplementedError(_NOT_PORTED.format(f"backbone {cfg.name}"))
+    return _to_device(init_tree(generator, cfg, patch_gating=patch_gating),
+                      dev)
+
+
+def init_tree(generator: torch.Generator, cfg: ViTConfig, *,
+              patch_gating: bool = False) -> dict:
+    """The parameter tree of ``init_params`` on the CPU, for any backbone
+    that shares the DeiT block stack (the T2T models replace its patch
+    embedding)."""
     d, l, f, p = cfg.embed_dim, cfg.depth, cfg.mlp_hidden, cfg.patch_size
     gen = generator
     params = {
@@ -102,7 +111,7 @@ def init_params(generator: torch.Generator, cfg: ViTConfig, *,
                                "bias": torch.zeros(cfg.num_classes)}
     if patch_gating:
         params["patch_gating"] = torch.full((1, cfg.num_patches, 1), 3.0)
-    return _to_device(params, dev)
+    return params
 
 
 def _to_device(tree, dev):

@@ -12,18 +12,22 @@ from uvc_tpu_torch.ops.attention import (layer_attention, layer_attention_bwd,
                                          layer_attention_ln_bwd)
 from uvc_tpu_torch.ops.mlp import (mlp_ln, mlp_ln_blend, mlp_ln_blend_bwd,
                                    mlp_ln_bwd)
+# the module, not its wrapper of the same name, is the package attribute
+from uvc_tpu_torch.ops import performer as _performer
 
 KERNEL_WRAPPERS = {
     "layer_attention_ln": layer_attention_ln,
     "mlp_ln": mlp_ln,
     "mlp_ln_blend": mlp_ln_blend,
     "layer_attention": layer_attention,
+    "performer": _performer.performer,
 }
 BACKWARD_KERNEL_WRAPPERS = {
     "layer_attention_ln_bwd": layer_attention_ln_bwd,
     "mlp_ln_bwd": mlp_ln_bwd,
     "mlp_ln_blend_bwd": mlp_ln_blend_bwd,
     "layer_attention_bwd": layer_attention_bwd,
+    "performer_bwd": _performer.performer_bwd,
 }
 
 

@@ -8,8 +8,8 @@ edited source rebuilds and an unchanged one loads at once.  All sources
 compile in parallel, one ``nvcc`` each.
 
 Importing this module builds nothing and needs no CUDA: the wrappers in
-``ops/attention.py`` and ``ops/mlp.py`` ask for a library only when a CUDA
-tensor reaches them.
+``ops/attention.py``, ``ops/mlp.py`` and ``ops/performer.py`` ask for a
+library only when a CUDA tensor reaches them.
 """
 
 from __future__ import annotations
@@ -45,6 +45,11 @@ _LIBS = {
         "uvc_mlp_ln_blend": [_P] * 13 + [_I] * 3 + [_F, _P],
         "uvc_mlp_ln_bwd": [_P] * 24 + [_I] * 3 + [_F, _P],
         "uvc_mlp_ln_blend_bwd": [_P] * 29 + [_I] * 3 + [_F, _P],
+    }),
+    "performer": ("performer.cu", {
+        "uvc_performer_workspace": [_I] * 4,
+        "uvc_performer": [_P] * 19 + [_I] * 3 + [_F, _P],
+        "uvc_performer_bwd": [_P] * 34 + [_I] * 3 + [_F, _P],
     }),
 }
 
