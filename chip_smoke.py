@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``uvc_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-3, then the card line
 
 Phases, each of which stops the run with a non-zero exit on failure:
 
@@ -16,6 +17,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and at the dense shape without the token drop (N=197, 6 heads,
    F=1536); backward kernels at the stage-1 train shape ("train": B=64,
    N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591).
+   Each line ends with a digest of the kernel's output bits: two trees
+   whose digests agree (``--kernels-only`` run in each) have bit-identical
+   kernels at these inputs.
 4. serving -- DeiT-Small at full width with seeded random weights and a
    seeded discovered architecture (3 of 6 heads, random within-head dims
    and half the MLP units pruned; 2 of 12 blocks gated off): 5 passes
@@ -63,14 +67,34 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ``eval_step`` (5 passes of 8 batches of 64, ``performer`` 2 per
    batch), compact vs masked dense, and the card vs the CPU.
 
+8. T2T ablations -- the attention core kernels (``attention`` and
+   ``attention_bwd``, the ports of A9) against their plain versions at
+   "se" (B=64, H=6, N=197, dh=64), "dense_odd" (H=8, dh=41), "dense_wide"
+   (H=8, dh=74) and "ragged" (B=3, H=2, N=50, dh=24), every output, two
+   backward launches bit for bit, the same operands as head views of one
+   packed buffer (the models' layout, at strides that need narrower
+   copies) bit for bit, beside ``scaled_dot_product_attention`` as the
+   yardstick; then the baseline fine-tune of phase 6 on the three
+   ablations at full width and depth: T2T-ViT-14-SE timed as phase 6 times
+   DeiT-Small (per step ``performer`` 2, ``performer_bwd`` 2,
+   ``attention`` 14, ``attention_bwd`` 14 and 0 of every other kernel),
+   T2T-ViT-16-Ghost and T2T-ViT-Dense 2 steps each (16 and 19 of each
+   ``attention`` kernel per step), each with one batch-8 step against the
+   CPU plain path; and T2T-ViT-14-SE eval (``build_baseline_eval_step``, 5
+   passes of 8 batches of 64, ``performer`` 2 and ``attention`` 14 per
+   batch) with its logits on the card against the CPU.
+
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
-"compact", A7's forward at "dense", the backward kernels at "train", the
-performer kernels at "t2t_stage1"; its other shapes under
-"other_shapes"), and ``{"ok": true, "device": {...}}``.
+"compact", A7's forward at "dense", the sublayer backward kernels at
+"train", the performer kernels at "t2t_stage1", the attention core at
+"se"; its other shapes under "other_shapes"), and ``{"ok": true,
+"device": {...}}``.
 """
 
+import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -110,6 +134,15 @@ def rel_err(out, ref):
         (out - ref).abs().max().item()
 
 
+def digest(outs):
+    """The first 12 hex digits of the SHA-256 of the outputs' bits."""
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:12]
+
+
 def time_ms(fn, iters):
     for _ in range(3):
         fn()
@@ -132,6 +165,8 @@ def bound(flops, nbytes):
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
@@ -295,7 +330,8 @@ def kernel_phase(eps):
                   f"(tol {KERNEL_REL_TOL:g} / {max_tol:.2e}) "
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
-                  f"bound={bound_ms * 1e3:.1f}us ({bound_by})", flush=True)
+                  f"bound={bound_ms * 1e3:.1f}us ({bound_by}) "
+                  f"digest={digest([out])}", flush=True)
     return results
 
 
@@ -426,7 +462,8 @@ def backward_kernel_phase(eps):
                   f"{BWD_REL_TOL:g}) max_abs={mx:.2e} ms={r['ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
-                  f"bound={bound_ms * 1e3:.1f}us ({bound_by})", flush=True)
+                  f"bound={bound_ms * 1e3:.1f}us ({bound_by}) "
+                  f"digest={digest(outs)}", flush=True)
     return results
 
 
@@ -533,10 +570,11 @@ def serving_phase(card):
 
     runs = N_PASSES * N_BATCHES
     want_serve = {"layer_attention_ln": kept * runs, "mlp_ln": kept * runs,
-                  "mlp_ln_blend": 0, "layer_attention": 0, "performer": 0}
+                  "mlp_ln_blend": 0, "layer_attention": 0, "performer": 0,
+                  "attention": 0}
     want_eval = {"layer_attention_ln": ln * runs, "mlp_ln": 0,
                  "mlp_ln_blend": ln * runs, "layer_attention": 0,
-                 "performer": 0}
+                 "performer": 0, "attention": 0}
     print(f"launches compact serving {serve_counts} (expected {want_serve})")
     print(f"launches eval_step       {eval_counts} (expected {want_eval})")
     check(serve_counts == want_serve, "compact serving launch counts differ")
@@ -736,7 +774,7 @@ def training_phase(card):
             "layer_attention_ln_bwd": ln * TRAIN_TIMED,
             "mlp_ln_blend_bwd": ln * TRAIN_TIMED, "mlp_ln_bwd": 0,
             "layer_attention": 0, "layer_attention_bwd": 0, "performer": 0,
-            "performer_bwd": 0}
+            "performer_bwd": 0, "attention": 0, "attention_bwd": 0}
     print(f"launches stage-1 train   {counts} (expected {want})")
     check(counts == want, "stage-1 step launch counts differ")
     losses = torch.stack(losses).float().cpu()
@@ -775,7 +813,8 @@ def training_phase(card):
                 "mlp_ln_blend": 0, "layer_attention_ln_bwd": 2 * ln,
                 "mlp_ln_blend_bwd": 0, "mlp_ln_bwd": 2 * ln,
                 "layer_attention": 0, "layer_attention_bwd": 0,
-                "performer": 0, "performer_bwd": 0}
+                "performer": 0, "performer_bwd": 0, "attention": 0,
+                "attention_bwd": 0}
     print(f"launches gating off      {off_counts} (expected {want_off})")
     check(off_counts == want_off, "gating-off launch counts differ")
     check(all(torch.isfinite(v).item() for v in ol),
@@ -842,7 +881,15 @@ def card_vs_cpu(label, small, gm, cm, keys):
 BASE_DROP_PATH, BASE_REPROB, BASE_DENSITY = 0.1, 0.25, 0.5
 
 
-def baseline_phase(card):
+def baseline_phase(card, per_step, cfg_name="deit_small_patch16_224",
+                   label="DeiT-Small", seed=8, timed=True):
+    """The baseline fine-tune step on ``cfg_name`` at full width and batch
+    64, seeded random weights, under a one-shot global magnitude mask with
+    the recipe above.  ``per_step``: the launches each step must make (0 of
+    every other kernel).  Timed: 3 untimed steps, then 10 timed as one
+    window, peak memory, the masked coordinates' gradients, a profiled
+    step; else 2 steps.  Then one batch-8 step on the card against the CPU
+    plain path.  Returns (launch counts, state, masks)."""
     from uvc_tpu_torch.baselines.finetune import (build_baseline_step,
                                                   create_baseline_state,
                                                   draw_baseline_noise)
@@ -850,17 +897,16 @@ def baseline_phase(card):
                                                  magnitude_scores,
                                                  mask_sparsity)
     from uvc_tpu_torch.configs import get_config
-    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.models import get_model
     from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
                                    reset_launch_counts)
     from uvc_tpu_torch.train.state import TrainHParams
-    from uvc_tpu_torch.utils.tree import tree_leaves_with_path
+    from uvc_tpu_torch.utils.tree import leaf_at, tree_leaves_with_path
 
-    cfg = get_config("deit_small_patch16_224")
-    ln = cfg.depth
+    cfg = get_config(cfg_name)
     thp = TrainHParams()                   # AdamW, mixup / cutmix, bf16
-    gen = torch.Generator().manual_seed(8)
-    params = vit.init_params(gen, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    params = get_model(cfg).init_params(gen, cfg)
     params["head"]["kernel"] = 0.05 * torch.randn(
         params["head"]["kernel"].shape, generator=gen).cuda()
     wmasks = global_threshold_mask(magnitude_scores(params), BASE_DENSITY)
@@ -869,12 +915,12 @@ def baseline_phase(card):
     recipe = dict(drop_path_rate=BASE_DROP_PATH, re_prob=BASE_REPROB)
     step = build_baseline_step(cfg, thp, **recipe)
     state = create_baseline_state(params, thp)
-    igen = torch.Generator(device="cuda").manual_seed(9)
+    igen = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
                     generator=igen, device="cuda")
     labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
                            device="cuda")
-    ngen = torch.Generator().manual_seed(10)
+    ngen = torch.Generator().manual_seed(seed + 2)
 
     def run(st, n, b=BATCH):
         losses = []
@@ -885,59 +931,55 @@ def baseline_phase(card):
             losses.append(m["loss"])
         return st, losses, m
 
-    t0 = time.perf_counter()
-    state, _, _ = run(state, TRAIN_WARM)
-    torch.cuda.synchronize()
-    print(f"baseline: {TRAIN_WARM} untimed steps in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    n_steps = TRAIN_TIMED if timed else 2
+    if timed:
+        t0 = time.perf_counter()
+        state, _, _ = run(state, TRAIN_WARM)
+        torch.cuda.synchronize()
+        print(f"baseline {label}: {TRAIN_WARM} untimed steps in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    state, losses, m = run(state, TRAIN_TIMED)
+    state, losses, m = run(state, n_steps)
     issued = time.perf_counter() - t0
     torch.cuda.synchronize()
     window = time.perf_counter() - t0
     counts = {**launch_counts(), **backward_launch_counts()}
     peak = torch.cuda.max_memory_allocated()
     want = {name: 0 for name in counts}
-    want.update(layer_attention=ln * TRAIN_TIMED,
-                layer_attention_bwd=ln * TRAIN_TIMED)
-    print(f"launches baseline        {counts} (expected {want})")
-    check(counts == want, "baseline step launch counts differ")
+    want.update({k: v * n_steps for k, v in per_step.items()})
+    print(f"launches baseline {label:14s} {counts} (expected {want})")
+    check(counts == want, f"baseline {label} step launch counts differ")
     losses = torch.stack(losses).float().cpu()
     check(torch.isfinite(losses).all().item(),
-          f"non-finite baseline losses {losses.tolist()}")
-    print(f"baseline fine-tune step (DeiT-Small, batch {BATCH}, bf16, mask "
-          f"density {density:.4f}, drop-path {BASE_DROP_PATH}, reprob "
-          f"{BASE_REPROB}): {TRAIN_TIMED * BATCH / window:.1f} img/s "
-          f"({TRAIN_TIMED} steps in {window:.4f} s, "
-          f"{1e3 * window / TRAIN_TIMED:.2f} ms/step; the host had issued "
-          f"them after {issued:.4f} s) [{card}]")
+          f"non-finite baseline {label} losses {losses.tolist()}")
     print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
           f"grad_norm={float(m['grad_norm']):.4f}")
-    print(f"baseline max_memory_allocated={peak} bytes "
-          f"({peak / 2**20:.1f} MiB) [{card}]")
+    if timed:
+        print(f"baseline fine-tune step ({label}, batch {BATCH}, bf16, mask "
+              f"density {density:.4f}, drop-path {BASE_DROP_PATH}, reprob "
+              f"{BASE_REPROB}): {TRAIN_TIMED * BATCH / window:.1f} img/s "
+              f"({TRAIN_TIMED} steps in {window:.4f} s, "
+              f"{1e3 * window / TRAIN_TIMED:.2f} ms/step; the host had "
+              f"issued them after {issued:.4f} s) [{card}]")
+        print(f"baseline {label} max_memory_allocated={peak} bytes "
+              f"({peak / 2**20:.1f} MiB) [{card}]")
 
-    # a gradient at a masked coordinate is exactly zero in every step:
-    # AdamW's first moment there has stayed exactly zero
-    masked = leaked = 0
-    for path, mk in tree_leaves_with_path(wmasks):
-        if mk is None:
-            continue
-        mu = state.opt_state.mu
-        for k in path:
-            mu = mu[k]
-        off = mk == 0
-        masked += int(off.sum())
-        leaked += int((mu[off] != 0).sum())
-    print(f"baseline masked coordinates: {masked}, with a nonzero gradient "
-          f"moment: {leaked}")
-    check(masked > 0 and leaked == 0,
-          "a masked coordinate received a gradient")
-
-    profile_phase(card, {"baseline fine-tune step": lambda: run(state, 1)},
-                  top=14)
+        # a gradient at a masked coordinate is exactly zero in every step:
+        # AdamW's first moment there has stayed exactly zero
+        masked = leaked = 0
+        for path, mk in tree_leaves_with_path(wmasks):
+            off = mk == 0
+            masked += int(off.sum())
+            leaked += int((leaf_at(state.opt_state.mu, path)[off] != 0).sum())
+        print(f"baseline {label} masked coordinates: {masked}, with a nonzero "
+              f"gradient moment: {leaked}")
+        check(masked > 0 and leaked == 0,
+              "a masked coordinate received a gradient")
+        profile_phase(card, {f"baseline fine-tune step ({label})":
+                             lambda: run(state, 1)}, top=14)
 
     small = 8
     noise = draw_baseline_noise(ngen, cfg, thp, small, device="cpu",
@@ -946,8 +988,9 @@ def baseline_phase(card):
                  _noise_to(noise, "cuda"), -1.0)
     _, cm = step(_state_to(state, "cpu"), None, _tree_to(wmasks, "cpu"),
                  x[:small].cpu(), labels[:small].cpu(), noise, -1.0)
-    card_vs_cpu("baseline step", small, gm, cm, ("loss", "grad_norm"))
-    return counts
+    card_vs_cpu(f"baseline {label} step", small, gm, cm,
+                ("loss", "grad_norm"))
+    return counts, state, wmasks
 
 # ---------------------------------------------------------------------------
 # phase 7: T2T-ViT-14, the token-performer kernels
@@ -1342,7 +1385,192 @@ def t2t_serving_phase(card):
     return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the T2T architecture ablations, the attention core (A9)
+# ---------------------------------------------------------------------------
+
+# (B, H, N, dh): the SE / Ghost blocks, the Dense variant's odd head dim 41
+# and its widest, 74, and a ragged shape (B * H * N = 300 rows)
+CORE_SHAPES = {"se": (BATCH, 6, 197, 64), "dense_odd": (BATCH, 8, 197, 41),
+               "dense_wide": (BATCH, 8, 197, 74), "ragged": (3, 2, 50, 24)}
+# (config, label, attention-core launches per step: one per block)
+ABLATIONS = (("t2t_vit_14_se", "T2T-ViT-14-SE", 14),
+             ("t2t_vit_16_ghost", "T2T-ViT-16-Ghost", 16),
+             ("t2t_vit_dense", "T2T-ViT-Dense", 19))
+
+
+def _core_bound(b, h, n, dh, backward):
+    """(ms, "bytes" or "operations", FLOP, bytes) of the attention core:
+    q, k, v read and ctx written (forward), q, k, v, dO read and dq, dk, dv
+    written (backward), each once; 4 B H N^2 dh FLOP forward (q k^T and
+    P v), 10 backward (the logits again, dv, dp, dq, dk)."""
+    flops = (10 if backward else 4) * b * h * n * n * dh
+    nbytes = (7 if backward else 4) * b * h * n * dh * 2
+    return (*bound(flops, nbytes), flops, nbytes)
+
+
+def _packed_views(*ts):
+    """``[B, H, N, dh]`` tensors copied into one ``[B, N, len(ts) * H * dh
+    + 2]`` buffer two elements in, as head views of it: the models' layout
+    (heads split out of one projection), at strides and a base that allow
+    the kernels 4-byte copies at most (one element at an odd dh)."""
+    b, h, n, dh = ts[0].shape
+    w = len(ts) * h * dh
+    buf = torch.zeros(b, n, w + 2, dtype=ts[0].dtype, device=ts[0].device)
+    packed = buf[..., 2:].view(b, n, len(ts), h, dh)
+    views = []
+    for i, t in enumerate(ts):
+        packed[:, :, i].copy_(t.transpose(1, 2))
+        views.append(packed[:, :, i].transpose(1, 2))
+    return views
+
+
+def core_kernel_phase():
+    from uvc_tpu_torch.ops.attention import (attention, attention_bwd,
+                                             attention_bwd_plain,
+                                             attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    results = {}
+    for shape, (b, h, n, dh) in CORE_SHAPES.items():
+        q, k, v, do = (torch.randn(b, h, n, dh, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        scale = dh ** -0.5
+        out = attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        ferrs = _check_outputs("attention", shape, [out],
+                               [attention_plain(q, k, v, scale)],
+                               KERNEL_REL_TOL)
+        grads = attention_bwd(q, k, v, do, scale)
+        torch.cuda.synchronize()
+        again = attention_bwd(q, k, v, do, scale)
+        berrs = _check_outputs("attention_bwd", shape, grads,
+                               attention_bwd_plain(q, k, v, do, scale),
+                               BWD_REL_TOL, again=again)
+        views = _packed_views(q, k, v, do)
+        check(torch.equal(attention(*views[:3], scale), out)
+              and all(torch.equal(a, b) for a, b in
+                      zip(attention_bwd(*views, scale), grads)),
+              f"attention [{shape}]: head views of a packed buffer and "
+              f"contiguous operands differ")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_bwd = _library_backward(
+            lambda: F.scaled_dot_product_attention(*leaves, scale=scale),
+            leaves, do)
+        for name, errs, kern, on_views, plain, lib, bwd in (
+                ("attention", ferrs, lambda: attention(q, k, v, scale),
+                 lambda: attention(*views[:3], scale),
+                 lambda: attention_plain(q, k, v, scale),
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                 False),
+                ("attention_bwd", berrs,
+                 lambda: attention_bwd(q, k, v, do, scale),
+                 lambda: attention_bwd(*views, scale),
+                 lambda: attention_bwd_plain(q, k, v, do, scale), lib_bwd,
+                 True)):
+            bound_ms, bound_by, flops, nbytes = _core_bound(b, h, n, dh, bwd)
+            r = dict(shape=shape, rel_fro=max(e[0] for e in errs),
+                     max_abs_err=max(e[1] for e in errs),
+                     rel_fro_per_output=[e[0] for e in errs],
+                     ms=time_ms(kern, 20), views_ms=time_ms(on_views, 20),
+                     plain_ms=time_ms(plain, 3),
+                     library_ms=time_ms(lib, 20), bound_ms=bound_ms,
+                     bound_by=bound_by, flops=flops, bytes=nbytes,
+                     library="scaled_dot_product_attention")
+            results[(name, shape)] = r
+            print(f"kernel {name:13s} [{shape:10s} B={b} H={h} N={n} "
+                  f"dh={dh}] rel_fro per output "
+                  f"{' '.join(f'{e[0]:.1e}' for e in errs)} (tol "
+                  f"{KERNEL_REL_TOL:g}) max_abs={r['max_abs_err']:.2e} "
+                  f"ms={r['ms']:.4f} views_ms={r['views_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms(sdpa)={r['library_ms']:.4f} "
+                  f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
+                  + (" two launches bit-identical" if bwd else "")
+                  + " head views bit-identical", flush=True)
+    return results
+
+
+def ablation_phase(card):
+    """The three ablations' baseline fine-tune (SE timed, Ghost and Dense
+    two steps each), then T2T-ViT-14-SE eval.  Returns the launch counts of
+    all their runs."""
+    from uvc_tpu_torch.baselines.finetune import build_baseline_eval_step
+    from uvc_tpu_torch.baselines.pruning import apply_weight_masks
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.models import t2t_ablations
+    from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uvc_tpu_torch.train.state import TrainHParams
+
+    total = {}
+    for i, (name, label, n_attn) in enumerate(ABLATIONS):
+        counts, state, wmasks = baseline_phase(
+            card, dict(performer=2, performer_bwd=2, attention=n_attn,
+                       attention_bwd=n_attn),
+            name, label, seed=20 + 3 * i, timed=i == 0)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        if i == 0:
+            se = (get_config(name), label, n_attn, state.params, wmasks)
+
+    cfg, label, n_attn, params, wmasks = se
+    thp = TrainHParams()
+    step = build_baseline_eval_step(cfg, thp)
+    igen = torch.Generator(device="cuda").manual_seed(30)
+    images = [torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                          generator=igen, device="cuda")
+              for _ in range(N_BATCHES)]
+    labels = [torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                            device="cuda") for _ in range(N_BATCHES)]
+    n_img = N_BATCHES * BATCH
+
+    def evaluate():
+        tot = {"correct": 0, "loss_sum": 0.0, "count": 0}
+        for xb, yb in zip(images, labels):
+            m = step(params, wmasks, xb, yb)
+            tot = {k: tot[k] + m[k] for k in tot}
+        return {k: v.item() for k, v in tot.items()}
+
+    evaluate()
+    reset_launch_counts()
+    window, secs, ev = passes(evaluate)
+    counts = launch_counts()
+    runs = N_PASSES * N_BATCHES
+    want = {k: 0 for k in counts}
+    want.update(performer=2 * runs, attention=n_attn * runs)
+    print(f"launches {label} eval {counts} (expected {want})")
+    check(counts == want, f"{label} eval launch counts differ")
+    check(ev["count"] == n_img and 0 <= ev["correct"] <= ev["count"]
+          and ev["loss_sum"] == ev["loss_sum"], f"{label} eval metrics {ev}")
+    rates = ", ".join(f"{n_img / t:.1f}" for t in secs)
+    print(f"{label} eval (build_baseline_eval_step, masked weights): "
+          f"{N_PASSES * n_img / window:.1f} img/s ({N_PASSES} passes of "
+          f"{N_BATCHES} batches of {BATCH} in {window:.4f} s; per pass, CUDA "
+          f"events: {rates} img/s) [{card}]")
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+    with torch.no_grad():
+        x0 = images[0][:8]
+        masked = apply_weight_masks(params, wmasks)
+        logits = t2t_ablations.apply(masked, x0, cfg,
+                                     dtype=torch.bfloat16).logits
+        ref = t2t_ablations.apply(_tree_to(masked, "cpu"), x0.cpu(), cfg,
+                                  dtype=torch.bfloat16).logits
+    rel, mx = rel_err(logits.cpu(), ref)
+    print(f"{label} eval logits, card vs CPU plain path (8 images): "
+          f"rel_fro={rel:.2e} max_abs={mx:.2e} (tol {MODEL_REL_TOL})")
+    check(torch.isfinite(logits).all().item() and rel <= MODEL_REL_TOL,
+          f"{label}: card and CPU plain path disagree")
+    return total
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (the sublayer kernels)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1364,18 +1592,26 @@ def main():
     eps = get_config("deit_small_patch16_224").layer_norm_eps
     res = kernel_phase(eps)
     res.update(backward_kernel_phase(eps))
+    if args.kernels_only:
+        print(card_line())
+        return 0
     launches = serving_phase(card)
     train_counts, off_counts, part_counts = training_phase(card)
-    base_counts = baseline_phase(card)
+    # DeiT-Small's 12 blocks run A7 forward and backward
+    base_counts, _, _ = baseline_phase(
+        card, dict(layer_attention=12, layer_attention_bwd=12))
     res.update(performer_kernel_phase())
     t2t_train_counts = t2t_training_phase(card)
     t2t_serve_counts = t2t_serving_phase(card)
+    res.update(core_kernel_phase())
+    ablation_counts = ablation_phase(card)
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
-    # T2T-ViT-14 stage-1 window and its serving (A10 / A11)
+    # T2T-ViT-14 stage-1 window and its serving (A10 / A11), the ablations'
+    # fine-tune and the SE eval (A9)
     for counts in (train_counts, off_counts, part_counts, base_counts,
-                   t2t_train_counts, t2t_serve_counts):
+                   t2t_train_counts, t2t_serve_counts, ablation_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1402,6 +1638,10 @@ def main():
                       "uvc_tpu/ops/performer.py:603", "t2t_stage1"),
         "performer_bwd": ("uvc_tpu_torch/csrc/performer.cu",
                           "uvc_tpu/ops/performer.py:670", "t2t_stage1"),
+        "attention": ("uvc_tpu_torch/csrc/attention_core.cu",
+                      "uvc_tpu/ops/attention.py:100", "se"),
+        "attention_bwd": ("uvc_tpu_torch/csrc/attention_core.cu",
+                          "uvc_tpu/ops/attention.py:124", "se"),
     }
     # A11, the split form of the same function, ports into the same kernels
     also = {"performer": ["uvc_tpu/ops/performer.py:153",
@@ -1417,8 +1657,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             **{k: r[k] for k in keys}, "shape": shape,
-            **({"also_replaces": also[name], "library": "composition"}
-               if name in also else {}),
+            **({"also_replaces": also[name]} if name in also else {}),
+            **({"library": r["library"]} if "library" in r else {}),
             "other_shapes": {s: {k: o[k] for k in keys}
                              for (n, s), o in res.items()
                              if n == name and s != shape}})

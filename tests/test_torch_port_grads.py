@@ -321,10 +321,10 @@ def test_cpu_backward_calls_leave_launch_counters_at_zero():
                      eps=EPS)
     assert tops.backward_launch_counts() == {
         "layer_attention_ln_bwd": 0, "mlp_ln_bwd": 0, "mlp_ln_blend_bwd": 0,
-        "layer_attention_bwd": 0, "performer_bwd": 0}
+        "layer_attention_bwd": 0, "performer_bwd": 0, "attention_bwd": 0}
     assert tops.launch_counts() == {"layer_attention_ln": 0, "mlp_ln": 0,
                                     "mlp_ln_blend": 0, "layer_attention": 0,
-                                    "performer": 0}
+                                    "performer": 0, "attention": 0}
     assert _cuda._loaded == {}
 
 

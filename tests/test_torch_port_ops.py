@@ -221,7 +221,7 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     _torch_mlp(m, d=torch.tensor([0.5, 0.5]), plain=False)
     assert tops.launch_counts() == {"layer_attention_ln": 0, "mlp_ln": 0,
                                     "mlp_ln_blend": 0, "layer_attention": 0,
-                                    "performer": 0}
+                                    "performer": 0, "attention": 0}
     assert _cuda._loaded == {}
 
 
@@ -239,6 +239,7 @@ def test_kernel_build_is_keyed_on_sources():
     d = _cuda.build_dir()
     assert d.parent.name == "uvc_tpu_torch" and d.parent.parent.name == "build"
     assert len(d.name) == 16 and d == _cuda.build_dir()
-    assert set(_cuda._LIBS) == {"attention", "mlp", "performer"}
+    assert set(_cuda._LIBS) == {"attention", "mlp", "performer",
+                                "attention_core"}
     for src, _ in _cuda._LIBS.values():
         assert (_cuda._CSRC / src).exists()

@@ -162,7 +162,8 @@ def test_port_imports_no_jax():
         " ('jax', 'jaxlib', 'flax', 'optax', 'uvc_tpu'))\n"
         "assert not bad, bad\n"
         "assert {'uvc_tpu_torch.ops.performer',"
-        " 'uvc_tpu_torch.models.t2t_vit'} <= set(sys.modules)\n"
+        " 'uvc_tpu_torch.models.t2t_vit',"
+        " 'uvc_tpu_torch.models.t2t_ablations'} <= set(sys.modules)\n"
         "print(len([n for n in sys.modules"
         " if n.startswith('uvc_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -104,10 +104,12 @@ def leaf_of(tree, path):
 
 
 def test_get_model_dispatches_the_t2t_family():
+    from uvc_tpu_torch.models import t2t_ablations
     assert get_model(TCFG) is tt2t
     assert get_model(tconfigs.get_config("t2t_vit_t_14")) is tt2t
-    for name in ("t2t_vit_14_se", "t2t_vit_dense", "R50-ViT-B_16",
-                 "cait_S24_224"):
+    for name in ("t2t_vit_14_se", "t2t_vit_dense"):
+        assert get_model(tconfigs.get_config(name)) is t2t_ablations
+    for name in ("R50-ViT-B_16", "cait_S24_224"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(tconfigs.get_config(name))
 

@@ -1,0 +1,114 @@
+// The bare attention core, forward and backward, on [B, H, N, dh] operands:
+//   ctx = softmax(q . k^T * scale) . v
+//
+// uvc_attention replaces uvc_tpu/ops/attention.py::_fwd_kernel and
+// uvc_attention_bwd replaces ::_bwd_kernel (kernel A9, called through
+// _call_fwd / _call_bwd: the custom VJP _attention_padded behind
+// fused_attention and attention_core).  Their callers are the T2T
+// architecture ablations (SE, Ghost, Dense), one call per block.
+//
+// What bounds it on the H100: at the SE / Ghost shape (B = 64, H = 6,
+// N = 197, dh = 64) each [B, H, N, dh] bf16 tensor is 9.68 MB.  The forward
+// reads q, k, v and writes ctx (38.7 MB, 11.6 us at 3.35 TB/s) for
+// 4 B H N^2 dh = 3.8 GFLOP (3.9 us at 989 TFLOP/s); the backward reads q,
+// k, v, dO and writes dq, dk, dv (67.8 MB, 20.2 us) for 10 B H N^2 dh =
+// 9.5 GFLOP (9.6 us).  Both are bound by device memory: the logits and the
+// probabilities ([N, N] per head) never leave the chip; each kernel
+// recomputes them from q and k in registers.
+//
+// Design: the kernels of attention_core.cuh, the attention core that the
+// sublayer kernels of attention.cu (K1, A2, A7) run at head dim 64, here
+// instantiated for the padded head dims DHP = 16, 32, 48, 64 and 80 without
+// the ctx mask.  Any dh <= DHP is taken by zero-filling columns dh..DHP-1
+// of the staged tiles in shared memory (exact; see the note there), with
+// copies 16, 4 or 2 bytes wide as dh and the strides allow: the Dense
+// variant's head dims 20, 28, ..., 74 go 4 bytes at a time, only its odd
+// ones (41, 49, 57, 65) one element at a time.  Padding in the wrapper
+// instead would cost a padded copy of q, k, v and dO and a slice of each
+// output through device memory on every call.  The operands are read where
+// they lie, at the strides the caller passes (the models hand over head
+// views of one projection), so nothing is copied before or after a call.
+//
+// Kernel A8 (_bwd_ctx_kernel) is this backward plus one output: ctx =
+// bf16(probs) . V, which the query-side kernel already accumulates in its
+// third pass for the sublayer backward (CTX = true: f32, beside the masked
+// copy); A8 would write it unmasked in the operands' dtype.
+#include "attention_core.cuh"
+
+namespace uvc {
+
+// operand i of a call: its (batch, head, row) element strides are
+// strides[3 i .. 3 i + 2]
+template <typename T, typename P>
+static Heads<T> heads_at(P* p, const long long* strides, int i) {
+  return {static_cast<T*>(p), strides[3 * i], strides[3 * i + 1],
+          strides[3 * i + 2]};
+}
+
+}  // namespace uvc
+
+using uvc::bf16;
+using uvc::InHeads;
+using uvc::OutHeads;
+
+// Forward.  q, k, v, out: [B, H, N, dh] bf16 device tensors, unit stride
+// in dh, strides: their (batch, head, row) strides in elements, four rows
+// of three; 0 < dh <= 80.  Returns 0 or a CUDA error code
+// (cudaErrorInvalidValue for a head dim the kernels are not built for).
+extern "C" int uvc_attention(const void* q, const void* k, const void* v,
+                             void* out, const long long* strides, int batch,
+                             int heads, int n, int dh, float scale,
+                             void* stream) {
+  const InHeads qh = uvc::heads_at<const bf16>(q, strides, 0),
+                kh = uvc::heads_at<const bf16>(k, strides, 1),
+                vh = uvc::heads_at<const bf16>(v, strides, 2);
+  const OutHeads oh = uvc::heads_at<bf16>(out, strides, 3);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 0) return (int)cudaErrorInvalidValue;
+  switch ((dh + 15) / 16) {
+#define UVC_FWD(DHP)                                                        \
+  return (int)uvc::launch_core_fwd<DHP>(qh, kh, vh, oh, nullptr, batch,     \
+                                        heads, n, dh, scale, s)
+    case 1: UVC_FWD(16);
+    case 2: UVC_FWD(32);
+    case 3: UVC_FWD(48);
+    case 4: UVC_FWD(64);
+    case 5: UVC_FWD(80);
+#undef UVC_FWD
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Backward.  q, k, v, dout, dq, dk, dv: [B, H, N, dh] bf16, unit stride in
+// dh, strides: their (batch, head, row) strides, seven rows of three in
+// that order; stats: [B * H * N] float4 scratch that the caller allocates.
+extern "C" int uvc_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* dout, void* stats, void* dq,
+                                 void* dk, void* dv, const long long* strides,
+                                 int batch, int heads, int n, int dh,
+                                 float scale, void* stream) {
+  const InHeads qh = uvc::heads_at<const bf16>(q, strides, 0),
+                kh = uvc::heads_at<const bf16>(k, strides, 1),
+                vh = uvc::heads_at<const bf16>(v, strides, 2),
+                doh = uvc::heads_at<const bf16>(dout, strides, 3);
+  const OutHeads dqh = uvc::heads_at<bf16>(dq, strides, 4),
+                 dkh = uvc::heads_at<bf16>(dk, strides, 5),
+                 dvh = uvc::heads_at<bf16>(dv, strides, 6);
+  float4* st = static_cast<float4*>(stats);
+  const uvc::CtxOut none = {};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 0) return (int)cudaErrorInvalidValue;
+  switch ((dh + 15) / 16) {
+#define UVC_BWD(DHP)                                                        \
+  return (int)uvc::launch_core_bwd<DHP, false>(qh, kh, vh, doh, dqh, dkh,   \
+                                               dvh, st, none, batch, heads, \
+                                               n, dh, scale, s)
+    case 1: UVC_BWD(16);
+    case 2: UVC_BWD(32);
+    case 3: UVC_BWD(48);
+    case 4: UVC_BWD(64);
+    case 5: UVC_BWD(80);
+#undef UVC_BWD
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,4 +1,5 @@
-// Shared device code of the kernels (attention.cu, mlp.cu, performer.cu): the
+// Shared device code of the kernels (attention.cu, attention_core.cu,
+// mlp.cu, performer.cu; the attention core itself is attention_core.cuh): the
 // LayerNorm pass and its backward, one bf16 tensor-core GEMM (mma.sync
 // m16n8k16, f32 accumulators) in the three operand layouts the forward and
 // backward sublayers need with their epilogues, and the deterministic
@@ -76,6 +77,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(smem)),
                "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// 4-byte asynchronous copy to shared memory (both addresses on a 4-byte
+// boundary); zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

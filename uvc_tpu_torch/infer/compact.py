@@ -78,6 +78,13 @@ def _tree_to(tree, dev, dtype=None):
     return tree.detach().to(dev, dtype)
 
 
+def _check_stack(cfg: ViTConfig) -> None:
+    if cfg.t2t_variant != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the T2T architecture ablations have no stacked "
+            "blocks to compact (nor in the JAX package); see ROADMAP.md")
+
+
 def compact_model(params: dict, masks: Dict[str, torch.Tensor],
                   cfg: ViTConfig, *,
                   block_keep: Optional[np.ndarray] = None,
@@ -92,6 +99,7 @@ def compact_model(params: dict, masks: Dict[str, torch.Tensor],
     are in ``dtype``, the dtype ``apply_compact`` is then called with;
     LayerNorm parameters, heads and the token scorer stay f32.
     ``block_keep`` defaults to the frozen gating decision ``g1 > g0``."""
+    _check_stack(cfg)
     dev = resolve_device(device)
     blocks = _tree_to(params["blocks"], dev)
     d = masks["attn"].shape[1]
@@ -172,6 +180,7 @@ def apply_compact(layers: List[dict], top: dict, x: torch.Tensor,
     performer kernels) before the kept layers; the attention scale is
     ``cfg.qk_scale`` where the config sets it, as in the trained
     forward."""
+    _check_stack(cfg)
     eps = cfg.layer_norm_eps
     if cfg.tokens_type != "none":
         t = get_model(cfg).embed(top, x, cfg, dtype)

@@ -135,10 +135,18 @@ def init_params(generator: torch.Generator, cfg: ViTConfig, *,
     keywords (``patch_gating``) are accepted and ignored, as in the JAX
     package.  ``generator`` is a CPU ``torch.Generator``."""
     dev = resolve_device(device)
-    if cfg.tokens_type not in ("performer", "transformer") \
-            or cfg.t2t_variant != "none":
+    if cfg.tokens_type not in ("performer", "transformer"):
         raise NotImplementedError(
             f"backbone {cfg.name} is not ported yet; see ROADMAP.md")
+    if cfg.t2t_variant != "none":
+        raise ValueError(f"{cfg.name} is a T2T architecture ablation: its "
+                         "model is models/t2t_ablations.py (get_model)")
+    return _to_device(init_tree(generator, cfg), dev)
+
+
+def init_tree(generator: torch.Generator, cfg: ViTConfig) -> dict:
+    """The parameter tree of ``init_params`` on the CPU, for any model on
+    the T2T stem (the architecture ablations replace its block stack)."""
     params = vit.init_tree(generator, cfg)
     for k in ("patch_embed", "pos_embed", "token_scorer", "dist_token",
               "head_dist"):
@@ -152,7 +160,7 @@ def init_params(generator: torch.Generator, cfg: ViTConfig, *,
         "project": _linear(generator, td * 3 * 3, cfg.embed_dim),
     }
     params["cls_token"] = _trunc_normal(generator, (1, 1, cfg.embed_dim))
-    return _to_device(params, dev)
+    return params
 
 
 # ---------------------------------------------------------------------------

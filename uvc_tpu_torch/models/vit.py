@@ -35,6 +35,7 @@ from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
                                       physical_topk_indices, token_scores,
                                       topk_token_mask)
 from uvc_tpu_torch.ops.mlp import fused_mlp_ln, fused_mlp_ln_blend
+from uvc_tpu_torch.utils.tree import tree_map
 
 _NOT_PORTED = "{} is not ported yet; see ROADMAP.md"
 
@@ -115,9 +116,7 @@ def init_tree(generator: torch.Generator, cfg: ViTConfig, *,
 
 
 def _to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 # ---------------------------------------------------------------------------

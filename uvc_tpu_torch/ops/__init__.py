@@ -12,7 +12,9 @@ from uvc_tpu_torch.ops.attention import (layer_attention, layer_attention_bwd,
                                          layer_attention_ln_bwd)
 from uvc_tpu_torch.ops.mlp import (mlp_ln, mlp_ln_blend, mlp_ln_blend_bwd,
                                    mlp_ln_bwd)
-# the module, not its wrapper of the same name, is the package attribute
+# the modules, not their wrappers of the same names, are the package
+# attributes
+from uvc_tpu_torch.ops import attention as _attention
 from uvc_tpu_torch.ops import performer as _performer
 
 KERNEL_WRAPPERS = {
@@ -21,6 +23,7 @@ KERNEL_WRAPPERS = {
     "mlp_ln_blend": mlp_ln_blend,
     "layer_attention": layer_attention,
     "performer": _performer.performer,
+    "attention": _attention.attention,
 }
 BACKWARD_KERNEL_WRAPPERS = {
     "layer_attention_ln_bwd": layer_attention_ln_bwd,
@@ -28,6 +31,7 @@ BACKWARD_KERNEL_WRAPPERS = {
     "mlp_ln_blend_bwd": mlp_ln_blend_bwd,
     "layer_attention_bwd": layer_attention_bwd,
     "performer_bwd": _performer.performer_bwd,
+    "attention_bwd": _attention.attention_bwd,
 }
 
 

@@ -29,6 +29,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 
 # library name -> (source, {C function: argtypes})
 _LIBS = {
@@ -39,6 +40,10 @@ _LIBS = {
             [_P] * 26 + [_I] * 5 + [_F, _F, _P],
         "uvc_layer_attention": [_P] * 9 + [_I] * 5 + [_F, _P],
         "uvc_layer_attention_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
+    }),
+    "attention_core": ("attention_core.cu", {
+        "uvc_attention": [_P] * 4 + [_LP] + [_I] * 4 + [_F, _P],
+        "uvc_attention_bwd": [_P] * 8 + [_LP] + [_I] * 4 + [_F, _P],
     }),
     "mlp": ("mlp.cu", {
         "uvc_mlp_ln": [_P] * 11 + [_I] * 3 + [_F, _P],
@@ -121,6 +126,12 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def longs(values) -> ctypes.Array:
+    """``values`` as a C array of 64-bit integers (strides)."""
+    values = list(values)
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def check(err: int, what: str) -> None:

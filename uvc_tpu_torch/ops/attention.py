@@ -1,5 +1,5 @@
 """The attention sublayer, forward and backward (counterpart of
-``uvc_tpu/ops/attention.py``), in two forms.
+``uvc_tpu/ops/attention.py``), in three forms.
 
 ``layer_attention_ln`` computes ``x + proj(mask * MHA(LN1(x)))`` for a
 ``[B, N, dm]`` residual stream and ``layer_attention_ln_bwd`` its
@@ -9,10 +9,13 @@ gradients; ``fused_layer_attention_ln`` is the two as one
 / ``fused_layer_attention`` are the bare sublayer ``proj(mask * MHA(x))``
 without LayerNorm and residual, for blocks that scale the sublayer output
 before the residual add (ports of ``_layer_fwd_kernel`` and
-``_layer_bwd_kernel``).  A CUDA tensor goes to the hand-written kernels
-(``csrc/attention.cu``); a CPU tensor goes to the ``*_plain`` functions,
-the same functions in plain PyTorch with the kernels' rounding order.
-There is no other route.
+``_layer_bwd_kernel``).  ``attention`` / ``attention_bwd`` /
+``fused_attention`` are the attention core ``softmax(q k^T * scale) v`` on
+``[B, H, N, dh]`` alone, with ``attention_core`` its JAX name (ports of
+``_fwd_kernel`` and ``_bwd_kernel``).  A CUDA tensor goes to the
+hand-written kernels (``csrc/attention.cu``, ``csrc/attention_core.cu``);
+a CPU tensor goes to the ``*_plain`` functions, the same functions in
+plain PyTorch with the kernels' rounding order.  There is no other route.
 """
 
 from __future__ import annotations
@@ -53,10 +56,7 @@ def _sublayer_plain(a, wqkv, bqkv, wproj, bproj, mask, num_heads, scale):
     dh = da // num_heads
     qkv = (a.float() @ wqkv.float() + bqkv.float()).to(dt)
     q, k, v = qkv.view(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    ctx = ((p.to(dt).float() @ v.float()) / p.sum(dim=-1, keepdim=True))
-    ctx = ctx.to(dt).transpose(1, 2).reshape(b, n, da)
+    ctx = attention_plain(q, k, v, scale).transpose(1, 2).reshape(b, n, da)
     ctx = (ctx.float() * mask.to(dt).float()).to(dt)
     return ctx.float() @ wproj.float() + bproj.float()
 
@@ -482,3 +482,190 @@ def fused_layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *,
                                num_heads=num_heads, scale=scale)
     return _FusedLayerAttention.apply(x, wqkv, bqkv, wproj, bproj, mask,
                                       num_heads, scale)
+
+
+# ---------------------------------------------------------------------------
+# the bare attention core (kernel A9): softmax(q k^T * scale) v on
+# [B, H, N, dh], no projections
+# ---------------------------------------------------------------------------
+
+# the core kernels' head dims (instantiated for the padded head dims 16,
+# 32, 48, 64 and 80) and their shared memory: a 64-row tile (two in the
+# backward) and the head's two whole-sequence operands at a row stride of
+# the padded head dim + 8, plus one float4 per query in the backward
+_CORE_MAX_HEAD_DIM = 80
+_SMEM_LIMIT = 232448
+
+
+def _core_smem_bytes(n: int, dh: int, backward: bool) -> int:
+    np_ = -(-n // 16) * 16
+    ld = -(-dh // 16) * 16 + 8
+    if backward:
+        return (128 + 2 * np_) * ld * 2 + np_ * 16
+    return (64 + 2 * np_) * ld * 2
+
+
+def attention_plain(q, k, v, scale: float):
+    """Plain PyTorch version of the core kernel, in the Pallas body's
+    rounding order (``_fwd_kernel``): f32 logits times ``scale``, then the
+    max, ``exp`` and sum; ``ctx = (round(p) . v) / s``, the unnormalised
+    probabilities ``p`` rounded to the input's dtype and the normalisation
+    after P @ V; the output in the input's dtype.  In f32 every rounding
+    is the identity."""
+    dt = q.dtype
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    ctx = (p.to(dt).float() @ v.float()) / p.sum(dim=-1, keepdim=True)
+    return ctx.to(dt)
+
+
+def attention_bwd_plain(q, k, v, do, scale: float):
+    """Plain PyTorch version of the core backward kernel, in the Pallas
+    body's rounding order (``_bwd_kernel``): the softmax recomputed in f32,
+    ``probs = p / s`` and ``pb = round(probs)``; ``dv = pb^T . do``,
+    ``dp = do . v^T``, ``row = sum(dp * probs)``,
+    ``ds = round(probs * (dp - row))``, ``dq = ds . k * scale``,
+    ``dk = ds^T . q * scale`` ("round" to the input's dtype).  Returns
+    (dq, dk, dv) in the input's dtype."""
+    dt = q.dtype
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    do32 = do.to(dt).float()
+    logits = (q32 @ k32.transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = p / p.sum(dim=-1, keepdim=True)
+    dv = probs.to(dt).float().transpose(-1, -2) @ do32
+    dp = do32 @ v32.transpose(-1, -2)
+    row = (dp * probs).sum(dim=-1, keepdim=True)
+    ds = (probs * (dp - row)).to(dt).float()
+    dq = (ds @ k32) * scale
+    dk = (ds.transpose(-1, -2) @ q32) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check_core(named, backward):
+    """The core kernels' checks; returns (B, H, N, dh).  The kernels read
+    each operand at its own strides (a head view of a projection as it
+    lies), with unit stride along the head dim."""
+    q = named["q"]
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, N, dh], got {tuple(q.shape)}")
+    for name, t in named.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be torch.bfloat16, got {t.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must be {tuple(q.shape)} as q, got "
+                             f"{tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride along the head "
+                             f"dim, got strides {t.stride()}")
+    b, h, n, dh = q.shape
+    if not (b and h and n) or not 0 < dh <= _CORE_MAX_HEAD_DIM:
+        raise ValueError(f"unsupported shape {tuple(q.shape)}: the kernels "
+                         f"take head dims 1..{_CORE_MAX_HEAD_DIM} and N > 0")
+    if _core_smem_bytes(n, dh, backward) > _SMEM_LIMIT:
+        raise ValueError(f"N = {n} at head dim {dh} does not fit the "
+                         f"kernel's shared memory")
+    return b, h, n, dh
+
+
+def _head_major(q):
+    """An empty ``[B, H, N, dh]`` tensor like ``q`` laid out as
+    ``[B, N, H, dh]``: its ``transpose(1, 2).reshape(B, N, H * dh)``, the
+    models' next step, is a view."""
+    b, h, n, dh = q.shape
+    return q.new_empty((b, n, h, dh)).transpose(1, 2)
+
+
+def _strides(*ts):
+    """The (batch, head, row) element strides of each operand, in order."""
+    return _cuda.longs(s for t in ts for s in t.stride()[:3])
+
+
+def attention(q, k, v, scale: float):
+    """``softmax(q k^T * scale) v`` over ``[B, H, N, dh]`` tensors (kernel
+    A9's forward).  On CUDA: bf16 tensors at any strides with unit stride
+    along dh, head dims 1..80; the output is laid out ``[B, N, H, dh]``.
+    ``attention.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on cpu or cuda, not {q.device}")
+    b, h, n, dh = _check_core(dict(q=q, k=k, v=v), backward=False)
+    lib = _cuda.library("attention_core")
+    out = _head_major(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.uvc_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), _strides(q, k, v, out), b, h,
+                                n, dh, float(scale), stream)
+    _cuda.check(err, "attention")
+    attention.launches += 1
+    return out
+
+
+attention.launches = 0
+
+
+def attention_bwd(q, k, v, do, scale: float):
+    """(dq, dk, dv) of ``attention`` given the output cotangent ``do``
+    (kernel A9's backward).  On CUDA: the forward's operand types, the
+    gradients laid out ``[B, N, H, dh]``.  ``attention_bwd.launches``
+    counts kernel launches."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    b, h, n, dh = _check_core(dict(q=q, k=k, v=v, do=do), backward=True)
+    lib = _cuda.library("attention_core")
+    stats = torch.empty((b * h * n, 4), dtype=torch.float32, device=q.device)
+    grads = tuple(_head_major(q) for _ in range(3))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.uvc_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            stats.data_ptr(), *(g.data_ptr() for g in grads),
+            _strides(q, k, v, do, *grads), b, h, n, dh, float(scale), stream)
+    _cuda.check(err, "attention_bwd")
+    attention_bwd.launches += 1
+    return grads
+
+
+attention_bwd.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    """``attention`` forward, ``attention_bwd`` backward (the port of the
+    JAX custom VJP ``_attention_padded``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return attention(q, k, v, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        if do.stride(-1) != 1:   # e.g. the expanded gradient of a sum
+            do = do.contiguous()
+        return (*attention_bwd(*ctx.saved_tensors, do, ctx.scale), None)
+
+
+def fused_attention(q, k, v, scale: float):
+    """``softmax(q k^T * scale) v`` with ``[B, H, N, dh]`` inputs, any N,
+    with its gradient: the forward kernel, and the backward kernel when
+    autograd asks for the gradients (under ``torch.no_grad``,
+    ``attention`` alone).  The route follows the tensors' device: the
+    kernels on the card, their plain versions on the CPU.  Head views of a
+    projection go to the kernels as they lie, and the kernels mask N
+    themselves: nothing is copied or padded."""
+    if not torch.is_grad_enabled():
+        return attention(q, k, v, scale)
+    return _FusedAttention.apply(q, k, v, scale)
+
+
+# the JAX package's name of the same function
+attention_core = fused_attention
