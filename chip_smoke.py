@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3, then the card line
+    python3 chip_smoke.py --digests        # phase 3's digests at the shapes
+                                           # the parent's kernels take
 
 Phases, each of which stops the run with a non-zero exit on failure:
 
@@ -13,13 +15,25 @@ Phases, each of which stops the run with a non-zero exit on failure:
    (a yardstick only) and the least time the card could take.  Forward
    kernels at the shapes the serving paths give them (B=64, dm=384:
    "eval", the masked-dense eval step after the token drop, N=138, 6
-   heads, F=1536; "compact", the compacted layers, N=138, 3 heads, F=768)
-   and at the dense shape without the token drop (N=197, 6 heads,
-   F=1536); backward kernels at the stage-1 train shape ("train": B=64,
-   N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591).
-   Each line ends with a digest of the kernel's output bits: two trees
-   whose digests agree (``--kernels-only`` run in each) have bit-identical
-   kernels at these inputs.
+   heads, F=1536; "compact", the compacted layers, N=138, 3 heads, F=768),
+   at the dense shape without the token drop (N=197, 6 heads, F=1536) and
+   at ViT-H/14's stage-1 shape ("vit_h": B=32, N=257, dm=1280, 16 heads of
+   80, F=5120); backward kernels at the stage-1 train shape ("train": B=64,
+   N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591);
+   the sublayer kernels K1, A2 and A7 at head dim 12 ("resnext": B=64,
+   N=197, dm=384, 32 heads) and 80 ("h80": B=8, N=257, dm=640, 8 heads);
+   the attention core A9 at "se" (B=64, H=6, N=197, dh=64), "dense_odd"
+   (H=8, dh=41), "dense_wide" (H=8, dh=74), "ragged" (B=3, H=2, N=50,
+   dh=24) and "vit_h" (B=32, H=16, N=257, dh=80), every output, two
+   backward launches bit for bit, the same operands as head views of one
+   packed buffer (the models' layout, at strides that need narrower
+   copies) bit for bit, beside ``scaled_dot_product_attention``; and A8
+   (``attention_bwd_ctx``, A9's backward with the context) at "vit_h",
+   "se" and "ragged", every output, two launches bit for bit, its dq, dk,
+   dv bit for bit A9's, beside SDPA forward and backward.  Each line ends
+   with a digest of the kernel's output bits: two trees whose digests
+   agree (``--digests`` run in each) have bit-identical kernels at these
+   inputs.
 4. serving -- DeiT-Small at full width with seeded random weights and a
    seeded discovered architecture (3 of 6 heads, random within-head dims
    and half the MLP units pruned; 2 of 12 blocks gated off): 5 passes
@@ -67,30 +81,42 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ``eval_step`` (5 passes of 8 batches of 64, ``performer`` 2 per
    batch), compact vs masked dense, and the card vs the CPU.
 
-8. T2T ablations -- the attention core kernels (``attention`` and
-   ``attention_bwd``, the ports of A9) against their plain versions at
-   "se" (B=64, H=6, N=197, dh=64), "dense_odd" (H=8, dh=41), "dense_wide"
-   (H=8, dh=74) and "ragged" (B=3, H=2, N=50, dh=24), every output, two
-   backward launches bit for bit, the same operands as head views of one
-   packed buffer (the models' layout, at strides that need narrower
-   copies) bit for bit, beside ``scaled_dot_product_attention`` as the
-   yardstick; then the baseline fine-tune of phase 6 on the three
-   ablations at full width and depth: T2T-ViT-14-SE timed as phase 6 times
-   DeiT-Small (per step ``performer`` 2, ``performer_bwd`` 2,
-   ``attention`` 14, ``attention_bwd`` 14 and 0 of every other kernel),
-   T2T-ViT-16-Ghost and T2T-ViT-Dense 2 steps each (16 and 19 of each
-   ``attention`` kernel per step), each with one batch-8 step against the
-   CPU plain path; and T2T-ViT-14-SE eval (``build_baseline_eval_step``, 5
-   passes of 8 batches of 64, ``performer`` 2 and ``attention`` 14 per
-   batch) with its logits on the card against the CPU.
+8. T2T ablations -- the baseline fine-tune of phase 6 on the three
+   ablations at full width and depth, through the attention core (A9):
+   T2T-ViT-14-SE timed as phase 6 times DeiT-Small (per step
+   ``performer`` 2, ``performer_bwd`` 2, ``attention`` 14,
+   ``attention_bwd`` 14 and 0 of every other kernel), T2T-ViT-16-Ghost
+   and T2T-ViT-Dense 2 steps each (16 and 19 of each ``attention`` kernel
+   per step), each with one batch-8 step against the CPU plain path; and
+   T2T-ViT-14-SE eval (``build_baseline_eval_step``, 5 passes of 8
+   batches of 64, ``performer`` 2 and ``attention`` 14 per batch) with its
+   logits on the card against the CPU.
+
+9. ViT-H/14 -- the stage-1 step at full width and depth (32 blocks, dm
+   1280, 16 heads of 80, F 5120, 224 px, patch 14) with bench.py's
+   flagship settings and a dense teacher at batch 32: 3 untimed + 10 timed
+   steps, per step ``layer_attention_ln`` 64, ``mlp_ln`` 32,
+   ``mlp_ln_blend`` 32 forward and, the width being past the fused
+   backwards' 1024, the composed backward of every student block (32 of
+   ``layer_attention_ln_bwd_composed`` with one ``attention_bwd_ctx`` (A8)
+   each, 32 of ``mlp_ln_blend_bwd_composed``) and no fused sublayer
+   backward; a gating-warmup step that must leave the gating logits
+   unchanged bit for bit; peak memory; a profiled step; one block's
+   composed routes timed alone; and one step at depth 4 and batch 2 on
+   the card against the CPU plain path.
+
+10. T2T-ViT-14-resnext -- the stage-1 step of phase 7 on the resnext
+   structure ablation (32 heads of 12): 1 untimed + 5 timed steps at
+   batch 64 (per step ``layer_attention_ln_bwd`` 14 at head dim 12), a
+   profiled step, and one batch-8 step against the CPU plain path.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
 "compact", A7's forward at "dense", the sublayer backward kernels at
 "train", the performer kernels at "t2t_stage1", the attention core at
-"se"; its other shapes under "other_shapes"), and ``{"ok": true,
-"device": {...}}``.
+"se", A8 at "vit_h"; its other shapes under "other_shapes"), and
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -183,7 +209,7 @@ def card_line():
 # ---------------------------------------------------------------------------
 
 
-def _inputs(gen, b, n, dm, heads, f):
+def _inputs(gen, b, n, dm, heads, f, dh=64):
     def rn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * std).to(dtype)
@@ -192,7 +218,7 @@ def _inputs(gen, b, n, dm, heads, f):
         return (torch.rand(k, generator=gen, device="cuda") > 0.25).to(
             torch.bfloat16)
 
-    da = 64 * heads
+    da = dh * heads
     return dict(
         x=rn(b, n, dm), xin=rn(b, n, dm),
         g=1 + rn(dm, std=0.1, dtype=torch.float32),
@@ -203,22 +229,22 @@ def _inputs(gen, b, n, dm, heads, f):
         w1=rn(dm, f, std=dm ** -0.5), b1=rn(f, std=0.1),
         w2=rn(f, dm, std=f ** -0.5), b2=rn(dm, std=0.1), fmask=keep(f),
         d=torch.tensor([0.25, 0.75], device="cuda"),
-        heads=heads)
+        heads=heads, dh=dh)
 
 
 def _library_attention(t, eps):
     """One PyTorch composition of the attention sublayer (yardstick)."""
     x = t["x"]
     b, n, dm = x.shape
-    heads = t["heads"]
+    heads, dh = t["heads"], t["dh"]
     wqkv_t, wproj_t = t["wqkv"].t().contiguous(), t["wproj"].t().contiguous()
 
     def run():
         a = F.layer_norm(x.float(), (dm,), t["g"], t["b"], eps).to(x.dtype)
         qkv = F.linear(a, wqkv_t, t["bqkv"])
-        q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
-        ctx = F.scaled_dot_product_attention(q, k, v, scale=64 ** -0.5)
-        ctx = ctx.transpose(1, 2).reshape(b, n, 64 * heads) * t["amask"]
+        q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        ctx = F.scaled_dot_product_attention(q, k, v, scale=dh ** -0.5)
+        ctx = ctx.transpose(1, 2).reshape(b, n, dh * heads) * t["amask"]
         return x + F.linear(ctx, wproj_t, t["bproj"])
     return run
 
@@ -228,14 +254,14 @@ def _library_sublayer(t):
     LayerNorm, no residual): the yardstick of kernel A7."""
     x = t["x"]
     b, n, dm = x.shape
-    heads = t["heads"]
+    heads, dh = t["heads"], t["dh"]
     wqkv_t, wproj_t = t["wqkv"].t().contiguous(), t["wproj"].t().contiguous()
 
     def run():
         qkv = F.linear(x, wqkv_t, t["bqkv"])
-        q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
-        ctx = F.scaled_dot_product_attention(q, k, v, scale=64 ** -0.5)
-        ctx = ctx.transpose(1, 2).reshape(b, n, 64 * heads) * t["amask"]
+        q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        ctx = F.scaled_dot_product_attention(q, k, v, scale=dh ** -0.5)
+        ctx = ctx.transpose(1, 2).reshape(b, n, dh * heads) * t["amask"]
         return F.linear(ctx, wproj_t, t["bproj"])
     return run
 
@@ -255,7 +281,31 @@ def _library_mlp(t, eps, blend):
     return run
 
 
-def kernel_phase(eps):
+# (B, N, dm, heads, F, head dim, the kernels held there): the serving
+# paths' shapes; ViT-H/14's stage 1 (K1 in student and teacher, K2 in the
+# teacher, K3 in the student); the sublayers at head dim 12
+# (t2t_vit_14_resnext) and at head dim 80 at a width the fused backward
+# takes ("h80")
+ALL_FWD = ("layer_attention_ln", "layer_attention", "mlp_ln", "mlp_ln_blend")
+FWD_SHAPES = {
+    "eval": (BATCH, N_KEPT, 384, 6, 1536, 64, ALL_FWD),
+    "compact": (BATCH, N_KEPT, 384, 3, 768, 64, ALL_FWD),
+    "dense": (BATCH, 197, 384, 6, 1536, 64, ALL_FWD),
+    "vit_h": (32, 257, 1280, 16, 5120, 80,
+              ("layer_attention_ln", "mlp_ln", "mlp_ln_blend")),
+    "resnext": (BATCH, 197, 384, 32, 1152, 12,
+                ("layer_attention_ln", "layer_attention")),
+    "h80": (8, 257, 640, 8, 2560, 80, ("layer_attention_ln",
+                                       "layer_attention")),
+}
+# the shapes that the parent commit's kernels take as well (head dim 64):
+# ``--digests`` holds the kernels there only, so that the same script can
+# run in a checkout of the parent
+PARENT_SHAPES = ("eval", "compact", "dense", "train", "ragged", "se",
+                 "dense_odd", "dense_wide")
+
+
+def kernel_phase(eps, digests_only=False):
     from uvc_tpu_torch.ops.attention import (layer_attention,
                                              layer_attention_ln,
                                              layer_attention_ln_plain,
@@ -264,26 +314,25 @@ def kernel_phase(eps):
                                        mlp_ln_blend_plain, mlp_ln_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = {"eval": _inputs(gen, BATCH, N_KEPT, 384, 6, 1536),
-              "compact": _inputs(gen, BATCH, N_KEPT, 384, 3, 768),
-              "dense": _inputs(gen, BATCH, 197, 384, 6, 1536)}
     results = {}
-    for shape, t in shapes.items():
+    for shape, (b, n, dm, heads, f, dh, kernels) in FWD_SHAPES.items():
+        if digests_only and shape not in PARENT_SHAPES:
+            continue
+        t = _inputs(gen, b, n, dm, heads, f, dh)
         x = t["x"]
-        b, n, dm = x.shape
-        heads, da, f = t["heads"], 64 * t["heads"], t["w1"].shape[1]
+        da = dh * heads
         rows = b * n
-        akw = dict(num_heads=heads, scale=64 ** -0.5, eps=eps)
+        akw = dict(num_heads=heads, scale=dh ** -0.5, eps=eps)
         aargs = (x, t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
                  t["bproj"], t["amask"])
         sargs = (x, t["wqkv"], t["bqkv"], t["wproj"], t["bproj"], t["amask"])
-        skw = dict(num_heads=heads, scale=64 ** -0.5)
+        skw = dict(num_heads=heads, scale=dh ** -0.5)
         margs = (t["g"], t["b"], t["w1"], t["b1"], t["w2"], t["b2"],
                  t["fmask"])
         act = rows * dm * 2
         a_bytes = (2 * act + 2 * dm * 4 + (4 * da * dm + 3 * da + dm + da)
                    * 2)
-        a_flops = (2 * rows * dm * 3 * da + 4 * b * heads * n * n * 64
+        a_flops = (2 * rows * dm * 3 * da + 4 * b * heads * n * n * dh
                    + 2 * rows * da * dm)
         m_bytes = 2 * act + 2 * dm * 4 + (2 * dm * f + 2 * f + dm) * 2
         m_flops = 4 * rows * dm * f
@@ -307,7 +356,8 @@ def kernel_phase(eps):
                                            eps=eps),
                 _library_mlp(t, eps, blend=True), m_flops, m_bytes + act + 8),
         }
-        for name, (kern, plain, library, flops, nbytes) in cases.items():
+        for name in kernels:
+            kern, plain, library, flops, nbytes = cases[name]
             out = kern()
             torch.cuda.synchronize()
             ref = plain()
@@ -319,6 +369,10 @@ def kernel_phase(eps):
                   f"{name} [{shape}]: kernel vs plain rel_fro {rel:.3e} "
                   f"(tol {KERNEL_REL_TOL}), max_abs {mx:.3e} "
                   f"(tol {max_tol:.3e})")
+            if digests_only:
+                print(f"kernel {name:18s} [{shape:7s}] rel_fro={rel:.2e} "
+                      f"digest={digest([out])}", flush=True)
+                continue
             bound_ms, bound_by = bound(flops, nbytes)
             r = dict(shape=shape, rel_fro=rel, max_abs_err=mx,
                      ms=time_ms(kern, 50), plain_ms=time_ms(plain, 10),
@@ -326,9 +380,10 @@ def kernel_phase(eps):
                      bound_by=bound_by, flops=flops, bytes=nbytes)
             results[(name, shape)] = r
             print(f"kernel {name:18s} [{shape:7s} B={b} N={n} dm={dm} "
-                  f"da={da} F={f}] rel_fro={rel:.2e} max_abs={mx:.2e} "
-                  f"(tol {KERNEL_REL_TOL:g} / {max_tol:.2e}) "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"da={da} H={heads} dh={dh} F={f}] rel_fro={rel:.2e} "
+                  f"max_abs={mx:.2e} (tol {KERNEL_REL_TOL:g} / "
+                  f"{max_tol:.2e}) ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by}) "
                   f"digest={digest([out])}", flush=True)
@@ -345,7 +400,17 @@ def kernel_phase(eps):
 # carries a one-ulp difference (2**-8 relative) into the sums after it.
 # Each output's relative Frobenius error stays below 1e-2.
 BWD_REL_TOL = 1e-2
-BWD_SHAPES = {"train": (BATCH, 197), "ragged": (3, 197)}
+# (B, N, dm, heads, F, head dim, the kernels held there)
+ALL_BWD = ("layer_attention_ln_bwd", "layer_attention_bwd",
+           "mlp_ln_blend_bwd", "mlp_ln_bwd")
+BWD_SHAPES = {
+    "train": (BATCH, 197, 384, 6, 1536, 64, ALL_BWD),
+    "ragged": (3, 197, 384, 6, 1536, 64, ALL_BWD),
+    "resnext": (BATCH, 197, 384, 32, 1152, 12,
+                ("layer_attention_ln_bwd", "layer_attention_bwd")),
+    "h80": (8, 257, 640, 8, 2560, 80,
+            ("layer_attention_ln_bwd", "layer_attention_bwd")),
+}
 
 
 def _library_backward(run, leaves, do):
@@ -356,7 +421,7 @@ def _library_backward(run, leaves, do):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
-def backward_kernel_phase(eps):
+def backward_kernel_phase(eps, digests_only=False):
     from uvc_tpu_torch.ops.attention import (layer_attention_bwd,
                                              layer_attention_bwd_plain,
                                              layer_attention_ln_bwd,
@@ -367,25 +432,27 @@ def backward_kernel_phase(eps):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     results = {}
-    for shape, (b, n) in BWD_SHAPES.items():
-        t = _inputs(gen, b, n, 384, 6, 1536)
-        do = (torch.randn(b, n, 384, generator=gen, device="cuda")
+    for shape, (b, n, dm, heads, f, dh, kernels) in BWD_SHAPES.items():
+        if digests_only and shape not in PARENT_SHAPES:
+            continue
+        t = _inputs(gen, b, n, dm, heads, f, dh)
+        do = (torch.randn(b, n, dm, generator=gen, device="cuda")
               * 0.1).to(torch.bfloat16)
-        dm, heads, da, f = 384, 6, 384, 1536
+        da = dh * heads
         rows = b * n
         act = rows * dm * 2
-        akw = dict(num_heads=heads, scale=64 ** -0.5, eps=eps)
+        akw = dict(num_heads=heads, scale=dh ** -0.5, eps=eps)
         aargs = (t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
                  t["bproj"], t["amask"], do)
         sargs = (t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
                  t["amask"], do)
-        skw = dict(num_heads=heads, scale=64 ** -0.5)
+        skw = dict(num_heads=heads, scale=dh ** -0.5)
         margs = (t["g"], t["b"], t["w1"], t["b1"], t["w2"], t["b2"],
                  t["fmask"])
         # work: recompute qkv, t, dWproj, d a_in, dWqkv; the attention core
         # recomputes the logits and forms ctx, dv, dp, dq, dk: 12 N^2 dh
         a_flops = (2 * rows * dm * 3 * da * 3 + 2 * rows * dm * da * 2
-                   + 12 * b * heads * n * n * 64)
+                   + 12 * b * heads * n * n * dh)
         a_bytes = (3 * act + 2 * (4 * da * dm + 3 * da + dm + da) * 2
                    + 4 * dm * 4)
         m_flops = 5 * 2 * rows * dm * f
@@ -429,7 +496,8 @@ def backward_kernel_phase(eps):
                 lambda: mlp_ln_bwd_plain(t["x"], *margs, do, eps=eps),
                 lib_m, m_flops, m_bytes),
         }
-        for name, (kern, plain, library, flops, nbytes) in cases.items():
+        for name in kernels:
+            kern, plain, library, flops, nbytes = cases[name]
             outs = kern()
             torch.cuda.synchronize()
             again = kern()
@@ -449,6 +517,10 @@ def backward_kernel_phase(eps):
             check(worst <= BWD_REL_TOL,
                   f"{name} [{shape}]: kernel vs plain rel_fro per output "
                   f"{[f'{e[0]:.2e}' for e in errs]} (tol {BWD_REL_TOL})")
+            if digests_only:
+                print(f"kernel {name:22s} [{shape:6s}] rel_fro={worst:.2e} "
+                      f"digest={digest(outs)}", flush=True)
+                continue
             bound_ms, bound_by = bound(flops, nbytes)
             r = dict(shape=shape, rel_fro=worst, max_abs_err=mx,
                      rel_fro_per_output=[e[0] for e in errs],
@@ -457,7 +529,7 @@ def backward_kernel_phase(eps):
                      bound_by=bound_by, flops=flops, bytes=nbytes)
             results[(name, shape)] = r
             print(f"kernel {name:22s} [{shape:6s} B={b} N={n} dm={dm} "
-                  f"da={da} F={f}] rel_fro per output "
+                  f"da={da} H={heads} dh={dh} F={f}] rel_fro per output "
                   f"{' '.join(f'{e[0]:.1e}' for e in errs)} (tol "
                   f"{BWD_REL_TOL:g}) max_abs={mx:.2e} ms={r['ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} "
@@ -636,7 +708,7 @@ def serving_phase(card):
     return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
 
 
-def profile_phase(card, runs, top=8):
+def profile_phase(card, runs, top=8, batch=BATCH):
     """Device time by kernel for one batch of each path (torch.profiler),
     and the device's busy share of the wall time (the profiler's own host
     overhead is inside the wall time, so the busy share is a lower
@@ -664,7 +736,7 @@ def profile_phase(card, runs, top=8):
                       reverse=True)
         busy = sum(r[0] for r in rows)
         check(busy > 0, f"profile of {label}: no device time recorded")
-        print(f"profile {label} (batch {BATCH}): device busy {busy:.1f} us "
+        print(f"profile {label} (batch {batch}): device busy {busy:.1f} us "
               f"of {wall_us:.1f} us wall ({100 * busy / wall_us:.1f}%), "
               f"{sum(r[1] for r in rows)} device events [{card}]")
         own = [r for r in rows if "uvc::" in r[2]]
@@ -675,7 +747,7 @@ def profile_phase(card, runs, top=8):
               f"in {sum(r[1] for r in rows) - sum(r[1] for r in own)}")
         for t, n, key in rows[:top]:
             print(f"  {100 * t / busy:5.1f}%  {t:9.1f} us  x{n:<3d} "
-                  f"{key[:70]}")
+                  f"{key[:110]}")
 
 
 # ---------------------------------------------------------------------------
@@ -774,7 +846,8 @@ def training_phase(card):
             "layer_attention_ln_bwd": ln * TRAIN_TIMED,
             "mlp_ln_blend_bwd": ln * TRAIN_TIMED, "mlp_ln_bwd": 0,
             "layer_attention": 0, "layer_attention_bwd": 0, "performer": 0,
-            "performer_bwd": 0, "attention": 0, "attention_bwd": 0}
+            "performer_bwd": 0, "attention": 0, "attention_bwd": 0,
+            "attention_bwd_ctx": 0}
     print(f"launches stage-1 train   {counts} (expected {want})")
     check(counts == want, "stage-1 step launch counts differ")
     losses = torch.stack(losses).float().cpu()
@@ -814,7 +887,7 @@ def training_phase(card):
                 "mlp_ln_blend_bwd": 0, "mlp_ln_bwd": 2 * ln,
                 "layer_attention": 0, "layer_attention_bwd": 0,
                 "performer": 0, "performer_bwd": 0, "attention": 0,
-                "attention_bwd": 0}
+                "attention_bwd": 0, "attention_bwd_ctx": 0}
     print(f"launches gating off      {off_counts} (expected {want_off})")
     check(off_counts == want_off, "gating-off launch counts differ")
     check(all(torch.isfinite(v).item() for v in ol),
@@ -1185,32 +1258,38 @@ def _t2t_model(gen, cfg):
     return params
 
 
-def t2t_training_phase(card):
+def t2t_training_phase(card, name="t2t_vit_14", label="T2T-ViT-14", seed=12,
+                       warm=TRAIN_WARM, timed=TRAIN_TIMED):
+    """The stage-1 step on the T2T-ViT ``name`` at full width and batch 64
+    with a dense teacher: ``warm`` untimed steps, ``timed`` steps timed as
+    one window with their launches counted, the frozen random features
+    checked, a profiled step, and one batch-8 step against the CPU plain
+    path.  Returns the launch counts of the timed window."""
     from uvc_tpu_torch.compress.minimax import init_compression_state
     from uvc_tpu_torch.compress.resource import build_macs_table
     from uvc_tpu_torch.compress.state import MinimaxHParams
     from uvc_tpu_torch.configs import get_config
-    from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
-                                   reset_launch_counts)
+    from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
+                                   launch_counts, reset_launch_counts)
     from uvc_tpu_torch.train.state import TrainHParams, create_train_state
     from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
 
-    cfg = get_config("t2t_vit_14")
+    cfg = get_config(name)
     ln = cfg.depth
     hp = MinimaxHParams(enable_patch_gating=2, gating_interval=100)
     thp = TrainHParams()
-    gen = torch.Generator().manual_seed(12)
+    gen = torch.Generator().manual_seed(seed)
     params, teacher = _t2t_model(gen, cfg), _t2t_model(gen, cfg)
     state = create_train_state(params, thp,
                                init_compression_state(cfg, hp, "cuda"))
     step = build_stage1_step(cfg, build_macs_table(cfg), hp, thp,
                              warmup=False)
-    igen = torch.Generator(device="cuda").manual_seed(13)
+    igen = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
                     generator=igen, device="cuda")
     labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
                            device="cuda")
-    ngen = torch.Generator().manual_seed(14)
+    ngen = torch.Generator().manual_seed(seed + 2)
 
     def run(st, n):
         losses = []
@@ -1221,46 +1300,47 @@ def t2t_training_phase(card):
         return st, losses, m
 
     t0 = time.perf_counter()
-    state, _, _ = run(state, TRAIN_WARM)
+    state, _, _ = run(state, warm)
     torch.cuda.synchronize()
-    print(f"t2t train: {TRAIN_WARM} untimed steps in "
+    print(f"{label} train: {warm} untimed steps in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    state, losses, m = run(state, TRAIN_TIMED)
+    state, losses, m = run(state, timed)
     issued = time.perf_counter() - t0
     torch.cuda.synchronize()
     window = time.perf_counter() - t0
-    counts = {**launch_counts(), **backward_launch_counts()}
+    counts = {**launch_counts(), **backward_launch_counts(),
+              **composed_counts()}
     peak = torch.cuda.max_memory_allocated()
-    want = {name: 0 for name in counts}
-    want.update(performer=4 * TRAIN_TIMED, performer_bwd=2 * TRAIN_TIMED,
-                layer_attention_ln=2 * ln * TRAIN_TIMED,
-                mlp_ln=ln * TRAIN_TIMED, mlp_ln_blend=ln * TRAIN_TIMED,
-                layer_attention_ln_bwd=ln * TRAIN_TIMED,
-                mlp_ln_blend_bwd=ln * TRAIN_TIMED)
-    print(f"launches T2T stage-1     {counts} (expected {want})")
-    check(counts == want, "T2T stage-1 step launch counts differ")
+    want = {k: 0 for k in counts}
+    want.update(performer=4 * timed, performer_bwd=2 * timed,
+                layer_attention_ln=2 * ln * timed, mlp_ln=ln * timed,
+                mlp_ln_blend=ln * timed, layer_attention_ln_bwd=ln * timed,
+                mlp_ln_blend_bwd=ln * timed)
+    print(f"launches {label} stage-1 {counts} (expected {want})")
+    check(counts == want, f"{label} stage-1 step launch counts differ")
     losses = torch.stack(losses).float().cpu()
     check(torch.isfinite(losses).all().item(),
-          f"non-finite T2T stage-1 losses {losses.tolist()}")
+          f"non-finite {label} stage-1 losses {losses.tolist()}")
     w0 = params["t2t"]["attention1"]["prm_w"]
     check(torch.equal(state.params["t2t"]["attention1"]["prm_w"], w0),
           "the frozen random features moved")
-    print(f"stage-1 train step (T2T-ViT-14, batch {BATCH}, bf16): "
-          f"{TRAIN_TIMED * BATCH / window:.1f} img/s ({TRAIN_TIMED} steps in "
-          f"{window:.4f} s, {1e3 * window / TRAIN_TIMED:.2f} ms/step; the "
+    print(f"stage-1 train step ({label}, {cfg.num_heads} heads of "
+          f"{cfg.head_size}, batch {BATCH}, bf16): "
+          f"{timed * BATCH / window:.1f} img/s ({timed} steps in "
+          f"{window:.4f} s, {1e3 * window / timed:.2f} ms/step; the "
           f"host had issued them after {issued:.4f} s) [{card}]")
     print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
           f"grad_norm={float(m['grad_norm']):.4f} "
           f"resource={float(m['resource']):.4f}")
-    print(f"t2t train max_memory_allocated={peak} bytes "
+    print(f"{label} train max_memory_allocated={peak} bytes "
           f"({peak / 2**20:.1f} MiB) [{card}]")
 
-    profile_phase(card, {"T2T stage-1 train step": lambda: run(state, 1)},
-                  top=14)
+    profile_phase(card, {f"{label} stage-1 train step":
+                         lambda: run(state, 1)}, top=14)
 
     small = 8
     noise = draw_stage1_noise(ngen, cfg, hp, thp, small, "cpu")
@@ -1268,7 +1348,7 @@ def t2t_training_phase(card):
                  _noise_to(noise, "cuda"), TRAIN_TAU)
     _, cm = step(_state_to(state, "cpu"), _tree_to(teacher, "cpu"),
                  x[:small].cpu(), labels[:small].cpu(), noise, TRAIN_TAU)
-    card_vs_cpu("T2T stage-1 step", small, gm, cm,
+    card_vs_cpu(f"{label} stage-1 step", small, gm, cm,
                 ("loss", "grad_norm", "resource"))
     return counts
 
@@ -1390,22 +1470,27 @@ def t2t_serving_phase(card):
 # ---------------------------------------------------------------------------
 
 # (B, H, N, dh): the SE / Ghost blocks, the Dense variant's odd head dim 41
-# and its widest, 74, and a ragged shape (B * H * N = 300 rows)
+# and its widest, 74, a ragged shape (B * H * N = 300 rows), and ViT-H/14's
+# stage 1 (A8 in the composed backward of its 32 blocks)
 CORE_SHAPES = {"se": (BATCH, 6, 197, 64), "dense_odd": (BATCH, 8, 197, 41),
-               "dense_wide": (BATCH, 8, 197, 74), "ragged": (3, 2, 50, 24)}
+               "dense_wide": (BATCH, 8, 197, 74), "ragged": (3, 2, 50, 24),
+               "vit_h": (32, 16, 257, 80)}
+# the shapes at which A8 (attention_bwd_ctx) is held beside A9
+BWD_CTX_SHAPES = ("se", "ragged", "vit_h")
 # (config, label, attention-core launches per step: one per block)
 ABLATIONS = (("t2t_vit_14_se", "T2T-ViT-14-SE", 14),
              ("t2t_vit_16_ghost", "T2T-ViT-16-Ghost", 16),
              ("t2t_vit_dense", "T2T-ViT-Dense", 19))
 
 
-def _core_bound(b, h, n, dh, backward):
+def _core_bound(b, h, n, dh, kind):
     """(ms, "bytes" or "operations", FLOP, bytes) of the attention core:
-    q, k, v read and ctx written (forward), q, k, v, dO read and dq, dk, dv
-    written (backward), each once; 4 B H N^2 dh FLOP forward (q k^T and
-    P v), 10 backward (the logits again, dv, dp, dq, dk)."""
-    flops = (10 if backward else 4) * b * h * n * n * dh
-    nbytes = (7 if backward else 4) * b * h * n * dh * 2
+    q, k, v read and ctx written ("fwd"), q, k, v, dO read and dq, dk, dv
+    written ("bwd"), and ctx written besides ("bwd_ctx"), each once; 4 B H
+    N^2 dh FLOP forward (q k^T and P v), 10 backward (the logits again, dv,
+    dp, dq, dk), 12 with ctx (P v again)."""
+    flops = {"fwd": 4, "bwd": 10, "bwd_ctx": 12}[kind] * b * h * n * n * dh
+    nbytes = {"fwd": 4, "bwd": 7, "bwd_ctx": 8}[kind] * b * h * n * dh * 2
     return (*bound(flops, nbytes), flops, nbytes)
 
 
@@ -1425,7 +1510,7 @@ def _packed_views(*ts):
     return views
 
 
-def core_kernel_phase():
+def core_kernel_phase(digests_only=False):
     from uvc_tpu_torch.ops.attention import (attention, attention_bwd,
                                              attention_bwd_plain,
                                              attention_plain)
@@ -1433,6 +1518,8 @@ def core_kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(17)
     results = {}
     for shape, (b, h, n, dh) in CORE_SHAPES.items():
+        if digests_only and shape not in PARENT_SHAPES:
+            continue
         q, k, v, do = (torch.randn(b, h, n, dh, generator=gen,
                                    device="cuda").to(torch.bfloat16)
                        for _ in range(4))
@@ -1448,6 +1535,12 @@ def core_kernel_phase():
         berrs = _check_outputs("attention_bwd", shape, grads,
                                attention_bwd_plain(q, k, v, do, scale),
                                BWD_REL_TOL, again=again)
+        if digests_only:
+            print(f"kernel attention      [{shape:10s}] "
+                  f"digest={digest([out])}")
+            print(f"kernel attention_bwd  [{shape:10s}] "
+                  f"digest={digest(grads)}", flush=True)
+            continue
         views = _packed_views(q, k, v, do)
         check(torch.equal(attention(*views[:3], scale), out)
               and all(torch.equal(a, b) for a, b in
@@ -1469,7 +1562,8 @@ def core_kernel_phase():
                  lambda: attention_bwd(*views, scale),
                  lambda: attention_bwd_plain(q, k, v, do, scale), lib_bwd,
                  True)):
-            bound_ms, bound_by, flops, nbytes = _core_bound(b, h, n, dh, bwd)
+            bound_ms, bound_by, flops, nbytes = _core_bound(
+                b, h, n, dh, "bwd" if bwd else "fwd")
             r = dict(shape=shape, rel_fro=max(e[0] for e in errs),
                      max_abs_err=max(e[1] for e in errs),
                      rel_fro_per_output=[e[0] for e in errs],
@@ -1488,8 +1582,58 @@ def core_kernel_phase():
                   f"library_ms(sdpa)={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
                   + (" two launches bit-identical" if bwd else "")
-                  + " head views bit-identical", flush=True)
+                  + f" head views bit-identical digest="
+                  f"{digest(grads if bwd else [out])}", flush=True)
+        if shape in BWD_CTX_SHAPES:
+            results[("attention_bwd_ctx", shape)] = _bwd_ctx_row(
+                shape, q, k, v, do, scale, grads)
     return results
+
+
+def _bwd_ctx_row(shape, q, k, v, do, scale, grads):
+    """Kernel A8 (``attention_bwd_ctx``) against its plain version, every
+    output, two launches bit for bit, and its dq, dk, dv bit for bit A9's
+    (``grads``) on the same inputs; SDPA forward and backward as the
+    yardstick (one PyTorch computation of ctx and the three gradients)."""
+    from uvc_tpu_torch.ops.attention import (attention_bwd_ctx,
+                                             attention_bwd_ctx_plain)
+
+    b, h, n, dh = q.shape
+    outs = attention_bwd_ctx(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    again = attention_bwd_ctx(q, k, v, do, scale)
+    errs = _check_outputs("attention_bwd_ctx", shape, outs,
+                          attention_bwd_ctx_plain(q, k, v, do, scale),
+                          BWD_REL_TOL, again=again)
+    check(all(torch.equal(a, g) for a, g in zip(outs[1:], grads)),
+          f"attention_bwd_ctx [{shape}]: dq, dk, dv differ from "
+          f"attention_bwd's")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def library():
+        ctx = F.scaled_dot_product_attention(*leaves, scale=scale)
+        return ctx, torch.autograd.grad(ctx, leaves, do)
+
+    bound_ms, bound_by, flops, nbytes = _core_bound(b, h, n, dh, "bwd_ctx")
+    r = dict(shape=shape, rel_fro=max(e[0] for e in errs),
+             max_abs_err=max(e[1] for e in errs),
+             rel_fro_per_output=[e[0] for e in errs],
+             ms=time_ms(lambda: attention_bwd_ctx(q, k, v, do, scale), 20),
+             plain_ms=time_ms(
+                 lambda: attention_bwd_ctx_plain(q, k, v, do, scale), 3),
+             library_ms=time_ms(library, 20), bound_ms=bound_ms,
+             bound_by=bound_by, flops=flops, bytes=nbytes,
+             library="scaled_dot_product_attention")
+    print(f"kernel attention_bwd_ctx [{shape:10s} B={b} H={h} N={n} dh={dh}] "
+          f"rel_fro per output (ctx dq dk dv) "
+          f"{' '.join(f'{e[0]:.1e}' for e in errs)} (tol {BWD_REL_TOL:g}) "
+          f"max_abs={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} "
+          f"library_ms(sdpa fwd+bwd)={r['library_ms']:.4f} "
+          f"bound={bound_ms * 1e3:.1f}us ({bound_by}) two launches "
+          f"bit-identical, dq dk dv bit-identical to attention_bwd "
+          f"digest={digest(outs)}", flush=True)
+    return r
 
 
 def ablation_phase(card):
@@ -1566,10 +1710,215 @@ def ablation_phase(card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: ViT-H/14 stage 1, the wide-model backward route and kernel A8
+# ---------------------------------------------------------------------------
+
+VIT_H_BATCH = 32
+# card vs CPU: full width, depth cut to 4, batch 2, which keeps the CPU
+# plain path's share of the run small
+VIT_H_CPU_DEPTH, VIT_H_CPU_BATCH = 4, 2
+
+
+def _grown_vit(cfg, seed):
+    """ViT parameters in ``vit.init_params``'s layout at ``cfg``'s depth:
+    ``init_params`` at depth 1, its blocks repeated to the depth with the
+    four projection kernels drawn anew on the card (std 0.02 normals), and
+    a random classifier head.  ``init_params`` draws truncated normals
+    on the host, which is slow for ViT-H/14's 632 M weights."""
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.utils.tree import tree_map
+
+    params = vit.init_params(torch.Generator().manual_seed(seed),
+                             cfg.replace(depth=1))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def grow(t):
+        return t.repeat(cfg.depth, *([1] * (t.dim() - 1)))
+
+    params["blocks"] = tree_map(grow, params["blocks"])
+    for sub in ("qkv", "proj", "fc1", "fc2"):
+        k = params["blocks"][sub]["kernel"]
+        params["blocks"][sub]["kernel"] = 0.02 * torch.randn(
+            k.shape, generator=gen, device="cuda")
+    for key in ("block_gating", "attn_gating", "mlp_gating"):
+        params[key] = grow(params[key])
+    params["head"]["kernel"] = 0.05 * torch.randn(
+        params["head"]["kernel"].shape, generator=gen, device="cuda")
+    return params
+
+
+def vit_h_phase(card):
+    """The stage-1 step on ViT-H/14 at full width and depth (32 blocks,
+    dm 1280, 16 heads of 80, F 5120, N 257) with bench.py's flagship
+    settings at batch 32: per step K1 64 (student and teacher), K3 32, K2
+    32 forward, and per student block the composed backward (dm > 1024),
+    whose attention part is A8; no fused sublayer backward.  3 untimed and
+    10 timed steps, a gating-warmup step, a profiled step, the composed
+    routes timed alone at one block, and one step at depth 4 and batch 2 on
+    the card against the CPU plain path.  Returns the timed window's
+    launch counts."""
+    from uvc_tpu_torch.compress.minimax import init_compression_state
+    from uvc_tpu_torch.compress.resource import build_macs_table
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
+                                   launch_counts, reset_launch_counts)
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
+    from uvc_tpu_torch.utils.tree import tree_leaves
+
+    cfg = get_config("ViT-H_14")
+    ln, b = cfg.depth, VIT_H_BATCH
+    hp = MinimaxHParams(enable_patch_gating=2, gating_interval=100)
+    thp = TrainHParams()
+    t0 = time.perf_counter()
+    params, teacher = _grown_vit(cfg, 40), _grown_vit(cfg, 41)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = create_train_state(params, thp,
+                               init_compression_state(cfg, hp, "cuda"))
+    step = build_stage1_step(cfg, build_macs_table(cfg), hp, thp,
+                             warmup=False)
+    igen = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.randn(b, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(43)
+    torch.cuda.synchronize()
+    print(f"ViT-H/14: {n_params} parameters, student and teacher made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def run(st, fn, n):
+        losses = []
+        for _ in range(n):
+            noise = draw_stage1_noise(ngen, cfg, hp, thp, b, "cuda")
+            st, m = fn(st, teacher, x, labels, noise, TRAIN_TAU)
+            losses.append(m["loss"])
+        return st, losses, m
+
+    t0 = time.perf_counter()
+    state, _, _ = run(state, step, TRAIN_WARM)
+    torch.cuda.synchronize()
+    print(f"ViT-H/14 train: {TRAIN_WARM} untimed steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, m = run(state, step, TRAIN_TIMED)
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    counts = {**launch_counts(), **backward_launch_counts(),
+              **composed_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update({k: v * TRAIN_TIMED for k, v in dict(
+        layer_attention_ln=2 * ln, mlp_ln=ln, mlp_ln_blend=ln,
+        attention_bwd_ctx=ln, layer_attention_ln_bwd_composed=ln,
+        mlp_ln_blend_bwd_composed=ln).items()})
+    print(f"launches ViT-H/14 stage-1 {counts} (expected {want})")
+    check(counts == want, "ViT-H/14 stage-1 step launch counts differ")
+    losses = torch.stack(losses).float().cpu()
+    check(torch.isfinite(losses).all().item(),
+          f"non-finite ViT-H/14 stage-1 losses {losses.tolist()}")
+    print(f"stage-1 train step (ViT-H/14, 32 blocks, dm 1280, 16 heads of "
+          f"80, batch {b}, bf16): {TRAIN_TIMED * b / window:.1f} img/s "
+          f"({TRAIN_TIMED} steps in {window:.4f} s, "
+          f"{1e3 * window / TRAIN_TIMED:.2f} ms/step; the host had issued "
+          f"them after {issued:.4f} s) [{card}]")
+    print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
+          f"grad_norm={float(m['grad_norm']):.4f} "
+          f"resource={float(m['resource']):.4f}")
+    print(f"ViT-H/14 train max_memory_allocated={peak} bytes "
+          f"({peak / 2**30:.2f} GiB) [{card}]")
+
+    wstep = build_stage1_step(cfg, build_macs_table(cfg), hp, thp,
+                              warmup=True)
+    before = state.params["block_gating"].clone()
+    wstate, wl, _ = run(state, wstep, 1)
+    check(torch.equal(wstate.params["block_gating"], before),
+          "the ViT-H/14 warmup step moved block_gating")
+    check(torch.isfinite(wl[0]).item(), "non-finite ViT-H/14 warmup loss")
+    print(f"ViT-H/14 warmup step: block_gating unchanged bit for bit, "
+          f"loss={float(wl[0]):.4f}")
+    del wstate
+
+    profile_phase(card, {"ViT-H/14 stage-1 train step": lambda: run(
+        state, step, 1)}, top=30, batch=b)
+    composed_route_times(card, cfg)
+    del state, params, teacher
+
+    small = cfg.replace(depth=VIT_H_CPU_DEPTH)
+    sb = VIT_H_CPU_BATCH
+    sstate = create_train_state(_grown_vit(small, 44), thp,
+                                init_compression_state(small, hp, "cuda"))
+    steacher = _grown_vit(small, 45)
+    sstep = build_stage1_step(small, build_macs_table(small), hp, thp,
+                              warmup=False)
+    noise = draw_stage1_noise(ngen, small, hp, thp, sb, "cpu")
+    _, gm = sstep(sstate, steacher, x[:sb], labels[:sb],
+                  _noise_to(noise, "cuda"), TRAIN_TAU)
+    _, cm = sstep(_state_to(sstate, "cpu"), _tree_to(steacher, "cpu"),
+                  x[:sb].cpu(), labels[:sb].cpu(), noise, TRAIN_TAU)
+    card_vs_cpu(f"ViT-H/14 stage-1 step (depth {VIT_H_CPU_DEPTH})", sb, gm,
+                cm, ("loss", "grad_norm", "resource"))
+    return counts
+
+
+def composed_route_times(card, cfg):
+    """One block's composed backwards at ViT-H/14's stage-1 shape, timed
+    alone beside A8 and the f32 matmul of ``dmask`` (the one product the
+    route keeps in f32): where the route's time goes."""
+    from uvc_tpu_torch.ops.attention import (_rows_as_heads,
+                                             attention_bwd_ctx,
+                                             layer_attention_ln_bwd_composed)
+    from uvc_tpu_torch.ops.mlp import mlp_ln_blend_bwd_composed
+
+    b, n, dm, heads, f = VIT_H_BATCH, cfg.seq_len, cfg.embed_dim, \
+        cfg.num_heads, cfg.mlp_hidden
+    dh = dm // heads
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    t = _inputs(gen, b, n, dm, heads, f, dh)
+    do = (torch.randn(b, n, dm, generator=gen, device="cuda")
+          * 0.1).to(torch.bfloat16)
+    eps = cfg.layer_norm_eps
+    akw = dict(num_heads=heads, scale=dh ** -0.5, eps=eps)
+    qkv = torch.randn(b, n, 3 * dm, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dctx = torch.randn(b, n, dm, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = _rows_as_heads(qkv, 3, heads)
+    dctx_h, = _rows_as_heads(dctx, 1, heads)
+    wproj32 = t["wproj"].float()
+    times = {
+        "layer_attention_ln_bwd_composed": time_ms(
+            lambda: layer_attention_ln_bwd_composed(
+                t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
+                t["bproj"], t["amask"], do, **akw), 10),
+        "  of it attention_bwd_ctx (A8)": time_ms(
+            lambda: attention_bwd_ctx(q, k, v, dctx_h, dh ** -0.5), 10),
+        "  of it the f32 matmul do . Wproj^T (dmask)": time_ms(
+            lambda: do.float() @ wproj32.T, 10),
+        "mlp_ln_blend_bwd_composed": time_ms(
+            lambda: mlp_ln_blend_bwd_composed(
+                t["x"], t["xin"], t["d"], t["g"], t["b"], t["w1"], t["b1"],
+                t["w2"], t["b2"], t["fmask"], do, eps=eps), 10),
+    }
+    for name, ms in times.items():
+        print(f"composed route at ViT-H/14 [B={b} N={n} dm={dm} F={f}], one "
+              f"block: {name} {ms:.4f} ms [{card}]")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3 (the sublayer kernels)")
+                    help="stop after phase 3 (the kernels)")
+    ap.add_argument("--digests", action="store_true",
+                    help="phase 3 at the shapes the parent commit's kernels "
+                    "take, digests only (no timing), then stop; run it in a "
+                    "checkout of the parent and here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1590,9 +1939,10 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     eps = get_config("deit_small_patch16_224").layer_norm_eps
-    res = kernel_phase(eps)
-    res.update(backward_kernel_phase(eps))
-    if args.kernels_only:
+    res = kernel_phase(eps, args.digests)
+    res.update(backward_kernel_phase(eps, args.digests))
+    res.update(core_kernel_phase(args.digests))
+    if args.kernels_only or args.digests:
         print(card_line())
         return 0
     launches = serving_phase(card)
@@ -1603,15 +1953,21 @@ def main():
     res.update(performer_kernel_phase())
     t2t_train_counts = t2t_training_phase(card)
     t2t_serve_counts = t2t_serving_phase(card)
-    res.update(core_kernel_phase())
     ablation_counts = ablation_phase(card)
+    vit_h_counts = vit_h_phase(card)
+    # phase 10: the resnext structure ablation, 32 heads of 12 (K1, A2)
+    resnext_counts = t2t_training_phase(
+        card, "t2t_vit_14_resnext", "T2T-ViT-14-resnext", seed=50, warm=1,
+        timed=5)
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
     # T2T-ViT-14 stage-1 window and its serving (A10 / A11), the ablations'
-    # fine-tune and the SE eval (A9)
+    # fine-tune and the SE eval (A9), the timed ViT-H/14 window (A8) and
+    # the resnext window
     for counts in (train_counts, off_counts, part_counts, base_counts,
-                   t2t_train_counts, t2t_serve_counts, ablation_counts):
+                   t2t_train_counts, t2t_serve_counts, ablation_counts,
+                   vit_h_counts, resnext_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1642,6 +1998,8 @@ def main():
                       "uvc_tpu/ops/attention.py:100", "se"),
         "attention_bwd": ("uvc_tpu_torch/csrc/attention_core.cu",
                           "uvc_tpu/ops/attention.py:124", "se"),
+        "attention_bwd_ctx": ("uvc_tpu_torch/csrc/attention_core.cu",
+                              "uvc_tpu/ops/attention.py:161", "vit_h"),
     }
     # A11, the split form of the same function, ports into the same kernels
     also = {"performer": ["uvc_tpu/ops/performer.py:153",

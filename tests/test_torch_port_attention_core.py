@@ -225,8 +225,8 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_entry_points_are_bound_and_registered():
-    assert set(_cuda._LIBS["attention_core"][1]) == {"uvc_attention",
-                                                     "uvc_attention_bwd"}
+    assert set(_cuda._LIBS["attention_core"][1]) == {
+        "uvc_attention", "uvc_attention_bwd", "uvc_attention_bwd_ctx"}
     assert tops.KERNEL_WRAPPERS["attention"] is tatt.attention
     assert tops.BACKWARD_KERNEL_WRAPPERS["attention_bwd"] is \
         tatt.attention_bwd

@@ -9,15 +9,16 @@
 // points at the end of this file.
 //
 // What bounds it on the H100: at DeiT-Small widths (dm = 384, N = 197,
-// head dim 64) the three matrix products carry ~18.7 GFLOP per batch of 64
+// 6 heads of 64) the three matrix products carry ~18.7 GFLOP per batch of 64
 // against ~20 MB of input and output, so the tensor cores, not the 3.35 TB/s
 // of device memory, set the floor (~19 us at 989 TFLOP/s).
 //
 // Design: four launches on the caller's stream (2-4 are sublayer_fwd).
 //   1. layer_norm_kernel: a_in = bf16(LN1(x)) in f32 -> [B*N, dm].
 //   2. gemm_kernel<EPI_BIAS>: qkv = bf16(a_in @ Wqkv + bqkv) -> [B*N, 3*da].
-//   3. core_fwd_kernel<64> (attention_core.cuh, the attention core that
-//      kernel A9 shares): one CTA per (64-query tile, head, image), reading
+//   3. core_fwd_kernel<DHP> (attention_core.cuh, the attention core that
+//      kernels A8 and A9 share, at the head dim padded to 16, 32, 48, 64 or
+//      80): one CTA per (64-query tile, head, image), reading
 //      q, k and v straight from the packed qkv rows; K and V of the head
 //      live in shared memory, keys at or beyond N are masked inside the
 //      kernel (no padding of N), f32 logits and softmax, the normalisation
@@ -26,22 +27,21 @@
 //   4. gemm_kernel<EPI_RESID>: out = bf16(x + (ctx @ Wproj + bproj)).
 // The TPU kernel kept a_in, qkv and ctx in VMEM; here they make one round
 // trip each through device memory (~10 x 9.7 MB at B = 64, dm = da = 384).
-// Fusing them back is later work.  The attention width da = 64 * heads may
-// differ from dm (compacted layers).
+// Fusing them back is later work.  The attention width da = heads * dh,
+// any even head dim up to 80, may differ from dm (compacted layers).
 #include "attention_core.cuh"
 
 namespace uvc {
 
-constexpr int ATT_DH = 64;  // head dim of the sublayer kernels
-
-// head h of packed rows [B*N, ld] starting at a column: q, k or v of
-// qkv [B*N, 3 da] (columns 0, da, 2 da), or one of the [B*N, da] rows
-static InHeads packed_in(const bf16* rows, int n, int ld) {
-  return {rows, (long long)n * ld, ATT_DH, ld};
+// heads of dh columns of packed rows [B*N, ld] starting at a column: q, k
+// or v of qkv [B*N, 3 da] (columns 0, da, 2 da), or one of the [B*N, da]
+// rows
+static InHeads packed_in(const bf16* rows, int n, int ld, int dh) {
+  return {rows, (long long)n * ld, dh, ld};
 }
 
-static OutHeads packed_out(bf16* rows, int n, int ld) {
-  return {rows, (long long)n * ld, ATT_DH, ld};
+static OutHeads packed_out(bf16* rows, int n, int ld, int dh) {
+  return {rows, (long long)n * ld, dh, ld};
 }
 
 // ---------------------------------------------------------------------------
@@ -71,11 +71,13 @@ static cudaError_t sublayer_fwd(const bf16* a, const bf16* wqkv,
   cudaError_t err = launch_gemm<EPI_BIAS>(p, s);
   if (err != cudaSuccess) return err;
 
-  const int ld = 3 * da;
-  err = launch_core_fwd<ATT_DH>(
-      packed_in(qkv, n, ld), packed_in(qkv + da, n, ld),
-      packed_in(qkv + 2 * da, n, ld), packed_out(ctx, n, da), mask, batch,
-      heads, n, ATT_DH, scale, s);
+  const int ld = 3 * da, dh = da / heads;
+  err = with_head_dim(dh, [&](auto d) {
+    return launch_core_fwd<decltype(d)::value>(
+        packed_in(qkv, n, ld, dh), packed_in(qkv + da, n, ld, dh),
+        packed_in(qkv + 2 * da, n, ld, dh), packed_out(ctx, n, da, dh), mask,
+        batch, heads, n, dh, scale, s);
+  });
   if (err != cudaSuccess) return err;
 
   GemmArgs q = {};
@@ -111,10 +113,10 @@ struct SublayerBwd {
 //   1. gemm <EPI_BIAS>: qkv = bf16(a . Wqkv + bqkv).
 //   2. gemm <EPI_F32_MASK, [N][K] B>: t = do . Wproj^T (f32),
 //      dctx = bf16(t * mask).
-//   3. core_bwd_q_kernel<64, CTX> (attention_core.cuh): ctx (f32),
-//      bf16(ctx * mask), dq, and the per-query (max, s, row) -- per (query
-//      tile, head, image).
-//   4. core_bwd_kv_kernel<64>: dk, dv -- per (key tile, head, image),
+//   3. core_bwd_q_kernel<DHP, CTX_SUBLAYER> (attention_core.cuh): ctx
+//      (f32), bf16(ctx * mask), dq, and the per-query (max, s, row) -- per
+//      (query tile, head, image).
+//   4. core_bwd_kv_kernel<DHP>: dk, dv -- per (key tile, head, image),
 //      a loop over the queries takes the place of the Pallas kernel's
 //      sequential accumulation, so no two CTAs write one output.
 //   5. gemm <EPI_SCALE, [K][M] A>: dWqkv = a^T . dqkv over the B*N rows
@@ -148,15 +150,18 @@ static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   err = launch_gemm<EPI_F32_MASK, false, true>(p, s);
   if (err != cudaSuccess) return err;
 
-  const int ld = 3 * b.da;
-  const CtxOut cx = {b.ctx, b.ctxm, b.mask, (long long)b.n * b.da, ATT_DH,
-                     b.da};
-  err = launch_core_bwd<ATT_DH, true>(
-      packed_in(b.qkv, b.n, ld), packed_in(b.qkv + b.da, b.n, ld),
-      packed_in(b.qkv + 2 * b.da, b.n, ld), packed_in(b.dctx, b.n, b.da),
-      packed_out(b.dqkv, b.n, ld), packed_out(b.dqkv + b.da, b.n, ld),
-      packed_out(b.dqkv + 2 * b.da, b.n, ld), b.stats, cx, b.batch, b.heads,
-      b.n, ATT_DH, b.scale, s);
+  const int ld = 3 * b.da, dh = b.da / b.heads;
+  const CtxOut cx = {b.ctx, b.ctxm, b.mask, (long long)b.n * b.da, dh, b.da,
+                     {}};
+  err = with_head_dim(dh, [&](auto d) {
+    return launch_core_bwd<decltype(d)::value, CTX_SUBLAYER>(
+        packed_in(b.qkv, b.n, ld, dh), packed_in(b.qkv + b.da, b.n, ld, dh),
+        packed_in(b.qkv + 2 * b.da, b.n, ld, dh),
+        packed_in(b.dctx, b.n, b.da, dh), packed_out(b.dqkv, b.n, ld, dh),
+        packed_out(b.dqkv + b.da, b.n, ld, dh),
+        packed_out(b.dqkv + 2 * b.da, b.n, ld, dh), b.stats, cx, b.batch,
+        b.heads, b.n, dh, b.scale, s);
+  });
   if (err != cudaSuccess) return err;
 
   p = {};

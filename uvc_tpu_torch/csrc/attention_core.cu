@@ -6,6 +6,10 @@
 // _call_fwd / _call_bwd: the custom VJP _attention_padded behind
 // fused_attention and attention_core).  Their callers are the T2T
 // architecture ablations (SE, Ghost, Dense), one call per block.
+// uvc_attention_bwd_ctx replaces ::_bwd_ctx_kernel (kernel A8, called
+// through _call_bwd_ctx by the composed sublayer backward of wide models,
+// attention.py:672-701): the backward plus the context it recomputes; its
+// note is at its entry point below.
 //
 // What bounds it on the H100: at the SE / Ghost shape (B = 64, H = 6,
 // N = 197, dh = 64) each [B, H, N, dh] bf16 tensor is 9.68 MB.  The forward
@@ -17,9 +21,9 @@
 // recomputes them from q and k in registers.
 //
 // Design: the kernels of attention_core.cuh, the attention core that the
-// sublayer kernels of attention.cu (K1, A2, A7) run at head dim 64, here
-// instantiated for the padded head dims DHP = 16, 32, 48, 64 and 80 without
-// the ctx mask.  Any dh <= DHP is taken by zero-filling columns dh..DHP-1
+// sublayer kernels of attention.cu (K1, A2, A7) run on the packed qkv rows,
+// here instantiated for the padded head dims DHP = 16, 32, 48, 64 and 80
+// without the ctx mask.  Any dh <= DHP is taken by zero-filling columns dh..DHP-1
 // of the staged tiles in shared memory (exact; see the note there), with
 // copies 16, 4 or 2 bytes wide as dh and the strides allow: the Dense
 // variant's head dims 20, 28, ..., 74 go 4 bytes at a time, only its odd
@@ -28,11 +32,6 @@
 // output through device memory on every call.  The operands are read where
 // they lie, at the strides the caller passes (the models hand over head
 // views of one projection), so nothing is copied before or after a call.
-//
-// Kernel A8 (_bwd_ctx_kernel) is this backward plus one output: ctx =
-// bf16(probs) . V, which the query-side kernel already accumulates in its
-// third pass for the sublayer backward (CTX = true: f32, beside the masked
-// copy); A8 would write it unmasked in the operands' dtype.
 #include "attention_core.cuh"
 
 namespace uvc {
@@ -64,19 +63,38 @@ extern "C" int uvc_attention(const void* q, const void* k, const void* v,
                 vh = uvc::heads_at<const bf16>(v, strides, 2);
   const OutHeads oh = uvc::heads_at<bf16>(out, strides, 3);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 0) return (int)cudaErrorInvalidValue;
-  switch ((dh + 15) / 16) {
-#define UVC_FWD(DHP)                                                        \
-  return (int)uvc::launch_core_fwd<DHP>(qh, kh, vh, oh, nullptr, batch,     \
-                                        heads, n, dh, scale, s)
-    case 1: UVC_FWD(16);
-    case 2: UVC_FWD(32);
-    case 3: UVC_FWD(48);
-    case 4: UVC_FWD(64);
-    case 5: UVC_FWD(80);
-#undef UVC_FWD
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)uvc::with_head_dim(dh, [&](auto d) {
+    return uvc::launch_core_fwd<decltype(d)::value>(qh, kh, vh, oh, nullptr,
+                                                    batch, heads, n, dh,
+                                                    scale, s);
+  });
+}
+
+// The two backwards: A9 (no ctx) and A8 (ctx, CTX_OUT).  strides: the
+// (batch, head, row) strides of q, k, v, dout, dq, dk, dv and, for A8,
+// ctx, in that order.
+template <int CTX>
+static int core_backward(const void* q, const void* k, const void* v,
+                         const void* dout, void* stats, void* ctx, void* dq,
+                         void* dk, void* dv, const long long* strides,
+                         int batch, int heads, int n, int dh, float scale,
+                         void* stream) {
+  const InHeads qh = uvc::heads_at<const bf16>(q, strides, 0),
+                kh = uvc::heads_at<const bf16>(k, strides, 1),
+                vh = uvc::heads_at<const bf16>(v, strides, 2),
+                doh = uvc::heads_at<const bf16>(dout, strides, 3);
+  const OutHeads dqh = uvc::heads_at<bf16>(dq, strides, 4),
+                 dkh = uvc::heads_at<bf16>(dk, strides, 5),
+                 dvh = uvc::heads_at<bf16>(dv, strides, 6);
+  uvc::CtxOut cx = {};
+  if (CTX == uvc::CTX_OUT) cx.out = uvc::heads_at<bf16>(ctx, strides, 7);
+  float4* st = static_cast<float4*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)uvc::with_head_dim(dh, [&](auto d) {
+    return uvc::launch_core_bwd<decltype(d)::value, CTX>(
+        qh, kh, vh, doh, dqh, dkh, dvh, st, cx, batch, heads, n, dh, scale,
+        s);
+  });
 }
 
 // Backward.  q, k, v, dout, dq, dk, dv: [B, H, N, dh] bf16, unit stride in
@@ -87,28 +105,35 @@ extern "C" int uvc_attention_bwd(const void* q, const void* k, const void* v,
                                  void* dk, void* dv, const long long* strides,
                                  int batch, int heads, int n, int dh,
                                  float scale, void* stream) {
-  const InHeads qh = uvc::heads_at<const bf16>(q, strides, 0),
-                kh = uvc::heads_at<const bf16>(k, strides, 1),
-                vh = uvc::heads_at<const bf16>(v, strides, 2),
-                doh = uvc::heads_at<const bf16>(dout, strides, 3);
-  const OutHeads dqh = uvc::heads_at<bf16>(dq, strides, 4),
-                 dkh = uvc::heads_at<bf16>(dk, strides, 5),
-                 dvh = uvc::heads_at<bf16>(dv, strides, 6);
-  float4* st = static_cast<float4*>(stats);
-  const uvc::CtxOut none = {};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 0) return (int)cudaErrorInvalidValue;
-  switch ((dh + 15) / 16) {
-#define UVC_BWD(DHP)                                                        \
-  return (int)uvc::launch_core_bwd<DHP, false>(qh, kh, vh, doh, dqh, dkh,   \
-                                               dvh, st, none, batch, heads, \
-                                               n, dh, scale, s)
-    case 1: UVC_BWD(16);
-    case 2: UVC_BWD(32);
-    case 3: UVC_BWD(48);
-    case 4: UVC_BWD(64);
-    case 5: UVC_BWD(80);
-#undef UVC_BWD
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return core_backward<uvc::CTX_NONE>(q, k, v, dout, stats, nullptr, dq, dk,
+                                      dv, strides, batch, heads, n, dh,
+                                      scale, stream);
+}
+
+// Kernel A8, the port of uvc_tpu/ops/attention.py::_bwd_ctx_kernel: the
+// backward above plus ctx = bf16(bf16(probs) . V), the probabilities
+// normalised before the product as that kernel does (the forward divides
+// after it).  The query-side kernel forms this ctx in its third pass
+// (CTX_OUT) and writes it unmasked at its own strides.
+//
+// What bounds it on the H100: at ViT-H/14 stage 1 (B = 32, H = 16,
+// N = 257, dh = 80) each [B, H, N, dh] bf16 tensor is 21.05 MB; it reads
+// q, k, v, dO and writes ctx, dq, dk, dv (168.4 MB, 50.3 us at 3.35 TB/s)
+// for 12 B H N^2 dh = 32.5 GFLOP (32.8 us at 989 TFLOP/s): device memory.
+//
+// Design: A9's two launches, one more output; the caller (the composed
+// sublayer backward) passes dq, dk, dv as head views of one [B, N, 3 da]
+// buffer and ctx as head views of [B, N, da], the layouts its matrix
+// products take, so nothing is stacked or transposed after the call.
+// strides: eight rows of three, q, k, v, dout, dq, dk, dv, ctx.
+extern "C" int uvc_attention_bwd_ctx(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     void* stats, void* ctx, void* dq,
+                                     void* dk, void* dv,
+                                     const long long* strides, int batch,
+                                     int heads, int n, int dh, float scale,
+                                     void* stream) {
+  return core_backward<uvc::CTX_OUT>(q, k, v, dout, stats, ctx, dq, dk, dv,
+                                     strides, batch, heads, n, dh, scale,
+                                     stream);
 }

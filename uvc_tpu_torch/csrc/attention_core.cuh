@@ -2,9 +2,9 @@
 //   ctx = softmax(q . k^T * scale) . v
 // per (image, head), forward and backward, on head-split operands at any
 // strides.  attention.cu runs it on the packed qkv rows of the sublayer
-// kernels (K1, A2, A7: head dim 64, the ctx mask, and in the backward the
-// f32 ctx that dmask needs); attention_core.cu runs it on the [B, H, N, dh]
-// operands of the bare core (A9: head dims up to 80).
+// kernels (K1, A2, A7: even head dims up to 80, the ctx mask, and in the
+// backward the f32 ctx that dmask needs); attention_core.cu runs it on the
+// [B, H, N, dh] operands of the bare core (A9 and A8: head dims up to 80).
 //
 // Design: one CTA of four warps per (64-row tile, head, image), 16 rows per
 // warp, mma.sync m16n8k16 with f32 accumulators; the other operand's whole
@@ -19,9 +19,10 @@
 //     bits): a query-side kernel (core_bwd_q_kernel; four passes over the
 //     keys: the max, s, row = sum(dp * probs) with probs = p / s and
 //     dp = dO . V^T, then ds = bf16(probs * (dp - row)) and
-//     dq = ds . K * scale) that also writes (max, s, row) per query, and
-//     with CTX the sublayer's ctx = bf16(probs) . V (f32) and
-//     bf16(ctx * mask) from its third pass; and a key-side kernel
+//     dq = ds . K * scale) that also writes (max, s, row) per query and,
+//     from its third pass, ctx = bf16(probs) . V as the caller asks
+//     (CtxMode: none for A9; the f32 ctx and bf16(ctx * mask) for the
+//     sublayers; bf16(ctx) for A8); and a key-side kernel
 //     (core_bwd_kv_kernel) that loops over the queries with those
 //     statistics: dv = bf16(probs)^T . dO and dk = ds^T . Q * scale.  The
 //     loop over the queries takes the place of the Pallas kernels'
@@ -38,6 +39,7 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -59,14 +61,19 @@ struct Heads {
 typedef Heads<const bf16> InHeads;
 typedef Heads<bf16> OutHeads;
 
-// The sublayer backward's extra outputs of the query-side kernel, at one
-// layout: ctx = bf16(probs) . V in f32 and ctxm = bf16(ctx * mask), mask
-// [heads * dh] with dh even.
+// What the query-side kernel writes of ctx = bf16(probs) . V besides dq:
+// nothing (A9); the sublayer backward's ctx in f32 and ctxm =
+// bf16(ctx * mask) at one layout (sb, sh, sr), mask [heads * dh] with dh
+// even (K1/A2/A7); or bf16(ctx), unmasked, at its own strides (A8,
+// _bwd_ctx_kernel).
+enum CtxMode { CTX_NONE, CTX_SUBLAYER, CTX_OUT };
+
 struct CtxOut {
   float* ctx;
   bf16* ctxm;
   const bf16* mask;
   long long sb, sh, sr;
+  OutHeads out;  // CTX_OUT
 };
 
 // Elements per copy that an operand allows: 8 (16 bytes) where dh, its
@@ -306,9 +313,9 @@ static __global__ void __launch_bounds__(CORE_THREADS)
 }
 
 // Backward, query side: one CTA per (64-query tile, head, image), the
-// head's K and V in shared memory.  Writes dq, (max, s, row) per query and,
-// with CTX, the sublayer's ctx and bf16(ctx * mask).
-template <int DHP, bool CTX, bool FULL>
+// head's K and V in shared memory.  Writes dq, (max, s, row) per query and
+// ctx as CTX asks.
+template <int DHP, int CTX, bool FULL>
 static __global__ void __launch_bounds__(CORE_THREADS)
     core_bwd_q_kernel(InHeads q, InHeads k, InHeads v, InHeads dout,
                       OutHeads dq, float4* __restrict__ stats, CtxOut cx,
@@ -377,7 +384,7 @@ static __global__ void __launch_bounds__(CORE_THREADS)
     }
   };
 
-  // pass 3: row = sum(dp * probs), dp = dO . V^T; with CTX,
+  // pass 3: row = sum(dp * probs), dp = dO . V^T; unless CTX_NONE,
   // ctx = bf16(probs) . V
   float acc[DHP / 8][4];
 #pragma unroll
@@ -393,7 +400,7 @@ static __global__ void __launch_bounds__(CORE_THREADS)
            dp1[1] * pr1[1];
     rw1 += dp0[2] * pr0[2] + dp0[3] * pr0[3] + dp1[2] * pr1[2] +
            dp1[3] * pr1[3];
-    if (CTX) {
+    if (CTX != CTX_NONE) {
       const uint32_t pa[4] = {pack_f32(pr0[0], pr0[1]),
                               pack_f32(pr0[2], pr0[3]),
                               pack_f32(pr1[0], pr1[1]),
@@ -410,7 +417,7 @@ static __global__ void __launch_bounds__(CORE_THREADS)
   for (int hh = 0; hh < 2; ++hh) {
     const int qi = qt * CORE_QT + warp * 16 + g + 8 * hh;
     if (qi >= n) continue;
-    if (CTX) {
+    if (CTX == CTX_SUBLAYER) {
       const long long off = (long long)b * cx.sb + (long long)h * cx.sh +
                             qi * cx.sr;
 #pragma unroll
@@ -423,6 +430,13 @@ static __global__ void __launch_bounds__(CORE_THREADS)
             pack_f32(c0 * bf2f(cx.mask[h * dh + c]),
                      c1 * bf2f(cx.mask[h * dh + c + 1]));
       }
+    }
+    if (CTX == CTX_OUT) {
+      bf16* row = cx.out.head(b, h) + qi * cx.out.sr;
+#pragma unroll
+      for (int dn = 0; dn < DHP / 8; ++dn)
+        store_pair(row, dn * 8 + 2 * t, dh, vec, acc[dn][2 * hh],
+                   acc[dn][2 * hh + 1]);
     }
     if (t == 0)
       stats[bh * n + qi] = make_float4(hh ? mx1 : mx0, hh ? l1 : l0,
@@ -586,7 +600,7 @@ static cudaError_t launch_core_fwd(InHeads q, InHeads k, InHeads v,
                                         dh, scale, vec, s);
 }
 
-template <int DHP, bool CTX, bool FULL>
+template <int DHP, int CTX, bool FULL>
 static cudaError_t run_core_bwd(InHeads q, InHeads k, InHeads v, InHeads dout,
                                 OutHeads dq, OutHeads dk, OutHeads dv,
                                 float4* stats, CtxOut cx, int batch,
@@ -609,13 +623,14 @@ static cudaError_t run_core_bwd(InHeads q, InHeads k, InHeads v, InHeads dout,
 
 // Backward, two launches on the caller's stream; stats: [B * heads * N]
 // float4 scratch.
-template <int DHP, bool CTX>
+template <int DHP, int CTX>
 static cudaError_t launch_core_bwd(InHeads q, InHeads k, InHeads v,
                                    InHeads dout, OutHeads dq, OutHeads dk,
                                    OutHeads dv, float4* stats, CtxOut cx,
                                    int batch, int heads, int n, int dh,
                                    float scale, cudaStream_t s) {
-  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv);
+  // cx.out is all zeros (any copy width) unless CTX == CTX_OUT
+  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv, cx.out);
   return dh == DHP && vec == 8
              ? run_core_bwd<DHP, CTX, true>(q, k, v, dout, dq, dk, dv, stats,
                                             cx, batch, heads, n, dh, scale,
@@ -623,6 +638,25 @@ static cudaError_t launch_core_bwd(InHeads q, InHeads k, InHeads v,
              : run_core_bwd<DHP, CTX, false>(q, k, v, dout, dq, dk, dv,
                                              stats, cx, batch, heads, n, dh,
                                              scale, vec, s);
+}
+
+template <int DHP>
+using HeadDim = std::integral_constant<int, DHP>;
+
+// f(HeadDim<DHP>()) for the padded head dim DHP of dh (16, 32, 48, 64 or
+// 80: the instantiations every entry point is built for), or
+// cudaErrorInvalidValue for a head dim outside 1..80.
+template <typename F>
+static cudaError_t with_head_dim(int dh, F f) {
+  if (dh <= 0) return cudaErrorInvalidValue;
+  switch ((dh + 15) / 16) {
+    case 1: return f(HeadDim<16>());
+    case 2: return f(HeadDim<32>());
+    case 3: return f(HeadDim<48>());
+    case 4: return f(HeadDim<64>());
+    case 5: return f(HeadDim<80>());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace uvc

@@ -12,10 +12,14 @@ before the residual add (ports of ``_layer_fwd_kernel`` and
 ``_layer_bwd_kernel``).  ``attention`` / ``attention_bwd`` /
 ``fused_attention`` are the attention core ``softmax(q k^T * scale) v`` on
 ``[B, H, N, dh]`` alone, with ``attention_core`` its JAX name (ports of
-``_fwd_kernel`` and ``_bwd_kernel``).  A CUDA tensor goes to the
-hand-written kernels (``csrc/attention.cu``, ``csrc/attention_core.cu``);
-a CPU tensor goes to the ``*_plain`` functions, the same functions in
-plain PyTorch with the kernels' rounding order.  There is no other route.
+``_fwd_kernel`` and ``_bwd_kernel``); ``attention_bwd_ctx`` is that
+backward with the context it recomputes (the port of ``_bwd_ctx_kernel``),
+the attention part of ``layer_attention_ln_bwd_composed``, the backward
+that models wider than the LayerNorm backward kernel take.  A CUDA tensor
+goes to the hand-written kernels (``csrc/attention.cu``,
+``csrc/attention_core.cu``); a CPU tensor goes to the ``*_plain``
+functions, the same functions in plain PyTorch with the kernels' rounding
+order.  There is no other route.
 """
 
 from __future__ import annotations
@@ -24,14 +28,25 @@ import torch
 
 from uvc_tpu_torch.ops import _cuda
 
-# the kernels' limits: head dim, and keys held in shared memory at once
-# (the backward holds two whole-sequence operands beside two 64-row tiles)
-_HEAD_DIM = 64
-_MAX_TOKENS = 768
-_MAX_TOKENS_BWD = 736
 # the LayerNorm backward keeps a row in registers (LNB_MAX_DM in
-# csrc/common.cuh)
+# csrc/common.cuh); wider models take the composed backward, as the JAX
+# package does beyond its VMEM budget
 _MAX_DM_BWD = 1024
+
+# the attention core's head dims (instantiated for the padded head dims 16,
+# 32, 48, 64 and 80) and its shared memory: a 64-row tile (two in the
+# backward) and the head's two whole-sequence operands at a row stride of
+# the padded head dim + 8, plus one float4 per query in the backward
+_CORE_MAX_HEAD_DIM = 80
+_SMEM_LIMIT = 232448
+
+
+def _core_smem_bytes(n: int, dh: int, backward: bool) -> int:
+    np_ = -(-n // 16) * 16
+    ld = -(-dh // 16) * 16 + 8
+    if backward:
+        return (128 + 2 * np_) * ld * 2 + np_ * 16
+    return (64 + 2 * np_) * ld * 2
 
 
 def _ln_rows(x32, gamma, beta, eps):
@@ -102,27 +117,37 @@ def _check_cuda(x, named, dtypes):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_attention(x, named, num_heads, max_tokens, max_dm=None):
+def _check_attention(x, named, num_heads, backward, max_dm=None):
     """The kernels' checks of the attention sublayer's operands; returns
-    (B, N, dm, da)."""
+    (B, N, dm, da).  The head dim is ``wqkv``'s width over 3 heads: even,
+    at most 80; N is bounded by the core's shared memory at that head
+    dim."""
     bf16, f32 = torch.bfloat16, torch.float32
     _check_cuda(x, named, {k: f32 if k in ("g1", "b1") else bf16
                            for k in named})
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, dm], got {tuple(x.shape)}")
     b, n, dm = x.shape
-    da = num_heads * _HEAD_DIM
+    da = named["wqkv"].shape[-1] // 3
+    dh = da // num_heads
+    if (da % 8 or dh * num_heads != da or dh % 2
+            or not 0 < dh <= _CORE_MAX_HEAD_DIM):
+        raise ValueError(f"unsupported attention width {da} over "
+                         f"{num_heads} heads: the kernels take even head "
+                         f"dims up to {_CORE_MAX_HEAD_DIM} and widths that "
+                         f"are multiples of 8")
     want = dict(g1=(dm,), b1=(dm,), wqkv=(dm, 3 * da), bqkv=(3 * da,),
                 wproj=(da, dm), bproj=(dm,), mask=(da,), do=tuple(x.shape))
     for name, t in named.items():
         if name != "x" and tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]} for {num_heads} "
-                             f"heads of {_HEAD_DIM}, got {tuple(t.shape)}")
-    if (dm % 8 or not 0 < n <= max_tokens or b == 0
-            or (max_dm and dm > max_dm)):
+                             f"heads of {dh}, got {tuple(t.shape)}")
+    if (dm % 8 or n == 0 or b == 0 or (max_dm and dm > max_dm)
+            or _core_smem_bytes(n, dh, backward) > _SMEM_LIMIT):
         limit = "" if max_dm is None else f" and <= {max_dm}"
         raise ValueError(f"unsupported x shape {tuple(x.shape)}: dm must be "
-                         f"a multiple of 8{limit}, 0 < N <= {max_tokens}")
+                         f"a multiple of 8{limit}, N > 0 and small enough "
+                         f"for the kernel's shared memory at head dim {dh}")
     return b, n, dm, da
 
 
@@ -131,7 +156,7 @@ def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     bf16 = torch.bfloat16
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
                  bproj=bproj, mask=mask)
-    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS)
+    b, n, dm, da = _check_attention(x, named, num_heads, backward=False)
     lib = _cuda.library("attention")
     rows = b * n
     a_in = torch.empty((rows, dm), dtype=bf16, device=x.device)
@@ -157,8 +182,9 @@ def layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
 
     x: ``[B, N, dm]``; g1/b1: ``[dm]`` f32; wqkv ``[dm, 3*da]`` and wproj
     ``[da, dm]`` stored (in, out); mask: ``[da]`` structural keep mask over
-    the ctx columns.  On CUDA: bf16 activations and weights, head dim 64.
-    ``layer_attention_ln.launches`` counts kernel launches."""
+    the ctx columns.  On CUDA: bf16 activations and weights, even head
+    dims up to 80.  ``layer_attention_ln.launches`` counts kernel
+    launches."""
     if x.device.type == "cpu":
         return layer_attention_ln_plain(
             x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads=num_heads,
@@ -271,8 +297,8 @@ def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
     bf16, f32 = torch.bfloat16, torch.float32
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
                  bproj=bproj, mask=mask, do=do)
-    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS_BWD,
-                                    _MAX_DM_BWD)
+    b, n, dm, da = _check_attention(x, named, num_heads, backward=True,
+                                    max_dm=_MAX_DM_BWD)
     lib = _cuda.library("attention")
     rows = b * n
     parts = -(-rows // 128)
@@ -307,7 +333,8 @@ def layer_attention_ln_bwd(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, *,
                            num_heads: int, scale: float, eps: float):
     """Gradients of ``layer_attention_ln`` with respect to its eight tensor
     inputs, given the output cotangent ``do`` (same shape and dtype as
-    ``x``).  On CUDA: the forward's operand types, ``N <= 736``.
+    ``x``).  On CUDA: the forward's operand types, ``dm <= 1024`` (wider
+    models take ``layer_attention_ln_bwd_composed``).
     ``layer_attention_ln_bwd.launches`` counts kernel launches."""
     kw = dict(num_heads=num_heads, scale=scale, eps=eps)
     if x.device.type == "cpu":
@@ -324,8 +351,11 @@ layer_attention_ln_bwd.launches = 0
 
 
 class _FusedLayerAttentionLN(torch.autograd.Function):
-    """``layer_attention_ln`` forward, ``layer_attention_ln_bwd`` backward
-    (the port of the JAX custom VJP ``_fused_layer_ln``)."""
+    """``layer_attention_ln`` forward, ``layer_attention_ln_bwd`` backward,
+    or ``layer_attention_ln_bwd_composed`` at ``dm > 1024`` (the port of
+    the JAX custom VJP ``_fused_layer_ln``, which peels the LayerNorm off
+    and composes the backward where its kernel's VMEM budget refuses the
+    width)."""
 
     @staticmethod
     def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads,
@@ -338,8 +368,10 @@ class _FusedLayerAttentionLN(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        grads = layer_attention_ln_bwd(*ctx.saved_tensors, do.contiguous(),
-                                       **ctx.kw)
+        x = ctx.saved_tensors[0]
+        bwd = (layer_attention_ln_bwd_composed if x.shape[-1] > _MAX_DM_BWD
+               else layer_attention_ln_bwd)
+        grads = bwd(*ctx.saved_tensors, do.contiguous(), **ctx.kw)
         return (*grads, None, None, None)
 
 
@@ -365,7 +397,7 @@ def _layer_attention_cuda(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads,
                           scale):
     named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
                  mask=mask)
-    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS)
+    b, n, dm, da = _check_attention(x, named, num_heads, backward=False)
     lib = _cuda.library("attention")
     rows = b * n
     qkv = torch.empty((rows, 3 * da), dtype=x.dtype, device=x.device)
@@ -387,8 +419,8 @@ def layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads: int,
     """``(mask * MHA(x @ wqkv + bqkv)) @ wproj + bproj``: the attention
     sublayer without LayerNorm and residual (the port of
     ``fused_layer_attention``).  Shapes as ``layer_attention_ln``; on
-    CUDA bf16 operands, head dim 64.  ``layer_attention.launches`` counts
-    kernel launches."""
+    CUDA bf16 operands, even head dims up to 80.
+    ``layer_attention.launches`` counts kernel launches."""
     kw = dict(num_heads=num_heads, scale=scale)
     if x.device.type == "cpu":
         return layer_attention_plain(x, wqkv, bqkv, wproj, bproj, mask, **kw)
@@ -406,7 +438,7 @@ def _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do, *,
     bf16, f32 = torch.bfloat16, torch.float32
     named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
                  mask=mask, do=do)
-    b, n, dm, da = _check_attention(x, named, num_heads, _MAX_TOKENS_BWD)
+    b, n, dm, da = _check_attention(x, named, num_heads, backward=True)
     lib = _cuda.library("attention")
     rows = b * n
 
@@ -437,8 +469,8 @@ def layer_attention_bwd(x, wqkv, bqkv, wproj, bproj, mask, do, *,
                         num_heads: int, scale: float):
     """Gradients of ``layer_attention`` with respect to its six tensor
     inputs, given the output cotangent ``do``.  On CUDA: the forward's
-    operand types, ``N <= 736``.  ``layer_attention_bwd.launches`` counts
-    kernel launches."""
+    operand types.  ``layer_attention_bwd.launches`` counts kernel
+    launches."""
     kw = dict(num_heads=num_heads, scale=scale)
     if x.device.type == "cpu":
         return layer_attention_bwd_plain(x, wqkv, bqkv, wproj, bproj, mask,
@@ -486,23 +518,8 @@ def fused_layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *,
 
 # ---------------------------------------------------------------------------
 # the bare attention core (kernel A9): softmax(q k^T * scale) v on
-# [B, H, N, dh], no projections
+# [B, H, N, dh], no projections; its backward with the context (kernel A8)
 # ---------------------------------------------------------------------------
-
-# the core kernels' head dims (instantiated for the padded head dims 16,
-# 32, 48, 64 and 80) and their shared memory: a 64-row tile (two in the
-# backward) and the head's two whole-sequence operands at a row stride of
-# the padded head dim + 8, plus one float4 per query in the backward
-_CORE_MAX_HEAD_DIM = 80
-_SMEM_LIMIT = 232448
-
-
-def _core_smem_bytes(n: int, dh: int, backward: bool) -> int:
-    np_ = -(-n // 16) * 16
-    ld = -(-dh // 16) * 16 + 8
-    if backward:
-        return (128 + 2 * np_) * ld * 2 + np_ * 16
-    return (64 + 2 * np_) * ld * 2
 
 
 def attention_plain(q, k, v, scale: float):
@@ -519,27 +536,36 @@ def attention_plain(q, k, v, scale: float):
     return ctx.to(dt)
 
 
-def attention_bwd_plain(q, k, v, do, scale: float):
-    """Plain PyTorch version of the core backward kernel, in the Pallas
-    body's rounding order (``_bwd_kernel``): the softmax recomputed in f32,
-    ``probs = p / s`` and ``pb = round(probs)``; ``dv = pb^T . do``,
-    ``dp = do . v^T``, ``row = sum(dp * probs)``,
-    ``ds = round(probs * (dp - row))``, ``dq = ds . k * scale``,
-    ``dk = ds^T . q * scale`` ("round" to the input's dtype).  Returns
-    (dq, dk, dv) in the input's dtype."""
+def attention_bwd_ctx_plain(q, k, v, do, scale: float):
+    """Plain PyTorch version of the core backward kernels, in the Pallas
+    bodies' rounding order (``_bwd_ctx_kernel``, whose dq, dk and dv are
+    ``_bwd_kernel``'s): the softmax recomputed in f32, ``probs = p / s``
+    and ``pb = round(probs)``; ``ctx = pb . v``, normalised before the
+    product, unlike the forward; ``dv = pb^T . do``, ``dp = do . v^T``,
+    ``row = sum(dp * probs)``, ``ds = round(probs * (dp - row))``,
+    ``dq = ds . k * scale``, ``dk = ds^T . q * scale`` ("round" to the
+    input's dtype).  Returns (ctx, dq, dk, dv) in the input's dtype."""
     dt = q.dtype
     q32, k32, v32 = q.float(), k.float(), v.float()
     do32 = do.to(dt).float()
     logits = (q32 @ k32.transpose(-1, -2)) * scale
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = p / p.sum(dim=-1, keepdim=True)
-    dv = probs.to(dt).float().transpose(-1, -2) @ do32
+    pb = probs.to(dt).float()
+    ctx = pb @ v32
+    dv = pb.transpose(-1, -2) @ do32
     dp = do32 @ v32.transpose(-1, -2)
     row = (dp * probs).sum(dim=-1, keepdim=True)
     ds = (probs * (dp - row)).to(dt).float()
     dq = (ds @ k32) * scale
     dk = (ds.transpose(-1, -2) @ q32) * scale
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    return ctx.to(dt), dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_bwd_plain(q, k, v, do, scale: float):
+    """Plain PyTorch version of the core backward kernel (``_bwd_kernel``):
+    (dq, dk, dv) of ``attention_bwd_ctx_plain``, in the input's dtype."""
+    return attention_bwd_ctx_plain(q, k, v, do, scale)[1:]
 
 
 def _check_core(named, backward):
@@ -634,6 +660,119 @@ def attention_bwd(q, k, v, do, scale: float):
 
 
 attention_bwd.launches = 0
+
+
+def _attention_bwd_ctx_into(q, k, v, do, scale, outs):
+    """``attention_bwd_ctx`` written into ``outs`` = (ctx, dq, dk, dv),
+    ``[B, H, N, dh]`` tensors at any strides with unit stride along dh
+    (head views of the rows the caller goes on with).  Returns ``outs``."""
+    if q.device.type == "cpu":
+        for out, res in zip(outs, attention_bwd_ctx_plain(q, k, v, do,
+                                                          scale)):
+            out.copy_(res)
+        return outs
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd_ctx runs on cpu or cuda, not "
+                         f"{q.device}")
+    b, h, n, dh = _check_core(dict(q=q, k=k, v=v, do=do, ctx=outs[0],
+                                   dq=outs[1], dk=outs[2], dv=outs[3]),
+                              backward=True)
+    lib = _cuda.library("attention_core")
+    stats = torch.empty((b * h * n, 4), dtype=torch.float32, device=q.device)
+    ctx, dq, dk, dv = outs
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.uvc_attention_bwd_ctx(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            stats.data_ptr(), ctx.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv, ctx), b, h, n,
+            dh, float(scale), stream)
+    _cuda.check(err, "attention_bwd_ctx")
+    attention_bwd_ctx.launches += 1
+    return outs
+
+
+def attention_bwd_ctx(q, k, v, do, scale: float):
+    """(ctx, dq, dk, dv): ``attention_bwd``'s gradients and the context
+    ``round(probs) . v`` that the backward recomputes (kernel A8, the
+    port of ``_bwd_ctx_kernel``).  On CUDA: the operand types and limits of
+    ``attention_bwd``, the outputs laid out ``[B, N, H, dh]``.
+    ``attention_bwd_ctx.launches`` counts kernel launches."""
+    return _attention_bwd_ctx_into(q, k, v, do, scale,
+                                   tuple(_head_major(q) for _ in range(4)))
+
+
+attention_bwd_ctx.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the composed backward of the LN-fused sublayer, for models wider than the
+# LayerNorm backward kernel (dm > _MAX_DM_BWD)
+# ---------------------------------------------------------------------------
+
+
+def _rows_as_heads(rows, parts, num_heads):
+    """``[B, N, parts * H * dh]`` rows as ``parts`` head views
+    ``[B, H, N, dh]``."""
+    b, n, w = rows.shape
+    return rows.view(b, n, parts, num_heads, w // parts // num_heads) \
+        .permute(2, 0, 3, 1, 4)
+
+
+def layer_attention_ln_bwd_composed(x, g1, b1, wqkv, bqkv, wproj, bproj,
+                                    mask, do, *, num_heads: int,
+                                    scale: float, eps: float):
+    """The gradients of ``layer_attention_ln`` as the JAX package composes
+    them for a width whose fused backward does not fit
+    (``_fused_layer_ln_bwd``'s LN peel, ``uvc_tpu/ops/attention.py``
+    :1012-1027, around the composed fallback of ``_fused_layer_bwd``,
+    :672-701), with the same roundings: LN1 recomputed in f32 and rounded,
+    ``qkv = a_in @ Wqkv + bqkv`` and ``dctx = (do @ Wproj^T) * mask`` in the
+    operands' dtype, ``attention_bwd_ctx`` (kernel A8) for ctx, dq, dk,
+    dv; ``dWproj = (ctx * mask)^T . do``, ``dWqkv = a_in^T . dqkv`` and the
+    bias sums in f32; ``dmask = sum((do . Wproj^T) * ctx)`` in f32; then
+    ``d a_in = dqkv @ Wqkv^T``, the LN VJP in f32, plus ``do``.
+
+    The matrix products are XLA's in the reference, so they are
+    ``torch.matmul`` here: in the operands' dtype (on the card a bf16 GEMM
+    with f32 accumulation, rounded once), except ``do . Wproj^T`` for
+    ``dmask``, which the reference keeps in f32 before the product with
+    ctx (an f32 matmul, on the card without TF32 unless the caller enabled
+    it).  dq, dk, dv land in one ``[B, N, 3 da]`` dqkv and ctx in
+    ``[B, N, da]``, the layouts the products take.  Returns the gradients
+    of (x, g1, b1, wqkv, bqkv, wproj, bproj, mask), each in its input's
+    dtype.  ``layer_attention_ln_bwd_composed.calls`` counts its calls."""
+    dt = x.dtype
+    b, n, dm = x.shape
+    da = wqkv.shape[1] // 3
+    rows = (0, 1)
+    a32, xhat, inv = _ln_rows(x.float(), g1.float(), b1.float(), eps)
+    a_in = a32.to(dt)
+    qkv = a_in @ wqkv + bqkv
+    dctx = (do @ wproj.T) * mask
+    ctx = x.new_empty((b, n, da))
+    dqkv = x.new_empty((b, n, 3 * da))
+    _attention_bwd_ctx_into(*_rows_as_heads(qkv, 3, num_heads),
+                            *_rows_as_heads(dctx, 1, num_heads), scale,
+                            (*_rows_as_heads(ctx, 1, num_heads),
+                             *_rows_as_heads(dqkv, 3, num_heads)))
+    do32 = do.float()
+    dwproj = (ctx * mask).reshape(-1, da).T @ do.reshape(-1, dm)
+    dmask = ((do32 @ wproj.float().T) * ctx.float()).sum(rows)
+    d_in = (dqkv @ wqkv.T).float()
+    dwqkv = a_in.reshape(-1, dm).T @ dqkv.reshape(-1, 3 * da)
+    dg = d_in * g1.float()
+    m1 = dg.mean(dim=-1, keepdim=True)
+    m2 = (dg * xhat).mean(dim=-1, keepdim=True)
+    dx = ((dg - m1 - xhat * m2) * inv).to(dt) + do
+    layer_attention_ln_bwd_composed.calls += 1
+    grads = (dx, (d_in * xhat).sum(rows), d_in.sum(rows), dwqkv,
+             dqkv.float().sum(rows), dwproj, do32.sum(rows), dmask)
+    return tuple(gr.to(ref.dtype) for gr, ref in zip(
+        grads, (x, g1, b1, wqkv, bqkv, wproj, bproj, mask)))
+
+
+layer_attention_ln_bwd_composed.calls = 0
 
 
 class _FusedAttention(torch.autograd.Function):

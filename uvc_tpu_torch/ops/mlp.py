@@ -10,7 +10,10 @@ kernels (``csrc/mlp.cu``, the ports of ``_mlp_ln_fwd_kernel``,
 ``_mlp_ln_blend_fwd_kernel``, ``_mlp_ln_bwd_kernel`` and
 ``_mlp_ln_blend_bwd_kernel``); a CPU tensor goes to the plain PyTorch
 versions, which keep the kernels' rounding order.  There is no other
-route.
+route.  Models wider than the backward kernels (dm > 1024) take
+``mlp_ln_bwd_composed`` / ``mlp_ln_blend_bwd_composed``, the autograd of
+the JAX package's composition, as the JAX package does where its kernels'
+VMEM budget refuses the width.
 """
 
 from __future__ import annotations
@@ -315,9 +318,64 @@ mlp_ln_bwd.launches = 0
 mlp_ln_blend_bwd.launches = 0
 
 
+def _composed_mlp_ln(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
+    """The JAX package's ``_composed_mlp_ln``: LN2 in f32 rounded to
+    ``x.dtype``, then every product and elementwise step in ``x.dtype``,
+    GELU the exact erf form."""
+    m_in = _ln_rows(x.float(), g2.float(), b2.float(), eps)[0].to(x.dtype)
+    h = F.gelu(m_in @ wfc1 + bfc1) * mask
+    return x + (h @ wfc2 + bfc2)
+
+
+def _composed_mlp_ln_blend(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask,
+                           eps):
+    """The JAX package's ``_composed_mlp_ln_blend``:
+    ``d1 * (x + mlp(LN2(x))) + d0 * xin`` in ``x.dtype``."""
+    out = _composed_mlp_ln(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps)
+    dt = d.to(x.dtype)
+    return dt[1] * out + dt[0] * xin
+
+
+def _composed_grads(fn, args, do, eps):
+    """torch.autograd of ``fn`` (recomputed) at ``args``, cotangent ``do``:
+    what ``jax.vjp`` of the composition gives the reference."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*leaves, eps), leaves, do)
+
+
+def mlp_ln_bwd_composed(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, *,
+                        eps: float):
+    """The gradients of ``mlp_ln`` as the JAX package takes them where its
+    backward kernel does not fit (``_fused_mlp_ln_bwd``'s last resort,
+    ``uvc_tpu/ops/mlp.py``:415-420): the autograd of the composition,
+    whose matrix products are ``torch.matmul`` in the operands' dtype, as
+    XLA's are in the reference.  ``mlp_ln_bwd_composed.calls`` counts its
+    calls."""
+    mlp_ln_bwd_composed.calls += 1
+    return _composed_grads(_composed_mlp_ln, (x, g2, b2, wfc1, bfc1, wfc2,
+                                              bfc2, mask), do, eps)
+
+
+def mlp_ln_blend_bwd_composed(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2,
+                              mask, do, *, eps: float):
+    """The gradients of ``mlp_ln_blend`` as the JAX package takes them where
+    its backward kernel does not fit (``_fused_mlp_ln_blend_bwd``,
+    ``uvc_tpu/ops/mlp.py``:643-646): the autograd of the composition.
+    ``mlp_ln_blend_bwd_composed.calls`` counts its calls."""
+    mlp_ln_blend_bwd_composed.calls += 1
+    return _composed_grads(_composed_mlp_ln_blend, (
+        x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask), do, eps)
+
+
+mlp_ln_bwd_composed.calls = 0
+mlp_ln_blend_bwd_composed.calls = 0
+
+
 class _FusedMlpLN(torch.autograd.Function):
-    """``mlp_ln`` forward, ``mlp_ln_bwd`` backward (the port of the JAX
-    custom VJP ``_fused_mlp_ln``)."""
+    """``mlp_ln`` forward, ``mlp_ln_bwd`` backward, or
+    ``mlp_ln_bwd_composed`` at ``dm > 1024`` (the port of the JAX custom
+    VJP ``_fused_mlp_ln``)."""
 
     @staticmethod
     def forward(ctx, x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
@@ -328,13 +386,16 @@ class _FusedMlpLN(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        grads = mlp_ln_bwd(*ctx.saved_tensors, do.contiguous(), eps=ctx.eps)
+        wide = ctx.saved_tensors[0].shape[-1] > _MAX_DM_BWD
+        bwd = mlp_ln_bwd_composed if wide else mlp_ln_bwd
+        grads = bwd(*ctx.saved_tensors, do.contiguous(), eps=ctx.eps)
         return (*grads, None)
 
 
 class _FusedMlpLNBlend(torch.autograd.Function):
-    """``mlp_ln_blend`` forward, ``mlp_ln_blend_bwd`` backward (the port of
-    the JAX custom VJP ``_fused_mlp_ln_blend``)."""
+    """``mlp_ln_blend`` forward, ``mlp_ln_blend_bwd`` backward, or
+    ``mlp_ln_blend_bwd_composed`` at ``dm > 1024`` (the port of the JAX
+    custom VJP ``_fused_mlp_ln_blend``)."""
 
     @staticmethod
     def forward(ctx, x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
@@ -347,8 +408,9 @@ class _FusedMlpLNBlend(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        grads = mlp_ln_blend_bwd(*ctx.saved_tensors, do.contiguous(),
-                                 eps=ctx.eps)
+        wide = ctx.saved_tensors[0].shape[-1] > _MAX_DM_BWD
+        bwd = mlp_ln_blend_bwd_composed if wide else mlp_ln_blend_bwd
+        grads = bwd(*ctx.saved_tensors, do.contiguous(), eps=ctx.eps)
         return (*grads, None)
 
 
