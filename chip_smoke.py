@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3, then the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
-                                           # the parent's kernels take
+                                           # the parent's kernels take, and
+                                           # phase 7's performer kernels'
 
 Phases, each of which stops the run with a non-zero exit on failure:
 
@@ -27,7 +28,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
    dh=24) and "vit_h" (B=32, H=16, N=257, dh=80), every output, two
    backward launches bit for bit, the same operands as head views of one
    packed buffer (the models' layout, at strides that need narrower
-   copies) bit for bit, beside ``scaled_dot_product_attention``; and A8
+   copies) bit for bit, beside ``scaled_dot_product_attention`` (its
+   backend pinned: flash where it takes the shape); and A8
    (``attention_bwd_ctx``, A9's backward with the context) at "vit_h",
    "se" and "ragged", every output, two launches bit for bit, its dq, dk,
    dv bit for bit A9's, beside SDPA forward and backward.  Each line ends
@@ -101,8 +103,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ``layer_attention_ln_bwd_composed`` with one ``attention_bwd_ctx`` (A8)
    each, 32 of ``mlp_ln_blend_bwd_composed``) and no fused sublayer
    backward; a gating-warmup step that must leave the gating logits
-   unchanged bit for bit; peak memory; a profiled step; one block's
-   composed routes timed alone; and one step at depth 4 and batch 2 on
+   unchanged bit for bit; peak memory; a profiled step (with A8's device
+   time, query and key side); one block's composed routes timed alone; and one step at depth 4 and batch 2 on
    the card against the CPU plain path.
 
 10. T2T-ViT-14-resnext -- the stage-1 step of phase 7 on the resnext
@@ -708,13 +710,14 @@ def serving_phase(card):
     return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
 
 
-def profile_phase(card, runs, top=8, batch=BATCH):
+def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
     """Device time by kernel for one batch of each path (torch.profiler),
     and the device's busy share of the wall time (the profiler's own host
     overhead is inside the wall time, so the busy share is a lower
     bound).  Only events on the device are summed: a CPU range (an
     autograd Function, an aten op) is charged the time of the kernels
-    launched inside it, which would count them twice."""
+    launched inside it, which would count them twice.  ``watch``: {label:
+    kernel-name substring}, each label's device time summed and printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -748,6 +751,11 @@ def profile_phase(card, runs, top=8, batch=BATCH):
         for t, n, key in rows[:top]:
             print(f"  {100 * t / busy:5.1f}%  {t:9.1f} us  x{n:<3d} "
                   f"{key[:110]}")
+        for what, part in (watch or {}).items():
+            hit = [r for r in rows if part in r[2]]
+            t = sum(r[0] for r in hit)
+            print(f"  {what}: {t / 1e3:.3f} ms in {sum(r[1] for r in hit)} "
+                  f"events ({100 * t / busy:.1f}% of the device time)")
 
 
 # ---------------------------------------------------------------------------
@@ -1186,7 +1194,7 @@ def _check_outputs(name, shape, outs, refs, rel_tol, again=None):
     return errs
 
 
-def performer_kernel_phase():
+def performer_kernel_phase(digests_only=False):
     from uvc_tpu_torch.ops.performer import (performer, performer_bwd,
                                              performer_bwd_plain,
                                              performer_plain)
@@ -1209,6 +1217,12 @@ def performer_kernel_phase():
         grefs = performer_bwd_plain(*ops, kptv, kpsum, do, fcount=fc)
         berrs = _check_outputs("performer_bwd", shape, grads, grefs,
                                BWD_REL_TOL, again=again)
+        if digests_only:
+            print(f"kernel performer      [{shape:10s}] "
+                  f"digest={digest(outs)}")
+            print(f"kernel performer_bwd  [{shape:10s}] "
+                  f"digest={digest(grads)}", flush=True)
+            continue
         library = _library_performer(ops)
         names = ("x", "g1", "b1", "wkqv", "bkqv", "w", "fmask", "wproj",
                  "bproj", "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
@@ -1243,7 +1257,8 @@ def performer_kernel_phase():
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms(composition)={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
-                  + (" two launches bit-identical" if bwd else ""),
+                  + (" two launches bit-identical" if bwd else "")
+                  + f" digest={digest(grads if bwd else outs)}",
                   flush=True)
     return results
 
@@ -1510,6 +1525,38 @@ def _packed_views(*ts):
     return views
 
 
+def _sdpa_pinned(q, k, v, scale):
+    """The SDPA backend of the attention core's yardstick, pinned with
+    ``torch.nn.attention.sdpa_kernel`` so that a run does not pick another
+    one from call to call: flash attention where it admits the shape (bf16,
+    a head dim that is a multiple of 8), else the memory-efficient kernel,
+    else the math composition, each tried with one forward and backward.
+    Returns (its name, a context manager that pins it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("math", SDPBackend.MATH)):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                torch.autograd.grad(out, leaves, torch.ones_like(out))
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return name, lambda: sdpa_kernel(backend)
+    raise RuntimeError("no SDPA backend takes the core's shape")
+
+
+def _pinned(pin, fn):
+    """fn run under the pinned SDPA backend."""
+    def run():
+        with pin():
+            return fn()
+    return run
+
+
 def core_kernel_phase(digests_only=False):
     from uvc_tpu_torch.ops.attention import (attention, attention_bwd,
                                              attention_bwd_plain,
@@ -1547,10 +1594,12 @@ def core_kernel_phase(digests_only=False):
                       zip(attention_bwd(*views, scale), grads)),
               f"attention [{shape}]: head views of a packed buffer and "
               f"contiguous operands differ")
+        backend, pin = _sdpa_pinned(q, k, v, scale)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        lib_bwd = _library_backward(
-            lambda: F.scaled_dot_product_attention(*leaves, scale=scale),
-            leaves, do)
+        with pin():
+            lib_bwd = _library_backward(
+                lambda: F.scaled_dot_product_attention(*leaves, scale=scale),
+                leaves, do)
         for name, errs, kern, on_views, plain, lib, bwd in (
                 ("attention", ferrs, lambda: attention(q, k, v, scale),
                  lambda: attention(*views[:3], scale),
@@ -1569,9 +1618,10 @@ def core_kernel_phase(digests_only=False):
                      rel_fro_per_output=[e[0] for e in errs],
                      ms=time_ms(kern, 20), views_ms=time_ms(on_views, 20),
                      plain_ms=time_ms(plain, 3),
-                     library_ms=time_ms(lib, 20), bound_ms=bound_ms,
-                     bound_by=bound_by, flops=flops, bytes=nbytes,
-                     library="scaled_dot_product_attention")
+                     library_ms=time_ms(_pinned(pin, lib), 20),
+                     bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                     bytes=nbytes,
+                     library=f"scaled_dot_product_attention ({backend})")
             results[(name, shape)] = r
             print(f"kernel {name:13s} [{shape:10s} B={b} H={h} N={n} "
                   f"dh={dh}] rel_fro per output "
@@ -1579,22 +1629,23 @@ def core_kernel_phase(digests_only=False):
                   f"{KERNEL_REL_TOL:g}) max_abs={r['max_abs_err']:.2e} "
                   f"ms={r['ms']:.4f} views_ms={r['views_ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms(sdpa)={r['library_ms']:.4f} "
+                  f"library_ms(sdpa {backend})={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
                   + (" two launches bit-identical" if bwd else "")
                   + f" head views bit-identical digest="
                   f"{digest(grads if bwd else [out])}", flush=True)
         if shape in BWD_CTX_SHAPES:
             results[("attention_bwd_ctx", shape)] = _bwd_ctx_row(
-                shape, q, k, v, do, scale, grads)
+                shape, q, k, v, do, scale, grads, backend, pin)
     return results
 
 
-def _bwd_ctx_row(shape, q, k, v, do, scale, grads):
+def _bwd_ctx_row(shape, q, k, v, do, scale, grads, backend, pin):
     """Kernel A8 (``attention_bwd_ctx``) against its plain version, every
     output, two launches bit for bit, and its dq, dk, dv bit for bit A9's
     (``grads``) on the same inputs; SDPA forward and backward as the
-    yardstick (one PyTorch computation of ctx and the three gradients)."""
+    yardstick (one PyTorch computation of ctx and the three gradients) on
+    the pinned backend ``backend``."""
     from uvc_tpu_torch.ops.attention import (attention_bwd_ctx,
                                              attention_bwd_ctx_plain)
 
@@ -1621,15 +1672,15 @@ def _bwd_ctx_row(shape, q, k, v, do, scale, grads):
              ms=time_ms(lambda: attention_bwd_ctx(q, k, v, do, scale), 20),
              plain_ms=time_ms(
                  lambda: attention_bwd_ctx_plain(q, k, v, do, scale), 3),
-             library_ms=time_ms(library, 20), bound_ms=bound_ms,
-             bound_by=bound_by, flops=flops, bytes=nbytes,
-             library="scaled_dot_product_attention")
+             library_ms=time_ms(_pinned(pin, library), 20),
+             bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+             library=f"scaled_dot_product_attention ({backend})")
     print(f"kernel attention_bwd_ctx [{shape:10s} B={b} H={h} N={n} dh={dh}] "
           f"rel_fro per output (ctx dq dk dv) "
           f"{' '.join(f'{e[0]:.1e}' for e in errs)} (tol {BWD_REL_TOL:g}) "
           f"max_abs={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} "
-          f"library_ms(sdpa fwd+bwd)={r['library_ms']:.4f} "
+          f"library_ms(sdpa {backend} fwd+bwd)={r['library_ms']:.4f} "
           f"bound={bound_ms * 1e3:.1f}us ({bound_by}) two launches "
           f"bit-identical, dq dk dv bit-identical to attention_bwd "
           f"digest={digest(outs)}", flush=True)
@@ -1846,7 +1897,10 @@ def vit_h_phase(card):
     del wstate
 
     profile_phase(card, {"ViT-H/14 stage-1 train step": lambda: run(
-        state, step, 1)}, top=30, batch=b)
+        state, step, 1)}, top=30, batch=b,
+        watch={"A8 (attention_bwd_ctx)": "_wg_kernel",
+               "A8 query side": "core_bwd_q_wg_kernel",
+               "A8 key side": "core_bwd_kv_wg_kernel"})
     composed_route_times(card, cfg)
     del state, params, teacher
 
@@ -1917,8 +1971,9 @@ def main():
                     help="stop after phase 3 (the kernels)")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
-                    "take, digests only (no timing), then stop; run it in a "
-                    "checkout of the parent and here")
+                    "take and phase 7's performer kernels, digests only (no "
+                    "timing), then stop; run it in a checkout of the parent "
+                    "and here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1942,6 +1997,8 @@ def main():
     res = kernel_phase(eps, args.digests)
     res.update(backward_kernel_phase(eps, args.digests))
     res.update(core_kernel_phase(args.digests))
+    if args.digests:
+        performer_kernel_phase(digests_only=True)
     if args.kernels_only or args.digests:
         print(card_line())
         return 0

@@ -168,7 +168,10 @@ def test_cuda_tensors_go_to_the_kernel_or_raise(monkeypatch, backward):
 
 def test_kernel_checks_refuse_what_the_kernels_cannot_take():
     """bf16 only, one shape for all operands, head dims 1..80, N within
-    shared memory: anything else is refused before a launch."""
+    the forward's shared memory: anything else is refused before a launch.
+    The backward streams tiles, so its shared memory does not grow with N:
+    an N past the forward's limit (and past the old backward's 560 at head
+    dim 80) is refused forward and taken backward."""
     ok = dict(q=_fake(2, 8, 197, 41), k=_fake(2, 8, 197, 41),
               v=_fake(2, 8, 197, 41))
     assert tatt._check_core(ok, backward=False) == (2, 8, 197, 41)
@@ -186,8 +189,17 @@ def test_kernel_checks_refuse_what_the_kernels_cannot_take():
         tatt._check_core(dict(q=q, k=q, v=q), False)
     q = _fake(1, 1, 600, 80)
     assert tatt._check_core(dict(q=q, k=q, v=q), False)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt._check_core(dict(q=q, k=q, v=q, do=q), True)
+    assert tatt._check_core(dict(q=q, k=q, v=q, do=q), True) == \
+        (1, 1, 600, 80)
+    # the forward's limit at head dim 80 is unchanged: N = 624 fits, 625
+    # does not
+    assert tatt._core_smem_bytes(624, 80, False) <= tatt._SMEM_LIMIT
+    for n in (625, 4096):
+        q = _fake(1, 1, n, 80)
+        with pytest.raises(ValueError, match="shared memory"):
+            tatt._check_core(dict(q=q, k=q, v=q), False)
+        assert tatt._check_core(dict(q=q, k=q, v=q, do=q), True) == \
+            (1, 1, n, 80)
 
 
 def test_kernels_take_head_views_as_they_lie():

@@ -25,6 +25,8 @@ package on the CPU.
   when dm > 1024, read from the counters.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,6 +120,91 @@ def test_bwd_ctx_plain_matches_reference_attention_f32(shape):
         assert torch.equal(a, b_)
 
 
+def tiled_bwd_ctx(q, k, v, do, scale, tile=64):
+    """The card kernels' order of the core backward
+    (csrc/attention_core_bwd.cuh) in PyTorch: base-2 logits (q . k^T) *
+    (scale * log2 e) in f32, (max, s) in one online pass over 64-key
+    tiles, the running sum rescaled by 2^(old max - new max); probs =
+    2^(logit - max) * (1 / s); then, tile by tile, row = sum(dp * probs)
+    and ctx = round(probs) . v, ds = round(probs * (dp - row)) and
+    dq = ds . k; dk and dv over 64-query tiles.  Returns (ctx, dq, dk, dv)
+    in the input's dtype."""
+    dt = q.dtype
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    n = q.shape[2]
+    tiles = [slice(j, min(j + tile, n)) for j in range(0, n, tile)]
+    logits = (q32 @ k32.transpose(-1, -2)) * (scale * math.log2(math.e))
+    m = torch.full((*q.shape[:3], 1), -torch.inf)
+    s = torch.zeros_like(m)
+    for j in tiles:
+        new = torch.maximum(m, logits[..., j].amax(-1, keepdim=True))
+        s = s * torch.exp2(m - new) + torch.exp2(logits[..., j] - new).sum(
+            -1, keepdim=True)
+        m = new
+    probs = torch.exp2(logits - m) * (1.0 / s)
+    pb = probs.to(dt).float()
+    dp = do32 @ v32.transpose(-1, -2)
+    row, ctx = torch.zeros_like(m), torch.zeros_like(q32)
+    for j in tiles:
+        row = row + (dp[..., j] * probs[..., j]).sum(-1, keepdim=True)
+        ctx = ctx + pb[..., j] @ v32[..., j, :]
+    ds = (probs * (dp - row)).to(dt).float()
+    dq = torch.zeros_like(q32)
+    dk, dv = torch.zeros_like(q32), torch.zeros_like(q32)
+    for j in tiles:
+        dq = dq + ds[..., j] @ k32[..., j, :]
+        dk = dk + ds[..., j, :].transpose(-1, -2) @ q32[..., j, :]
+        dv = dv + pb[..., j, :].transpose(-1, -2) @ do32[..., j, :]
+    return tuple(t.to(dt) for t in (ctx, dq * scale, dk * scale, dv))
+
+
+# (B, H, N, dh): three key tiles with a 2-row tail at an odd head dim,
+# ViT-H's N and head dim, one tile
+TILED = {"ragged_odd": (2, 2, 130, 41), "vit_h": (1, 2, 257, 80),
+         "one_tile": (1, 1, 50, 24)}
+
+
+def tiled_inputs(shape, seed, dtype):
+    """core_inputs with key norms growing along N (up to 3x), so that later
+    key tiles raise the running max and the online rescale is taken."""
+    (q, k, v, do), _ = core_inputs(shape, seed, torch.float32)
+    k = k * torch.linspace(1.0, 3.0, shape[2])[:, None]
+    ts = [t.to(dtype) for t in (q, k, v, do)]
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return ts, [jnp.asarray(t.float().numpy()).astype(jdt) for t in ts]
+
+
+@pytest.mark.parametrize("shape", sorted(TILED))
+def test_tiled_order_matches_plain_and_pallas_bf16(shape):
+    """The kernels' order, in bf16, against the plain version and the
+    Pallas kernel in interpret mode, within the card's tolerance."""
+    b, h, n, dh = TILED[shape]
+    (q, k, v, do), jin = tiled_inputs((b, h, n, dh), 5, torch.bfloat16)
+    scale = dh ** -0.5
+    got = tiled_bwd_ctx(q, k, v, do, scale)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    names = ("ctx", "dq", "dk", "dv")
+    assert_close(got, tatt.attention_bwd_ctx_plain(q, k, v, do, scale),
+                 names, BF16_TOL)
+    np_rows = -(-n // 16) * 16
+    pad = ((0, 0), (0, 0), (0, np_rows - n), (0, 0))
+    ref = jattn._call_bwd_ctx(*(jnp.pad(t, pad) for t in jin), scale, n,
+                              interpret=True)
+    assert_close(got, [r[:, :, :n] for r in ref], names, BF16_TOL)
+
+
+@pytest.mark.parametrize("shape", sorted(TILED))
+def test_tiled_order_is_the_plain_function_f32(shape):
+    """In f32 every rounding is the identity: the online (max, s) and the
+    tile-by-tile sums are the plain version's function, 1e-5."""
+    b, h, n, dh = TILED[shape]
+    (q, k, v, do), _ = tiled_inputs((b, h, n, dh), 6, torch.float32)
+    scale = dh ** -0.5
+    assert_close(tiled_bwd_ctx(q, k, v, do, scale),
+                 tatt.attention_bwd_ctx_plain(q, k, v, do, scale),
+                 ("ctx", "dq", "dk", "dv"), F32_TOL)
+
+
 def test_bwd_ctx_wrapper_routes_cpu_to_plain_and_writes_given_layouts():
     """On the CPU the wrapper is the plain version (no launch, no library
     loaded); the composed route's call writes ctx and dq, dk, dv into head
@@ -149,18 +236,27 @@ def test_bwd_ctx_wrapper_refuses_other_devices_and_is_bound():
 
 
 def test_bwd_ctx_checks_take_the_backward_limits():
-    """A8 takes A9's backward operands: head dims up to 80, N bounded by
-    the shared memory of the backward (ViT-H's N = 257 at dh 80 fits)."""
+    """A8 takes A9's backward operands: head dims up to 80 and, the
+    backward streaming 64-row tiles through a two-stage ring, any N: its
+    shared memory per CTA is at most 64536 bytes at dh 80 whatever N is
+    (three CTAs fit an SM), where the sublayer kernels' core, which stages
+    the head's whole sequence, needs 122624 bytes at ViT-H's N = 257 and
+    cannot take N = 800."""
     def meta(*shape):
         return torch.empty(shape, dtype=torch.bfloat16, device="meta")
 
-    named = {k: meta(32, 16, 257, 80) for k in
-             ("q", "k", "v", "do", "ctx", "dq", "dk", "dv")}
+    names = ("q", "k", "v", "do", "ctx", "dq", "dk", "dv")
+    named = {k: meta(32, 16, 257, 80) for k in names}
     assert tatt._check_core(named, backward=True) == (32, 16, 257, 80)
+    assert tatt._core_bwd_smem_bytes(80) == 64536
+    assert 3 * tatt._core_bwd_smem_bytes(80) <= tatt._SMEM_LIMIT
     assert tatt._core_smem_bytes(257, 80, True) == 122624
-    named = {k: meta(1, 1, 800, 80) for k in named}
+    named = {k: meta(1, 1, 800, 80) for k in names}
+    assert tatt._check_core(named, backward=True) == (1, 1, 800, 80)
+    assert tatt._core_smem_bytes(800, 80, True) > tatt._SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        tatt._check_core(named, backward=True)
+        tatt._check_core({k: named[k] for k in ("q", "k", "v")},
+                         backward=False)
 
 
 # ---------------------------------------------------------------------------

@@ -113,7 +113,7 @@ struct SublayerBwd {
 //   1. gemm <EPI_BIAS>: qkv = bf16(a . Wqkv + bqkv).
 //   2. gemm <EPI_F32_MASK, [N][K] B>: t = do . Wproj^T (f32),
 //      dctx = bf16(t * mask).
-//   3. core_bwd_q_kernel<DHP, CTX_SUBLAYER> (attention_core.cuh): ctx
+//   3. core_bwd_q_kernel<DHP> (attention_core.cuh): ctx
 //      (f32), bf16(ctx * mask), dq, and the per-query (max, s, row) -- per
 //      (query tile, head, image).
 //   4. core_bwd_kv_kernel<DHP>: dk, dv -- per (key tile, head, image),
@@ -151,10 +151,9 @@ static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   if (err != cudaSuccess) return err;
 
   const int ld = 3 * b.da, dh = b.da / b.heads;
-  const CtxOut cx = {b.ctx, b.ctxm, b.mask, (long long)b.n * b.da, dh, b.da,
-                     {}};
+  const CtxOut cx = {b.ctx, b.ctxm, b.mask, (long long)b.n * b.da, dh, b.da};
   err = with_head_dim(dh, [&](auto d) {
-    return launch_core_bwd<decltype(d)::value, CTX_SUBLAYER>(
+    return launch_core_bwd<decltype(d)::value>(
         packed_in(b.qkv, b.n, ld, dh), packed_in(b.qkv + b.da, b.n, ld, dh),
         packed_in(b.qkv + 2 * b.da, b.n, ld, dh),
         packed_in(b.dctx, b.n, b.da, dh), packed_out(b.dqkv, b.n, ld, dh),

@@ -20,19 +20,21 @@
 // probabilities ([N, N] per head) never leave the chip; each kernel
 // recomputes them from q and k in registers.
 //
-// Design: the kernels of attention_core.cuh, the attention core that the
-// sublayer kernels of attention.cu (K1, A2, A7) run on the packed qkv rows,
-// here instantiated for the padded head dims DHP = 16, 32, 48, 64 and 80
-// without the ctx mask.  Any dh <= DHP is taken by zero-filling columns dh..DHP-1
-// of the staged tiles in shared memory (exact; see the note there), with
-// copies 16, 4 or 2 bytes wide as dh and the strides allow: the Dense
-// variant's head dims 20, 28, ..., 74 go 4 bytes at a time, only its odd
-// ones (41, 49, 57, 65) one element at a time.  Padding in the wrapper
+// Design: the forward is the kernel of attention_core.cuh, the attention
+// core that the sublayer kernels of attention.cu (K1, A2, A7) run on the
+// packed qkv rows, here instantiated for the padded head dims DHP = 16, 32,
+// 48, 64 and 80 without the ctx mask; the backward is the streamed wgmma
+// design of attention_core_bwd.cuh (its note there and at
+// uvc_attention_bwd_ctx below).  Any dh <= DHP is taken by zero-filling
+// columns dh..DHP-1 of the tiles in shared memory (exact), with copies 16,
+// 4 or 2 bytes wide as dh and the strides allow: the Dense variant's head
+// dims 20, 28, ..., 74 go 4 bytes at a time, only its odd ones (41, 49,
+// 57, 65) one element at a time.  Padding in the wrapper
 // instead would cost a padded copy of q, k, v and dO and a slice of each
 // output through device memory on every call.  The operands are read where
 // they lie, at the strides the caller passes (the models hand over head
 // views of one projection), so nothing is copied before or after a call.
-#include "attention_core.cuh"
+#include "attention_core_bwd.cuh"
 
 namespace uvc {
 
@@ -70,10 +72,10 @@ extern "C" int uvc_attention(const void* q, const void* k, const void* v,
   });
 }
 
-// The two backwards: A9 (no ctx) and A8 (ctx, CTX_OUT).  strides: the
+// The two backwards: A9 (no ctx) and A8 (with ctx).  strides: the
 // (batch, head, row) strides of q, k, v, dout, dq, dk, dv and, for A8,
 // ctx, in that order.
-template <int CTX>
+template <bool CTX>
 static int core_backward(const void* q, const void* k, const void* v,
                          const void* dout, void* stats, void* ctx, void* dq,
                          void* dk, void* dv, const long long* strides,
@@ -86,42 +88,49 @@ static int core_backward(const void* q, const void* k, const void* v,
   const OutHeads dqh = uvc::heads_at<bf16>(dq, strides, 4),
                  dkh = uvc::heads_at<bf16>(dk, strides, 5),
                  dvh = uvc::heads_at<bf16>(dv, strides, 6);
-  uvc::CtxOut cx = {};
-  if (CTX == uvc::CTX_OUT) cx.out = uvc::heads_at<bf16>(ctx, strides, 7);
+  const OutHeads ch = CTX ? uvc::heads_at<bf16>(ctx, strides, 7)
+                         : OutHeads{};
   float4* st = static_cast<float4*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)uvc::with_head_dim(dh, [&](auto d) {
-    return uvc::launch_core_bwd<decltype(d)::value, CTX>(
-        qh, kh, vh, doh, dqh, dkh, dvh, st, cx, batch, heads, n, dh, scale,
+    return uvc::launch_core_bwd_wg<decltype(d)::value, CTX>(
+        qh, kh, vh, doh, dqh, dkh, dvh, ch, st, batch, heads, n, dh, scale,
         s);
   });
 }
 
-// Backward.  q, k, v, dout, dq, dk, dv: [B, H, N, dh] bf16, unit stride in
-// dh, strides: their (batch, head, row) strides, seven rows of three in
-// that order; stats: [B * H * N] float4 scratch that the caller allocates.
+// Backward, A9's: the port of uvc_tpu/ops/attention.py::_bwd_kernel.
+// q, k, v, dout, dq, dk, dv: [B, H, N, dh] bf16, unit stride in dh,
+// strides: their (batch, head, row) strides, seven rows of three in that
+// order; stats: [B * H * ceil(N / 64) * 64] float4 scratch that the caller
+// allocates.
 extern "C" int uvc_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* dout, void* stats, void* dq,
                                  void* dk, void* dv, const long long* strides,
                                  int batch, int heads, int n, int dh,
                                  float scale, void* stream) {
-  return core_backward<uvc::CTX_NONE>(q, k, v, dout, stats, nullptr, dq, dk,
-                                      dv, strides, batch, heads, n, dh,
-                                      scale, stream);
+  return core_backward<false>(q, k, v, dout, stats, nullptr, dq, dk, dv,
+                              strides, batch, heads, n, dh, scale, stream);
 }
 
 // Kernel A8, the port of uvc_tpu/ops/attention.py::_bwd_ctx_kernel: the
 // backward above plus ctx = bf16(bf16(probs) . V), the probabilities
 // normalised before the product as that kernel does (the forward divides
-// after it).  The query-side kernel forms this ctx in its third pass
-// (CTX_OUT) and writes it unmasked at its own strides.
+// after it).  The query-side kernel forms this ctx in its second pass
+// and writes it unmasked at its own strides.
 //
 // What bounds it on the H100: at ViT-H/14 stage 1 (B = 32, H = 16,
 // N = 257, dh = 80) each [B, H, N, dh] bf16 tensor is 21.05 MB; it reads
 // q, k, v, dO and writes ctx, dq, dk, dv (168.4 MB, 50.3 us at 3.35 TB/s)
 // for 12 B H N^2 dh = 32.5 GFLOP (32.8 us at 989 TFLOP/s): device memory.
 //
-// Design: A9's two launches, one more output; the caller (the composed
+// Design: A9's two launches (attention_core_bwd.cuh), one more output.
+// Against the bound: each CTA reads its own tile once and streams the
+// other side's tiles from L2 through a three-stage ring (TMA here: the
+// head views are full tiles), two CTAs of one warpgroup per SM, the
+// products on wgmma; the logits and probabilities never leave the chip.
+// The query side recomputes the logits three times and dp twice (7 of the
+// 11 N^2 dh products, against 8 of 12 before).  The caller (the composed
 // sublayer backward) passes dq, dk, dv as head views of one [B, N, 3 da]
 // buffer and ctx as head views of [B, N, da], the layouts its matrix
 // products take, so nothing is stacked or transposed after the call.
@@ -133,7 +142,6 @@ extern "C" int uvc_attention_bwd_ctx(const void* q, const void* k,
                                      const long long* strides, int batch,
                                      int heads, int n, int dh, float scale,
                                      void* stream) {
-  return core_backward<uvc::CTX_OUT>(q, k, v, dout, stats, ctx, dq, dk, dv,
-                                     strides, batch, heads, n, dh, scale,
-                                     stream);
+  return core_backward<true>(q, k, v, dout, stats, ctx, dq, dk, dv, strides,
+                             batch, heads, n, dh, scale, stream);
 }

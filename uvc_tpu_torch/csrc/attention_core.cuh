@@ -1,10 +1,12 @@
-// The attention core that every attention kernel of the port shares:
+// The attention core of the port's attention kernels:
 //   ctx = softmax(q . k^T * scale) . v
 // per (image, head), forward and backward, on head-split operands at any
 // strides.  attention.cu runs it on the packed qkv rows of the sublayer
 // kernels (K1, A2, A7: even head dims up to 80, the ctx mask, and in the
-// backward the f32 ctx that dmask needs); attention_core.cu runs it on the
-// [B, H, N, dh] operands of the bare core (A9 and A8: head dims up to 80).
+// backward the f32 ctx that dmask needs); attention_core.cu runs its
+// forward on the [B, H, N, dh] operands of the bare core (A9, head dims up
+// to 80).  The bare core's backward (A8, A9's backward) is the streamed
+// wgmma design of attention_core_bwd.cuh.
 //
 // Design: one CTA of four warps per (64-row tile, head, image), 16 rows per
 // warp, mma.sync m16n8k16 with f32 accumulators; the other operand's whole
@@ -20,9 +22,8 @@
 //     keys: the max, s, row = sum(dp * probs) with probs = p / s and
 //     dp = dO . V^T, then ds = bf16(probs * (dp - row)) and
 //     dq = ds . K * scale) that also writes (max, s, row) per query and,
-//     from its third pass, ctx = bf16(probs) . V as the caller asks
-//     (CtxMode: none for A9; the f32 ctx and bf16(ctx * mask) for the
-//     sublayers; bf16(ctx) for A8); and a key-side kernel
+//     from its third pass, ctx = bf16(probs) . V in f32 and
+//     bf16(ctx * mask) for the sublayers' dmask; and a key-side kernel
 //     (core_bwd_kv_kernel) that loops over the queries with those
 //     statistics: dv = bf16(probs)^T . dO and dk = ds^T . Q * scale.  The
 //     loop over the queries takes the place of the Pallas kernels'
@@ -62,18 +63,13 @@ typedef Heads<const bf16> InHeads;
 typedef Heads<bf16> OutHeads;
 
 // What the query-side kernel writes of ctx = bf16(probs) . V besides dq:
-// nothing (A9); the sublayer backward's ctx in f32 and ctxm =
-// bf16(ctx * mask) at one layout (sb, sh, sr), mask [heads * dh] with dh
-// even (K1/A2/A7); or bf16(ctx), unmasked, at its own strides (A8,
-// _bwd_ctx_kernel).
-enum CtxMode { CTX_NONE, CTX_SUBLAYER, CTX_OUT };
-
+// the sublayer backward's ctx in f32 and ctxm = bf16(ctx * mask) at one
+// layout (sb, sh, sr), mask [heads * dh] with dh even (A2/A7).
 struct CtxOut {
   float* ctx;
   bf16* ctxm;
   const bf16* mask;
   long long sb, sh, sr;
-  OutHeads out;  // CTX_OUT
 };
 
 // Elements per copy that an operand allows: 8 (16 bytes) where dh, its
@@ -314,8 +310,8 @@ static __global__ void __launch_bounds__(CORE_THREADS)
 
 // Backward, query side: one CTA per (64-query tile, head, image), the
 // head's K and V in shared memory.  Writes dq, (max, s, row) per query and
-// ctx as CTX asks.
-template <int DHP, int CTX, bool FULL>
+// the sublayer's ctx.
+template <int DHP, bool FULL>
 static __global__ void __launch_bounds__(CORE_THREADS)
     core_bwd_q_kernel(InHeads q, InHeads k, InHeads v, InHeads dout,
                       OutHeads dq, float4* __restrict__ stats, CtxOut cx,
@@ -384,8 +380,7 @@ static __global__ void __launch_bounds__(CORE_THREADS)
     }
   };
 
-  // pass 3: row = sum(dp * probs), dp = dO . V^T; unless CTX_NONE,
-  // ctx = bf16(probs) . V
+  // pass 3: row = sum(dp * probs), dp = dO . V^T; ctx = bf16(probs) . V
   float acc[DHP / 8][4];
 #pragma unroll
   for (int dn = 0; dn < DHP / 8; ++dn)
@@ -400,13 +395,11 @@ static __global__ void __launch_bounds__(CORE_THREADS)
            dp1[1] * pr1[1];
     rw1 += dp0[2] * pr0[2] + dp0[3] * pr0[3] + dp1[2] * pr1[2] +
            dp1[3] * pr1[3];
-    if (CTX != CTX_NONE) {
-      const uint32_t pa[4] = {pack_f32(pr0[0], pr0[1]),
-                              pack_f32(pr0[2], pr0[3]),
-                              pack_f32(pr1[0], pr1[1]),
-                              pack_f32(pr1[2], pr1[3])};
-      acc_pv<DHP>(acc, pa, Vs, j, lane);
-    }
+    const uint32_t pa[4] = {pack_f32(pr0[0], pr0[1]),
+                            pack_f32(pr0[2], pr0[3]),
+                            pack_f32(pr1[0], pr1[1]),
+                            pack_f32(pr1[2], pr1[3])};
+    acc_pv<DHP>(acc, pa, Vs, j, lane);
   }
 #pragma unroll
   for (int o = 1; o <= 2; o <<= 1) {
@@ -417,26 +410,17 @@ static __global__ void __launch_bounds__(CORE_THREADS)
   for (int hh = 0; hh < 2; ++hh) {
     const int qi = qt * CORE_QT + warp * 16 + g + 8 * hh;
     if (qi >= n) continue;
-    if (CTX == CTX_SUBLAYER) {
-      const long long off = (long long)b * cx.sb + (long long)h * cx.sh +
-                            qi * cx.sr;
+    const long long off = (long long)b * cx.sb + (long long)h * cx.sh +
+                          qi * cx.sr;
 #pragma unroll
-      for (int dn = 0; dn < DHP / 8; ++dn) {
-        const int c = dn * 8 + 2 * t;
-        if (c >= dh) continue;
-        const float c0 = acc[dn][2 * hh], c1 = acc[dn][2 * hh + 1];
-        *reinterpret_cast<float2*>(cx.ctx + off + c) = make_float2(c0, c1);
-        *reinterpret_cast<uint32_t*>(cx.ctxm + off + c) =
-            pack_f32(c0 * bf2f(cx.mask[h * dh + c]),
-                     c1 * bf2f(cx.mask[h * dh + c + 1]));
-      }
-    }
-    if (CTX == CTX_OUT) {
-      bf16* row = cx.out.head(b, h) + qi * cx.out.sr;
-#pragma unroll
-      for (int dn = 0; dn < DHP / 8; ++dn)
-        store_pair(row, dn * 8 + 2 * t, dh, vec, acc[dn][2 * hh],
-                   acc[dn][2 * hh + 1]);
+    for (int dn = 0; dn < DHP / 8; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      if (c >= dh) continue;
+      const float c0 = acc[dn][2 * hh], c1 = acc[dn][2 * hh + 1];
+      *reinterpret_cast<float2*>(cx.ctx + off + c) = make_float2(c0, c1);
+      *reinterpret_cast<uint32_t*>(cx.ctxm + off + c) =
+          pack_f32(c0 * bf2f(cx.mask[h * dh + c]),
+                   c1 * bf2f(cx.mask[h * dh + c + 1]));
     }
     if (t == 0)
       stats[bh * n + qi] = make_float4(hh ? mx1 : mx0, hh ? l1 : l0,
@@ -600,7 +584,7 @@ static cudaError_t launch_core_fwd(InHeads q, InHeads k, InHeads v,
                                         dh, scale, vec, s);
 }
 
-template <int DHP, int CTX, bool FULL>
+template <int DHP, bool FULL>
 static cudaError_t run_core_bwd(InHeads q, InHeads k, InHeads v, InHeads dout,
                                 OutHeads dq, OutHeads dk, OutHeads dv,
                                 float4* stats, CtxOut cx, int batch,
@@ -608,9 +592,9 @@ static cudaError_t run_core_bwd(InHeads q, InHeads k, InHeads v, InHeads dout,
                                 int vec, cudaStream_t s) {
   const size_t smem = core_smem_bytes<DHP>(n, true);
   const dim3 grid((n + CORE_QT - 1) / CORE_QT, heads, batch);
-  cudaError_t err = set_smem(core_bwd_q_kernel<DHP, CTX, FULL>, smem);
+  cudaError_t err = set_smem(core_bwd_q_kernel<DHP, FULL>, smem);
   if (err != cudaSuccess) return err;
-  core_bwd_q_kernel<DHP, CTX, FULL><<<grid, CORE_THREADS, smem, s>>>(
+  core_bwd_q_kernel<DHP, FULL><<<grid, CORE_THREADS, smem, s>>>(
       q, k, v, dout, dq, stats, cx, n, dh, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -621,23 +605,20 @@ static cudaError_t run_core_bwd(InHeads q, InHeads k, InHeads v, InHeads dout,
   return cudaGetLastError();
 }
 
-// Backward, two launches on the caller's stream; stats: [B * heads * N]
-// float4 scratch.
-template <int DHP, int CTX>
+// The sublayer backward, two launches on the caller's stream; stats:
+// [B * heads * N] float4 scratch.
+template <int DHP>
 static cudaError_t launch_core_bwd(InHeads q, InHeads k, InHeads v,
                                    InHeads dout, OutHeads dq, OutHeads dk,
                                    OutHeads dv, float4* stats, CtxOut cx,
                                    int batch, int heads, int n, int dh,
                                    float scale, cudaStream_t s) {
-  // cx.out is all zeros (any copy width) unless CTX == CTX_OUT
-  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv, cx.out);
+  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv);
   return dh == DHP && vec == 8
-             ? run_core_bwd<DHP, CTX, true>(q, k, v, dout, dq, dk, dv, stats,
-                                            cx, batch, heads, n, dh, scale,
-                                            vec, s)
-             : run_core_bwd<DHP, CTX, false>(q, k, v, dout, dq, dk, dv,
-                                             stats, cx, batch, heads, n, dh,
-                                             scale, vec, s);
+             ? run_core_bwd<DHP, true>(q, k, v, dout, dq, dk, dv, stats, cx,
+                                       batch, heads, n, dh, scale, vec, s)
+             : run_core_bwd<DHP, false>(q, k, v, dout, dq, dk, dv, stats, cx,
+                                        batch, heads, n, dh, scale, vec, s);
 }
 
 template <int DHP>

@@ -36,7 +36,9 @@ _MAX_DM_BWD = 1024
 # the attention core's head dims (instantiated for the padded head dims 16,
 # 32, 48, 64 and 80) and its shared memory: a 64-row tile (two in the
 # backward) and the head's two whole-sequence operands at a row stride of
-# the padded head dim + 8, plus one float4 per query in the backward
+# the padded head dim + 8, plus one float4 per query in the backward.  The
+# sublayer kernels (csrc/attention.cu) run this core forward and backward,
+# the bare core (csrc/attention_core.cu) its forward.
 _CORE_MAX_HEAD_DIM = 80
 _SMEM_LIMIT = 232448
 
@@ -47,6 +49,31 @@ def _core_smem_bytes(n: int, dh: int, backward: bool) -> int:
     if backward:
         return (128 + 2 * np_) * ld * 2 + np_ * 16
     return (64 + 2 * np_) * ld * 2
+
+
+# the bare core's backward (csrc/attention_core_bwd.cuh) streams 64-row
+# tiles through a ring of two stages, so its shared memory does not depend
+# on N: per CTA two own tiles and two stages of two tiles (the key side's
+# stages also hold a tile's 64 float4 statistics), 1024 bytes of
+# alignment and the mbarriers
+_BWD_TILE_ROWS = 64
+_BWD_STAGES = 2
+
+
+def _core_bwd_smem_bytes(dh: int) -> int:
+    tile = _BWD_TILE_ROWS * -(-dh // 16) * 16 * 2
+    bars = (1 + _BWD_STAGES) * 8
+    query_side = 1024 + (2 + 2 * _BWD_STAGES) * tile + bars
+    key_side = (1024 + 2 * tile
+                + _BWD_STAGES * (2 * tile + 16 * _BWD_TILE_ROWS) + bars)
+    return max(query_side, key_side)
+
+
+def _core_bwd_stats(b: int, h: int, n: int, device) -> torch.Tensor:
+    """The backward's per-query scratch (max * log2 e, 1 / s, row, 0):
+    every row of every 64-row tile of every head."""
+    rows = -(-n // _BWD_TILE_ROWS) * _BWD_TILE_ROWS
+    return torch.empty((b * h * rows, 4), dtype=torch.float32, device=device)
 
 
 def _ln_rows(x32, gamma, beta, eps):
@@ -571,7 +598,9 @@ def attention_bwd_plain(q, k, v, do, scale: float):
 def _check_core(named, backward):
     """The core kernels' checks; returns (B, H, N, dh).  The kernels read
     each operand at its own strides (a head view of a projection as it
-    lies), with unit stride along the head dim."""
+    lies), with unit stride along the head dim.  The forward stages the
+    head's whole K and V, which bounds N; the backward streams tiles and
+    takes any N."""
     q = named["q"]
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, N, dh], got {tuple(q.shape)}")
@@ -590,7 +619,9 @@ def _check_core(named, backward):
     if not (b and h and n) or not 0 < dh <= _CORE_MAX_HEAD_DIM:
         raise ValueError(f"unsupported shape {tuple(q.shape)}: the kernels "
                          f"take head dims 1..{_CORE_MAX_HEAD_DIM} and N > 0")
-    if _core_smem_bytes(n, dh, backward) > _SMEM_LIMIT:
+    smem = (_core_bwd_smem_bytes(dh) if backward
+            else _core_smem_bytes(n, dh, False))
+    if smem > _SMEM_LIMIT:
         raise ValueError(f"N = {n} at head dim {dh} does not fit the "
                          f"kernel's shared memory")
     return b, h, n, dh
@@ -646,7 +677,7 @@ def attention_bwd(q, k, v, do, scale: float):
                          f"{q.device}")
     b, h, n, dh = _check_core(dict(q=q, k=k, v=v, do=do), backward=True)
     lib = _cuda.library("attention_core")
-    stats = torch.empty((b * h * n, 4), dtype=torch.float32, device=q.device)
+    stats = _core_bwd_stats(b, h, n, q.device)
     grads = tuple(_head_major(q) for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -678,7 +709,7 @@ def _attention_bwd_ctx_into(q, k, v, do, scale, outs):
                                    dq=outs[1], dk=outs[2], dv=outs[3]),
                               backward=True)
     lib = _cuda.library("attention_core")
-    stats = torch.empty((b * h * n, 4), dtype=torch.float32, device=q.device)
+    stats = _core_bwd_stats(b, h, n, q.device)
     ctx, dq, dk, dv = outs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
