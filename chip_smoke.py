@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3, then the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
-                                           # the parent's kernels take, and
+                                           # the parent's kernels take (A8's
+                                           # at "se" and "ragged"), and
                                            # phase 7's performer kernels'
 
 Phases, each of which stops the run with a non-zero exit on failure:
@@ -23,9 +24,15 @@ Phases, each of which stops the run with a non-zero exit on failure:
    N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591);
    the sublayer kernels K1, A2 and A7 at head dim 12 ("resnext": B=64,
    N=197, dm=384, 32 heads) and 80 ("h80": B=8, N=257, dm=640, 8 heads);
-   the attention core A9 at "se" (B=64, H=6, N=197, dh=64), "dense_odd"
-   (H=8, dh=41), "dense_wide" (H=8, dh=74), "ragged" (B=3, H=2, N=50,
-   dh=24) and "vit_h" (B=32, H=16, N=257, dh=80), every output, two
+   every forward kernel's two launches bit for bit; K1's four launches
+   (LayerNorm, qkv GEMM, attention core, projection GEMM) one by one at
+   "vit_h" and "eval" from a profile, with the GEMMs' rates and the host
+   time of one call, each of the model's blocks (32, 12) with its own
+   weights; the attention core A9 at "se" (B=64, H=6, N=197,
+   dh=64), "dense_odd" (H=8, dh=41), "dense_wide" (H=8, dh=74), "ragged"
+   (B=3, H=2, N=50, dh=24), "vit_h" (B=32, H=16, N=257, dh=80) and "long"
+   (B=4, H=16, N=1025, dh=80: past the 624 keys that the staged forward
+   core held), every output, two forward and two
    backward launches bit for bit, the same operands as head views of one
    packed buffer (the models' layout, at strides that need narrower
    copies) bit for bit, beside ``scaled_dot_product_attention`` (its
@@ -103,9 +110,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ``layer_attention_ln_bwd_composed`` with one ``attention_bwd_ctx`` (A8)
    each, 32 of ``mlp_ln_blend_bwd_composed``) and no fused sublayer
    backward; a gating-warmup step that must leave the gating logits
-   unchanged bit for bit; peak memory; a profiled step (with A8's device
-   time, query and key side); one block's composed routes timed alone; and one step at depth 4 and batch 2 on
-   the card against the CPU plain path.
+   unchanged bit for bit; peak memory; a profiled step (with the device
+   time of A8, query and key side, of K1's GEMMs and attention core, and
+   of the LayerNorm passes); one block's composed routes timed alone; and
+   one step at depth 4 and batch 2 on the card against the CPU plain
+   path.
 
 10. T2T-ViT-14-resnext -- the stage-1 step of phase 7 on the resnext
    structure ablation (32 heads of 12): 1 untimed + 5 timed steps at
@@ -171,11 +180,22 @@ def digest(outs):
     return h.hexdigest()[:12]
 
 
+# cycles of the kernel that holds the card while the timed calls queue up
+# behind it (~50 ms, longer than the host takes to issue them)
+QUEUE_CYCLES = 100_000_000
+
+
 def time_ms(fn, iters):
+    """Device time of one call of fn, in ms: the calls queue up behind a
+    sleeping kernel and then run back to back, so events around them time
+    the card alone and not the host's cost per call (checks, allocation,
+    launches), which exceeds the device time of the small kernels."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -362,6 +382,8 @@ def kernel_phase(eps, digests_only=False):
             kern, plain, library, flops, nbytes = cases[name]
             out = kern()
             torch.cuda.synchronize()
+            check(torch.equal(kern(), out),
+                  f"{name} [{shape}]: two launches differ")
             ref = plain()
             rel, mx = rel_err(out, ref)
             max_tol = KERNEL_MAX_TOL * ref.float().abs().max().item()
@@ -387,9 +409,116 @@ def kernel_phase(eps, digests_only=False):
                   f"{max_tol:.2e}) ms={r['ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
-                  f"bound={bound_ms * 1e3:.1f}us ({bound_by}) "
-                  f"digest={digest([out])}", flush=True)
+                  f"bound={bound_ms * 1e3:.1f}us ({bound_by}) two launches "
+                  f"bit-identical digest={digest([out])}", flush=True)
     return results
+
+
+# K1's launches in their order, and the shapes at which one call is
+# profiled launch by launch, each with the blocks of the model that runs K1
+# there (ViT-H/14: 32, DeiT-Small: 12), whose weights are each block's own
+K1_LAUNCHES = ("layer norm", "qkv GEMM", "core", "projection GEMM")
+K1_PROFILE_SHAPES = {"vit_h": 32, "eval": 12}
+
+
+def _host_us(calls):
+    """The host's time to issue ``calls`` back to back, over their number,
+    in us: the median of 5 runs (and the runs)."""
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        host.append((time.perf_counter() - t0) / len(calls) * 1e6)
+        torch.cuda.synchronize()
+    return sorted(host)[len(host) // 2], host
+
+
+def k1_breakdown(eps, card, calls=10):
+    """The device time of each of K1's four launches (torch.profiler over
+    ``calls`` calls, the device events taken in their order), the GEMMs'
+    rates, and the host time of one call, issued as a model step issues
+    them: each block with its own weights, two calls a block (student and
+    teacher, or forward and a second pass), so that no tensor map of a
+    weight is met again before every other block's has been; and, beside
+    it, the same number of calls on one block's weights.  The host time
+    is taken of the wrapper (checks, allocation, the library call) and of
+    the library's entry point alone on fixed scratch (the tensor maps and
+    the four launches), whose runs spread far less."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from uvc_tpu_torch.ops import _cuda
+    from uvc_tpu_torch.ops.attention import layer_attention_ln
+
+    lib = _cuda.library("attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape, blocks in K1_PROFILE_SHAPES.items():
+        b, n, dm, heads, f, dh, _ = FWD_SHAPES[shape]
+        t = _inputs(gen, b, n, dm, heads, f, dh)
+        da, rows = heads * dh, b * n
+        kw = dict(num_heads=heads, scale=dh ** -0.5, eps=eps)
+        names = ("wqkv", "bqkv", "wproj", "bproj")
+        scratch = [torch.empty(rows, w, dtype=torch.bfloat16, device="cuda")
+                   for w in (dm, 3 * da, da)] + [torch.empty_like(t["x"])]
+
+        def k1(w):
+            return lambda: layer_attention_ln(
+                t["x"], t["g"], t["b"], w["wqkv"], w["bqkv"], w["wproj"],
+                w["bproj"], t["amask"], **kw)
+
+        def entry(w):
+            args = (*(a.data_ptr() for a in (
+                t["x"], t["g"], t["b"], w["wqkv"], w["bqkv"], w["wproj"],
+                w["bproj"], t["amask"], *scratch)), b, n, dm, da, heads,
+                float(dh ** -0.5), float(eps), stream)
+            return lambda: lib.uvc_layer_attention_ln(*args)
+
+        run = k1(t)
+        run()
+        torch.cuda.synchronize()
+        for _ in range(3):  # the profiler now and then returns no events
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+            evs = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and e.device_time_total > 0),
+                         key=lambda e: e.time_range.start)
+            if evs:
+                break
+        check(len(evs) == 4 * calls,
+              f"K1 [{shape}]: {len(evs)} device events in {calls} calls, "
+              f"not {4 * calls}")
+        ms = [sum(evs[4 * c + i].device_time_total for c in range(calls))
+              / calls / 1e3 for i in range(4)]
+        own = [{k: t[k].clone() for k in names} for _ in range(blocks)]
+        host = {}
+        for label, ws in (("own", own), ("one", [t] * blocks)):
+            for way, make in (("wrapper", k1), ("entry", entry)):
+                made = [make(w) for w in ws]
+                warm = [c() for c in made]
+                check(way == "wrapper" or not any(warm),
+                      f"K1 [{shape}]: the entry point returned {warm}")
+                host[label, way] = _host_us(made * 2)
+        del own
+        tflops = (2 * rows * dm * 3 * da / ms[1] / 1e9,
+                  2 * rows * da * dm / ms[3] / 1e9)
+        print(f"K1 launches [{shape}, one call]: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in zip(K1_LAUNCHES, ms))
+              + f" (sum {sum(ms):.4f}); qkv GEMM {tflops[0]:.0f} TFLOP/s, "
+              f"projection GEMM {tflops[1]:.0f} TFLOP/s [{card}]", flush=True)
+        for label, what in (("own", f"{blocks} blocks' own weights"),
+                            ("one", "one block's weights")):
+            print(f"K1 host time of one call [{shape}, {2 * blocks} calls, "
+                  f"{what}]: " + ", ".join(
+                      f"{way} {host[label, way][0]:.1f} us (runs "
+                      + ", ".join(f"{h:.1f}" for h in host[label, way][1])
+                      + ")" for way in ("wrapper", "entry"))
+                  + f" [{card}]", flush=True)
 
 
 # backward kernels against their plain backwards at the stage-1 train shape
@@ -1485,11 +1614,13 @@ def t2t_serving_phase(card):
 # ---------------------------------------------------------------------------
 
 # (B, H, N, dh): the SE / Ghost blocks, the Dense variant's odd head dim 41
-# and its widest, 74, a ragged shape (B * H * N = 300 rows), and ViT-H/14's
-# stage 1 (A8 in the composed backward of its 32 blocks)
+# and its widest, 74, a ragged shape (B * H * N = 300 rows), ViT-H/14's
+# stage 1 (A8 in the composed backward of its 32 blocks), and a sequence
+# past the 624 keys that the staged forward core held at head dim 80
+# ("long")
 CORE_SHAPES = {"se": (BATCH, 6, 197, 64), "dense_odd": (BATCH, 8, 197, 41),
                "dense_wide": (BATCH, 8, 197, 74), "ragged": (3, 2, 50, 24),
-               "vit_h": (32, 16, 257, 80)}
+               "vit_h": (32, 16, 257, 80), "long": (4, 16, 1025, 80)}
 # the shapes at which A8 (attention_bwd_ctx) is held beside A9
 BWD_CTX_SHAPES = ("se", "ragged", "vit_h")
 # (config, label, attention-core launches per step: one per block)
@@ -1559,6 +1690,7 @@ def _pinned(pin, fn):
 
 def core_kernel_phase(digests_only=False):
     from uvc_tpu_torch.ops.attention import (attention, attention_bwd,
+                                             attention_bwd_ctx,
                                              attention_bwd_plain,
                                              attention_plain)
 
@@ -1575,7 +1707,8 @@ def core_kernel_phase(digests_only=False):
         torch.cuda.synchronize()
         ferrs = _check_outputs("attention", shape, [out],
                                [attention_plain(q, k, v, scale)],
-                               KERNEL_REL_TOL)
+                               KERNEL_REL_TOL,
+                               again=[attention(q, k, v, scale)])
         grads = attention_bwd(q, k, v, do, scale)
         torch.cuda.synchronize()
         again = attention_bwd(q, k, v, do, scale)
@@ -1587,6 +1720,10 @@ def core_kernel_phase(digests_only=False):
                   f"digest={digest([out])}")
             print(f"kernel attention_bwd  [{shape:10s}] "
                   f"digest={digest(grads)}", flush=True)
+            if shape in BWD_CTX_SHAPES:
+                print(f"kernel attention_bwd_ctx [{shape:10s}] digest="
+                      f"{digest(attention_bwd_ctx(q, k, v, do, scale))}",
+                      flush=True)
             continue
         views = _packed_views(q, k, v, do)
         check(torch.equal(attention(*views[:3], scale), out)
@@ -1631,7 +1768,7 @@ def core_kernel_phase(digests_only=False):
                   f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms(sdpa {backend})={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
-                  + (" two launches bit-identical" if bwd else "")
+                  + " two launches bit-identical"
                   + f" head views bit-identical digest="
                   f"{digest(grads if bwd else [out])}", flush=True)
         if shape in BWD_CTX_SHAPES:
@@ -1898,9 +2035,13 @@ def vit_h_phase(card):
 
     profile_phase(card, {"ViT-H/14 stage-1 train step": lambda: run(
         state, step, 1)}, top=30, batch=b,
-        watch={"A8 (attention_bwd_ctx)": "_wg_kernel",
+        watch={"A8 (attention_bwd_ctx)": "core_bwd_",
                "A8 query side": "core_bwd_q_wg_kernel",
-               "A8 key side": "core_bwd_kv_wg_kernel"})
+               "A8 key side": "core_bwd_kv_wg_kernel",
+               "K1's GEMMs (gemm_wg)": "gemm_wg_kernel",
+               "K1's attention core (core_fwd_wg)": "core_fwd_wg_kernel",
+               "LayerNorm (K1 64, K2 32, K3 32 a step)":
+                   "layer_norm_kernel"})
     composed_route_times(card, cfg)
     del state, params, teacher
 
@@ -1995,6 +2136,8 @@ def main():
 
     eps = get_config("deit_small_patch16_224").layer_norm_eps
     res = kernel_phase(eps, args.digests)
+    if not args.digests:
+        k1_breakdown(eps, card)
     res.update(backward_kernel_phase(eps, args.digests))
     res.update(core_kernel_phase(args.digests))
     if args.digests:

@@ -1,4 +1,4 @@
-// LN-fused attention sublayer, forward:
+// LN-fused attention sublayer, forward (kernel K1):
 //   out = x + (mask * MHA(LN1(x) @ Wqkv + bqkv)) @ Wproj + bproj
 //
 // Replaces uvc_tpu/ops/attention.py::_layer_ln_fwd_kernel (called through
@@ -6,30 +6,38 @@
 // _layer_ln_bwd_kernel, and uvc_layer_attention / uvc_layer_attention_bwd
 // replace _layer_fwd_kernel / _layer_bwd_kernel (the same sublayer without
 // LayerNorm and residual); their notes (bound, design) are at their entry
-// points at the end of this file.
+// points below.
 //
-// What bounds it on the H100: at DeiT-Small widths (dm = 384, N = 197,
-// 6 heads of 64) the three matrix products carry ~18.7 GFLOP per batch of 64
-// against ~20 MB of input and output, so the tensor cores, not the 3.35 TB/s
-// of device memory, set the floor (~19 us at 989 TFLOP/s).
+// What bounds it on the H100: the tensor cores.  At ViT-H/14's stage-1
+// shape (B = 32, N = 257, dm = da = 1280, 16 heads of 80) it does 118.6
+// GFLOP (qkv 80.8, the attention core 10.8, the projection 27.0) against
+// ~45 MB of inputs, weights and output: 119.9 us at 989 TFLOP/s, 13 us at
+// 3.35 TB/s.  At DeiT-Small's (dm = da = 384, N = 197, 6 heads of 64,
+// B = 64) ~18.7 GFLOP against ~20 MB: ~19 us.
 //
-// Design: four launches on the caller's stream (2-4 are sublayer_fwd).
-//   1. layer_norm_kernel: a_in = bf16(LN1(x)) in f32 -> [B*N, dm].
-//   2. gemm_kernel<EPI_BIAS>: qkv = bf16(a_in @ Wqkv + bqkv) -> [B*N, 3*da].
-//   3. core_fwd_kernel<DHP> (attention_core.cuh, the attention core that
-//      kernels A8 and A9 share, at the head dim padded to 16, 32, 48, 64 or
-//      80): one CTA per (64-query tile, head, image), reading
-//      q, k and v straight from the packed qkv rows; K and V of the head
-//      live in shared memory, keys at or beyond N are masked inside the
-//      kernel (no padding of N), f32 logits and softmax, the normalisation
-//      applied after P @ V as the Pallas body does;
+// Design: four launches on the caller's stream.
+//   1. layer_norm_kernel (common.cuh): a_in = bf16(LN1(x)) in f32 ->
+//      [B*N, dm].
+//   2. gemm_wg_kernel<EPI_BIAS> (gemm_wg.cuh, TMA and wgmma):
+//      qkv = bf16(a_in @ Wqkv + bqkv) -> [B*N, 3*da].
+//   3. core_fwd_wg_kernel<DHP, MASK> (attention_core_fwd.cuh, the streamed
+//      core that A9's forward runs too, at the head dim padded to 16, 32,
+//      48, 64 or 80): one CTA per (64-query tile, head, image), q, k and v
+//      read as head views of the packed qkv rows (TMA at head dims 64 and
+//      80), K and V streamed in 64-row tiles, the softmax online in f32,
+//      the normalisation after P @ V as the Pallas body does;
 //      ctx = bf16(bf16(ctx) * mask) -> ctx [B*N, da], head-major.
-//   4. gemm_kernel<EPI_RESID>: out = bf16(x + (ctx @ Wproj + bproj)).
-// The TPU kernel kept a_in, qkv and ctx in VMEM; here they make one round
-// trip each through device memory (~10 x 9.7 MB at B = 64, dm = da = 384).
-// Fusing them back is later work.  The attention width da = heads * dh,
-// any even head dim up to 80, may differ from dm (compacted layers).
-#include "attention_core.cuh"
+//   4. gemm_wg_kernel<EPI_RESID>: out = bf16(x + (ctx @ Wproj + bproj)).
+// Against the bound: the two products (107.8 of the 118.6 GFLOP at ViT-H)
+// run on wgmma from TMA-fed shared memory, the core on wgmma from
+// streamed tiles, and N is not bounded by shared memory.  The TPU kernel
+// kept a_in, qkv and ctx in VMEM; here they make one round trip each
+// through device memory (~8 x 21 MB at ViT-H: ~50 us at 3.35 TB/s, spread
+// over the launches that write and read them).  The attention width
+// da = heads * dh, any even head dim up to 80, may differ from dm
+// (compacted layers).
+#include "attention_core_fwd.cuh"
+#include "gemm_wg.cuh"
 
 namespace uvc {
 
@@ -44,21 +52,15 @@ static OutHeads packed_out(bf16* rows, int n, int ld, int dh) {
   return {rows, (long long)n * ld, dh, ld};
 }
 
-// ---------------------------------------------------------------------------
-// Launch sequences shared by the LN-fused sublayer (K1 / A2) and the bare
-// sublayer (A7): everything between the qkv projection's input `a` and the
-// output projection, forward and backward.
-// ---------------------------------------------------------------------------
-
 // qkv = bf16(a . Wqkv + bqkv); ctx = bf16(bf16(MHA(qkv)) * mask);
-// out = bf16(resid + (ctx . Wproj + bproj)), or bf16(ctx . Wproj + bproj)
-// when resid is null.  Three launches.
+// out = bf16(ctx . Wproj + bproj): A7's forward, three launches on the
+// mma.sync GEMM of common.cuh and the staged core of attention_core.cuh.
 static cudaError_t sublayer_fwd(const bf16* a, const bf16* wqkv,
                                 const bf16* bqkv, const bf16* wproj,
                                 const bf16* bproj, const bf16* mask,
-                                const bf16* resid, bf16* qkv, bf16* ctx,
-                                bf16* out, int batch, int n, int dm, int da,
-                                int heads, float scale, cudaStream_t s) {
+                                bf16* qkv, bf16* ctx, bf16* out, int batch,
+                                int n, int dm, int da, int heads, float scale,
+                                cudaStream_t s) {
   const int rows = batch * n;
   GemmArgs p = {};
   p.a = a;
@@ -88,8 +90,49 @@ static cudaError_t sublayer_fwd(const bf16* a, const bf16* wqkv,
   q.M = rows;
   q.N = dm;
   q.K = da;
-  q.resid = resid;
-  return resid ? launch_gemm<EPI_RESID>(q, s) : launch_gemm<EPI_BIAS>(q, s);
+  return launch_gemm<EPI_BIAS>(q, s);
+}
+
+// K1's launches 2-4 from a = bf16(LN1(x)): qkv on gemm_wg, the streamed
+// core with the ctx mask, out = bf16(x + (ctx . Wproj + bproj)) on
+// gemm_wg.
+static cudaError_t layer_ln_fwd(const bf16* a, const bf16* wqkv,
+                                const bf16* bqkv, const bf16* wproj,
+                                const bf16* bproj, const bf16* mask,
+                                const bf16* x, bf16* qkv, bf16* ctx, bf16* out,
+                                int batch, int n, int dm, int da, int heads,
+                                float scale, cudaStream_t s) {
+  const int rows = batch * n;
+  GemmArgs p = {};
+  p.a = a;
+  p.w = wqkv;
+  p.bias = bqkv;
+  p.out = qkv;
+  p.M = rows;
+  p.N = 3 * da;
+  p.K = dm;
+  cudaError_t err = launch_gemm_wg<EPI_BIAS>(p, s);
+  if (err != cudaSuccess) return err;
+
+  const int ld = 3 * da, dh = da / heads;
+  err = with_head_dim(dh, [&](auto d) {
+    return launch_core_fwd_wg<decltype(d)::value, true>(
+        packed_in(qkv, n, ld, dh), packed_in(qkv + da, n, ld, dh),
+        packed_in(qkv + 2 * da, n, ld, dh), packed_out(ctx, n, da, dh), mask,
+        batch, heads, n, dh, scale, s);
+  });
+  if (err != cudaSuccess) return err;
+
+  GemmArgs q = {};
+  q.a = ctx;
+  q.w = wproj;
+  q.bias = bproj;
+  q.out = out;
+  q.M = rows;
+  q.N = dm;
+  q.K = da;
+  q.resid = x;
+  return launch_gemm_wg<EPI_RESID>(q, s);
 }
 
 // Scratch and outputs of the sublayer backward below the qkv input.
@@ -212,7 +255,7 @@ extern "C" int uvc_layer_attention_ln(
       static_cast<const float*>(b1), batch * n, dm, eps,
       static_cast<bf16*>(a_in), s);
   if (err != cudaSuccess) return (int)err;
-  return (int)uvc::sublayer_fwd(
+  return (int)uvc::layer_ln_fwd(
       static_cast<const bf16*>(a_in), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
       static_cast<const bf16*>(bproj), static_cast<const bf16*>(mask),
@@ -226,10 +269,12 @@ extern "C" int uvc_layer_attention_ln(
 // The port of uvc_tpu/ops/attention.py::_layer_fwd_kernel (called through
 // _fused_layer), kernel A7: the separate-LN branch of a block whose
 // sublayer output is scaled before the residual add (part gating,
-// drop-path).  It is uvc_layer_attention_ln without launch 1 (the
-// LayerNorm pass) and with the bias epilogue in place of the residual one
-// in launch 4: three launches, the same bound (~18.7 GFLOP against ~20 MB
-// at B = 64, N = 197, dm = da = 384: the tensor cores, ~19 us).  qkv
+// drop-path).  It is K1's function without the LayerNorm pass and with
+// the bias epilogue in place of the residual one, in three launches
+// (sublayer_fwd above: the mma.sync GEMM of common.cuh and the staged core
+// of attention_core.cuh, whose shared memory holds the head's whole K and
+// V and so bounds N); the same bound (~18.7 GFLOP against ~20 MB at
+// B = 64, N = 197, dm = da = 384: the tensor cores, ~19 us).  qkv
 // [B*N, 3*da] and ctx [B*N, da] (bf16) are scratch that the caller
 // allocates.
 extern "C" int uvc_layer_attention(
@@ -240,7 +285,7 @@ extern "C" int uvc_layer_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
       static_cast<const bf16*>(bproj), static_cast<const bf16*>(mask),
-      nullptr, static_cast<bf16*>(qkv), static_cast<bf16*>(ctx),
+      static_cast<bf16*>(qkv), static_cast<bf16*>(ctx),
       static_cast<bf16*>(out), batch, n, dm, da, heads, scale,
       static_cast<cudaStream_t>(stream));
 }

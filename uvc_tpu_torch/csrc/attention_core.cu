@@ -16,24 +16,27 @@
 // reads q, k, v and writes ctx (38.7 MB, 11.6 us at 3.35 TB/s) for
 // 4 B H N^2 dh = 3.8 GFLOP (3.9 us at 989 TFLOP/s); the backward reads q,
 // k, v, dO and writes dq, dk, dv (67.8 MB, 20.2 us) for 10 B H N^2 dh =
-// 9.5 GFLOP (9.6 us).  Both are bound by device memory: the logits and the
-// probabilities ([N, N] per head) never leave the chip; each kernel
-// recomputes them from q and k in registers.
+// 9.5 GFLOP (9.6 us).  At ViT-H/14's (B = 32, H = 16, N = 257, dh = 80)
+// the forward moves 84.2 MB (25.1 us) for 10.8 GFLOP.  Both are bound by
+// device memory: the logits and the probabilities ([N, N] per head) never
+// leave the chip; each kernel recomputes them from q and k in registers.
 //
-// Design: the forward is the kernel of attention_core.cuh, the attention
-// core that the sublayer kernels of attention.cu (K1, A2, A7) run on the
-// packed qkv rows, here instantiated for the padded head dims DHP = 16, 32,
-// 48, 64 and 80 without the ctx mask; the backward is the streamed wgmma
-// design of attention_core_bwd.cuh (its note there and at
-// uvc_attention_bwd_ctx below).  Any dh <= DHP is taken by zero-filling
-// columns dh..DHP-1 of the tiles in shared memory (exact), with copies 16,
-// 4 or 2 bytes wide as dh and the strides allow: the Dense variant's head
-// dims 20, 28, ..., 74 go 4 bytes at a time, only its odd ones (41, 49,
-// 57, 65) one element at a time.  Padding in the wrapper
-// instead would cost a padded copy of q, k, v and dO and a slice of each
-// output through device memory on every call.  The operands are read where
-// they lie, at the strides the caller passes (the models hand over head
-// views of one projection), so nothing is copied before or after a call.
+// Design: the forward is the streamed core of attention_core_fwd.cuh
+// (K1's attention step runs it too, with the ctx mask), the backward the
+// streamed core of attention_core_bwd.cuh (its note there and at
+// uvc_attention_bwd_ctx below), both instantiated for the padded head
+// dims DHP = 16, 32, 48, 64 and 80, one warpgroup per CTA on wgmma, the
+// other side's rows streamed in 64-row tiles, so any N.  Any dh <= DHP is
+// taken by zero-filling columns dh..DHP-1 of the tiles in shared memory
+// (exact); contiguous heads whose head dim is DHP load by TMA, others by
+// cp.async 16 or 4 bytes wide as dh and the strides allow (the Dense
+// variant's head dims 20, 28, ..., 74 go 4 bytes at a time, its odd ones,
+// 41, 49, 57, 65, as aligned 4-byte words shifted into place).  Padding in
+// the wrapper instead would cost a padded copy of q, k, v and dO and a
+// slice of each output through device memory on every call.  The
+// operands are read where they lie, at the strides the caller passes (the
+// models hand over head views of one projection), so nothing is copied
+// before or after a call.
 #include "attention_core_bwd.cuh"
 
 namespace uvc {
@@ -66,9 +69,8 @@ extern "C" int uvc_attention(const void* q, const void* k, const void* v,
   const OutHeads oh = uvc::heads_at<bf16>(out, strides, 3);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)uvc::with_head_dim(dh, [&](auto d) {
-    return uvc::launch_core_fwd<decltype(d)::value>(qh, kh, vh, oh, nullptr,
-                                                    batch, heads, n, dh,
-                                                    scale, s);
+    return uvc::launch_core_fwd_wg<decltype(d)::value, false>(
+        qh, kh, vh, oh, nullptr, batch, heads, n, dh, scale, s);
   });
 }
 

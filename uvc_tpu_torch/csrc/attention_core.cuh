@@ -1,12 +1,12 @@
-// The attention core of the port's attention kernels:
+// The staged attention core of the sublayer kernels of attention.cu:
 //   ctx = softmax(q . k^T * scale) . v
 // per (image, head), forward and backward, on head-split operands at any
-// strides.  attention.cu runs it on the packed qkv rows of the sublayer
-// kernels (K1, A2, A7: even head dims up to 80, the ctx mask, and in the
-// backward the f32 ctx that dmask needs); attention_core.cu runs its
-// forward on the [B, H, N, dh] operands of the bare core (A9, head dims up
-// to 80).  The bare core's backward (A8, A9's backward) is the streamed
-// wgmma design of attention_core_bwd.cuh.
+// strides: A7's forward (the ctx mask) and the backwards of A2 and A7
+// (even head dims up to 80, the ctx mask, and the f32 ctx that dmask
+// needs), on the packed qkv rows.  K1 and A9's forward run the streamed
+// forward of attention_core_fwd.cuh, A8 and A9's backward the streamed
+// backward of attention_core_bwd.cuh; this file also holds the head
+// operands (Heads), copy widths and head-dim dispatch that those share.
 //
 // Design: one CTA of four warps per (64-row tile, head, image), 16 rows per
 // warp, mma.sync m16n8k16 with f32 accumulators; the other operand's whole
@@ -554,9 +554,9 @@ static cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-// A full tile (dh == DHP and 16-byte copies: the sublayers' heads of 64,
-// A9's contiguous heads of 16, 32, 48, 64 and 80) runs the FULL
-// instantiation, which folds away every column and copy-width check.
+// A full tile (dh == DHP and 16-byte copies: the sublayers' heads of 64
+// and 80) runs the FULL instantiation, which folds away every column and
+// copy-width check.
 template <int DHP, bool FULL>
 static cudaError_t run_core_fwd(InHeads q, InHeads k, InHeads v, OutHeads out,
                                 const bf16* mask, int batch, int heads, int n,

@@ -2,7 +2,9 @@
 // (uvc_tpu/ops/attention.py::_bwd_ctx_kernel) and A9's backward
 // (::_bwd_kernel), on [B, H, N, dh] operands at any strides.  Only
 // attention_core.cu includes it; the sublayer backwards of attention.cu
-// (A2, A7) keep the mma.sync core of attention_core.cuh.
+// (A2, A7) and A7's forward keep the mma.sync core of attention_core.cuh,
+// while K1 and A9's forward run the streamed forward of
+// attention_core_fwd.cuh.
 //
 // Numerics: the Pallas bodies' rounding order, as attention_bwd_ctx_plain
 // in uvc_tpu_torch/ops/attention.py writes it: logits = (q . k^T) * scale
@@ -43,467 +45,34 @@
 // or three key-side CTAs in 168 registers (which spill), ran no faster on
 // the H100.
 //
-// Shared-memory tiles: 16-column boxes of 64 rows x 32 bytes in the
-// 32-byte swizzle (the 16-byte halves of a row swapped on rows 4-7 of
-// every 8), which TMA writes and wgmma reads as its B32 layout; a head of
-// 80 is five boxes, so no head dim needs the 128-byte swizzle's 64-column
-// rows.  Loads: TMA (cp.async.bulk.tensor, completion on an mbarrier) when
-// every operand is a full tile (dh equal to the padded head dim, 16-byte
-// strides and base: A8's head views of the qkv rows, A9's contiguous heads
-// of 16-80); otherwise cp.async into the same layout at the widest copy
-// the operands allow (16 or 4 bytes; at an odd head dim, aligned 4-byte
-// loads shifted into place), the columns past dh and the rows past N
-// zero-filled, as TMA fills rows past N.  The columns past dh add zero to
-// every product.
+// Tiles and loads: those of the forward (attention_core_fwd.cuh, which
+// holds them and the products on them): 32-byte-swizzled 16-column boxes,
+// TMA when every operand is a full tile (A8's head views of the qkv rows,
+// A9's contiguous heads of 16-80), else cp.async at the widest copy the
+// operands allow.
 #pragma once
 
-#include <cuda.h>
-
-#include <utility>
-
-#include "attention_core.cuh"
+#include "attention_core_fwd.cuh"
 
 namespace uvc {
 
-constexpr int BWD_T = 64;                       // rows of a tile
-constexpr int BWD_BOX = BWD_T * 16 * 2;         // bytes of a 16-column box
-constexpr int BWD_STAGES = 2;                   // the streamed ring
-constexpr int BWD_STAT_BYTES = BWD_T * 16;      // a tile's (max, 1/s, row, 0)
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x (MUFU.EX2, relative error below 2^-22; results below 2^-126 flush
-// to zero)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// byte offset of element (r, c) in a tile of 16-column boxes, 32-byte
-// swizzle (bit 4 of the address XOR bit 7)
-__device__ __forceinline__ int tile_off(int r, int c) {
-  return (c >> 4) * BWD_BOX + r * 32 + ((((c >> 3) ^ (r >> 2)) & 1) << 4) +
-         ((c & 7) << 1);
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the phase of `parity` to complete.  A transfer that never
-// lands (a byte count that disagrees with the copies) traps after about
-// two seconds instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 32)) {
-      __trap();
-    }
-  }
-}
-
-// a box of a 4-d tensor map (coordinates innermost first) into shared
-// memory, completing `bytes` on bar
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (16-byte aligned) into shared memory
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// makes this thread's generic-proxy writes to shared memory (stores,
-// cp.async) visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// after wg_wait: the accumulators' values are read from here on, not
-// earlier
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor, layout B32: start address, leading and
-// stride byte offsets
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (3ull << 62);
-}
-
-// a tile as a K-major operand (its rows along M or N, the head dim along
-// K), head-dim columns 16 kk .. 16 kk + 15: box kk, 8-row groups 256 bytes
-// apart
-__device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* tile,
-                                                int kk) {
-  return gmma_desc(tile + kk * BWD_BOX, 16, 256);
-}
-
-// a tile as the MN-major B operand (its rows along K, the head dim along
-// N), rows 16 s .. 16 s + 15: 16-column boxes BWD_BOX apart along N,
-// 8-row groups 256 bytes apart along K
-__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile,
-                                                 int s) {
-  return gmma_desc(tile + s * 512, BWD_BOX, 256);
-}
-
-// d (+)= A . B^T for a 64-row A and a 64-row B, both K-major in shared
-// memory (m64n64k16); acc = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
-                                          uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (+)= A . B, A (64 x 16) in registers (four bf16 pairs per thread, the
-// accumulator layout of the product that made it), B (16 x N) MN-major in
-// shared memory (m64nNk16); acc = 0 overwrites d
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int acc);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-// ---------------------------------------------------------------------------
-// tiles
-// ---------------------------------------------------------------------------
-
-// One operand as a TMA tensor map: 4-d, the head dim innermost, then row,
-// head and batch in the order of their strides; slot[0..2] is the
-// coordinate position (1..3) of row, head and batch.
-struct TileMap {
-  CUtensorMap map;
-  int slot[3];
-};
-
-struct CoreMaps {
-  TileMap q, k, v, dout;
-};
-
-// rows row0 .. row0 + 63 of head (b, h) by TMA, one box per 16 columns;
-// one thread issues it
-template <int DHP>
-__device__ __forceinline__ void tma_tile(unsigned char* dst, const TileMap& tm,
-                                         uint64_t* bar, int b, int h,
-                                         int row0) {
-  auto at = [&](int pos) {
-    return tm.slot[0] == pos ? row0 : tm.slot[1] == pos ? h : b;
-  };
-  const int c1 = at(1), c2 = at(2), c3 = at(3);
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk)
-    tma_load_4d(dst + kk * BWD_BOX, &tm.map, bar, kk * 16, c1, c2, c3);
-}
-
-// the same rows by cp.async, vec (8 or 2) elements per copy, or with
-// vec == 1 by loads and stores (done when this returns), the columns past
-// dh and the rows past n zero-filled; every thread takes part
-template <int DHP>
-__device__ __forceinline__ void async_tile(unsigned char* dst,
-                                           const InHeads& x, int b, int h,
-                                           int row0, int n, int dh, int vec,
-                                           int tid) {
-  const bf16* src = x.head(b, h);
-  if (vec == 8) {
-    for (int i = tid; i < BWD_T * (DHP / 8); i += CORE_THREADS) {
-      const int r = i / (DHP / 8), c = (i % (DHP / 8)) * 8, gr = row0 + r;
-      const bool ok = gr < n && c < dh;
-      cp_async16(dst + tile_off(r, c), src + (ok ? gr * x.sr + c : 0), ok);
-    }
-  } else if (vec == 2) {
-    for (int i = tid; i < BWD_T * (DHP / 2); i += CORE_THREADS) {
-      const int r = i / (DHP / 2), c = (i % (DHP / 2)) * 2, gr = row0 + r;
-      const bool ok = gr < n && c < dh;
-      cp_async4(dst + tile_off(r, c), src + (ok ? gr * x.sr + c : 0), ok);
-    }
-  } else {
-    // rows on 2-byte boundaries (an odd head dim): eight elements at a
-    // time from the aligned 4-byte words that hold them, shifted into
-    // place and stored as one 16-byte chunk; a word that reaches past
-    // either end of the row is read as its one element inside it
-    for (int i = tid; i < BWD_T * (DHP / 8); i += CORE_THREADS) {
-      const int r = i / (DHP / 8), c = (i % (DHP / 8)) * 8, gr = row0 + r;
-      uint4 out = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < n && c < dh) {
-        const bf16* row = src + gr * x.sr;
-        const int lead = (int)((reinterpret_cast<uintptr_t>(row) >> 1) & 1);
-        const uint32_t* wp = reinterpret_cast<const uint32_t*>(
-            reinterpret_cast<uintptr_t>(row + c) & ~uintptr_t(3));
-        const unsigned short* hp =
-            reinterpret_cast<const unsigned short*>(wp);
-        uint32_t w[5];
-#pragma unroll
-        for (int j = 0; j < 5; ++j) {
-          // word j holds elements lo and lo + 1 of the row
-          const int lo = c + 2 * j - lead;
-          const bool vlo = lo >= 0 && lo < dh && (j < 4 || lead);
-          const bool vhi = lo + 1 < dh && (j < 4 || lead);
-          w[j] = vlo && vhi ? __ldg(wp + j)
-                 : vlo      ? (uint32_t)__ldg(hp + 2 * j)
-                 : vhi      ? (uint32_t)__ldg(hp + 2 * j + 1) << 16
-                            : 0u;
-        }
-        out = lead ? make_uint4(__funnelshift_r(w[0], w[1], 16),
-                                __funnelshift_r(w[1], w[2], 16),
-                                __funnelshift_r(w[2], w[3], 16),
-                                __funnelshift_r(w[3], w[4], 16))
-                   : make_uint4(w[0], w[1], w[2], w[3]);
-      }
-      *reinterpret_cast<uint4*>(dst + tile_off(r, c)) = out;
-    }
-  }
-}
-
-// the dynamic shared memory from its first 1024-byte boundary (TMA's and
-// wgmma's swizzle read the address bits)
-__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void init_bars(uint64_t* bar, int tid) {
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i <= BWD_STAGES; ++i) mbar_init(bar + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// products
-// ---------------------------------------------------------------------------
-
-// d = A . B^T over the head dim for two 64-row tiles (logits, dp); the
-// caller fences, commits and waits
-template <int DHP>
-__device__ __forceinline__ void tile_dot(float (&d)[32],
-                                         const unsigned char* a,
-                                         const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk)
-    wgmma_ss64(d, desc_kmajor(a, kk), desc_kmajor(b, kk), kk);
-}
-
-// the four k16 A operands (bf16) of a 64-column accumulator: columns
-// 16 s .. 16 s + 15 are its values 8 s .. 8 s + 7
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&x)[32]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[s][i] = pack_f32(x[8 * s + 2 * i],
-                                                   x[8 * s + 2 * i + 1]);
-}
-
-// acc += A . tile, A (64 x 64) in registers, over the tile's 64 rows
-template <int DHP>
-__device__ __forceinline__ void tile_acc(float (&acc)[DHP / 2],
-                                         const uint32_t (&a)[4][4],
-                                         const unsigned char* tile) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-    wgmma_rs<DHP>(acc, a[s], desc_mnmajor(tile, s), 1);
-}
-
-// rows g and g + 8 of this warp's 16 of an m64nDHP accumulator, bf16, at
-// `row` of each head row; half hh
-template <int DHP>
-__device__ __forceinline__ void store_acc_row(bf16* row, const float* acc,
-                                              int hh, int t, int dh, int vec,
-                                              float mul) {
-#pragma unroll
-  for (int j = 0; j < DHP / 8; ++j)
-    store_pair(row, 8 * j + 2 * t, dh, vec, acc[4 * j + 2 * hh] * mul,
-               acc[4 * j + 2 * hh + 1] * mul);
-}
+constexpr int BWD_STAGES = 2;                     // the streamed ring
+constexpr int BWD_STAT_BYTES = TILE_ROWS * 16;    // a tile's (max, 1/s, row, 0)
 
 // ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
 
 template <int DHP>
-__host__ __device__ constexpr int bwd_tile() {
-  return BWD_T * DHP * 2;
-}
-
-template <int DHP>
 static size_t bwd_q_smem() {
-  return 1024 + (size_t)(2 + 2 * BWD_STAGES) * bwd_tile<DHP>() +
+  return 1024 + (size_t)(2 + 2 * BWD_STAGES) * head_tile<DHP>() +
          (1 + BWD_STAGES) * 8;
 }
 
 template <int DHP>
 static size_t bwd_kv_smem() {
-  return 1024 + 2 * (size_t)bwd_tile<DHP>() +
-         (size_t)BWD_STAGES * (2 * bwd_tile<DHP>() + BWD_STAT_BYTES) +
+  return 1024 + 2 * (size_t)head_tile<DHP>() +
+         (size_t)BWD_STAGES * (2 * head_tile<DHP>() + BWD_STAT_BYTES) +
          (1 + BWD_STAGES) * 8;
 }
 
@@ -519,7 +88,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
                          OutHeads ctx, float4* __restrict__ stats, int n,
                          int dh, float scale, int vec) {
   if (TMA) dh = DHP, vec = 8;
-  constexpr int TILE = bwd_tile<DHP>(), S = BWD_STAGES;
+  constexpr int TILE = head_tile<DHP>(), S = BWD_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* Qs = smem_1k(smem_raw);
   unsigned char* Ds = Qs + TILE;
@@ -529,14 +98,14 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int tiles = (n + BWD_T - 1) / BWD_T, items = 3 * tiles;
+  const int tiles = (n + TILE_ROWS - 1) / TILE_ROWS, items = 3 * tiles;
   const float c2 = scale * LOG2E;
-  if (TMA) init_bars(bar, tid);
+  if (TMA) init_bars<BWD_STAGES>(bar, tid);
 
   // bar[0]: Q and dO; bar[1 + i]: stage i
   auto issue = [&](int it) {
     if (it < items) {
-      const int row0 = (it % tiles) * BWD_T;
+      const int row0 = (it % tiles) * TILE_ROWS;
       const bool with_v = it >= tiles;
       unsigned char* Ks = ring + 2 * (it % S) * TILE;
       if (TMA) {
@@ -558,12 +127,12 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
   if (TMA) {
     if (tid == 0) {
       mbar_expect_tx(bar, 2 * TILE);
-      tma_tile<DHP>(Qs, maps.q, bar, b, h, qt * BWD_T);
-      tma_tile<DHP>(Ds, maps.dout, bar, b, h, qt * BWD_T);
+      tma_tile<DHP>(Qs, maps.q, bar, b, h, qt * TILE_ROWS);
+      tma_tile<DHP>(Ds, maps.dout, bar, b, h, qt * TILE_ROWS);
     }
   } else {
-    async_tile<DHP>(Qs, q, b, h, qt * BWD_T, n, dh, vec, tid);
-    async_tile<DHP>(Ds, dout, b, h, qt * BWD_T, n, dh, vec, tid);
+    async_tile<DHP>(Qs, q, b, h, qt * TILE_ROWS, n, dh, vec, tid);
+    async_tile<DHP>(Ds, dout, b, h, qt * TILE_ROWS, n, dh, vec, tid);
     cp_async_commit();
   }
   for (int it = 0; it < S - 1; ++it) issue(it);
@@ -601,7 +170,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
     fence_acc(dp);
 
     // keys past n: the last tile's columns from n - kt * 64 on
-    const int valid = n - kt * BWD_T - 2 * t;
+    const int valid = n - kt * TILE_ROWS - 2 * t;
     if (pass == 0) {
       // base-2 logits (logit * log2 e), -inf past n; the running max over
       // the row, then the running sum at it
@@ -661,9 +230,9 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
 #pragma unroll
             for (int o = 1; o <= 2; o <<= 1)
               rw[hh] += __shfl_xor_sync(0xffffffffu, rw[hh], o);
-            const int qi = qt * BWD_T + warp * 16 + g + 8 * hh;
+            const int qi = qt * TILE_ROWS + warp * 16 + g + 8 * hh;
             if (t == 0)
-              stats[bh * tiles * BWD_T + qi] =
+              stats[bh * tiles * TILE_ROWS + qi] =
                   make_float4(m[hh], l[hh], rw[hh], 0.f);
             if (CTX && qi < n)
               store_acc_row<DHP>(ctx.head(b, h) + qi * ctx.sr, acc, hh, t,
@@ -689,7 +258,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int qi = qt * BWD_T + warp * 16 + g + 8 * hh;
+    const int qi = qt * TILE_ROWS + warp * 16 + g + 8 * hh;
     if (qi < n)
       store_acc_row<DHP>(dq.head(b, h) + qi * dq.sr, acc, hh, t, dh, vec,
                          scale);
@@ -705,7 +274,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
                           const float4* __restrict__ stats, OutHeads dk,
                           OutHeads dv, int n, int dh, float scale, int vec) {
   if (TMA) dh = DHP, vec = 8;
-  constexpr int TILE = bwd_tile<DHP>(), S = BWD_STAGES;
+  constexpr int TILE = head_tile<DHP>(), S = BWD_STAGES;
   constexpr int STAGE = 2 * TILE + BWD_STAT_BYTES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* Ks = smem_1k(smem_raw);
@@ -716,11 +285,11 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int tiles = (n + BWD_T - 1) / BWD_T;
+  const int tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
   const float c2 = scale * LOG2E;
   const float4* st_head =
-      stats + ((long long)b * gridDim.y + h) * tiles * BWD_T;
-  if (TMA) init_bars(bar, tid);
+      stats + ((long long)b * gridDim.y + h) * tiles * TILE_ROWS;
+  if (TMA) init_bars<BWD_STAGES>(bar, tid);
 
   auto issue = [&](int it) {
     if (it < tiles) {
@@ -729,16 +298,16 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
         if (tid == 0) {
           uint64_t* full = bar + 1 + it % S;
           mbar_expect_tx(full, STAGE);
-          tma_tile<DHP>(Qs, maps.q, full, b, h, it * BWD_T);
-          tma_tile<DHP>(Qs + TILE, maps.dout, full, b, h, it * BWD_T);
-          bulk_load(Qs + 2 * TILE, st_head + it * BWD_T, BWD_STAT_BYTES,
+          tma_tile<DHP>(Qs, maps.q, full, b, h, it * TILE_ROWS);
+          tma_tile<DHP>(Qs + TILE, maps.dout, full, b, h, it * TILE_ROWS);
+          bulk_load(Qs + 2 * TILE, st_head + it * TILE_ROWS, BWD_STAT_BYTES,
                     full);
         }
       } else {
-        async_tile<DHP>(Qs, q, b, h, it * BWD_T, n, dh, vec, tid);
-        async_tile<DHP>(Qs + TILE, dout, b, h, it * BWD_T, n, dh, vec, tid);
-        if (tid < BWD_T)
-          cp_async16(Qs + 2 * TILE + 16 * tid, st_head + it * BWD_T + tid,
+        async_tile<DHP>(Qs, q, b, h, it * TILE_ROWS, n, dh, vec, tid);
+        async_tile<DHP>(Qs + TILE, dout, b, h, it * TILE_ROWS, n, dh, vec, tid);
+        if (tid < TILE_ROWS)
+          cp_async16(Qs + 2 * TILE + 16 * tid, st_head + it * TILE_ROWS + tid,
                      true);
       }
     }
@@ -749,12 +318,12 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
   if (TMA) {
     if (tid == 0) {
       mbar_expect_tx(bar, 2 * TILE);
-      tma_tile<DHP>(Ks, maps.k, bar, b, h, kt * BWD_T);
-      tma_tile<DHP>(Vs, maps.v, bar, b, h, kt * BWD_T);
+      tma_tile<DHP>(Ks, maps.k, bar, b, h, kt * TILE_ROWS);
+      tma_tile<DHP>(Vs, maps.v, bar, b, h, kt * TILE_ROWS);
     }
   } else {
-    async_tile<DHP>(Ks, k, b, h, kt * BWD_T, n, dh, vec, tid);
-    async_tile<DHP>(Vs, v, b, h, kt * BWD_T, n, dh, vec, tid);
+    async_tile<DHP>(Ks, k, b, h, kt * TILE_ROWS, n, dh, vec, tid);
+    async_tile<DHP>(Vs, v, b, h, kt * TILE_ROWS, n, dh, vec, tid);
     cp_async_commit();
   }
   for (int it = 0; it < S - 1; ++it) issue(it);
@@ -792,7 +361,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
 
     // probs^T in place of the logits, ds^T in place of dp^T; zero for the
     // queries past n
-    const int valid = n - it * BWD_T - 2 * t;
+    const int valid = n - it * TILE_ROWS - 2 * t;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float4 st0 = St[8 * j + 2 * t], st1 = St[8 * j + 2 * t + 1];
@@ -821,7 +390,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int key = kt * BWD_T + warp * 16 + g + 8 * hh;
+    const int key = kt * TILE_ROWS + warp * 16 + g + 8 * hh;
     if (key >= n) continue;
     store_acc_row<DHP>(dk.head(b, h) + key * dk.sr, ak, hh, t, dh, vec,
                        scale);
@@ -833,63 +402,6 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
 // launches
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up once through the runtime's
-// entry-point query (the libraries do not link libcuda)
-static EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// x's TMA map: boxes of 16 columns x 64 rows of one head in the 32-byte
-// swizzle, rows past n zero-filled
-static cudaError_t tile_map(TileMap& tm, const InHeads& x, int batch,
-                            int heads, int n, int dh) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const long long stride[3] = {x.sr, x.sh, x.sb};
-  const cuuint64_t size[3] = {(cuuint64_t)n, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  int order[3] = {0, 1, 2};
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j)
-      if (stride[order[j]] < stride[order[i]]) std::swap(order[i], order[j]);
-  cuuint64_t dims[4] = {(cuuint64_t)dh, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {16, 1, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = size[order[i]];
-    strides[i] = (cuuint64_t)stride[order[i]] * sizeof(bf16);
-    tm.slot[order[i]] = i + 1;
-    if (order[i] == 0) box[i + 1] = BWD_T;
-  }
-  const CUresult r = encode(
-      &tm.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-      const_cast<bf16*>(x.p), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DHP, bool CTX, bool TMA>
 static cudaError_t run_core_bwd_wg(const CoreMaps& maps, InHeads q, InHeads k,
                                    InHeads v, InHeads dout, OutHeads dq,
@@ -897,7 +409,7 @@ static cudaError_t run_core_bwd_wg(const CoreMaps& maps, InHeads q, InHeads k,
                                    float4* stats, int batch, int heads, int n,
                                    int dh, float scale, int vec,
                                    cudaStream_t s) {
-  const dim3 grid((n + BWD_T - 1) / BWD_T, heads, batch);
+  const dim3 grid((n + TILE_ROWS - 1) / TILE_ROWS, heads, batch);
   size_t smem = bwd_q_smem<DHP>();
   cudaError_t err = set_smem(core_bwd_q_wg_kernel<DHP, CTX, TMA>, smem);
   if (err != cudaSuccess) return err;
@@ -924,9 +436,8 @@ static cudaError_t launch_core_bwd_wg(InHeads q, InHeads k, InHeads v,
                                       cudaStream_t s) {
   // ctx is all zeros (any copy width) without CTX
   const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv, ctx);
-  auto strided = [](const InHeads& x) { return x.sb && x.sh && x.sr; };
-  if (dh == DHP && vec == 8 && strided(q) && strided(k) && strided(v) &&
-      strided(dout)) {
+  if (dh == DHP && vec == 8 && has_strides(q) && has_strides(k) &&
+      has_strides(v) && has_strides(dout)) {
     CoreMaps maps;
     cudaError_t err = tile_map(maps.q, q, batch, heads, n, dh);
     if (err == cudaSuccess) err = tile_map(maps.k, k, batch, heads, n, dh);

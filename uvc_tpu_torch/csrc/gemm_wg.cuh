@@ -1,0 +1,200 @@
+// A bf16 GEMM for Hopper on TMA and wgmma, with the epilogues of the
+// sublayers' projections:
+//   out[M, N] = epilogue(A[M, K] . B[K, N]),  f32 accumulators,
+// A stored row-major (K-major for wgmma) and B the weight stored (in, out)
+// = [K][N] as the JAX package stores it (MN-major: wgmma's transposed B).
+// K1's two products (attention.cu) run it; K2, K3, A2, A4, A6 and A7 keep
+// the mma.sync GEMM of common.cuh.
+//
+// Epilogues (a template parameter; common.cuh's Epilogue values, in f32 in
+// the Pallas bodies' order, one rounding to bf16):
+//   EPI_BIAS   out = bf16(acc + bias)                (qkv)
+//   EPI_RESID  out = bf16(resid + (acc + bias))      (the output projection)
+//
+// Design: one CTA per 128 x BN output tile, BN = 256 for outputs at least
+// GW_WIDE_N wide and 128 otherwise: two consumer warpgroups (64 rows
+// each, m64nBNk16 with both operands in shared memory) and one producer
+// warp whose one thread keeps TMA loads in flight through a ring of
+// 64-deep k-tiles (A 128 x 64 and B 64 x BN, the 128-byte swizzle,
+// completion on one mbarrier a stage; the consumers free a stage on
+// another once its products are done, one wgmma group staying in flight):
+// three stages of 32 KB and two CTAs an SM (112 registers a thread) at
+// BN = 128, so that one CTA's epilogue runs while the other's products
+// do; four of 48 KB and one CTA at BN = 256.  TMA zero-fills rows of A
+// past M, columns of B past N and k past K, so any M, and N and K
+// multiples of 8 (16-byte rows), are taken; the stores are masked.  The
+// epilogue stages acc + bias in f32 in the ring's shared memory, then
+// reads the residual and writes the output 16 bytes a thread, a warp's
+// accesses covering whole rows.
+#pragma once
+
+#include "hopper.cuh"
+
+namespace uvc {
+
+constexpr int GW_BM = 128, GW_BK = 64;
+// outputs at least this wide take 256-column tiles
+constexpr int GW_WIDE_N = 2048;
+constexpr int GW_CONSUMERS = 2;                     // warpgroups of 64 rows
+constexpr int GW_THREADS = GW_CONSUMERS * 128 + 32;  // + the producer warp
+
+// A tile of BN (128 or 256) columns: the stages of the ring, the CTAs an
+// SM holds, and the bytes of a stage: A [128 rows][64 k] and B as BN / 64
+// boxes of [64 k][64 n]
+template <int BN>
+struct GemmWg {
+  static constexpr int STAGES = BN == 128 ? 3 : 4;
+  static constexpr int CTAS = BN == 128 ? 2 : 1;
+  static constexpr int A_BYTES = GW_BM * GW_BK * 2;
+  static constexpr int B_BYTES = GW_BK * BN * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE +
+                                 2 * STAGES * 8;
+};
+constexpr int GW_BOX = GW_BK * 64 * 2;               // a B box, 8 KB
+
+// Maps: A [M][K] in boxes of 64 k x 128 rows, B [K][N] in boxes of 64 n x
+// 64 k.
+template <int EPI, int BN>
+static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
+    gemm_wg_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap, GemmArgs p) {
+  typedef GemmWg<BN> G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::STAGES * G::STAGE);
+  uint64_t* empty = full + G::STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.y * GW_BM, n0 = blockIdx.x * BN;
+  const int ktiles = (p.K + GW_BK - 1) / GW_BK;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < G::STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, GW_CONSUMERS * 4);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == GW_CONSUMERS) {
+    // producer: stage kt % STAGES holds k-tile kt once the products of
+    // the tile before it there are done
+    if (tid == GW_CONSUMERS * 128) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int st = kt % G::STAGES;
+        if (kt >= G::STAGES) mbar_wait(empty + st, (kt / G::STAGES - 1) & 1);
+        unsigned char* a = ring + st * G::STAGE;
+        unsigned char* b = a + G::A_BYTES;
+        mbar_expect_tx(full + st, G::STAGE);
+        tma_load_2d(a, &amap, full + st, kt * GW_BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(b + j * GW_BOX, &bmap, full + st, n0 + 64 * j,
+                      kt * GW_BK);
+      }
+    }
+    return;
+  }
+
+  // consumer wg: rows m0 + 64 wg .. + 63.  A's rows are 128-byte lines in
+  // 1024-byte swizzle atoms of 8 (k16 step kk at +32 kk bytes); B's k rows
+  // likewise, its 64-column boxes GW_BOX apart (k16 step kk at +2048 kk
+  // bytes).
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int st = kt % G::STAGES;
+    mbar_wait(full + st, (kt / G::STAGES) & 1);
+    const unsigned char* a = ring + st * G::STAGE + wg * (G::A_BYTES / 2);
+    const unsigned char* b = ring + st * G::STAGE + G::A_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < GW_BK / 16; ++kk)
+      wgmma_ss_t<BN>(acc, gmma_desc128(a + 32 * kk, 16, 1024),
+                     gmma_desc128(b + 2048 * kk, GW_BOX, 1024), 1);
+    wg_commit();
+    // the previous k-tile's products are done: free its stage
+    wg_wait1();
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (kt - 1) % G::STAGES);
+    }
+  }
+  wg_wait();
+  fence_acc(acc);
+
+  // The epilogue goes through shared memory, so that its global loads and
+  // stores are 16 bytes a thread and whole rows a warp: both warpgroups'
+  // products done, the ring (every stage landed and read) holds acc + bias
+  // in f32, [128][BN + 4]; accumulator value 4 j + 2 hh (+ 1) is row
+  // 16 warp + g + 8 hh of the warpgroup's 64, column 8 j + 2 t (+ 1).
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
+  constexpr int LDS = BN + 4;
+  static_assert(GW_BM * LDS * 4 <= G::STAGES * G::STAGE, "staging");
+  float* tile = reinterpret_cast<float*>(ring);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wg * 64 + warp * 16 + g + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * t, col = n0 + c;
+      const bool in = col < p.N;
+      *reinterpret_cast<float2*>(tile + r * LDS + c) =
+          make_float2(acc[4 * j + 2 * hh] + (in ? bf2f(p.bias[col]) : 0.f),
+                      acc[4 * j + 2 * hh + 1] +
+                          (in ? bf2f(p.bias[col + 1]) : 0.f));
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
+  // eight columns a thread: out = bf16(v), or bf16(resid + v) in f32
+  for (int i = tid; i < GW_BM * (BN / 8); i += GW_CONSUMERS * 128) {
+    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= p.M || col >= p.N) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(tile + r * LDS + c);
+    const float4 hi =
+        *reinterpret_cast<const float4*>(tile + r * LDS + c + 4);
+    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t off = (size_t)row * p.N + col;
+    if (EPI == EPI_RESID) {
+      const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + off);
+      const bf16* re = reinterpret_cast<const bf16*>(&rv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = bf2f(re[e]) + v[e];
+    }
+    const uint4 o = make_uint4(pack_f32(v[0], v[1]), pack_f32(v[2], v[3]),
+                               pack_f32(v[4], v[5]), pack_f32(v[6], v[7]));
+    *reinterpret_cast<uint4*>(p.out + off) = o;
+  }
+}
+
+template <int EPI, int BN>
+static cudaError_t run_gemm_wg(const GemmArgs& p, cudaStream_t s) {
+  CUtensorMap amap, bmap;
+  cudaError_t err = matrix_map(amap, p.a, p.M, p.K, p.K, GW_BK, GW_BM);
+  if (err == cudaSuccess)
+    err = matrix_map(bmap, p.w, p.K, p.N, p.N, 64, GW_BK);
+  if (err == cudaSuccess)
+    err = smem_once<gemm_wg_kernel<EPI, BN>>(GemmWg<BN>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + GW_BM - 1) / GW_BM);
+  gemm_wg_kernel<EPI, BN><<<grid, GW_THREADS, GemmWg<BN>::SMEM, s>>>(
+      amap, bmap, p);
+  return cudaGetLastError();
+}
+
+// out = epilogue(a . w) on the caller's stream: p.a [M][K], p.w [K][N]
+// (16-byte aligned, K and N multiples of 8), p.bias [N] and, for
+// EPI_RESID, p.resid [M][N].
+template <int EPI>
+static cudaError_t launch_gemm_wg(const GemmArgs& p, cudaStream_t s) {
+  static_assert(EPI == EPI_BIAS || EPI == EPI_RESID, "gemm_wg epilogue");
+  return p.N >= GW_WIDE_N ? run_gemm_wg<EPI, 256>(p, s)
+                          : run_gemm_wg<EPI, 128>(p, s);
+}
+
+}  // namespace uvc

@@ -33,12 +33,12 @@ from uvc_tpu_torch.ops import _cuda
 # package does beyond its VMEM budget
 _MAX_DM_BWD = 1024
 
-# the attention core's head dims (instantiated for the padded head dims 16,
-# 32, 48, 64 and 80) and its shared memory: a 64-row tile (two in the
-# backward) and the head's two whole-sequence operands at a row stride of
-# the padded head dim + 8, plus one float4 per query in the backward.  The
-# sublayer kernels (csrc/attention.cu) run this core forward and backward,
-# the bare core (csrc/attention_core.cu) its forward.
+# the attention cores' head dims (instantiated for the padded head dims 16,
+# 32, 48, 64 and 80) and their shared memory.  The staged core of the
+# sublayer kernels A2 and A7 (csrc/attention_core.cuh) holds a 64-row tile
+# (two in the backward) and the head's two whole-sequence operands at a
+# row stride of the padded head dim + 8, plus one float4 per query in the
+# backward, so N is bounded there.
 _CORE_MAX_HEAD_DIM = 80
 _SMEM_LIMIT = 232448
 
@@ -51,28 +51,40 @@ def _core_smem_bytes(n: int, dh: int, backward: bool) -> int:
     return (64 + 2 * np_) * ld * 2
 
 
-# the bare core's backward (csrc/attention_core_bwd.cuh) streams 64-row
-# tiles through a ring of two stages, so its shared memory does not depend
-# on N: per CTA two own tiles and two stages of two tiles (the key side's
-# stages also hold a tile's 64 float4 statistics), 1024 bytes of
-# alignment and the mbarriers
-_BWD_TILE_ROWS = 64
+# the streamed cores of A9 and K1's forward (csrc/attention_core_fwd.cuh)
+# and of A8 and A9's backward (csrc/attention_core_bwd.cuh) stream 64-row
+# tiles through a ring of two stages, so their shared memory does not
+# depend on N: the forward holds its query tile and two stages of K and V;
+# the backward's query side two own tiles and two stages of K and V, its
+# key side two own tiles and two stages of Q, dO and a tile's 64 float4
+# statistics; 1024 bytes of alignment and the mbarriers besides
+_TILE_ROWS = 64
 _BWD_STAGES = 2
+_FWD_STAGES = 2
+
+
+def _head_tile_bytes(dh: int) -> int:
+    return _TILE_ROWS * -(-dh // 16) * 16 * 2
+
+
+def _core_fwd_smem_bytes(dh: int) -> int:
+    return (1024 + (1 + 2 * _FWD_STAGES) * _head_tile_bytes(dh)
+            + (1 + _FWD_STAGES) * 8)
 
 
 def _core_bwd_smem_bytes(dh: int) -> int:
-    tile = _BWD_TILE_ROWS * -(-dh // 16) * 16 * 2
+    tile = _head_tile_bytes(dh)
     bars = (1 + _BWD_STAGES) * 8
     query_side = 1024 + (2 + 2 * _BWD_STAGES) * tile + bars
     key_side = (1024 + 2 * tile
-                + _BWD_STAGES * (2 * tile + 16 * _BWD_TILE_ROWS) + bars)
+                + _BWD_STAGES * (2 * tile + 16 * _TILE_ROWS) + bars)
     return max(query_side, key_side)
 
 
 def _core_bwd_stats(b: int, h: int, n: int, device) -> torch.Tensor:
     """The backward's per-query scratch (max * log2 e, 1 / s, row, 0):
     every row of every 64-row tile of every head."""
-    rows = -(-n // _BWD_TILE_ROWS) * _BWD_TILE_ROWS
+    rows = -(-n // _TILE_ROWS) * _TILE_ROWS
     return torch.empty((b * h * rows, 4), dtype=torch.float32, device=device)
 
 
@@ -144,11 +156,13 @@ def _check_cuda(x, named, dtypes):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_attention(x, named, num_heads, backward, max_dm=None):
+def _check_attention(x, named, num_heads, backward, max_dm=None,
+                     streamed=False):
     """The kernels' checks of the attention sublayer's operands; returns
     (B, N, dm, da).  The head dim is ``wqkv``'s width over 3 heads: even,
-    at most 80; N is bounded by the core's shared memory at that head
-    dim."""
+    at most 80.  N is bounded by the staged core's shared memory at that
+    head dim (A2, A7), and not at all with ``streamed`` (K1, on the
+    streamed forward core)."""
     bf16, f32 = torch.bfloat16, torch.float32
     _check_cuda(x, named, {k: f32 if k in ("g1", "b1") else bf16
                            for k in named})
@@ -170,7 +184,8 @@ def _check_attention(x, named, num_heads, backward, max_dm=None):
             raise ValueError(f"{name} must be {want[name]} for {num_heads} "
                              f"heads of {dh}, got {tuple(t.shape)}")
     if (dm % 8 or n == 0 or b == 0 or (max_dm and dm > max_dm)
-            or _core_smem_bytes(n, dh, backward) > _SMEM_LIMIT):
+            or (not streamed
+                and _core_smem_bytes(n, dh, backward) > _SMEM_LIMIT)):
         limit = "" if max_dm is None else f" and <= {max_dm}"
         raise ValueError(f"unsupported x shape {tuple(x.shape)}: dm must be "
                          f"a multiple of 8{limit}, N > 0 and small enough "
@@ -183,7 +198,8 @@ def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     bf16 = torch.bfloat16
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
                  bproj=bproj, mask=mask)
-    b, n, dm, da = _check_attention(x, named, num_heads, backward=False)
+    b, n, dm, da = _check_attention(x, named, num_heads, backward=False,
+                                    streamed=True)
     lib = _cuda.library("attention")
     rows = b * n
     a_in = torch.empty((rows, dm), dtype=bf16, device=x.device)
@@ -210,8 +226,11 @@ def layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     x: ``[B, N, dm]``; g1/b1: ``[dm]`` f32; wqkv ``[dm, 3*da]`` and wproj
     ``[da, dm]`` stored (in, out); mask: ``[da]`` structural keep mask over
     the ctx columns.  On CUDA: bf16 activations and weights, even head
-    dims up to 80.  ``layer_attention_ln.launches`` counts kernel
-    launches."""
+    dims up to 80, any N.  Its backward kernel (``layer_attention_ln_bwd``,
+    at ``dm <= 1024``) runs the staged core, whose shared memory bounds N
+    (560 at head dim 80): ``fused_layer_attention_ln`` checks that bound
+    before the forward when it records the gradient.
+    ``layer_attention_ln.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return layer_attention_ln_plain(
             x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads=num_heads,
@@ -377,6 +396,18 @@ def layer_attention_ln_bwd(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, *,
 layer_attention_ln_bwd.launches = 0
 
 
+def _check_ln_bwd_len(x, wqkv, num_heads):
+    """Refuse, before the forward runs, an N that ``layer_attention_ln``
+    takes and its backward kernel does not: A2's staged core bounds N by
+    its shared memory, while the composed backward of wider models
+    (``dm > 1024``, on A8) takes any N."""
+    n, dm = x.shape[-2:]
+    dh = wqkv.shape[-1] // 3 // num_heads
+    if dm <= _MAX_DM_BWD and _core_smem_bytes(n, dh, True) > _SMEM_LIMIT:
+        raise ValueError(f"N = {n} is too long for the backward kernel at "
+                         f"head dim {dh} (its staged core's shared memory)")
+
+
 class _FusedLayerAttentionLN(torch.autograd.Function):
     """``layer_attention_ln`` forward, ``layer_attention_ln_bwd`` backward,
     or ``layer_attention_ln_bwd_composed`` at ``dm > 1024`` (the port of
@@ -387,6 +418,8 @@ class _FusedLayerAttentionLN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads,
                 scale, eps):
+        if x.device.type == "cuda":
+            _check_ln_bwd_len(x, wqkv, num_heads)
         ctx.kw = dict(num_heads=num_heads, scale=scale, eps=eps)
         ctx.save_for_backward(x, g1, b1, wqkv, bqkv, wproj, bproj, mask)
         return layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
@@ -598,9 +631,9 @@ def attention_bwd_plain(q, k, v, do, scale: float):
 def _check_core(named, backward):
     """The core kernels' checks; returns (B, H, N, dh).  The kernels read
     each operand at its own strides (a head view of a projection as it
-    lies), with unit stride along the head dim.  The forward stages the
-    head's whole K and V, which bounds N; the backward streams tiles and
-    takes any N."""
+    lies), with unit stride along the head dim.  Forward and backward
+    stream 64-row tiles, so their shared memory depends on the head dim
+    only and they take any N."""
     q = named["q"]
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, N, dh], got {tuple(q.shape)}")
@@ -620,10 +653,10 @@ def _check_core(named, backward):
         raise ValueError(f"unsupported shape {tuple(q.shape)}: the kernels "
                          f"take head dims 1..{_CORE_MAX_HEAD_DIM} and N > 0")
     smem = (_core_bwd_smem_bytes(dh) if backward
-            else _core_smem_bytes(n, dh, False))
+            else _core_fwd_smem_bytes(dh))
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"N = {n} at head dim {dh} does not fit the "
-                         f"kernel's shared memory")
+        raise ValueError(f"head dim {dh} does not fit the kernel's shared "
+                         f"memory")
     return b, h, n, dh
 
 
@@ -643,7 +676,8 @@ def _strides(*ts):
 def attention(q, k, v, scale: float):
     """``softmax(q k^T * scale) v`` over ``[B, H, N, dh]`` tensors (kernel
     A9's forward).  On CUDA: bf16 tensors at any strides with unit stride
-    along dh, head dims 1..80; the output is laid out ``[B, N, H, dh]``.
+    along dh, head dims 1..80, any N; the output is laid out
+    ``[B, N, H, dh]``.
     ``attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
