@@ -24,11 +24,16 @@ Phases, each of which stops the run with a non-zero exit on failure:
    N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591);
    the sublayer kernels K1, A2 and A7 at head dim 12 ("resnext": B=64,
    N=197, dm=384, 32 heads) and 80 ("h80": B=8, N=257, dm=640, 8 heads);
-   every forward kernel's two launches bit for bit; K1's four launches
-   (LayerNorm, qkv GEMM, attention core, projection GEMM) one by one at
-   "vit_h" and "eval" from a profile, with the GEMMs' rates and the host
-   time of one call, each of the model's blocks (32, 12) with its own
-   weights; the attention core A9 at "se" (B=64, H=6, N=197,
+   A7's backward at "vit_h" too (dm 1280, where a part-gated ViT-H/14
+   runs it); every forward kernel's two launches bit for bit; K1's four
+   launches (LayerNorm, qkv GEMM, attention core, projection GEMM) one by
+   one at "vit_h" and "eval" from a profile, with the GEMMs' rates and the
+   host time of one call, each of the model's blocks (32, 12) with its own
+   weights; with ``--kernels-only``, A2's eighteen and A7's backward's
+   fourteen launches one by one at each of their shapes the same way, with
+   their five GEMMs' rates (in another tree's sequence, under the kernels'
+   own names); the attention
+   core A9 at "se" (B=64, H=6, N=197,
    dh=64), "dense_odd" (H=8, dh=41), "dense_wide" (H=8, dh=74), "ragged"
    (B=3, H=2, N=50, dh=24), "vit_h" (B=32, H=16, N=257, dh=80) and "long"
    (B=4, H=16, N=1025, dh=80: past the 624 keys that the staged forward
@@ -435,19 +440,79 @@ def _host_us(calls):
     return sorted(host)[len(host) // 2], host
 
 
-def k1_breakdown(eps, card, calls=10):
-    """The device time of each of K1's four launches (torch.profiler over
-    ``calls`` calls, the device events taken in their order), the GEMMs'
-    rates, and the host time of one call, issued as a model step issues
-    them: each block with its own weights, two calls a block (student and
-    teacher, or forward and a second pass), so that no tensor map of a
-    weight is met again before every other block's has been; and, beside
-    it, the same number of calls on one block's weights.  The host time
-    is taken of the wrapper (checks, allocation, the library call) and of
-    the library's entry point alone on fixed scratch (the tensor maps and
-    the four launches), whose runs spread far less."""
+def _kernel_name(event):
+    """A profiler event's kernel name without its return type, namespace and
+    parameter list (its template arguments kept)."""
+    name = event.name.split("(")[0]
+    return name.replace("void ", "").replace("uvc::", "")
+
+
+def _period(names, calls):
+    """The launches of one call: the least p for which the last calls * p
+    kernel names repeat with period p, or None."""
+    for p in range(1, len(names) // calls + 1):
+        tail = names[len(names) - calls * p:]
+        if all(a == b for a, b in zip(tail, tail[p:])):
+            return p
+    return None
+
+
+def launch_breakdown(label, shape, run, card, names=None, gemm_flops=(),
+                     calls=10):
+    """The device time of each launch of one call of ``run``
+    (torch.profiler over ``calls`` + 1 calls, the device events taken in
+    their order, those of the last ``calls`` calls kept: the profiler now
+    and then drops an event, most often the window's first), each under
+    its label in ``names`` or, where those are not given or the call
+    launches another number of kernels (another tree's sequence), under
+    the kernel's own name; the GEMM launches (kernels named ``gemm``) with
+    their rates, ``gemm_flops`` giving their operations in launch order.
+    Prints one line and returns the times in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls + 1):
+                run()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and e.device_time_total > 0),
+                     key=lambda e: e.time_range.start)
+        per = _period([_kernel_name(e) for e in evs], calls)
+        if per:
+            break
+    check(per, f"{label} [{shape}]: {len(evs)} device events in "
+          f"{calls + 1} calls repeat with no period")
+    evs = evs[len(evs) - calls * per:]
+    ms = [sum(evs[per * c + i].device_time_total for c in range(calls))
+          / calls / 1e3 for i in range(per)]
+    kernels = [_kernel_name(evs[i]) for i in range(per)]
+    labels = list(names) if names and len(names) == per else kernels
+    gemms = [i for i, k in enumerate(kernels) if "gemm" in k]
+    rates = {i: f / ms[i] / 1e9 for i, f in zip(gemms, gemm_flops)}
+    print(f"{label} launches [{shape}, one call]: " + ", ".join(
+        f"{lab} {t:.4f} ms"
+        + (f" ({rates[i]:.0f} TFLOP/s)" if i in rates else "")
+        for i, (lab, t) in enumerate(zip(labels, ms)))
+        + f" (sum {sum(ms):.4f}) [{card}]", flush=True)
+    return ms
+
+
+def k1_breakdown(eps, card, calls=10):
+    """K1's four launches one by one (``launch_breakdown``), and the host
+    time of one call, issued as a model step issues them: each block with
+    its own weights, two calls a block (student and teacher, or forward
+    and a second pass), so that no tensor map of a weight is met again
+    before every other block's has been; and, beside it, the same number
+    of calls on one block's weights.  The host time is taken of the
+    wrapper (checks, allocation, the library call) and of the library's
+    entry point alone on fixed scratch (the tensor maps and the four
+    launches), whose runs spread far less."""
     from uvc_tpu_torch.ops import _cuda
     from uvc_tpu_torch.ops.attention import layer_attention_ln
 
@@ -475,26 +540,8 @@ def k1_breakdown(eps, card, calls=10):
                 float(dh ** -0.5), float(eps), stream)
             return lambda: lib.uvc_layer_attention_ln(*args)
 
-        run = k1(t)
-        run()
-        torch.cuda.synchronize()
-        for _ in range(3):  # the profiler now and then returns no events
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    run()
-                torch.cuda.synchronize()
-            evs = sorted((e for e in prof.events()
-                          if e.device_type == DeviceType.CUDA
-                          and e.device_time_total > 0),
-                         key=lambda e: e.time_range.start)
-            if evs:
-                break
-        check(len(evs) == 4 * calls,
-              f"K1 [{shape}]: {len(evs)} device events in {calls} calls, "
-              f"not {4 * calls}")
-        ms = [sum(evs[4 * c + i].device_time_total for c in range(calls))
-              / calls / 1e3 for i in range(4)]
+        launch_breakdown("K1", shape, k1(t), card, K1_LAUNCHES,
+                         (2 * rows * dm * 3 * da, 2 * rows * da * dm), calls)
         own = [{k: t[k].clone() for k in names} for _ in range(blocks)]
         host = {}
         for label, ws in (("own", own), ("one", [t] * blocks)):
@@ -505,12 +552,6 @@ def k1_breakdown(eps, card, calls=10):
                       f"K1 [{shape}]: the entry point returned {warm}")
                 host[label, way] = _host_us(made * 2)
         del own
-        tflops = (2 * rows * dm * 3 * da / ms[1] / 1e9,
-                  2 * rows * da * dm / ms[3] / 1e9)
-        print(f"K1 launches [{shape}, one call]: "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in zip(K1_LAUNCHES, ms))
-              + f" (sum {sum(ms):.4f}); qkv GEMM {tflops[0]:.0f} TFLOP/s, "
-              f"projection GEMM {tflops[1]:.0f} TFLOP/s [{card}]", flush=True)
         for label, what in (("own", f"{blocks} blocks' own weights"),
                             ("one", "one block's weights")):
             print(f"K1 host time of one call [{shape}, {2 * blocks} calls, "
@@ -519,6 +560,50 @@ def k1_breakdown(eps, card, calls=10):
                       + ", ".join(f"{h:.1f}" for h in host[label, way][1])
                       + ")" for way in ("wrapper", "entry"))
                   + f" [{card}]", flush=True)
+
+
+# A2's and A7's backward launches in their order: sublayer_bwd's thirteen
+# (csrc/attention.cu) inside A2's LayerNorm pass and LN backward, and
+# before A7's dx product
+SUBLAYER_BWD_LAUNCHES = (
+    "qkv GEMM", "t GEMM", "core q", "core kv", "dmask sum", "dWqkv GEMM",
+    "dWqkv sum", "dWproj GEMM", "dWproj sum", "dbqkv colsum", "dbqkv sum",
+    "dbproj colsum", "dbproj sum")
+A2_LAUNCHES = (("layer norm",) + SUBLAYER_BWD_LAUNCHES
+               + ("d a_in GEMM", "LN backward", "dgamma sum", "dbeta sum"))
+A7_BWD_LAUNCHES = SUBLAYER_BWD_LAUNCHES + ("dx GEMM",)
+
+
+def sublayer_bwd_breakdown(eps, card):
+    """A2's and A7's backward launch by launch (``launch_breakdown``) at
+    every shape of BWD_SHAPES that holds them, with the five GEMMs' rates
+    (in launch order: the qkv recompute, t = do . Wproj^T, dWqkv, dWproj,
+    d a_in or dx)."""
+    from uvc_tpu_torch.ops.attention import (layer_attention_bwd,
+                                             layer_attention_ln_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for shape, (b, n, dm, heads, f, dh, kernels) in BWD_SHAPES.items():
+        if "layer_attention_bwd" not in kernels:
+            continue
+        t = _inputs(gen, b, n, dm, heads, f, dh)
+        do = (torch.randn(b, n, dm, generator=gen, device="cuda")
+              * 0.1).to(torch.bfloat16)
+        da, rows = heads * dh, b * n
+        gemm_flops = tuple(2 * rows * dm * w for w in
+                           (3 * da, da, 3 * da, da, 3 * da))
+        skw = dict(num_heads=heads, scale=dh ** -0.5)
+        if "layer_attention_ln_bwd" in kernels:
+            launch_breakdown(
+                "A2", shape, lambda: layer_attention_ln_bwd(
+                    t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
+                    t["bproj"], t["amask"], do, eps=eps, **skw),
+                card, A2_LAUNCHES, gemm_flops)
+        launch_breakdown(
+            "A7 backward", shape, lambda: layer_attention_bwd(
+                t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
+                t["amask"], do, **skw),
+            card, A7_BWD_LAUNCHES, gemm_flops)
 
 
 # backward kernels against their plain backwards at the stage-1 train shape
@@ -541,6 +626,9 @@ BWD_SHAPES = {
                 ("layer_attention_ln_bwd", "layer_attention_bwd")),
     "h80": (8, 257, 640, 8, 2560, 80,
             ("layer_attention_ln_bwd", "layer_attention_bwd")),
+    # A7's backward where a part-gated ViT-H/14 runs it (dm 1280, past the
+    # LayerNorm backward's 1024 columns, which A7 does not have)
+    "vit_h": (32, 257, 1280, 16, 5120, 80, ("layer_attention_bwd",)),
 }
 
 
@@ -2139,6 +2227,10 @@ def main():
     if not args.digests:
         k1_breakdown(eps, card)
     res.update(backward_kernel_phase(eps, args.digests))
+    if args.kernels_only:
+        # not in the whole run: profiling A7's backward at "vit_h" here
+        # left phase 9's timed window 8-12% slower on the H100
+        sublayer_bwd_breakdown(eps, card)
     res.update(core_kernel_phase(args.digests))
     if args.digests:
         performer_kernel_phase(digests_only=True)

@@ -188,8 +188,8 @@ def test_kernel_checks_refuse_what_the_kernels_cannot_take():
         q = _fake(2, 2, 16, 96)
         tatt._check_core(dict(q=q, k=q, v=q), False)
     # the staged core's limit at head dim 80: N = 624 fits, 625 does not
-    assert tatt._core_smem_bytes(624, 80, False) <= tatt._SMEM_LIMIT
-    assert tatt._core_smem_bytes(625, 80, False) > tatt._SMEM_LIMIT
+    assert tatt._core_smem_bytes(624, 80) <= tatt._SMEM_LIMIT
+    assert tatt._core_smem_bytes(625, 80) > tatt._SMEM_LIMIT
     for n in (600, 625, 4096):
         q = _fake(1, 1, n, 80)
         assert tatt._check_core(dict(q=q, k=q, v=q), False) == \

@@ -15,8 +15,9 @@ the output -> 1e-2 relative Frobenius; and against ``attention_plain`` in
 f32, where every rounding is the identity -> 1e-5.  K1's sublayer with
 this core in place of ``attention_plain`` is held against
 ``_call_layer_ln_fwd(..., interpret=True)`` at 1e-2.  The wrappers'
-checks: A9's forward and K1 take any N, A7's forward keeps the staged
-core's limit, and K1 with its gradient the backward kernel's.
+checks: A9's forward and K1 take any N, with the gradient recorded too
+(A2, K1's backward, streams its core as well), and A7's forward keeps the
+staged core's limit.
 """
 
 import math
@@ -233,8 +234,8 @@ def test_streamed_forward_shared_memory_does_not_depend_on_n():
     assert tatt._core_fwd_smem_bytes(80) == 52248
     assert 4 * (tatt._core_fwd_smem_bytes(80) + 1024) <= 228 * 1024
     assert all(tatt._core_fwd_smem_bytes(dh) <= 52248 for dh in range(1, 81))
-    assert tatt._core_smem_bytes(624, 80, False) <= tatt._SMEM_LIMIT
-    assert tatt._core_smem_bytes(625, 80, False) > tatt._SMEM_LIMIT
+    assert tatt._core_smem_bytes(624, 80) <= tatt._SMEM_LIMIT
+    assert tatt._core_smem_bytes(625, 80) > tatt._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n", [625, 700, 4096])
@@ -245,11 +246,11 @@ def test_checks_take_n_past_the_staged_limit_for_a9_and_k1(n):
     assert tatt._check_core(dict(q=q, k=q, v=q), backward=False) == \
         (1, 2, n, 80)
     named = _sublayer_named(1, n, 160, 2, 80)
-    assert tatt._check_attention(named["x"], named, 2, backward=False,
+    assert tatt._check_attention(named["x"], named, 2,
                                  streamed=True) == (1, n, 160, 160)
     bare = {k: t for k, t in named.items() if k not in ("g1", "b1")}
     with pytest.raises(ValueError, match="shared memory"):
-        tatt._check_attention(bare["x"], bare, 2, backward=False)
+        tatt._check_attention(bare["x"], bare, 2)
 
 
 def test_wrappers_send_long_sequences_to_the_kernels(monkeypatch):
@@ -279,22 +280,17 @@ def test_wrappers_send_long_sequences_to_the_kernels(monkeypatch):
     assert tops.launch_counts()["layer_attention_ln"] == 0
 
 
-@pytest.mark.parametrize("n, dm, refused", [(560, 160, False),
-                                            (561, 160, True),
-                                            (700, 1280, False)])
-def test_k1_with_its_gradient_checks_the_backward_limit(monkeypatch, n, dm,
-                                                       refused):
-    """K1 takes any N, its backward kernel (A2, at dm <= 1024, on the
-    staged core) at most 560 at head dim 80: with the gradient recorded,
-    ``fused_layer_attention_ln`` refuses a longer N before the forward
-    runs; at dm 1280 the composed backward on A8 takes any N, so the
-    forward asks for its library (none here)."""
+@pytest.mark.parametrize("n", [561, 700, 4096])
+def test_k1_with_its_gradient_checks_the_backward_limit(monkeypatch, n):
+    """K1 takes any N and, its backward (A2, at dm <= 1024) streaming its
+    core as well, so does ``fused_layer_attention_ln`` with the gradient
+    recorded: N past the 560 that A2's old staged core held at head dim 80
+    reaches the forward's library (none here) and is refused nowhere
+    before it."""
     monkeypatch.setattr(_cuda, "library", lambda name: (_ for _ in ()).throw(
         RuntimeError("no CUDA kernels here")))
-    heads = dm // 80
-    named = _sublayer_named(1, n, dm, heads, 80)
-    with torch.enable_grad(), pytest.raises(
-            ValueError if refused else RuntimeError,
-            match="backward kernel" if refused else "no CUDA kernels"):
-        tatt.fused_layer_attention_ln(*named.values(), num_heads=heads,
+    named = _sublayer_named(1, n, 160, 2, 80)
+    with torch.enable_grad(), pytest.raises(RuntimeError,
+                                            match="no CUDA kernels"):
+        tatt.fused_layer_attention_ln(*named.values(), num_heads=2,
                                       scale=0.1, eps=EPS)

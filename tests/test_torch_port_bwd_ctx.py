@@ -239,22 +239,26 @@ def test_bwd_ctx_checks_take_the_backward_limits():
     """A8 takes A9's backward operands: head dims up to 80 and, the
     backward streaming 64-row tiles through a two-stage ring, any N: its
     shared memory per CTA is at most 64536 bytes at dh 80 whatever N is
-    (three CTAs fit an SM), where the sublayer backwards' core, which
-    stages the head's whole sequence, needs 122624 bytes at ViT-H's
-    N = 257 and cannot take N = 800.  A9's forward streams its tiles too
-    and takes N = 800 as well."""
-    def meta(*shape):
-        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    (three CTAs fit an SM).  The sublayer backwards run the same streamed
+    core and take N = 800 at head dim 80 too, where the staged core that A7's
+    forward keeps cannot hold it.  A9's forward streams its tiles too and
+    takes N = 800 as well."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     names = ("q", "k", "v", "do", "ctx", "dq", "dk", "dv")
     named = {k: meta(32, 16, 257, 80) for k in names}
     assert tatt._check_core(named, backward=True) == (32, 16, 257, 80)
     assert tatt._core_bwd_smem_bytes(80) == 64536
     assert 3 * tatt._core_bwd_smem_bytes(80) <= tatt._SMEM_LIMIT
-    assert tatt._core_smem_bytes(257, 80, True) == 122624
     named = {k: meta(1, 1, 800, 80) for k in names}
     assert tatt._check_core(named, backward=True) == (1, 1, 800, 80)
-    assert tatt._core_smem_bytes(800, 80, True) > tatt._SMEM_LIMIT
+    x = meta(1, 800, 160)
+    sub = dict(x=x, wqkv=meta(160, 480), bqkv=meta(480), wproj=meta(160, 160),
+               bproj=meta(160), mask=meta(160), do=x)
+    assert tatt._check_attention(x, sub, 2, streamed=True) == (1, 800, 160,
+                                                               160)
+    assert tatt._core_smem_bytes(800, 80) > tatt._SMEM_LIMIT
     assert tatt._check_core({k: named[k] for k in ("q", "k", "v")},
                             backward=False) == (1, 1, 800, 80)
 

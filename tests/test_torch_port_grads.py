@@ -345,31 +345,32 @@ def test_backward_wrappers_refuse_other_devices():
 
 
 def test_backward_checks_refuse_what_the_kernels_cannot_take():
-    """The LayerNorm backward holds at most 1024 columns of a row and the
-    attention backward the tokens that fit its shared memory (704 at head
-    dim 64): wider or longer operands are refused before any launch (meta
+    """The LayerNorm backward holds at most 1024 columns of a row: a wider
+    operand is refused before any launch.  The attention backward streams
+    its core, so its shared memory does not grow with N: N = 705, past the
+    704 that its old staged core held at head dim 64, is taken (meta
     tensors carry the shapes without data)."""
-    from uvc_tpu_torch.ops.attention import (_MAX_DM_BWD, _SMEM_LIMIT,
-                                             _check_attention,
-                                             _core_smem_bytes)
+    from uvc_tpu_torch.ops.attention import _MAX_DM_BWD, _check_attention
     from uvc_tpu_torch.ops.mlp import _check_mlp
 
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
 
     f32 = torch.float32
-    assert _core_smem_bytes(704, 64, True) <= _SMEM_LIMIT
-    assert _core_smem_bytes(705, 64, True) > _SMEM_LIMIT
-    for dm, n in ((_MAX_DM_BWD + 8, 13), (64, 705)):
+
+    def attention_named(n, dm):
         x = meta(1, n, dm)
-        named = dict(x=x, g1=meta(dm, dtype=f32), b1=meta(dm, dtype=f32),
-                     wqkv=meta(dm, 192), bqkv=meta(192), wproj=meta(64, dm),
-                     bproj=meta(dm), mask=meta(64), do=x)
-        with pytest.raises(ValueError, match="unsupported x shape"):
-            _check_attention(x, named, 1, backward=True, max_dm=_MAX_DM_BWD)
-    x = meta(1, 704, 64)
-    assert _check_attention(x, dict(named, x=x, do=x), 1, backward=True,
-                            max_dm=_MAX_DM_BWD) == (1, 704, 64, 64)
+        return x, dict(x=x, g1=meta(dm, dtype=f32), b1=meta(dm, dtype=f32),
+                       wqkv=meta(dm, 192), bqkv=meta(192), wproj=meta(64, dm),
+                       bproj=meta(dm), mask=meta(64), do=x)
+
+    x, named = attention_named(13, _MAX_DM_BWD + 8)
+    with pytest.raises(ValueError, match="unsupported x shape"):
+        _check_attention(x, named, 1, max_dm=_MAX_DM_BWD, streamed=True)
+    for n in (704, 705):
+        x, named = attention_named(n, 64)
+        assert _check_attention(x, named, 1, max_dm=_MAX_DM_BWD,
+                                streamed=True) == (1, n, 64, 64)
     dm = _MAX_DM_BWD + 8
     x = meta(1, 13, dm)
     named = dict(g2=meta(dm, dtype=f32), b2=meta(dm, dtype=f32),

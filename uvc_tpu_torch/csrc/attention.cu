@@ -36,7 +36,7 @@
 // over the launches that write and read them).  The attention width
 // da = heads * dh, any even head dim up to 80, may differ from dm
 // (compacted layers).
-#include "attention_core_fwd.cuh"
+#include "attention_core_bwd.cuh"
 #include "gemm_wg.cuh"
 
 namespace uvc {
@@ -141,32 +141,34 @@ struct SublayerBwd {
   bf16* qkv;       // [rows, 3 da]
   float* t32;      // [rows, da]   do . Wproj^T
   bf16* dctx;      // [rows, da]   bf16(t * mask)
-  float* ctx;      // [rows, da]   bf16(probs) . V
-  bf16* ctxm;      // [rows, da]   bf16(ctx * mask)
-  float4* stats;   // [B * heads * N]  (max, s, row) per query
+  bf16* ctxm;      // [rows, da]   bf16(ctx * mask), ctx = bf16(probs) . V
+  float4* stats;   // [B * heads * ceil(N / 64) * 64]  per query
   bf16* dqkv;      // [rows, 3 da]
-  float* part;     // column-sum partials
+  float* part;     // dmask, split-K and column-sum partials
   bf16 *dwqkv, *dbqkv, *dwproj, *dbproj, *dmask;
   int batch, n, dm, da, heads;
+  int splits_qkv, splits_proj;  // CTAs along K of dWqkv and dWproj
   float scale;
 };
 
 // Recomputes qkv from a, then emits dqkv (attention core), dWqkv, dWproj,
-// dbqkv, dbproj and dmask = sum(t * ctx).  Twelve launches:
-//   1. gemm <EPI_BIAS>: qkv = bf16(a . Wqkv + bqkv).
-//   2. gemm <EPI_F32_MASK, [N][K] B>: t = do . Wproj^T (f32),
+// dbqkv, dbproj and dmask = sum(t * ctx).  Thirteen launches:
+//   1. gemm_wg <EPI_BIAS>: qkv = bf16(a . Wqkv + bqkv).
+//   2. gemm_wg <EPI_F32_MASK, K-major B>: t = do . Wproj^T (f32),
 //      dctx = bf16(t * mask).
-//   3. core_bwd_q_kernel<DHP> (attention_core.cuh): ctx
-//      (f32), bf16(ctx * mask), dq, and the per-query (max, s, row) -- per
-//      (query tile, head, image).
-//   4. core_bwd_kv_kernel<DHP>: dk, dv -- per (key tile, head, image),
-//      a loop over the queries takes the place of the Pallas kernel's
-//      sequential accumulation, so no two CTAs write one output.
-//   5. gemm <EPI_SCALE, [K][M] A>: dWqkv = a^T . dqkv over the B*N rows
-//      (ragged K), summed in f32 and rounded once.
-//   6. gemm <EPI_SCALE, [K][M] A>: dWproj = bf16(ctx * mask)^T . do.
-//   7-12. three column sums, each partials per 128 rows and then an
-//      in-order pass: dbqkv, dbproj, dmask.
+//   3. core_bwd_q_wg_kernel<DHP, CTX_SUBLAYER> (attention_core_bwd.cuh):
+//      dq, ctxm = bf16(ctx * mask), the per-query statistics and dmask's
+//      partial sums over the tile's 64 rows (ctx in f32 against t, read
+//      back), per (query tile, head, image), on head views of qkv, dctx
+//      and dqkv.
+//   4. core_bwd_kv_wg_kernel<DHP>: dk, dv, per (key tile, head, image).
+//   5. dmask: the partials summed in order.
+//   6-7. gemm_wg <EPI_F32, MN-major A> split over the B*N rows:
+//      dWqkv = a^T . dqkv as f32 partials, then their in-order sum,
+//      rounded once.
+//   8-9. the same for dWproj = ctxm^T . do.
+//   10-13. two column sums, each partials per 128 rows and then an
+//      in-order pass: dbqkv, dbproj.
 // The caller takes d a = dqkv . Wqkv^T from dqkv.
 static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   const int rows = b.batch * b.n;
@@ -178,7 +180,7 @@ static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   p.M = rows;
   p.N = 3 * b.da;
   p.K = b.dm;
-  cudaError_t err = launch_gemm<EPI_BIAS>(p, s);
+  cudaError_t err = launch_gemm_wg<EPI_BIAS>(p, s);
   if (err != cudaSuccess) return err;
 
   p = {};
@@ -190,51 +192,50 @@ static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   p.M = rows;
   p.N = b.da;
   p.K = b.dm;
-  err = launch_gemm<EPI_F32_MASK, false, true>(p, s);
+  err = launch_gemm_wg<EPI_F32_MASK, false, true>(p, s);
   if (err != cudaSuccess) return err;
 
   const int ld = 3 * b.da, dh = b.da / b.heads;
-  const CtxOut cx = {b.ctx, b.ctxm, b.mask, (long long)b.n * b.da, dh, b.da};
+  const CtxOut cx = {b.ctxm, b.t32, b.part, b.mask, (long long)b.n * b.da,
+                     dh, b.da};
   err = with_head_dim(dh, [&](auto d) {
-    return launch_core_bwd<decltype(d)::value>(
+    return launch_core_bwd_wg<decltype(d)::value, CTX_SUBLAYER>(
         packed_in(b.qkv, b.n, ld, dh), packed_in(b.qkv + b.da, b.n, ld, dh),
         packed_in(b.qkv + 2 * b.da, b.n, ld, dh),
         packed_in(b.dctx, b.n, b.da, dh), packed_out(b.dqkv, b.n, ld, dh),
         packed_out(b.dqkv + b.da, b.n, ld, dh),
-        packed_out(b.dqkv + 2 * b.da, b.n, ld, dh), b.stats, cx, b.batch,
+        packed_out(b.dqkv + 2 * b.da, b.n, ld, dh), cx, b.stats, b.batch,
         b.heads, b.n, dh, b.scale, s);
   });
+  if (err != cudaSuccess) return err;
+  // dmask's partials, one row per query tile of an image, in order
+  err = launch_reduce(b.part, b.batch * ((b.n + TILE_ROWS - 1) / TILE_ROWS),
+                      b.da, nullptr, nullptr, b.dmask, s);
   if (err != cudaSuccess) return err;
 
   p = {};
   p.a = b.a;
   p.w = b.dqkv;
-  p.out = b.dwqkv;
   p.M = b.dm;
   p.N = 3 * b.da;
   p.K = rows;
-  err = launch_gemm<EPI_SCALE, true, false>(p, s);
+  err = weight_grad_wg(p, b.splits_qkv, b.part, b.dwqkv, s);
   if (err != cudaSuccess) return err;
 
   p = {};
   p.a = b.ctxm;
   p.w = b.dout;
-  p.out = b.dwproj;
   p.M = b.da;
   p.N = b.dm;
   p.K = rows;
-  err = launch_gemm<EPI_SCALE, true, false>(p, s);
+  err = weight_grad_wg(p, b.splits_proj, b.part, b.dwproj, s);
   if (err != cudaSuccess) return err;
 
   err = column_sum(b.dqkv, static_cast<const bf16*>(nullptr), rows, 3 * b.da,
                    b.part, nullptr, nullptr, b.dbqkv, s);
   if (err != cudaSuccess) return err;
-  err = column_sum(b.dout, static_cast<const bf16*>(nullptr), rows, b.dm,
-                   b.part, nullptr, nullptr, b.dbproj, s);
-  if (err != cudaSuccess) return err;
-  return column_sum(static_cast<const float*>(b.t32),
-                    static_cast<const float*>(b.ctx), rows, b.da, b.part,
-                    nullptr, nullptr, b.dmask, s);
+  return column_sum(b.dout, static_cast<const bf16*>(nullptr), rows, b.dm,
+                    b.part, nullptr, nullptr, b.dbproj, s);
 }
 
 }  // namespace uvc
@@ -297,33 +298,41 @@ extern "C" int uvc_layer_attention(
 // dWqkv, dbqkv, dWproj, dbproj and dmask.
 //
 // What bounds it on the H100: at the stage-1 train shape (B = 64, N = 197,
-// dm = da = 384, 6 heads) it does ~52.3 GFLOP: the qkv recompute, t and
-// dWproj (3.72 each), dqkv . Wqkv^T and dWqkv (11.15 each), and the
-// attention core (12 N^2 dh per (image, head) over 384 pairs, 11.44)
-// against ~30 MB of inputs and outputs, so the tensor cores set the floor:
-// ~53 us at 989 TFLOP/s.
+// dm = da = 384, 6 heads) it does ~52.3 GFLOP: the qkv recompute,
+// dqkv . Wqkv^T and dWqkv (11.15 each), t = do . Wproj^T and dWproj (3.72
+// each), and the attention core (12 N^2 dh per (image, head) over 384
+// pairs, 11.44) against ~30 MB of inputs and outputs, so the tensor cores
+// set the floor: ~53 us at 989 TFLOP/s.
 //
-// Design: seventeen launches on the caller's stream, no float atomics.
+// Design: eighteen launches on the caller's stream, no float atomics.
 //   1. layer_norm_kernel: a_in = bf16(LN1(x)).
-//   2-13. sublayer_bwd above with a = a_in: qkv recompute, t and dctx, the
-//      two attention kernels, dWqkv, dWproj, dbqkv, dbproj, dmask.
-//  14. gemm <EPI_F32, [N][K] B>: d a_in = dqkv . Wqkv^T (f32).
-//  15. ln_bwd_kernel: dx = bf16(LN VJP + do), partial dgamma1 / dbeta1;
-//      16-17. their fixed-order reductions.
-// The TPU kernel kept every intermediate in VMEM.  Here a_in, qkv, t, dctx,
-// ctx, dqkv and d a_in make a round trip through device memory (~9.7 MB
-// each in bf16 at the train shape, twice that in f32); the logits and
-// probabilities never do: each attention kernel recomputes them from q and
-// k in registers.  Fusing the GEMM epilogues further and wgmma/TMA are
-// later work.
+//   2-14. sublayer_bwd above with a = a_in: the five products on gemm_wg
+//      (TMA and wgmma: the qkv recompute, t and dctx, then dWqkv and
+//      dWproj split over the B*N rows so that their few output tiles fill
+//      the card, each followed by the in-order sum of its f32 partials),
+//      the streamed core backward (two launches, with dmask's partials and
+//      their sum) and the column sums.
+//  15. gemm_wg <EPI_F32, K-major B>: d a_in = dqkv . Wqkv^T (f32).
+//  16. ln_bwd_kernel: dx = bf16(LN VJP + do), partial dgamma1 / dbeta1;
+//      17-18. their fixed-order reductions.
+// Against the bound: every product on wgmma from TMA-fed shared memory,
+// the core streamed with N not bounded by shared memory.  The TPU kernel
+// kept every intermediate in VMEM and accumulated the weight gradients
+// over its sequential grid; here a_in, qkv, t, dctx, ctxm, dqkv and
+// d a_in make a round trip through device memory (~9.7 MB each in bf16 at
+// the train shape, twice that in f32), and the split partials one more
+// (~9 MB); the logits, the probabilities and the f32 ctx never do.  On
+// the H100 (chip_smoke.py's breakdown at the train shape) the core takes
+// about a third of the time, the products a third, the LN backward and
+// the column sums most of the rest; PERF.md has the launches' times.
 extern "C" int uvc_layer_attention_ln_bwd(
     const void* x, const void* g1, const void* b1, const void* wqkv,
     const void* bqkv, const void* wproj, const void* mask, const void* dout,
-    void* a_in, void* qkv, void* t32, void* dctx, void* ctx, void* ctxm,
-    void* stats, void* dqkv, void* da_in, void* part, void* dx, void* dg1,
+    void* a_in, void* qkv, void* t32, void* dctx, void* ctxm, void* stats,
+    void* dqkv, void* da_in, void* part, void* dx, void* dg1,
     void* db1, void* dwqkv, void* dbqkv, void* dwproj, void* dbproj,
-    void* dmask, int batch, int n, int dm, int da, int heads, float scale,
-    float eps, void* stream) {
+    void* dmask, int batch, int n, int dm, int da, int heads, int splits_qkv,
+    int splits_proj, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = batch * n;
   const bf16* xb = static_cast<const bf16*>(x);
@@ -338,12 +347,12 @@ extern "C" int uvc_layer_attention_ln_bwd(
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
       static_cast<const bf16*>(mask), static_cast<const bf16*>(dout),
       static_cast<bf16*>(qkv), static_cast<float*>(t32),
-      static_cast<bf16*>(dctx), static_cast<float*>(ctx),
-      static_cast<bf16*>(ctxm), static_cast<float4*>(stats),
-      static_cast<bf16*>(dqkv), partf, static_cast<bf16*>(dwqkv),
-      static_cast<bf16*>(dbqkv), static_cast<bf16*>(dwproj),
+      static_cast<bf16*>(dctx), static_cast<bf16*>(ctxm),
+      static_cast<float4*>(stats), static_cast<bf16*>(dqkv), partf,
+      static_cast<bf16*>(dwqkv), static_cast<bf16*>(dbqkv),
+      static_cast<bf16*>(dwproj),
       static_cast<bf16*>(dbproj), static_cast<bf16*>(dmask), batch, n, dm,
-      da, heads, scale};
+      da, heads, splits_qkv, splits_proj, scale};
   err = uvc::sublayer_bwd(b, s);
   if (err != cudaSuccess) return (int)err;
 
@@ -354,7 +363,7 @@ extern "C" int uvc_layer_attention_ln_bwd(
   p.M = rows;
   p.N = dm;
   p.K = 3 * da;
-  err = uvc::launch_gemm<uvc::EPI_F32, false, true>(p, s);
+  err = uvc::launch_gemm_wg<uvc::EPI_F32, false, true>(p, s);
   if (err != cudaSuccess) return (int)err;
 
   uvc::LnBwdArgs l = {};
@@ -386,28 +395,31 @@ extern "C" int uvc_layer_attention_ln_bwd(
 //
 // What bounds it: the same products as uvc_layer_attention_ln_bwd (~52.3
 // GFLOP at the train shape against ~30 MB: the tensor cores, ~53 us).
-// Design: sublayer_bwd with a = x (twelve launches), then one GEMM
-// <EPI_SCALE, [N][K] B> that rounds dx = dqkv . Wqkv^T to bf16 in its
+// Design: sublayer_bwd with a = x (thirteen launches), then one gemm_wg
+// <EPI_SCALE, K-major B> that rounds dx = dqkv . Wqkv^T to bf16 in its
 // epilogue: A2's sequence without the LayerNorm pass, the LN backward and
-// its two reductions.  Thirteen launches, no float atomics.
+// its two reductions.  Fourteen launches, no float atomics.  Any dm: a
+// part-gated ViT-H/14 (dm 1280) runs it.
 extern "C" int uvc_layer_attention_bwd(
     const void* x, const void* wqkv, const void* bqkv, const void* wproj,
     const void* mask, const void* dout, void* qkv, void* t32, void* dctx,
-    void* ctx, void* ctxm, void* stats, void* dqkv, void* part, void* dx,
+    void* ctxm, void* stats, void* dqkv, void* part, void* dx,
     void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dmask,
-    int batch, int n, int dm, int da, int heads, float scale, void* stream) {
+    int batch, int n, int dm, int da, int heads, int splits_qkv,
+    int splits_proj, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uvc::SublayerBwd b = {
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
       static_cast<const bf16*>(mask), static_cast<const bf16*>(dout),
       static_cast<bf16*>(qkv), static_cast<float*>(t32),
-      static_cast<bf16*>(dctx), static_cast<float*>(ctx),
-      static_cast<bf16*>(ctxm), static_cast<float4*>(stats),
-      static_cast<bf16*>(dqkv), static_cast<float*>(part),
-      static_cast<bf16*>(dwqkv), static_cast<bf16*>(dbqkv),
+      static_cast<bf16*>(dctx), static_cast<bf16*>(ctxm),
+      static_cast<float4*>(stats), static_cast<bf16*>(dqkv),
+      static_cast<float*>(part), static_cast<bf16*>(dwqkv),
+      static_cast<bf16*>(dbqkv),
       static_cast<bf16*>(dwproj), static_cast<bf16*>(dbproj),
-      static_cast<bf16*>(dmask), batch, n, dm, da, heads, scale};
+      static_cast<bf16*>(dmask), batch, n, dm, da, heads, splits_qkv,
+      splits_proj, scale};
   cudaError_t err = uvc::sublayer_bwd(b, s);
   if (err != cudaSuccess) return (int)err;
 
@@ -418,5 +430,5 @@ extern "C" int uvc_layer_attention_bwd(
   p.M = batch * n;
   p.N = dm;
   p.K = 3 * da;
-  return (int)uvc::launch_gemm<uvc::EPI_SCALE, false, true>(p, s);
+  return (int)uvc::launch_gemm_wg<uvc::EPI_SCALE, false, true>(p, s);
 }

@@ -92,11 +92,14 @@ static int core_backward(const void* q, const void* k, const void* v,
                  dvh = uvc::heads_at<bf16>(dv, strides, 6);
   const OutHeads ch = CTX ? uvc::heads_at<bf16>(ctx, strides, 7)
                          : OutHeads{};
+  const uvc::CtxOut cx = {ch.p, nullptr, nullptr, nullptr,
+                          ch.sb, ch.sh, ch.sr};
   float4* st = static_cast<float4*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)uvc::with_head_dim(dh, [&](auto d) {
-    return uvc::launch_core_bwd_wg<decltype(d)::value, CTX>(
-        qh, kh, vh, doh, dqh, dkh, dvh, ch, st, batch, heads, n, dh, scale,
+    return uvc::launch_core_bwd_wg<decltype(d)::value,
+                                   CTX ? uvc::CTX_BF16 : uvc::CTX_NONE>(
+        qh, kh, vh, doh, dqh, dkh, dvh, cx, st, batch, heads, n, dh, scale,
         s);
   });
 }

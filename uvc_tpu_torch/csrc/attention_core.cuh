@@ -1,35 +1,22 @@
-// The staged attention core of the sublayer kernels of attention.cu:
-//   ctx = softmax(q . k^T * scale) . v
-// per (image, head), forward and backward, on head-split operands at any
-// strides: A7's forward (the ctx mask) and the backwards of A2 and A7
-// (even head dims up to 80, the ctx mask, and the f32 ctx that dmask
-// needs), on the packed qkv rows.  K1 and A9's forward run the streamed
-// forward of attention_core_fwd.cuh, A8 and A9's backward the streamed
-// backward of attention_core_bwd.cuh; this file also holds the head
-// operands (Heads), copy widths and head-dim dispatch that those share.
+// The staged attention core of A7's forward (attention.cu's sublayer_fwd):
+//   ctx = bf16(bf16(softmax(q . k^T * scale) . v) * mask)
+// per (image, head), on head views of the packed qkv rows at any strides,
+// even head dims up to 80.  K1 and A9's forward run the streamed forward
+// of attention_core_fwd.cuh, the sublayer backwards A2 and A7, A8 and A9's
+// backward the streamed backward of attention_core_bwd.cuh; this file also
+// holds the head operands (Heads), copy widths and head-dim dispatch that
+// those share.
 //
-// Design: one CTA of four warps per (64-row tile, head, image), 16 rows per
-// warp, mma.sync m16n8k16 with f32 accumulators; the other operand's whole
-// sequence sits in shared memory, and keys (or queries) at or past N are
-// masked inside the kernel, where the Pallas wrappers pad N to 128 and add
-// a -1e30 bias.
-//   forward (core_fwd_kernel): the row max, then p = exp(logit - max) in
-//     f32, the row sums of the unrounded p and bf16(p) . V in f32;
-//     ctx = bf16((p . V) / s), the normalisation after P . V as the Pallas
-//     bodies do; with a mask, bf16(bf16(ctx) * mask).
-//   backward, two launches and no float atomics (two launches give the same
-//     bits): a query-side kernel (core_bwd_q_kernel; four passes over the
-//     keys: the max, s, row = sum(dp * probs) with probs = p / s and
-//     dp = dO . V^T, then ds = bf16(probs * (dp - row)) and
-//     dq = ds . K * scale) that also writes (max, s, row) per query and,
-//     from its third pass, ctx = bf16(probs) . V in f32 and
-//     bf16(ctx * mask) for the sublayers' dmask; and a key-side kernel
-//     (core_bwd_kv_kernel) that loops over the queries with those
-//     statistics: dv = bf16(probs)^T . dO and dk = ds^T . Q * scale.  The
-//     loop over the queries takes the place of the Pallas kernels'
-//     sequential accumulation, so no two CTAs write one output.
+// Design: one CTA of four warps per (64-query tile, head, image), 16 rows
+// per warp, mma.sync m16n8k16 with f32 accumulators; the head's whole K and
+// V sit in shared memory, which bounds N, and keys at or past N are masked
+// inside the kernel, where the Pallas wrappers pad N to 128 and add a
+// -1e30 bias.  The row max, then p = exp(logit - max) in f32, the row sums
+// of the unrounded p and bf16(p) . V in f32; ctx = bf16((p . V) / s), the
+// normalisation after P . V as the Pallas bodies do; with a mask,
+// bf16(bf16(ctx) * mask).
 //
-// Head dim: each kernel is a template on the padded head dim DHP (a
+// Head dim: the kernel is a template on the padded head dim DHP (a
 // multiple of 16) and takes any dh <= DHP.  Columns dh..DHP-1 of every
 // staged tile are zero-filled in shared memory, which is exact: they add
 // zero to every dot product, and the outputs' columns past dh are never
@@ -61,16 +48,6 @@ struct Heads {
 };
 typedef Heads<const bf16> InHeads;
 typedef Heads<bf16> OutHeads;
-
-// What the query-side kernel writes of ctx = bf16(probs) . V besides dq:
-// the sublayer backward's ctx in f32 and ctxm = bf16(ctx * mask) at one
-// layout (sb, sh, sr), mask [heads * dh] with dh even (A2/A7).
-struct CtxOut {
-  float* ctx;
-  bf16* ctxm;
-  const bf16* mask;
-  long long sb, sh, sr;
-};
 
 // Elements per copy that an operand allows: 8 (16 bytes) where dh, its
 // strides and its base are multiples of 8 elements, 2 where they are
@@ -217,13 +194,11 @@ __device__ __forceinline__ void store_pair(bf16* row, int c, int dh, int vec,
   }
 }
 
+// the query tile and the head's whole K and V, at a row stride of DHP + 8
 template <int DHP>
-static size_t core_smem_bytes(int n, bool backward) {
+static size_t core_smem_bytes(int n) {
   const int np = (n + 15) & ~15;
-  const size_t ld = DHP + 8;
-  return backward ? (2 * CORE_QT + 2 * np) * ld * sizeof(bf16) +
-                        (size_t)np * sizeof(float4)
-                  : (CORE_QT + 2 * np) * ld * sizeof(bf16);
+  return (CORE_QT + 2 * np) * (size_t)(DHP + 8) * sizeof(bf16);
 }
 
 // Forward: one CTA per (64-query tile, head, image).  mask: null, or
@@ -308,245 +283,6 @@ static __global__ void __launch_bounds__(CORE_THREADS)
   }
 }
 
-// Backward, query side: one CTA per (64-query tile, head, image), the
-// head's K and V in shared memory.  Writes dq, (max, s, row) per query and
-// the sublayer's ctx.
-template <int DHP, bool FULL>
-static __global__ void __launch_bounds__(CORE_THREADS)
-    core_bwd_q_kernel(InHeads q, InHeads k, InHeads v, InHeads dout,
-                      OutHeads dq, float4* __restrict__ stats, CtxOut cx,
-                      int n, int dh, float scale, int vec) {
-  if (FULL) dh = DHP, vec = 8;
-  constexpr int LD = DHP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int np = (n + 15) & ~15;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ds = Qs + CORE_QT * LD;
-  bf16* Ks = Ds + CORE_QT * LD;
-  bf16* Vs = Ks + np * LD;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long long bh = (long long)b * gridDim.y + h;
-
-  stage_head<DHP>(Qs, q.head(b, h), q.sr, qt * CORE_QT, CORE_QT, n, dh, vec,
-                  tid);
-  stage_head<DHP>(Ds, dout.head(b, h), dout.sr, qt * CORE_QT, CORE_QT, n, dh,
-                  vec, tid);
-  stage_head<DHP>(Ks, k.head(b, h), k.sr, 0, np, n, dh, vec, tid);
-  stage_head<DHP>(Vs, v.head(b, h), v.sr, 0, np, n, dh, vec, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qf[DHP / 16][4], df[DHP / 16][4];
-  load_a_frags<DHP>(qf, Qs, warp, g, t);
-  load_a_frags<DHP>(df, Ds, warp, g, t);
-
-  // pass 1: the row max; pass 2: s = sum of p = exp(logit - max)
-  float mx0, mx1;
-  row_max<DHP>(qf, Ks, n, np, scale, g, t, mx0, mx1);
-  float l0 = 0.f, l1 = 0.f;
-  for (int j = 0; j < np; j += 8) {
-    float s[4];
-    dot8<DHP>(qf, Ks, j, g, t, s);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = (j + 2 * t + (e & 1) < n)
-                          ? expf(s[e] * scale - ((e < 2) ? mx0 : mx1))
-                          : 0.f;
-      if (e < 2) l0 += p; else l1 += p;
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-
-  // probs of 16 keys from j: pr0 keys j + 2t (+1), pr1 keys j + 8 + 2t (+1)
-  auto probs16 = [&](int j, float (&pr0)[4], float (&pr1)[4]) {
-    float s0[4], s1[4];
-    dot8<DHP>(qf, Ks, j, g, t, s0);
-    dot8<DHP>(qf, Ks, j + 8, g, t, s1);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = j + 2 * t + (e & 1);
-      const float m = (e < 2) ? mx0 : mx1;
-      const float l = (e < 2) ? l0 : l1;
-      pr0[e] = (key < n) ? expf(s0[e] * scale - m) / l : 0.f;
-      pr1[e] = (key + 8 < n) ? expf(s1[e] * scale - m) / l : 0.f;
-    }
-  };
-
-  // pass 3: row = sum(dp * probs), dp = dO . V^T; ctx = bf16(probs) . V
-  float acc[DHP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DHP / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float rw0 = 0.f, rw1 = 0.f;
-  for (int j = 0; j < np; j += 16) {
-    float pr0[4], pr1[4], dp0[4], dp1[4];
-    probs16(j, pr0, pr1);
-    dot8<DHP>(df, Vs, j, g, t, dp0);
-    dot8<DHP>(df, Vs, j + 8, g, t, dp1);
-    rw0 += dp0[0] * pr0[0] + dp0[1] * pr0[1] + dp1[0] * pr1[0] +
-           dp1[1] * pr1[1];
-    rw1 += dp0[2] * pr0[2] + dp0[3] * pr0[3] + dp1[2] * pr1[2] +
-           dp1[3] * pr1[3];
-    const uint32_t pa[4] = {pack_f32(pr0[0], pr0[1]),
-                            pack_f32(pr0[2], pr0[3]),
-                            pack_f32(pr1[0], pr1[1]),
-                            pack_f32(pr1[2], pr1[3])};
-    acc_pv<DHP>(acc, pa, Vs, j, lane);
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    rw0 += __shfl_xor_sync(0xffffffffu, rw0, o);
-    rw1 += __shfl_xor_sync(0xffffffffu, rw1, o);
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qi = qt * CORE_QT + warp * 16 + g + 8 * hh;
-    if (qi >= n) continue;
-    const long long off = (long long)b * cx.sb + (long long)h * cx.sh +
-                          qi * cx.sr;
-#pragma unroll
-    for (int dn = 0; dn < DHP / 8; ++dn) {
-      const int c = dn * 8 + 2 * t;
-      if (c >= dh) continue;
-      const float c0 = acc[dn][2 * hh], c1 = acc[dn][2 * hh + 1];
-      *reinterpret_cast<float2*>(cx.ctx + off + c) = make_float2(c0, c1);
-      *reinterpret_cast<uint32_t*>(cx.ctxm + off + c) =
-          pack_f32(c0 * bf2f(cx.mask[h * dh + c]),
-                   c1 * bf2f(cx.mask[h * dh + c + 1]));
-    }
-    if (t == 0)
-      stats[bh * n + qi] = make_float4(hh ? mx1 : mx0, hh ? l1 : l0,
-                                       hh ? rw1 : rw0, 0.f);
-  }
-
-  // pass 4: ds = bf16(probs * (dp - row)), dq = ds . K
-#pragma unroll
-  for (int dn = 0; dn < DHP / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  for (int j = 0; j < np; j += 16) {
-    float pr0[4], pr1[4], dp0[4], dp1[4];
-    probs16(j, pr0, pr1);
-    dot8<DHP>(df, Vs, j, g, t, dp0);
-    dot8<DHP>(df, Vs, j + 8, g, t, dp1);
-    float ds0[4], ds1[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float r = (e < 2) ? rw0 : rw1;
-      ds0[e] = pr0[e] * (dp0[e] - r);
-      ds1[e] = pr1[e] * (dp1[e] - r);
-    }
-    const uint32_t pa[4] = {pack_f32(ds0[0], ds0[1]), pack_f32(ds0[2], ds0[3]),
-                            pack_f32(ds1[0], ds1[1]), pack_f32(ds1[2], ds1[3])};
-    acc_pv<DHP>(acc, pa, Ks, j, lane);
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qi = qt * CORE_QT + warp * 16 + g + 8 * hh;
-    if (qi >= n) continue;
-    bf16* row = dq.head(b, h) + qi * dq.sr;
-#pragma unroll
-    for (int dn = 0; dn < DHP / 8; ++dn)
-      store_pair(row, dn * 8 + 2 * t, dh, vec, acc[dn][2 * hh] * scale,
-                 acc[dn][2 * hh + 1] * scale);
-  }
-}
-
-// Backward, key side: one CTA per (64-key tile, head, image), the head's Q,
-// dO and per-query statistics in shared memory.  One pass over the queries
-// computes the transposed logits K . Q^T, probs^T = exp(logit - max[q]) /
-// s[q], dp^T = V . dO^T and ds^T = bf16(probs^T * (dp^T - row[q])), and
-// accumulates dv = bf16(probs^T) . dO and dk = ds^T . Q in registers.
-template <int DHP, bool FULL>
-static __global__ void __launch_bounds__(CORE_THREADS)
-    core_bwd_kv_kernel(InHeads q, InHeads k, InHeads v, InHeads dout,
-                       const float4* __restrict__ stats, OutHeads dk,
-                       OutHeads dv, int n, int dh, float scale, int vec) {
-  if (FULL) dh = DHP, vec = 8;
-  constexpr int LD = DHP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int np = (n + 15) & ~15;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + CORE_QT * LD;
-  bf16* Qs = Vs + CORE_QT * LD;
-  bf16* Ds = Qs + np * LD;
-  float4* St = reinterpret_cast<float4*>(Ds + np * LD);
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long long bh = (long long)b * gridDim.y + h;
-
-  stage_head<DHP>(Ks, k.head(b, h), k.sr, kt * CORE_QT, CORE_QT, n, dh, vec,
-                  tid);
-  stage_head<DHP>(Vs, v.head(b, h), v.sr, kt * CORE_QT, CORE_QT, n, dh, vec,
-                  tid);
-  stage_head<DHP>(Qs, q.head(b, h), q.sr, 0, np, n, dh, vec, tid);
-  stage_head<DHP>(Ds, dout.head(b, h), dout.sr, 0, np, n, dh, vec, tid);
-  cp_async_commit();
-  const float4* st = stats + bh * n;
-  for (int i = tid; i < np; i += CORE_THREADS)
-    St[i] = i < n ? st[i] : make_float4(0.f, 1.f, 0.f, 0.f);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t kf[DHP / 16][4], vf[DHP / 16][4];
-  load_a_frags<DHP>(kf, Ks, warp, g, t);
-  load_a_frags<DHP>(vf, Vs, warp, g, t);
-
-  float ak[DHP / 8][4], av[DHP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DHP / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[dn][e] = av[dn][e] = 0.f;
-
-  for (int j = 0; j < np; j += 16) {
-    float lt0[4], lt1[4], dt0[4], dt1[4];
-    dot8<DHP>(kf, Qs, j, g, t, lt0);
-    dot8<DHP>(kf, Qs, j + 8, g, t, lt1);
-    dot8<DHP>(vf, Ds, j, g, t, dt0);
-    dot8<DHP>(vf, Ds, j + 8, g, t, dt1);
-    float pr0[4], pr1[4], ds0[4], ds1[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q0 = j + 2 * t + (e & 1), q1 = q0 + 8;
-      const float4 a = St[q0], c = St[q1];
-      pr0[e] = q0 < n ? expf(lt0[e] * scale - a.x) / a.y : 0.f;
-      pr1[e] = q1 < n ? expf(lt1[e] * scale - c.x) / c.y : 0.f;
-      ds0[e] = pr0[e] * (dt0[e] - a.z);
-      ds1[e] = pr1[e] * (dt1[e] - c.z);
-    }
-    const uint32_t pa[4] = {pack_f32(pr0[0], pr0[1]), pack_f32(pr0[2], pr0[3]),
-                            pack_f32(pr1[0], pr1[1]), pack_f32(pr1[2], pr1[3])};
-    const uint32_t sa[4] = {pack_f32(ds0[0], ds0[1]), pack_f32(ds0[2], ds0[3]),
-                            pack_f32(ds1[0], ds1[1]), pack_f32(ds1[2], ds1[3])};
-    acc_pv<DHP>(av, pa, Ds, j, lane);
-    acc_pv<DHP>(ak, sa, Qs, j, lane);
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = kt * CORE_QT + warp * 16 + g + 8 * hh;
-    if (key >= n) continue;
-    bf16* krow = dk.head(b, h) + key * dk.sr;
-    bf16* vrow = dv.head(b, h) + key * dv.sr;
-#pragma unroll
-    for (int dn = 0; dn < DHP / 8; ++dn) {
-      const int c = dn * 8 + 2 * t;
-      store_pair(krow, c, dh, vec, ak[dn][2 * hh] * scale,
-                 ak[dn][2 * hh + 1] * scale);
-      store_pair(vrow, c, dh, vec, av[dn][2 * hh], av[dn][2 * hh + 1]);
-    }
-  }
-}
-
 template <typename K>
 static cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
@@ -554,14 +290,14 @@ static cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-// A full tile (dh == DHP and 16-byte copies: the sublayers' heads of 64
-// and 80) runs the FULL instantiation, which folds away every column and
+// A full tile (dh == DHP and 16-byte copies: A7's heads of 64 and 80)
+// runs the FULL instantiation, which folds away every column and
 // copy-width check.
 template <int DHP, bool FULL>
 static cudaError_t run_core_fwd(InHeads q, InHeads k, InHeads v, OutHeads out,
                                 const bf16* mask, int batch, int heads, int n,
                                 int dh, float scale, int vec, cudaStream_t s) {
-  const size_t smem = core_smem_bytes<DHP>(n, false);
+  const size_t smem = core_smem_bytes<DHP>(n);
   cudaError_t err = set_smem(core_fwd_kernel<DHP, FULL>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + CORE_QT - 1) / CORE_QT, heads, batch);
@@ -582,43 +318,6 @@ static cudaError_t launch_core_fwd(InHeads q, InHeads k, InHeads v,
                                        dh, scale, vec, s)
              : run_core_fwd<DHP, false>(q, k, v, out, mask, batch, heads, n,
                                         dh, scale, vec, s);
-}
-
-template <int DHP, bool FULL>
-static cudaError_t run_core_bwd(InHeads q, InHeads k, InHeads v, InHeads dout,
-                                OutHeads dq, OutHeads dk, OutHeads dv,
-                                float4* stats, CtxOut cx, int batch,
-                                int heads, int n, int dh, float scale,
-                                int vec, cudaStream_t s) {
-  const size_t smem = core_smem_bytes<DHP>(n, true);
-  const dim3 grid((n + CORE_QT - 1) / CORE_QT, heads, batch);
-  cudaError_t err = set_smem(core_bwd_q_kernel<DHP, FULL>, smem);
-  if (err != cudaSuccess) return err;
-  core_bwd_q_kernel<DHP, FULL><<<grid, CORE_THREADS, smem, s>>>(
-      q, k, v, dout, dq, stats, cx, n, dh, scale, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = set_smem(core_bwd_kv_kernel<DHP, FULL>, smem);
-  if (err != cudaSuccess) return err;
-  core_bwd_kv_kernel<DHP, FULL><<<grid, CORE_THREADS, smem, s>>>(
-      q, k, v, dout, stats, dk, dv, n, dh, scale, vec);
-  return cudaGetLastError();
-}
-
-// The sublayer backward, two launches on the caller's stream; stats:
-// [B * heads * N] float4 scratch.
-template <int DHP>
-static cudaError_t launch_core_bwd(InHeads q, InHeads k, InHeads v,
-                                   InHeads dout, OutHeads dq, OutHeads dk,
-                                   OutHeads dv, float4* stats, CtxOut cx,
-                                   int batch, int heads, int n, int dh,
-                                   float scale, cudaStream_t s) {
-  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv);
-  return dh == DHP && vec == 8
-             ? run_core_bwd<DHP, true>(q, k, v, dout, dq, dk, dv, stats, cx,
-                                       batch, heads, n, dh, scale, vec, s)
-             : run_core_bwd<DHP, false>(q, k, v, dout, dq, dk, dv, stats, cx,
-                                        batch, heads, n, dh, scale, vec, s);
 }
 
 template <int DHP>

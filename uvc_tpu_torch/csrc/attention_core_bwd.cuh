@@ -1,10 +1,11 @@
-// The backward of the bare attention core for Hopper: kernels A8
+// The backward of the attention core for Hopper, streamed: kernels A8
 // (uvc_tpu/ops/attention.py::_bwd_ctx_kernel) and A9's backward
-// (::_bwd_kernel), on [B, H, N, dh] operands at any strides.  Only
-// attention_core.cu includes it; the sublayer backwards of attention.cu
-// (A2, A7) and A7's forward keep the mma.sync core of attention_core.cuh,
-// while K1 and A9's forward run the streamed forward of
-// attention_core_fwd.cuh.
+// (::_bwd_kernel), on [B, H, N, dh] operands at any strides
+// (attention_core.cu), and the attention step of the sublayer backwards
+// A2 and A7 (::_layer_ln_bwd_kernel, ::_layer_bwd_kernel, attention.cu),
+// on head views of the packed qkv, dctx and dqkv rows.  K1 and A9's
+// forward run the streamed forward of attention_core_fwd.cuh; A7's
+// forward keeps the staged core of attention_core.cuh.
 //
 // Numerics: the Pallas bodies' rounding order, as attention_bwd_ctx_plain
 // in uvc_tpu_torch/ops/attention.py writes it: logits = (q . k^T) * scale
@@ -20,12 +21,17 @@
 // the max kept in base 2), a few instructions per element where expf and
 // a division take several times as many.
 //
+// What the query side writes of ctx besides dq (CtxMode): nothing (A9),
+// ctx rounded to bf16 (A8), or the sublayers' ctxm = bf16(ctx * mask)
+// (for dWproj) and per-CTA partial sums of dmask = sum(t * ctx), ctx in
+// f32 as the Pallas body takes it, with t = do . Wproj^T read back.
+//
 // Design.  Two launches, no float atomics, each output tile written by one
 // CTA (two launches give the same bits):
 //   core_bwd_q_wg_kernel, one CTA per (64-query tile, head, image): three
 //     passes over the 64-key tiles: (max, s) online; row = sum(dp * probs)
-//     and, for A8, ctx = bf16(probs) . V; ds and dq = ds . K.  Writes dq,
-//     ctx and (max * log2 e, 1 / s, row) per query.
+//     and, for A8 and the sublayers, ctx = bf16(probs) . V; ds and
+//     dq = ds . K.  Writes dq, ctx and (max * log2 e, 1 / s, row) per query.
 //   core_bwd_kv_wg_kernel, one CTA per (64-key tile, head, image): one
 //     pass over the 64-query tiles with those statistics: the transposed
 //     logits K . Q^T and dp^T = V . dO^T, dv += bf16(probs^T) . dO and
@@ -38,8 +44,8 @@
 // tile read along its rows (MN-major).  The other side's rows stream
 // through a ring of two stages of 64-row tiles, the next tile in flight
 // while the warpgroup works on the current one, so a CTA's shared memory
-// does not depend on N: 62.5 KB (query side) and 64.5 KB (key side) at
-// head dim 80.  The query side fits 168 registers a thread and runs three
+// does not depend on N: 62.5 KB (query side; 63.8 KB with the sublayers'
+// dmask sums) and 64.5 KB (key side) at head dim 80.  The query side fits 168 registers a thread and runs three
 // CTAs (twelve warps) per SM, the key side, with two m64n80 accumulators
 // held across its loop, two (eight warps).  A third stage on either side,
 // or three key-side CTAs in 168 registers (which spill), ran no faster on
@@ -47,9 +53,10 @@
 //
 // Tiles and loads: those of the forward (attention_core_fwd.cuh, which
 // holds them and the products on them): 32-byte-swizzled 16-column boxes,
-// TMA when every operand is a full tile (A8's head views of the qkv rows,
-// A9's contiguous heads of 16-80), else cp.async at the widest copy the
-// operands allow.
+// TMA when every operand is a full tile (A8's and the sublayers' head
+// views of the qkv rows at head dims 64 and 80, A9's contiguous heads of
+// 16-80), else cp.async at the widest copy the operands allow (the
+// sublayers' 4-byte copies at resnext's head dim 12).
 #pragma once
 
 #include "attention_core_fwd.cuh"
@@ -59,14 +66,96 @@ namespace uvc {
 constexpr int BWD_STAGES = 2;                     // the streamed ring
 constexpr int BWD_STAT_BYTES = TILE_ROWS * 16;    // a tile's (max, 1/s, row, 0)
 
+// what the query side writes of ctx = bf16(probs) . V
+enum CtxMode { CTX_NONE = 0, CTX_BF16 = 1, CTX_SUBLAYER = 2 };
+
+// Its outputs, element (b, h, i, d) at b sb + h sh + i sr + d: with
+// CTX_BF16, ctx rounded to bf16 into out (A8); with CTX_SUBLAYER (A2, A7),
+// ctxm = bf16(ctx * mask) into out, mask [heads * dh] with dh even, and
+// the partial sums of dmask = sum(t * ctx) over each CTA's 64 rows into
+// dmask [B * tiles, heads * dh] (row (b, query tile)), t f32 at out's
+// strides, so that ctx itself, in f32, never leaves the chip.
+struct CtxOut {
+  bf16* out;
+  const float* t;
+  float* dmask;
+  const bf16* mask;
+  long long sb, sh, sr;
+  Heads<bf16> heads() const { return {out, sb, sh, sr}; }
+};
+
+// ctxm = bf16(ctx * mask) of rows g and g + 8 of this warp's 16 of an
+// m64nDHP accumulator at element offset off, half hh (CTX_SUBLAYER)
+template <int DHP>
+__device__ __forceinline__ void store_ctxm_row(const CtxOut& cx, long long off,
+                                               int h, const float* acc,
+                                               int hh, int t, int dh) {
+#pragma unroll
+  for (int j = 0; j < DHP / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (c < dh)
+      *reinterpret_cast<uint32_t*>(cx.out + off + c) =
+          pack_f32(acc[4 * j + 2 * hh] * bf2f(cx.mask[h * dh + c]),
+                   acc[4 * j + 2 * hh + 1] * bf2f(cx.mask[h * dh + c + 1]));
+  }
+}
+
+// This CTA's partial sums of dmask = sum(t * ctx) over its 64 query rows
+// (q0 = the thread's first) of head h (CTX_SUBLAYER): per column
+// 8 j + 2 t (+ 1), the thread's two rows (rows past n add nothing), the
+// eight lanes that share t in a fixed tree, then the four warps in order
+// through red [4][DHP] in shared memory; thread c writes column c to row
+// (b, qt) of cx.dmask.  Every thread of the CTA calls it.
+template <int DHP>
+__device__ __forceinline__ void dmask_partial(const CtxOut& cx,
+                                              const float* acc, float* red,
+                                              int b, int h, int heads, int qt,
+                                              int tiles, int tid, int q0,
+                                              int n, int dh) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const float* t0 = cx.t + (long long)b * cx.sb + (long long)h * cx.sh +
+                    (long long)q0 * cx.sr;
+  const float* t1 = t0 + 8 * cx.sr;
+#pragma unroll
+  for (int j = 0; j < DHP / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    float s0 = 0.f, s1 = 0.f;
+    if (c < dh && q0 < n) {
+      const float2 v = *reinterpret_cast<const float2*>(t0 + c);
+      s0 = v.x * acc[4 * j];
+      s1 = v.y * acc[4 * j + 1];
+    }
+    if (c < dh && q0 + 8 < n) {
+      const float2 v = *reinterpret_cast<const float2*>(t1 + c);
+      s0 += v.x * acc[4 * j + 2];
+      s1 += v.y * acc[4 * j + 3];
+    }
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (g == 0) {
+      red[warp * DHP + c] = s0;
+      red[warp * DHP + c + 1] = s1;
+    }
+  }
+  __syncthreads();
+  if (tid < dh)
+    cx.dmask[((long long)b * tiles + qt) * heads * dh + h * dh + tid] =
+        red[tid] + red[DHP + tid] + red[2 * DHP + tid] + red[3 * DHP + tid];
+}
+
 // ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
 
-template <int DHP>
+// with CTX_SUBLAYER, the four warps' dmask sums besides (below the key
+// side's shared memory at every head dim)
+template <int DHP, int CTX>
 static size_t bwd_q_smem() {
   return 1024 + (size_t)(2 + 2 * BWD_STAGES) * head_tile<DHP>() +
-         (1 + BWD_STAGES) * 8;
+         (1 + BWD_STAGES) * 8 + (CTX == CTX_SUBLAYER ? 4 * DHP * 4 : 0);
 }
 
 template <int DHP>
@@ -81,11 +170,11 @@ static size_t bwd_kv_smem() {
 // pass 0 the online (max, s), pass 1 row and ctx, pass 2 dq.  stats:
 // [B * H * tiles * 64] (max * log2 e, 1 / s, row, 0), every row of every
 // tile.
-template <int DHP, bool CTX, bool TMA>
+template <int DHP, int CTX, bool TMA>
 static __global__ void __launch_bounds__(CORE_THREADS, 3)
     core_bwd_q_wg_kernel(const __grid_constant__ CoreMaps maps, InHeads q,
                          InHeads k, InHeads v, InHeads dout, OutHeads dq,
-                         OutHeads ctx, float4* __restrict__ stats, int n,
+                         CtxOut cx, float4* __restrict__ stats, int n,
                          int dh, float scale, int vec) {
   if (TMA) dh = DHP, vec = 8;
   constexpr int TILE = head_tile<DHP>(), S = BWD_STAGES;
@@ -215,7 +304,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
       if (pass == 1) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) rw[(i >> 1) & 1] += dp[i] * s[i];
-        if (CTX) {
+        if (CTX != CTX_NONE) {
           pack_a(a, s);
           wg_fence();
           tile_acc<DHP>(acc, a, Vs);
@@ -234,10 +323,17 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
             if (t == 0)
               stats[bh * tiles * TILE_ROWS + qi] =
                   make_float4(m[hh], l[hh], rw[hh], 0.f);
-            if (CTX && qi < n)
-              store_acc_row<DHP>(ctx.head(b, h) + qi * ctx.sr, acc, hh, t,
-                                 dh, vec, 1.f);
+            const long long off = (long long)b * cx.sb +
+                                  (long long)h * cx.sh + qi * cx.sr;
+            if (CTX == CTX_BF16 && qi < n)
+              store_acc_row<DHP>(cx.out + off, acc, hh, t, dh, vec, 1.f);
+            if (CTX == CTX_SUBLAYER && qi < n)
+              store_ctxm_row<DHP>(cx, off, h, acc, hh, t, dh);
           }
+          if (CTX == CTX_SUBLAYER)
+            dmask_partial<DHP>(cx, acc, reinterpret_cast<float*>(bar + 1 + S),
+                               b, h, gridDim.y, qt, tiles, tid,
+                               qt * TILE_ROWS + warp * 16 + g, n, dh);
 #pragma unroll
           for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
         }
@@ -402,19 +498,19 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
 // launches
 // ---------------------------------------------------------------------------
 
-template <int DHP, bool CTX, bool TMA>
+template <int DHP, int CTX, bool TMA>
 static cudaError_t run_core_bwd_wg(const CoreMaps& maps, InHeads q, InHeads k,
                                    InHeads v, InHeads dout, OutHeads dq,
-                                   OutHeads dk, OutHeads dv, OutHeads ctx,
+                                   OutHeads dk, OutHeads dv, const CtxOut& cx,
                                    float4* stats, int batch, int heads, int n,
                                    int dh, float scale, int vec,
                                    cudaStream_t s) {
   const dim3 grid((n + TILE_ROWS - 1) / TILE_ROWS, heads, batch);
-  size_t smem = bwd_q_smem<DHP>();
+  size_t smem = bwd_q_smem<DHP, CTX>();
   cudaError_t err = set_smem(core_bwd_q_wg_kernel<DHP, CTX, TMA>, smem);
   if (err != cudaSuccess) return err;
   core_bwd_q_wg_kernel<DHP, CTX, TMA><<<grid, CORE_THREADS, smem, s>>>(
-      maps, q, k, v, dout, dq, ctx, stats, n, dh, scale, vec);
+      maps, q, k, v, dout, dq, cx, stats, n, dh, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   smem = bwd_kv_smem<DHP>();
@@ -425,17 +521,18 @@ static cudaError_t run_core_bwd_wg(const CoreMaps& maps, InHeads q, InHeads k,
   return cudaGetLastError();
 }
 
-// Backward, two launches on the caller's stream: dq, dk, dv and, with CTX,
-// ctx.  stats: [B * heads * ceil(N / 64) * 64] float4 scratch.
-template <int DHP, bool CTX>
+// Backward, two launches on the caller's stream: dq, dk, dv and what CTX
+// asks of ctx (cx; unused with CTX_NONE).  stats: [B * heads *
+// ceil(N / 64) * 64] float4 scratch.
+template <int DHP, int CTX>
 static cudaError_t launch_core_bwd_wg(InHeads q, InHeads k, InHeads v,
                                       InHeads dout, OutHeads dq, OutHeads dk,
-                                      OutHeads dv, OutHeads ctx,
+                                      OutHeads dv, const CtxOut& cx,
                                       float4* stats, int batch, int heads,
                                       int n, int dh, float scale,
                                       cudaStream_t s) {
-  // ctx is all zeros (any copy width) without CTX
-  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv, ctx);
+  // cx is all zeros (any copy width) with CTX_NONE
+  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv, cx.heads());
   if (dh == DHP && vec == 8 && has_strides(q) && has_strides(k) &&
       has_strides(v) && has_strides(dout)) {
     CoreMaps maps;
@@ -446,11 +543,11 @@ static cudaError_t launch_core_bwd_wg(InHeads q, InHeads k, InHeads v,
       err = tile_map(maps.dout, dout, batch, heads, n, dh);
     if (err != cudaSuccess) return err;
     return run_core_bwd_wg<DHP, CTX, true>(maps, q, k, v, dout, dq, dk, dv,
-                                           ctx, stats, batch, heads, n, dh,
+                                           cx, stats, batch, heads, n, dh,
                                            scale, vec, s);
   }
   return run_core_bwd_wg<DHP, CTX, false>(CoreMaps{}, q, k, v, dout, dq, dk,
-                                          dv, ctx, stats, batch, heads, n, dh,
+                                          dv, cx, stats, batch, heads, n, dh,
                                           scale, vec, s);
 }
 

@@ -372,7 +372,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       bias1 = bf2f(p.bias[col + 1]);
     }
     float mask0 = 1.f, mask1 = 1.f;
-    if ((EPI == EPI_GELU_MASK || EPI == EPI_F32_MASK) && p.mask) {
+    if (EPI == EPI_GELU_MASK && p.mask) {
       mask0 = bf2f(p.mask[col]);
       mask1 = bf2f(p.mask[col + 1]);
     }
@@ -385,11 +385,9 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const size_t off = (size_t)row * p.N + col;
         float v0 = acc[mi][ni][2 * hh] + bias0;
         float v1 = acc[mi][ni][2 * hh + 1] + bias1;
-        if (EPI == EPI_F32 || EPI == EPI_F32_MASK) {
+        if (EPI == EPI_F32) {
           *reinterpret_cast<float2*>(out32 + off) = make_float2(v0, v1);
-          if (EPI == EPI_F32) continue;
-          v0 *= mask0;
-          v1 *= mask1;
+          continue;
         } else if (EPI == EPI_SCALE) {
           v0 *= d1;
           v1 *= d1;
@@ -420,6 +418,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
 template <int EPI, bool A_KM = false, bool B_NK = false>
 static inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
+  static_assert(EPI != EPI_F32_MASK, "EPI_F32_MASK runs on gemm_wg.cuh");
   const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM,
                   p.kchunk ? (p.K + p.kchunk - 1) / p.kchunk : 1);
   gemm_kernel<EPI, A_KM, B_NK><<<grid, GEMM_THREADS, 0, stream>>>(p);

@@ -1,15 +1,29 @@
 // A bf16 GEMM for Hopper on TMA and wgmma, with the epilogues of the
-// sublayers' projections:
-//   out[M, N] = epilogue(A[M, K] . B[K, N]),  f32 accumulators,
-// A stored row-major (K-major for wgmma) and B the weight stored (in, out)
-// = [K][N] as the JAX package stores it (MN-major: wgmma's transposed B).
-// K1's two products (attention.cu) run it; K2, K3, A2, A4, A6 and A7 keep
-// the mma.sync GEMM of common.cuh.
+// sublayers' products:
+//   out[M, N] = epilogue(A . B),  f32 accumulators,
+// in three operand layouts (template flags; wgmma reads each as stored):
+//   A_MN = false: A stored [M][K] (K-major);  A_MN = true: A stored [K][M]
+//                 (MN-major, wgmma's transposed A: A^T . B, the weight
+//                 gradients over the B*N rows)
+//   B_K = false:  B stored [K][N] (MN-major: the weight stored (in, out) as
+//                 the JAX package stores it);  B_K = true: B stored [N][K]
+//                 (K-major: . W^T)
+// K1's two products and the five of the sublayer backwards A2 and A7
+// (attention.cu) run it; K2, K3, A4, A6 and A7's forward keep the mma.sync
+// GEMM of common.cuh.
 //
 // Epilogues (a template parameter; common.cuh's Epilogue values, in f32 in
 // the Pallas bodies' order, one rounding to bf16):
-//   EPI_BIAS   out = bf16(acc + bias)                (qkv)
-//   EPI_RESID  out = bf16(resid + (acc + bias))      (the output projection)
+//   EPI_BIAS      out = bf16(acc + bias)              (qkv)
+//   EPI_RESID     out = bf16(resid + (acc + bias))    (the output projection)
+//   EPI_F32       out32 = acc                         (d a_in; split partials)
+//   EPI_F32_MASK  out32 = acc, out = bf16(acc * mask) (do . Wproj^T)
+//   EPI_SCALE     out = bf16(acc * d[1]), or bf16(acc) when d is null
+// Split over K (kchunk > 0, a multiple of 64, EPI_F32 only): CTA z of the
+// grid sums rows [z kchunk, (z + 1) kchunk) of K into its f32 partial at
+// out32 + z M N, for launch_reduce to add in index order after it: the
+// weight gradients, whose few output tiles would otherwise leave most SMs
+// idle over K = B*N.
 //
 // Design: one CTA per 128 x BN output tile, BN = 256 for outputs at least
 // GW_WIDE_N wide and 128 otherwise: two consumer warpgroups (64 rows
@@ -20,12 +34,14 @@
 // another once its products are done, one wgmma group staying in flight):
 // three stages of 32 KB and two CTAs an SM (112 registers a thread) at
 // BN = 128, so that one CTA's epilogue runs while the other's products
-// do; four of 48 KB and one CTA at BN = 256.  TMA zero-fills rows of A
-// past M, columns of B past N and k past K, so any M, and N and K
-// multiples of 8 (16-byte rows), are taken; the stores are masked.  The
-// epilogue stages acc + bias in f32 in the ring's shared memory, then
-// reads the residual and writes the output 16 bytes a thread, a warp's
-// accesses covering whole rows.
+// do; four of 48 KB and one CTA at BN = 256.  The boxes: a K-major operand
+// as rows of 64 k (128 bytes), 128 (A) or BN (B) rows a box; an MN-major
+// one as boxes of [64 k][64 m or n], one per 64 rows or columns of the
+// tile.  TMA zero-fills rows and columns past M, N and K, so any M, and N
+// and K multiples of 8 (16-byte rows), are taken; the stores are masked.
+// The epilogue stages acc (+ bias) in f32 in the ring's shared memory,
+// then reads the residual and writes the outputs 16 bytes a thread (32 for
+// f32), a warp's accesses covering whole rows.
 #pragma once
 
 #include "hopper.cuh"
@@ -53,9 +69,10 @@ struct GemmWg {
 };
 constexpr int GW_BOX = GW_BK * 64 * 2;               // a B box, 8 KB
 
-// Maps: A [M][K] in boxes of 64 k x 128 rows, B [K][N] in boxes of 64 n x
-// 64 k.
-template <int EPI, int BN>
+// Maps: a K-major A in boxes of 64 k x 128 rows, an MN-major A in boxes
+// of 64 m x 64 k; a K-major B in boxes of 64 k x BN rows, an MN-major B in
+// boxes of 64 n x 64 k.
+template <int EPI, int BN, bool A_MN, bool B_K>
 static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
     gemm_wg_kernel(const __grid_constant__ CUtensorMap amap,
                    const __grid_constant__ CUtensorMap bmap, GemmArgs p) {
@@ -66,7 +83,11 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
   uint64_t* empty = full + G::STAGES;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.y * GW_BM, n0 = blockIdx.x * BN;
-  const int ktiles = (p.K + GW_BK - 1) / GW_BK;
+  // this CTA's k-tiles: all of K, or its chunk of the split
+  const int all = (p.K + GW_BK - 1) / GW_BK;
+  const int kt0 = p.kchunk ? blockIdx.z * (p.kchunk / GW_BK) : 0;
+  const int ktiles = p.kchunk ? max(0, min(all - kt0, p.kchunk / GW_BK))
+                              : all;
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < G::STAGES; ++i) {
@@ -82,25 +103,34 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
     // the tile before it there are done
     if (tid == GW_CONSUMERS * 128) {
       for (int kt = 0; kt < ktiles; ++kt) {
-        const int st = kt % G::STAGES;
+        const int st = kt % G::STAGES, k0 = (kt0 + kt) * GW_BK;
         if (kt >= G::STAGES) mbar_wait(empty + st, (kt / G::STAGES - 1) & 1);
         unsigned char* a = ring + st * G::STAGE;
         unsigned char* b = a + G::A_BYTES;
         mbar_expect_tx(full + st, G::STAGE);
-        tma_load_2d(a, &amap, full + st, kt * GW_BK, m0);
+        if (A_MN) {
+          tma_load_2d(a, &amap, full + st, m0, k0);
+          tma_load_2d(a + G::A_BYTES / 2, &amap, full + st, m0 + 64, k0);
+        } else {
+          tma_load_2d(a, &amap, full + st, k0, m0);
+        }
+        if (B_K) {
+          tma_load_2d(b, &bmap, full + st, k0, n0);
+        } else {
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(b + j * GW_BOX, &bmap, full + st, n0 + 64 * j,
-                      kt * GW_BK);
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(b + j * GW_BOX, &bmap, full + st, n0 + 64 * j, k0);
+        }
       }
     }
     return;
   }
 
-  // consumer wg: rows m0 + 64 wg .. + 63.  A's rows are 128-byte lines in
-  // 1024-byte swizzle atoms of 8 (k16 step kk at +32 kk bytes); B's k rows
-  // likewise, its 64-column boxes GW_BOX apart (k16 step kk at +2048 kk
-  // bytes).
+  // consumer wg: rows m0 + 64 wg .. + 63, the first or second half of the
+  // stage's A.  A K-major operand's rows are 128-byte lines in 1024-byte
+  // swizzle atoms of 8 (k16 step kk at +32 kk bytes); an MN-major one's k
+  // rows likewise, its 64-column boxes GW_BOX apart (k16 step kk at
+  // +2048 kk bytes).
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -113,8 +143,13 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < GW_BK / 16; ++kk)
-      wgmma_ss_t<BN>(acc, gmma_desc128(a + 32 * kk, 16, 1024),
-                     gmma_desc128(b + 2048 * kk, GW_BOX, 1024), 1);
+      wgmma_ss_n<BN, A_MN, !B_K>(
+          acc,
+          A_MN ? gmma_desc128(a + 2048 * kk, GW_BOX, 1024)
+               : gmma_desc128(a + 32 * kk, 16, 1024),
+          B_K ? gmma_desc128(b + 32 * kk, 16, 1024)
+              : gmma_desc128(b + 2048 * kk, GW_BOX, 1024),
+          1);
     wg_commit();
     // the previous k-tile's products are done: free its stage
     wg_wait1();
@@ -128,11 +163,12 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
 
   // The epilogue goes through shared memory, so that its global loads and
   // stores are 16 bytes a thread and whole rows a warp: both warpgroups'
-  // products done, the ring (every stage landed and read) holds acc + bias
-  // in f32, [128][BN + 4]; accumulator value 4 j + 2 hh (+ 1) is row
-  // 16 warp + g + 8 hh of the warpgroup's 64, column 8 j + 2 t (+ 1).
+  // products done, the ring (every stage landed and read) holds acc
+  // (+ bias) in f32, [128][BN + 4]; accumulator value 4 j + 2 hh (+ 1) is
+  // row 16 warp + g + 8 hh of the warpgroup's 64, column 8 j + 2 t (+ 1).
   asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
   constexpr int LDS = BN + 4;
+  constexpr bool BIAS = EPI == EPI_BIAS || EPI == EPI_RESID;
   static_assert(GW_BM * LDS * 4 <= G::STAGES * G::STAGE, "staging");
   float* tile = reinterpret_cast<float*>(ring);
   const int g = lane >> 2, t = lane & 3;
@@ -142,15 +178,20 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = 8 * j + 2 * t, col = n0 + c;
-      const bool in = col < p.N;
+      float b0 = 0.f, b1 = 0.f;
+      if (BIAS && col < p.N) {
+        b0 = bf2f(p.bias[col]);
+        b1 = bf2f(p.bias[col + 1]);
+      }
       *reinterpret_cast<float2*>(tile + r * LDS + c) =
-          make_float2(acc[4 * j + 2 * hh] + (in ? bf2f(p.bias[col]) : 0.f),
-                      acc[4 * j + 2 * hh + 1] +
-                          (in ? bf2f(p.bias[col + 1]) : 0.f));
+          make_float2(acc[4 * j + 2 * hh] + b0, acc[4 * j + 2 * hh + 1] + b1);
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
-  // eight columns a thread: out = bf16(v), or bf16(resid + v) in f32
+  float mul = 1.f;
+  if (EPI == EPI_SCALE && p.d != nullptr) mul = p.d[1];
+  float* out32 = p.out32 + (size_t)blockIdx.z * p.M * p.N;
+  // eight columns a thread
   for (int i = tid; i < GW_BM * (BN / 8); i += GW_CONSUMERS * 128) {
     const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
     const int row = m0 + r, col = n0 + c;
@@ -160,7 +201,18 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
         *reinterpret_cast<const float4*>(tile + r * LDS + c + 4);
     float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     const size_t off = (size_t)row * p.N + col;
-    if (EPI == EPI_RESID) {
+    if (EPI == EPI_F32 || EPI == EPI_F32_MASK) {
+      *reinterpret_cast<float4*>(out32 + off) = lo;
+      *reinterpret_cast<float4*>(out32 + off + 4) = hi;
+      if (EPI == EPI_F32) continue;
+      if (p.mask != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] *= bf2f(p.mask[col + e]);
+      }
+    } else if (EPI == EPI_SCALE) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= mul;
+    } else if (EPI == EPI_RESID) {
       const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + off);
       const bf16* re = reinterpret_cast<const bf16*>(&rv);
 #pragma unroll
@@ -172,29 +224,55 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
   }
 }
 
-template <int EPI, int BN>
+template <int EPI, int BN, bool A_MN, bool B_K>
 static cudaError_t run_gemm_wg(const GemmArgs& p, cudaStream_t s) {
   CUtensorMap amap, bmap;
-  cudaError_t err = matrix_map(amap, p.a, p.M, p.K, p.K, GW_BK, GW_BM);
+  cudaError_t err =
+      A_MN ? matrix_map(amap, p.a, p.K, p.M, p.M, 64, GW_BK)
+           : matrix_map(amap, p.a, p.M, p.K, p.K, GW_BK, GW_BM);
   if (err == cudaSuccess)
-    err = matrix_map(bmap, p.w, p.K, p.N, p.N, 64, GW_BK);
+    err = B_K ? matrix_map(bmap, p.w, p.N, p.K, p.K, GW_BK, BN)
+              : matrix_map(bmap, p.w, p.K, p.N, p.N, 64, GW_BK);
   if (err == cudaSuccess)
-    err = smem_once<gemm_wg_kernel<EPI, BN>>(GemmWg<BN>::SMEM);
+    err = smem_once<gemm_wg_kernel<EPI, BN, A_MN, B_K>>(GemmWg<BN>::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + GW_BM - 1) / GW_BM);
-  gemm_wg_kernel<EPI, BN><<<grid, GW_THREADS, GemmWg<BN>::SMEM, s>>>(
-      amap, bmap, p);
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + GW_BM - 1) / GW_BM,
+                  p.kchunk ? (p.K + p.kchunk - 1) / p.kchunk : 1);
+  gemm_wg_kernel<EPI, BN, A_MN, B_K>
+      <<<grid, GW_THREADS, GemmWg<BN>::SMEM, s>>>(amap, bmap, p);
   return cudaGetLastError();
 }
 
-// out = epilogue(a . w) on the caller's stream: p.a [M][K], p.w [K][N]
-// (16-byte aligned, K and N multiples of 8), p.bias [N] and, for
-// EPI_RESID, p.resid [M][N].
-template <int EPI>
+// out = epilogue(op(a) . op(w)) on the caller's stream: p.a [M][K] (or
+// [K][M] with A_MN), p.w [K][N] (or [N][K] with B_K), 16-byte aligned, K
+// and N (and M with A_MN) multiples of 8; p.bias [N] (EPI_BIAS,
+// EPI_RESID), p.resid [M][N] (EPI_RESID), p.mask [N] or null
+// (EPI_F32_MASK), p.d [2] or null (EPI_SCALE).
+template <int EPI, bool A_MN = false, bool B_K = false>
 static cudaError_t launch_gemm_wg(const GemmArgs& p, cudaStream_t s) {
-  static_assert(EPI == EPI_BIAS || EPI == EPI_RESID, "gemm_wg epilogue");
-  return p.N >= GW_WIDE_N ? run_gemm_wg<EPI, 256>(p, s)
-                          : run_gemm_wg<EPI, 128>(p, s);
+  static_assert(EPI == EPI_BIAS || EPI == EPI_RESID || EPI == EPI_F32 ||
+                    EPI == EPI_F32_MASK || EPI == EPI_SCALE,
+                "gemm_wg epilogue");
+  return p.N >= GW_WIDE_N ? run_gemm_wg<EPI, 256, A_MN, B_K>(p, s)
+                          : run_gemm_wg<EPI, 128, A_MN, B_K>(p, s);
+}
+
+// w_grad = bf16(sum over K of op(a) . w) split over K: `splits` CTAs along
+// K per output tile, each writing its f32 partial into part
+// [splits, M, N], then the partials added in index order and rounded once
+// (no float atomics: two launches give the same bits).  p.a [K][M]
+// (MN-major), p.w [K][N]; K is the B*N rows and may be ragged.
+static cudaError_t weight_grad_wg(GemmArgs p, int splits, float* part,
+                                  bf16* out, cudaStream_t s) {
+  const int ktiles = (p.K + GW_BK - 1) / GW_BK;
+  if (splits < 1) splits = 1;
+  const int per = (ktiles + splits - 1) / splits;
+  p.kchunk = (per > 0 ? per : 1) * GW_BK;
+  p.out32 = part;
+  cudaError_t err = launch_gemm_wg<EPI_F32, true, false>(p, s);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(part, (p.K + p.kchunk - 1) / p.kchunk, p.M * p.N,
+                       nullptr, nullptr, out, s);
 }
 
 }  // namespace uvc

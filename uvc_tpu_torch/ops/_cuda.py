@@ -37,9 +37,9 @@ _LIBS = {
         "uvc_layer_attention_ln":
             [_P] * 12 + [_I] * 5 + [_F, _F, _P],
         "uvc_layer_attention_ln_bwd":
-            [_P] * 26 + [_I] * 5 + [_F, _F, _P],
+            [_P] * 25 + [_I] * 7 + [_F, _F, _P],
         "uvc_layer_attention": [_P] * 9 + [_I] * 5 + [_F, _P],
-        "uvc_layer_attention_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
+        "uvc_layer_attention_bwd": [_P] * 19 + [_I] * 7 + [_F, _P],
     }),
     "attention_core": ("attention_core.cu", {
         "uvc_attention": [_P] * 4 + [_LP] + [_I] * 4 + [_F, _P],

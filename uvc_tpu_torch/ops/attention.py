@@ -24,6 +24,8 @@ order.  There is no other route.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from uvc_tpu_torch.ops import _cuda
@@ -34,27 +36,26 @@ from uvc_tpu_torch.ops import _cuda
 _MAX_DM_BWD = 1024
 
 # the attention cores' head dims (instantiated for the padded head dims 16,
-# 32, 48, 64 and 80) and their shared memory.  The staged core of the
-# sublayer kernels A2 and A7 (csrc/attention_core.cuh) holds a 64-row tile
-# (two in the backward) and the head's two whole-sequence operands at a
-# row stride of the padded head dim + 8, plus one float4 per query in the
-# backward, so N is bounded there.
+# 32, 48, 64 and 80) and their shared memory.  The staged core of A7's
+# forward (csrc/attention_core.cuh) holds a 64-row query tile and the
+# head's whole K and V at a row stride of the padded head dim + 8, so N is
+# bounded there.
 _CORE_MAX_HEAD_DIM = 80
 _SMEM_LIMIT = 232448
 
 
-def _core_smem_bytes(n: int, dh: int, backward: bool) -> int:
+def _core_smem_bytes(n: int, dh: int) -> int:
+    """The staged forward core's shared memory at N tokens, head dim dh."""
     np_ = -(-n // 16) * 16
     ld = -(-dh // 16) * 16 + 8
-    if backward:
-        return (128 + 2 * np_) * ld * 2 + np_ * 16
     return (64 + 2 * np_) * ld * 2
 
 
 # the streamed cores of A9 and K1's forward (csrc/attention_core_fwd.cuh)
-# and of A8 and A9's backward (csrc/attention_core_bwd.cuh) stream 64-row
-# tiles through a ring of two stages, so their shared memory does not
-# depend on N: the forward holds its query tile and two stages of K and V;
+# and of A8's, A9's, A2's and A7's backward (csrc/attention_core_bwd.cuh)
+# stream 64-row tiles through a ring of two stages, so their shared memory
+# does not depend on N: the forward holds its query tile and two stages of
+# K and V;
 # the backward's query side two own tiles and two stages of K and V, its
 # key side two own tiles and two stages of Q, dO and a tile's 64 float4
 # statistics; 1024 bytes of alignment and the mbarriers besides
@@ -156,13 +157,12 @@ def _check_cuda(x, named, dtypes):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_attention(x, named, num_heads, backward, max_dm=None,
-                     streamed=False):
+def _check_attention(x, named, num_heads, max_dm=None, streamed=False):
     """The kernels' checks of the attention sublayer's operands; returns
     (B, N, dm, da).  The head dim is ``wqkv``'s width over 3 heads: even,
     at most 80.  N is bounded by the staged core's shared memory at that
-    head dim (A2, A7), and not at all with ``streamed`` (K1, on the
-    streamed forward core)."""
+    head dim (A7's forward), and not at all with ``streamed`` (K1, A2 and
+    A7's backward, on the streamed cores)."""
     bf16, f32 = torch.bfloat16, torch.float32
     _check_cuda(x, named, {k: f32 if k in ("g1", "b1") else bf16
                            for k in named})
@@ -184,8 +184,7 @@ def _check_attention(x, named, num_heads, backward, max_dm=None,
             raise ValueError(f"{name} must be {want[name]} for {num_heads} "
                              f"heads of {dh}, got {tuple(t.shape)}")
     if (dm % 8 or n == 0 or b == 0 or (max_dm and dm > max_dm)
-            or (not streamed
-                and _core_smem_bytes(n, dh, backward) > _SMEM_LIMIT)):
+            or (not streamed and _core_smem_bytes(n, dh) > _SMEM_LIMIT)):
         limit = "" if max_dm is None else f" and <= {max_dm}"
         raise ValueError(f"unsupported x shape {tuple(x.shape)}: dm must be "
                          f"a multiple of 8{limit}, N > 0 and small enough "
@@ -198,8 +197,7 @@ def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     bf16 = torch.bfloat16
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
                  bproj=bproj, mask=mask)
-    b, n, dm, da = _check_attention(x, named, num_heads, backward=False,
-                                    streamed=True)
+    b, n, dm, da = _check_attention(x, named, num_heads, streamed=True)
     lib = _cuda.library("attention")
     rows = b * n
     a_in = torch.empty((rows, dm), dtype=bf16, device=x.device)
@@ -226,10 +224,7 @@ def layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     x: ``[B, N, dm]``; g1/b1: ``[dm]`` f32; wqkv ``[dm, 3*da]`` and wproj
     ``[da, dm]`` stored (in, out); mask: ``[da]`` structural keep mask over
     the ctx columns.  On CUDA: bf16 activations and weights, even head
-    dims up to 80, any N.  Its backward kernel (``layer_attention_ln_bwd``,
-    at ``dm <= 1024``) runs the staged core, whose shared memory bounds N
-    (560 at head dim 80): ``fused_layer_attention_ln`` checks that bound
-    before the forward when it records the gradient.
+    dims up to 80, any N (its backward too).
     ``layer_attention_ln.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return layer_attention_ln_plain(
@@ -338,30 +333,68 @@ def layer_attention_bwd_plain(x, wqkv, bqkv, wproj, bproj, mask, do, *,
         (d_in, *wgrads), (x, wqkv, bqkv, wproj, bproj, mask)))
 
 
-def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
-                                 do, *, num_heads, scale, eps):
+# the weight-gradient products of the sublayer backwards (csrc/gemm_wg.cuh)
+# run 128 x 128 output tiles over 64-row k-tiles of the B*N rows
+_WG_TILE, _WG_KTILE = 128, 64
+
+
+def _weight_grad_splits(m: int, n: int, k: int, sms: int) -> int:
+    """CTAs along K of an ``[m, n]`` weight gradient over ``k`` rows: enough
+    that its output tiles, each split that many ways, cover the card's
+    ``sms`` SMs once (no more than the k-tiles)."""
+    tiles = -(-m // _WG_TILE) * -(-n // _WG_TILE)
+    return max(1, min(-(-k // _WG_KTILE), -(-sms // tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sublayer_bwd_scratch(b, n, dm, da, num_heads, device, sms, ln):
+    """The scratch of the sublayer backward kernels (A2 with ``ln``, else
+    A7), in the order their entry points take it, and the split counts of
+    dWqkv and dWproj.  ``part`` holds, one after the other, dmask's partial
+    sums (one row per 64-row query tile of an image), the split-K partials
+    ``[splits, M, N]`` of either weight gradient and the column sums' (and,
+    with ``ln``, the LayerNorm backward's) per-128-row partials."""
     bf16, f32 = torch.bfloat16, torch.float32
-    named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
-                 bproj=bproj, mask=mask, do=do)
-    b, n, dm, da = _check_attention(x, named, num_heads, backward=True,
-                                    max_dm=_MAX_DM_BWD)
-    lib = _cuda.library("attention")
     rows = b * n
-    parts = -(-rows // 128)
+    splits = (_weight_grad_splits(dm, 3 * da, rows, sms),
+              _weight_grad_splits(da, dm, rows, sms))
 
     def new(*shape, dtype=bf16):
-        return torch.empty(shape, dtype=dtype, device=x.device)
+        return torch.empty(shape, dtype=dtype, device=device)
 
+    part = max(b * -(-n // _TILE_ROWS) * da,
+               splits[0] * dm * 3 * da, splits[1] * da * dm,
+               -(-rows // 128) * max(2 * dm if ln else dm, 3 * da))
     scratch = dict(
-        a_in=new(rows, dm), qkv=new(rows, 3 * da), t=new(rows, da, dtype=f32),
-        dctx=new(rows, da), ctx=new(rows, da, dtype=f32), ctxm=new(rows, da),
-        stats=new(b * num_heads * n, 4, dtype=f32), dqkv=new(rows, 3 * da),
-        d_in=new(rows, dm, dtype=f32),
-        part=new(parts * max(2 * dm, 3 * da), dtype=f32))
-    grads = (torch.empty_like(x), new(dm, dtype=f32), new(dm, dtype=f32),
-             torch.empty_like(wqkv), torch.empty_like(bqkv),
-             torch.empty_like(wproj), torch.empty_like(bproj),
-             torch.empty_like(mask))
+        qkv=new(rows, 3 * da), t=new(rows, da, dtype=f32), dctx=new(rows, da),
+        ctxm=new(rows, da), stats=_core_bwd_stats(b, num_heads, n, device),
+        dqkv=new(rows, 3 * da))
+    if ln:
+        scratch = dict(a_in=new(rows, dm), **scratch,
+                       d_in=new(rows, dm, dtype=f32))
+    scratch["part"] = new(part, dtype=f32)
+    return scratch, splits
+
+
+def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                 do, *, num_heads, scale, eps):
+    f32 = torch.float32
+    named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
+                 bproj=bproj, mask=mask, do=do)
+    b, n, dm, da = _check_attention(x, named, num_heads, max_dm=_MAX_DM_BWD,
+                                    streamed=True)
+    lib = _cuda.library("attention")
+    scratch, splits = _sublayer_bwd_scratch(
+        b, n, dm, da, num_heads, x.device, _sm_count(x.device.index or 0),
+        ln=True)
+    grads = (torch.empty_like(x), x.new_empty(dm, dtype=f32),
+             x.new_empty(dm, dtype=f32), torch.empty_like(wqkv),
+             torch.empty_like(bqkv), torch.empty_like(wproj),
+             torch.empty_like(bproj), torch.empty_like(mask))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.uvc_layer_attention_ln_bwd(
@@ -369,7 +402,7 @@ def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
             bqkv.data_ptr(), wproj.data_ptr(), mask.data_ptr(), do.data_ptr(),
             *(t.data_ptr() for t in scratch.values()),
             *(t.data_ptr() for t in grads), b, n, dm, da, num_heads,
-            float(scale), float(eps), stream)
+            *splits, float(scale), float(eps), stream)
     _cuda.check(err, "layer_attention_ln_bwd")
     layer_attention_ln_bwd.launches += 1
     return grads
@@ -396,18 +429,6 @@ def layer_attention_ln_bwd(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, *,
 layer_attention_ln_bwd.launches = 0
 
 
-def _check_ln_bwd_len(x, wqkv, num_heads):
-    """Refuse, before the forward runs, an N that ``layer_attention_ln``
-    takes and its backward kernel does not: A2's staged core bounds N by
-    its shared memory, while the composed backward of wider models
-    (``dm > 1024``, on A8) takes any N."""
-    n, dm = x.shape[-2:]
-    dh = wqkv.shape[-1] // 3 // num_heads
-    if dm <= _MAX_DM_BWD and _core_smem_bytes(n, dh, True) > _SMEM_LIMIT:
-        raise ValueError(f"N = {n} is too long for the backward kernel at "
-                         f"head dim {dh} (its staged core's shared memory)")
-
-
 class _FusedLayerAttentionLN(torch.autograd.Function):
     """``layer_attention_ln`` forward, ``layer_attention_ln_bwd`` backward,
     or ``layer_attention_ln_bwd_composed`` at ``dm > 1024`` (the port of
@@ -418,8 +439,6 @@ class _FusedLayerAttentionLN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads,
                 scale, eps):
-        if x.device.type == "cuda":
-            _check_ln_bwd_len(x, wqkv, num_heads)
         ctx.kw = dict(num_heads=num_heads, scale=scale, eps=eps)
         ctx.save_for_backward(x, g1, b1, wqkv, bqkv, wproj, bproj, mask)
         return layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
@@ -457,7 +476,7 @@ def _layer_attention_cuda(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads,
                           scale):
     named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
                  mask=mask)
-    b, n, dm, da = _check_attention(x, named, num_heads, backward=False)
+    b, n, dm, da = _check_attention(x, named, num_heads)
     lib = _cuda.library("attention")
     rows = b * n
     qkv = torch.empty((rows, 3 * da), dtype=x.dtype, device=x.device)
@@ -495,21 +514,13 @@ layer_attention.launches = 0
 
 def _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do, *,
                               num_heads, scale):
-    bf16, f32 = torch.bfloat16, torch.float32
     named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
                  mask=mask, do=do)
-    b, n, dm, da = _check_attention(x, named, num_heads, backward=True)
+    b, n, dm, da = _check_attention(x, named, num_heads, streamed=True)
     lib = _cuda.library("attention")
-    rows = b * n
-
-    def new(*shape, dtype=bf16):
-        return torch.empty(shape, dtype=dtype, device=x.device)
-
-    scratch = dict(
-        qkv=new(rows, 3 * da), t=new(rows, da, dtype=f32), dctx=new(rows, da),
-        ctx=new(rows, da, dtype=f32), ctxm=new(rows, da),
-        stats=new(b * num_heads * n, 4, dtype=f32), dqkv=new(rows, 3 * da),
-        part=new(-(-rows // 128) * max(dm, 3 * da), dtype=f32))
+    scratch, splits = _sublayer_bwd_scratch(
+        b, n, dm, da, num_heads, x.device, _sm_count(x.device.index or 0),
+        ln=False)
     grads = tuple(torch.empty_like(t)
                   for t in (x, wqkv, bqkv, wproj, bproj, mask))
     with torch.cuda.device(x.device):
@@ -519,7 +530,7 @@ def _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do, *,
             mask.data_ptr(), do.data_ptr(),
             *(t.data_ptr() for t in scratch.values()),
             *(t.data_ptr() for t in grads), b, n, dm, da, num_heads,
-            float(scale), stream)
+            *splits, float(scale), stream)
     _cuda.check(err, "layer_attention_bwd")
     layer_attention_bwd.launches += 1
     return grads
