@@ -7,6 +7,11 @@
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
                                            # phase 7's performer kernels'
+    python3 chip_smoke_new.py --kernels-only --refused-ok
+                                           # this script in an older
+                                           # checkout: a forward row whose
+                                           # kernel refuses its shape is
+                                           # printed, not failed
 
 Phases, each of which stops the run with a non-zero exit on failure:
 
@@ -24,12 +29,17 @@ Phases, each of which stops the run with a non-zero exit on failure:
    N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591);
    the sublayer kernels K1, A2 and A7 at head dim 12 ("resnext": B=64,
    N=197, dm=384, 32 heads) and 80 ("h80": B=8, N=257, dm=640, 8 heads);
-   A7's backward at "vit_h" too (dm 1280, where a part-gated ViT-H/14
-   runs it); every forward kernel's two launches bit for bit; K1's four
-   launches (LayerNorm, qkv GEMM, attention core, projection GEMM) one by
-   one at "vit_h" and "eval" from a profile, with the GEMMs' rates and the
-   host time of one call, each of the model's blocks (32, 12) with its own
-   weights; with ``--kernels-only``, A2's eighteen and A7's backward's
+   A7's forward and backward at "vit_h" too (dm 1280, where a part-gated
+   ViT-H/14 runs them), and A7's forward at "long" (B=4, N=1025, dm=1280,
+   16 heads of 80: past the 624 keys that its staged core once held);
+   every forward kernel's two launches bit for bit; K1's four launches
+   (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's three
+   (LayerNorm, fc1 GEMM, fc2 GEMM) one by one at "vit_h" and "eval", and
+   A7's forward's three (qkv GEMM, core, projection GEMM) at "dense" and
+   "h80", from a profile, with the GEMMs' rates and the host time of one
+   call, each of the model's blocks (32, 12) with its own weights, and K1
+   and K2 interleaved block by block as a forward pass issues them; with
+   ``--kernels-only``, A2's eighteen and A7's backward's
    fourteen launches one by one at each of their shapes the same way, with
    their five GEMMs' rates (in another tree's sequence, under the kernels'
    own names); the attention
@@ -116,8 +126,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    each, 32 of ``mlp_ln_blend_bwd_composed``) and no fused sublayer
    backward; a gating-warmup step that must leave the gating logits
    unchanged bit for bit; peak memory; a profiled step (with the device
-   time of A8, query and key side, of K1's GEMMs and attention core, and
-   of the LayerNorm passes); one block's composed routes timed alone; and
+   time of A8, query and key side, of K1's, K2's and K3's launches, K1's
+   attention core, K2's fc1 GEMM and the LayerNorm passes); one block's
+   composed routes timed alone; and
    one step at depth 4 and batch 2 on the card against the CPU plain
    path.
 
@@ -310,20 +321,23 @@ def _library_mlp(t, eps, blend):
 
 # (B, N, dm, heads, F, head dim, the kernels held there): the serving
 # paths' shapes; ViT-H/14's stage 1 (K1 in student and teacher, K2 in the
-# teacher, K3 in the student); the sublayers at head dim 12
-# (t2t_vit_14_resnext) and at head dim 80 at a width the fused backward
-# takes ("h80")
+# teacher, K3 in the student; A7's forward in a part-gated student); the
+# sublayers at head dim 12 (t2t_vit_14_resnext) and at head dim 80 at a
+# width the fused backward takes ("h80"); A7's forward at N = 1025
+# ("long")
 ALL_FWD = ("layer_attention_ln", "layer_attention", "mlp_ln", "mlp_ln_blend")
 FWD_SHAPES = {
     "eval": (BATCH, N_KEPT, 384, 6, 1536, 64, ALL_FWD),
     "compact": (BATCH, N_KEPT, 384, 3, 768, 64, ALL_FWD),
     "dense": (BATCH, 197, 384, 6, 1536, 64, ALL_FWD),
-    "vit_h": (32, 257, 1280, 16, 5120, 80,
-              ("layer_attention_ln", "mlp_ln", "mlp_ln_blend")),
+    "vit_h": (32, 257, 1280, 16, 5120, 80, ALL_FWD),
     "resnext": (BATCH, 197, 384, 32, 1152, 12,
                 ("layer_attention_ln", "layer_attention")),
     "h80": (8, 257, 640, 8, 2560, 80, ("layer_attention_ln",
                                        "layer_attention")),
+    # A7's forward past the 624 keys that its staged core once held at
+    # head dim 80
+    "long": (4, 1025, 1280, 16, 5120, 80, ("layer_attention",)),
 }
 # the shapes that the parent commit's kernels take as well (head dim 64):
 # ``--digests`` holds the kernels there only, so that the same script can
@@ -332,7 +346,7 @@ PARENT_SHAPES = ("eval", "compact", "dense", "train", "ragged", "se",
                  "dense_odd", "dense_wide")
 
 
-def kernel_phase(eps, digests_only=False):
+def kernel_phase(eps, digests_only=False, refused_ok=False):
     from uvc_tpu_torch.ops.attention import (layer_attention,
                                              layer_attention_ln,
                                              layer_attention_ln_plain,
@@ -385,7 +399,14 @@ def kernel_phase(eps, digests_only=False):
         }
         for name in kernels:
             kern, plain, library, flops, nbytes = cases[name]
-            out = kern()
+            try:
+                out = kern()
+            except ValueError as e:
+                if not refused_ok:
+                    raise
+                print(f"kernel {name:18s} [{shape:7s}] refused: {e}",
+                      flush=True)
+                continue
             torch.cuda.synchronize()
             check(torch.equal(kern(), out),
                   f"{name} [{shape}]: two launches differ")
@@ -419,11 +440,21 @@ def kernel_phase(eps, digests_only=False):
     return results
 
 
-# K1's launches in their order, and the shapes at which one call is
-# profiled launch by launch, each with the blocks of the model that runs K1
-# there (ViT-H/14: 32, DeiT-Small: 12), whose weights are each block's own
-K1_LAUNCHES = ("layer norm", "qkv GEMM", "core", "projection GEMM")
-K1_PROFILE_SHAPES = {"vit_h": 32, "eval": 12}
+# The forward kernels profiled launch by launch: each kernel's label, its
+# launches in their order, and the shapes at which one call is profiled,
+# each with the blocks of the model that runs the kernel there (ViT-H/14:
+# 32, DeiT-Small: 12, a part-gated DeiT-Small for A7's forward), whose
+# weights are each block's own
+FWD_BREAKDOWNS = {
+    "layer_attention_ln": ("K1", ("layer norm", "qkv GEMM", "core",
+                                  "projection GEMM"),
+                           {"vit_h": 32, "eval": 12}),
+    "mlp_ln": ("K2", ("layer norm", "fc1 GEMM", "fc2 GEMM"),
+               {"vit_h": 32, "eval": 12}),
+    "layer_attention": ("A7 forward", ("qkv GEMM", "core",
+                                       "projection GEMM"),
+                        {"dense": 12, "h80": 12}),
+}
 
 
 def _host_us(calls):
@@ -465,8 +496,9 @@ def launch_breakdown(label, shape, run, card, names=None, gemm_flops=(),
     and then drops an event, most often the window's first), each under
     its label in ``names`` or, where those are not given or the call
     launches another number of kernels (another tree's sequence), under
-    the kernel's own name; the GEMM launches (kernels named ``gemm``) with
-    their rates, ``gemm_flops`` giving their operations in launch order.
+    the kernel's own name; the GEMM launches (kernels named ``gemm``, or
+    cuBLAS's ``nvjet``) with their rates, ``gemm_flops`` giving their
+    operations in launch order.
     Prints one line and returns the times in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -493,7 +525,8 @@ def launch_breakdown(label, shape, run, card, names=None, gemm_flops=(),
           / calls / 1e3 for i in range(per)]
     kernels = [_kernel_name(evs[i]) for i in range(per)]
     labels = list(names) if names and len(names) == per else kernels
-    gemms = [i for i, k in enumerate(kernels) if "gemm" in k]
+    gemms = [i for i, k in enumerate(kernels)
+             if "gemm" in k or "nvjet" in k]
     rates = {i: f / ms[i] / 1e9 for i, f in zip(gemms, gemm_flops)}
     print(f"{label} launches [{shape}, one call]: " + ", ".join(
         f"{lab} {t:.4f} ms"
@@ -503,63 +536,142 @@ def launch_breakdown(label, shape, run, card, names=None, gemm_flops=(),
     return ms
 
 
-def k1_breakdown(eps, card, calls=10):
-    """K1's four launches one by one (``launch_breakdown``), and the host
-    time of one call, issued as a model step issues them: each block with
-    its own weights, two calls a block (student and teacher, or forward
-    and a second pass), so that no tensor map of a weight is met again
-    before every other block's has been; and, beside it, the same number
-    of calls on one block's weights.  The host time is taken of the
-    wrapper (checks, allocation, the library call) and of the library's
-    entry point alone on fixed scratch (the tensor maps and the four
-    launches), whose runs spread far less."""
+def _fwd_calls(name, t, eps, stream):
+    """One forward kernel's calls at the inputs ``t``: (the names of the
+    weights that each block owns, a maker of wrapper calls and one of calls
+    of the library's entry point alone on fixed scratch, each taking the
+    block's weights, and the operations of the kernel's GEMMs in launch
+    order)."""
     from uvc_tpu_torch.ops import _cuda
-    from uvc_tpu_torch.ops.attention import layer_attention_ln
+    from uvc_tpu_torch.ops.attention import layer_attention, layer_attention_ln
+    from uvc_tpu_torch.ops.mlp import mlp_ln
 
-    lib = _cuda.library("attention")
-    stream = torch.cuda.current_stream().cuda_stream
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    for shape, blocks in K1_PROFILE_SHAPES.items():
-        b, n, dm, heads, f, dh, _ = FWD_SHAPES[shape]
-        t = _inputs(gen, b, n, dm, heads, f, dh)
-        da, rows = heads * dh, b * n
-        kw = dict(num_heads=heads, scale=dh ** -0.5, eps=eps)
-        names = ("wqkv", "bqkv", "wproj", "bproj")
-        scratch = [torch.empty(rows, w, dtype=torch.bfloat16, device="cuda")
-                   for w in (dm, 3 * da, da)] + [torch.empty_like(t["x"])]
+    x = t["x"]
+    b, n, dm = x.shape
+    heads, dh = t["heads"], t["dh"]
+    da, rows, f = heads * dh, b * n, t["w1"].shape[1]
+    scale = dh ** -0.5
 
-        def k1(w):
-            return lambda: layer_attention_ln(
-                t["x"], t["g"], t["b"], w["wqkv"], w["bqkv"], w["wproj"],
-                w["bproj"], t["amask"], **kw)
+    def empty(*widths):
+        return [torch.empty(rows, w, dtype=torch.bfloat16, device="cuda")
+                for w in widths] + [torch.empty_like(x)]
+
+    def ptrs(*ts):
+        return [a.data_ptr() for a in ts]
+
+    if name == "mlp_ln":
+        lib, scratch = _cuda.library("mlp"), empty(dm, f)
+        keys = ("w1", "b1", "w2", "b2")
+
+        def call(w):
+            return lambda: mlp_ln(x, t["g"], t["b"], w["w1"], w["b1"],
+                                  w["w2"], w["b2"], t["fmask"], eps=eps)
 
         def entry(w):
-            args = (*(a.data_ptr() for a in (
-                t["x"], t["g"], t["b"], w["wqkv"], w["bqkv"], w["wproj"],
-                w["bproj"], t["amask"], *scratch)), b, n, dm, da, heads,
-                float(dh ** -0.5), float(eps), stream)
-            return lambda: lib.uvc_layer_attention_ln(*args)
+            args = (*ptrs(x, t["g"], t["b"], w["w1"], w["b1"], w["w2"],
+                          w["b2"], t["fmask"], *scratch), rows, dm, f,
+                    float(eps), stream)
+            return lambda: lib.uvc_mlp_ln(*args)
+        return keys, call, entry, (2 * rows * dm * f, 2 * rows * f * dm)
 
-        launch_breakdown("K1", shape, k1(t), card, K1_LAUNCHES,
-                         (2 * rows * dm * 3 * da, 2 * rows * da * dm), calls)
-        own = [{k: t[k].clone() for k in names} for _ in range(blocks)]
+    lib = _cuda.library("attention")
+    keys = ("wqkv", "bqkv", "wproj", "bproj")
+    flops = (2 * rows * dm * 3 * da, 2 * rows * da * dm)
+    if name == "layer_attention_ln":
+        scratch = empty(dm, 3 * da, da)
+
+        def call(w):
+            return lambda: layer_attention_ln(
+                x, t["g"], t["b"], w["wqkv"], w["bqkv"], w["wproj"],
+                w["bproj"], t["amask"], num_heads=heads, scale=scale,
+                eps=eps)
+
+        def entry(w):
+            args = (*ptrs(x, t["g"], t["b"], w["wqkv"], w["bqkv"],
+                          w["wproj"], w["bproj"], t["amask"], *scratch),
+                    b, n, dm, da, heads, float(scale), float(eps), stream)
+            return lambda: lib.uvc_layer_attention_ln(*args)
+        return keys, call, entry, flops
+
+    scratch = empty(3 * da, da)
+
+    def call(w):
+        return lambda: layer_attention(
+            x, w["wqkv"], w["bqkv"], w["wproj"], w["bproj"], t["amask"],
+            num_heads=heads, scale=scale)
+
+    def entry(w):
+        args = (*ptrs(x, w["wqkv"], w["bqkv"], w["wproj"], w["bproj"],
+                      t["amask"], *scratch), b, n, dm, da, heads,
+                float(scale), stream)
+        return lambda: lib.uvc_layer_attention(*args)
+    return keys, call, entry, flops
+
+
+def _print_host(what, shape, calls, host, card):
+    print(f"{what} host time of one call [{shape}, {calls} calls]: "
+          + ", ".join(f"{way} {med:.1f} us (runs "
+                      + ", ".join(f"{h:.1f}" for h in runs) + ")"
+                      for way, (med, runs) in host.items())
+          + f" [{card}]", flush=True)
+
+
+def forward_breakdowns(eps, card, calls=10):
+    """K1's, K2's and A7's forward launches one by one
+    (``launch_breakdown``) at the shapes of FWD_BREAKDOWNS, with their
+    GEMMs' rates, and the host time of one call issued as a model step
+    issues them: each block with its own weights, two calls a block
+    (student and teacher, or forward and a second pass), so that no tensor
+    map of a weight is met again before every other block's has been;
+    beside it, the same number of calls on one block's weights; and at the
+    shapes where K1 and K2 both run, the two interleaved block by block as
+    a forward pass issues them; and the yardstick of A7's forward, the
+    library composition, launch by launch beside it.  The host time is
+    taken of the wrapper (checks, allocation, the library call) and of the
+    library's entry point alone on fixed scratch (the tensor maps and the
+    launches), whose runs spread far less."""
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    made = {}
+    for name, (label, launches, shapes) in FWD_BREAKDOWNS.items():
+        for shape, blocks in shapes.items():
+            b, n, dm, heads, f, dh, _ = FWD_SHAPES[shape]
+            t = _inputs(gen, b, n, dm, heads, f, dh)
+            keys, call, entry, flops = _fwd_calls(name, t, eps, stream)
+            launch_breakdown(label, shape, call(t), card, launches, flops,
+                             calls)
+            if name == "layer_attention":
+                # the yardstick's launches: what the library does faster
+                launch_breakdown(f"{label}'s library", shape,
+                                 _library_sublayer(t), card, None, flops,
+                                 calls)
+            own = [{k: t[k].clone() for k in keys} for _ in range(blocks)]
+            for what, ws in ((f"{blocks} blocks' own weights", own),
+                             ("one block's weights", [t] * blocks)):
+                host = {}
+                for way, make in (("wrapper", call), ("entry", entry)):
+                    cs = [make(w) for w in ws]
+                    warm = [c() for c in cs]
+                    check(way == "wrapper" or not any(warm),
+                          f"{label} [{shape}]: the entry point returned "
+                          f"{warm}")
+                    host[way] = _host_us(cs * 2)
+                _print_host(f"{label} ({what})", shape, 2 * blocks, host,
+                            card)
+            made[name, shape] = (call, entry, own)
+    # K1 and K2 block by block, as a forward pass issues them, each on its
+    # library's cache of tensor maps
+    for shape, blocks in FWD_BREAKDOWNS["mlp_ln"][2].items():
+        k1, k2 = made["layer_attention_ln", shape], made["mlp_ln", shape]
         host = {}
-        for label, ws in (("own", own), ("one", [t] * blocks)):
-            for way, make in (("wrapper", k1), ("entry", entry)):
-                made = [make(w) for w in ws]
-                warm = [c() for c in made]
-                check(way == "wrapper" or not any(warm),
-                      f"K1 [{shape}]: the entry point returned {warm}")
-                host[label, way] = _host_us(made * 2)
-        del own
-        for label, what in (("own", f"{blocks} blocks' own weights"),
-                            ("one", "one block's weights")):
-            print(f"K1 host time of one call [{shape}, {2 * blocks} calls, "
-                  f"{what}]: " + ", ".join(
-                      f"{way} {host[label, way][0]:.1f} us (runs "
-                      + ", ".join(f"{h:.1f}" for h in host[label, way][1])
-                      + ")" for way in ("wrapper", "entry"))
-                  + f" [{card}]", flush=True)
+        for i, way in enumerate(("wrapper", "entry")):
+            cs = [c for w1, w2 in zip(k1[2], k2[2])
+                  for c in (k1[i](w1), k2[i](w2))]
+            for c in cs:
+                c()
+            host[way] = _host_us(cs * 2)
+        _print_host(f"K1 + K2 interleaved ({blocks} blocks' own weights)",
+                    shape, 4 * blocks, host, card)
 
 
 # A2's and A7's backward launches in their order: sublayer_bwd's thirteen
@@ -934,7 +1046,11 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
     bound).  Only events on the device are summed: a CPU range (an
     autograd Function, an aten op) is charged the time of the kernels
     launched inside it, which would count them twice.  ``watch``: {label:
-    kernel-name substring}, each label's device time summed and printed."""
+    kernel-name substring, or a tuple of them}, each label's device time
+    summed and printed: of every kernel whose name holds the substring, or
+    of every run of consecutive kernels (in launch order) whose names hold
+    the tuple's substrings in turn, one kernel's launches told apart from
+    another's that share some of their kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -948,10 +1064,13 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
-                t, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.device_time_total, n + 1)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and e.device_time_total > 0),
+                     key=lambda e: e.time_range.start)
+        for e in evs:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.device_time_total, n + 1)
         rows = sorted(((t, n, key) for key, (t, n) in by_name.items()),
                       reverse=True)
         busy = sum(r[0] for r in rows)
@@ -969,10 +1088,22 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
             print(f"  {100 * t / busy:5.1f}%  {t:9.1f} us  x{n:<3d} "
                   f"{key[:110]}")
         for what, part in (watch or {}).items():
-            hit = [r for r in rows if part in r[2]]
-            t = sum(r[0] for r in hit)
-            print(f"  {what}: {t / 1e3:.3f} ms in {sum(r[1] for r in hit)} "
-                  f"events ({100 * t / busy:.1f}% of the device time)")
+            if isinstance(part, str):
+                hit = [r for r in rows if part in r[2]]
+                t, count = sum(r[0] for r in hit), sum(r[1] for r in hit)
+            else:
+                t, count, i = 0.0, 0, 0
+                while i + len(part) <= len(evs):
+                    run = evs[i:i + len(part)]
+                    if all(p in e.name for p, e in zip(part, run)):
+                        t += sum(e.device_time_total for e in run)
+                        count += 1
+                        i += len(part)
+                    else:
+                        i += 1
+            print(f"  {what}: {t / 1e3:.3f} ms in {count} "
+                  f"{'events' if isinstance(part, str) else 'calls'} "
+                  f"({100 * t / busy:.1f}% of the device time)")
 
 
 # ---------------------------------------------------------------------------
@@ -2126,8 +2257,16 @@ def vit_h_phase(card):
         watch={"A8 (attention_bwd_ctx)": "core_bwd_",
                "A8 query side": "core_bwd_q_wg_kernel",
                "A8 key side": "core_bwd_kv_wg_kernel",
-               "K1's GEMMs (gemm_wg)": "gemm_wg_kernel",
+               "K1 (LayerNorm, qkv GEMM, core, projection GEMM)": (
+                   "layer_norm_kernel", "gemm_wg_kernel<0,",
+                   "core_fwd_wg_kernel", "gemm_wg_kernel<2,"),
                "K1's attention core (core_fwd_wg)": "core_fwd_wg_kernel",
+               "K2 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
+                   "layer_norm_kernel", "gemm_wg_kernel<1,",
+                   "gemm_wg_kernel<2,"),
+               "K2's fc1 GEMM (gemm_wg<EPI_GELU_MASK>)": "gemm_wg_kernel<1,",
+               "K3 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
+                   "layer_norm_kernel", "gemm_kernel<1,", "gemm_kernel<3,"),
                "LayerNorm (K1 64, K2 32, K3 32 a step)":
                    "layer_norm_kernel"})
     composed_route_times(card, cfg)
@@ -2198,6 +2337,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (the kernels)")
+    ap.add_argument("--refused-ok", action="store_true",
+                    help="print a phase-3 forward row whose kernel refuses "
+                    "the shape instead of failing: for running this script "
+                    "in a checkout whose kernels predate the shape")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -2223,9 +2366,9 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     eps = get_config("deit_small_patch16_224").layer_norm_eps
-    res = kernel_phase(eps, args.digests)
+    res = kernel_phase(eps, args.digests, args.refused_ok)
     if not args.digests:
-        k1_breakdown(eps, card)
+        forward_breakdowns(eps, card)
     res.update(backward_kernel_phase(eps, args.digests))
     if args.kernels_only:
         # not in the whole run: profiling A7's backward at "vit_h" here

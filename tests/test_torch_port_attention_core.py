@@ -170,8 +170,9 @@ def test_kernel_checks_refuse_what_the_kernels_cannot_take():
     """bf16 only, one shape for all operands, head dims 1..80: anything
     else is refused before a launch.  Forward and backward stream tiles,
     so their shared memory does not grow with N: an N past the 624 that
-    the staged forward core held at head dim 80 (which A7's forward still
-    runs), and past the old backward's 560, is taken both ways."""
+    the staged forward core once held at head dim 80, and past the old
+    backward's 560, is taken both ways; the forward's shared memory at
+    head dim 80 fits a CTA's."""
     ok = dict(q=_fake(2, 8, 197, 41), k=_fake(2, 8, 197, 41),
               v=_fake(2, 8, 197, 41))
     assert tatt._check_core(ok, backward=False) == (2, 8, 197, 41)
@@ -187,9 +188,7 @@ def test_kernel_checks_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="head dims 1..80"):
         q = _fake(2, 2, 16, 96)
         tatt._check_core(dict(q=q, k=q, v=q), False)
-    # the staged core's limit at head dim 80: N = 624 fits, 625 does not
-    assert tatt._core_smem_bytes(624, 80) <= tatt._SMEM_LIMIT
-    assert tatt._core_smem_bytes(625, 80) > tatt._SMEM_LIMIT
+    assert tatt._core_fwd_smem_bytes(80) <= tatt._SMEM_LIMIT
     for n in (600, 625, 4096):
         q = _fake(1, 1, n, 80)
         assert tatt._check_core(dict(q=q, k=q, v=q), False) == \

@@ -12,12 +12,12 @@ It is held against ``attention_plain`` (the Pallas order: the final max
 first) and ``_call_fwd(..., interpret=True)`` in bf16: the two orders
 differ in f32 only, which now and then flips a bf16 rounding of p or of
 the output -> 1e-2 relative Frobenius; and against ``attention_plain`` in
-f32, where every rounding is the identity -> 1e-5.  K1's sublayer with
-this core in place of ``attention_plain`` is held against
-``_call_layer_ln_fwd(..., interpret=True)`` at 1e-2.  The wrappers'
-checks: A9's forward and K1 take any N, with the gradient recorded too
-(A2, K1's backward, streams its core as well), and A7's forward keeps the
-staged core's limit.
+f32, where every rounding is the identity -> 1e-5.  K1's and A7's
+sublayers with this core in place of ``attention_plain`` are held against
+``_call_layer_ln_fwd`` / ``_fused_layer(..., interpret=True)`` at 1e-2.
+The wrappers' checks: A9's forward, K1 and A7's forward all run this core
+and take any N, K1 with the gradient recorded too (A2, K1's backward,
+streams its core as well).
 """
 
 import math
@@ -140,15 +140,24 @@ def test_tiled_order_rescales_and_masks():
     assert torch.equal(got, want)
 
 
-# (B, N, dm, heads, dh): K1 at the resnext head dim 12 and at ViT-H's 80,
-# N over two and three key tiles
-SUBLAYER_CASES = [(2, 70, 48, 4, 12), (1, 130, 160, 2, 80)]
+# (kernel, B, N, dm, heads, dh): K1 and A7's forward at the resnext head
+# dim 12 and at ViT-H's 80, N over two and three key tiles; A7 also at
+# N = 700 (past the 624 keys that its staged core once held at head dim
+# 80) and at a compacted width, da = 32 < dm = 64
+SUBLAYER_CASES = [
+    pytest.param("k1", 2, 70, 48, 4, 12, id="2-70-48-4-12"),
+    pytest.param("k1", 1, 130, 160, 2, 80, id="1-130-160-2-80"),
+    pytest.param("a7", 2, 70, 48, 4, 12, id="a7-dh12"),
+    pytest.param("a7", 1, 130, 160, 2, 80, id="a7-dh80"),
+    pytest.param("a7", 1, 700, 160, 2, 80, id="a7-n700"),
+    pytest.param("a7", 2, 45, 64, 2, 16, id="a7-compact")]
 LN_ORDER = ("x", "g1", "b1", "wqkv", "bqkv", "wproj", "bproj", "mask")
 
 
 def sublayer_args(seed, b, n, dm, da):
     """(torch bf16 tensors, JAX bf16 arrays) of K1's operands, the
-    LayerNorm parameters in f32; x grows along N so that the keys do."""
+    LayerNorm parameters in f32 (A7 takes them without g1 and b1); x grows
+    along N so that the keys do."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     mask = (rng.random(da) > 0.3).astype(f32)
@@ -171,13 +180,15 @@ def sublayer_args(seed, b, n, dm, da):
     return ts, js
 
 
-@pytest.mark.parametrize("b,n,dm,heads,dh", SUBLAYER_CASES)
+@pytest.mark.parametrize("kind,b,n,dm,heads,dh", SUBLAYER_CASES)
 def test_sublayer_with_the_tiled_core_matches_pallas_bf16(
-        monkeypatch, b, n, dm, heads, dh):
-    """K1 in ``_sublayer_plain``'s order with the tiled core in place of
-    ``attention_plain`` (the kernel's order end to end but for the GEMMs'
-    summation order) against ``_call_layer_ln_fwd(..., interpret=True)``
-    on rows padded to 16."""
+        monkeypatch, kind, b, n, dm, heads, dh):
+    """K1 (``layer_attention_ln_plain``) and A7's forward
+    (``layer_attention_plain``) in ``_sublayer_plain``'s order with the
+    tiled core in place of ``attention_plain`` (the kernels' order end to
+    end but for the GEMMs' summation order) against
+    ``_call_layer_ln_fwd`` / ``_fused_layer(..., interpret=True)`` on rows
+    padded to 16."""
     calls = []
 
     def tiled(q, k, v, scale):
@@ -187,13 +198,19 @@ def test_sublayer_with_the_tiled_core_matches_pallas_bf16(
     monkeypatch.setattr(tatt, "attention_plain", tiled)
     ts, js = sublayer_args(60 + dh, b, n, dm, heads * dh)
     scale = dh ** -0.5
-    got = tatt.layer_attention_ln_plain(*ts, num_heads=heads, scale=scale,
-                                        eps=EPS)
-    assert calls == [(b, heads, n, dh)]
     np_rows = -(-n // 16) * 16
     x = jnp.pad(js[0], ((0, 0), (0, np_rows - n), (0, 0)))
-    ref = jattn._call_layer_ln_fwd(x, *js[1:], scale, n, heads, EPS,
-                                   interpret=True)[:, :n]
+    if kind == "k1":
+        got = tatt.layer_attention_ln_plain(*ts, num_heads=heads,
+                                            scale=scale, eps=EPS)
+        ref = jattn._call_layer_ln_fwd(x, *js[1:], scale, n, heads, EPS,
+                                       interpret=True)[:, :n]
+    else:
+        got = tatt.layer_attention_plain(ts[0], *ts[3:], num_heads=heads,
+                                         scale=scale)
+        ref = jattn._fused_layer(x, *js[3:], scale, n, heads,
+                                 True)[:, :n]
+    assert calls == [(b, heads, n, dh)]
     assert got.dtype == torch.bfloat16 and got.shape == (b, n, dm)
     err = rel_fro(np_(got), np_(ref))
     assert err <= BF16_TOL, f"relative Frobenius {err:.2e}"
@@ -227,36 +244,32 @@ def _sublayer_named(b, n, dm, heads, dh):
 
 
 def test_streamed_forward_shared_memory_does_not_depend_on_n():
-    """The streamed forward holds a query tile and two stages of K and V
-    tiles: 52248 bytes at head dim 80 whatever N is, so four CTAs fit an
-    SM's 228 KB (1 KB reserved per CTA); the staged core of A7's forward
-    grows with N."""
+    """The streamed forward, the one forward core of A9, K1 and A7, holds
+    a query tile and two stages of K and V tiles: 52248 bytes at head dim
+    80 whatever N is, so four CTAs fit an SM's 228 KB (1 KB reserved per
+    CTA)."""
     assert tatt._core_fwd_smem_bytes(80) == 52248
     assert 4 * (tatt._core_fwd_smem_bytes(80) + 1024) <= 228 * 1024
     assert all(tatt._core_fwd_smem_bytes(dh) <= 52248 for dh in range(1, 81))
-    assert tatt._core_smem_bytes(624, 80) <= tatt._SMEM_LIMIT
-    assert tatt._core_smem_bytes(625, 80) > tatt._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n", [625, 700, 4096])
 def test_checks_take_n_past_the_staged_limit_for_a9_and_k1(n):
-    """A9's forward and K1 take N past 624 at head dim 80; A7's forward,
-    on the staged core, refuses it."""
+    """A9's forward, K1 and A7's forward take N past the 624 that the
+    staged core once held at head dim 80."""
     q = _fake(1, 2, n, 80)
     assert tatt._check_core(dict(q=q, k=q, v=q), backward=False) == \
         (1, 2, n, 80)
     named = _sublayer_named(1, n, 160, 2, 80)
-    assert tatt._check_attention(named["x"], named, 2,
-                                 streamed=True) == (1, n, 160, 160)
+    assert tatt._check_attention(named["x"], named, 2) == (1, n, 160, 160)
     bare = {k: t for k, t in named.items() if k not in ("g1", "b1")}
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt._check_attention(bare["x"], bare, 2)
+    assert tatt._check_attention(bare["x"], bare, 2) == (1, n, 160, 160)
 
 
 def test_wrappers_send_long_sequences_to_the_kernels(monkeypatch):
-    """At N = 700 and head dim 80, ``attention`` and ``layer_attention_ln``
-    pass their checks and ask for their libraries (none here: no card, no
-    nvcc), where ``layer_attention`` refuses before asking."""
+    """At N = 700 and head dim 80, ``attention``, ``layer_attention_ln``
+    and ``layer_attention`` pass their checks and ask for their libraries
+    (none here: no card, no nvcc)."""
     asked = []
 
     def no_library(name):
@@ -273,11 +286,12 @@ def test_wrappers_send_long_sequences_to_the_kernels(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA kernels"):
         tatt.layer_attention_ln(*named.values(), eps=EPS, **kw)
     bare = [t for k, t in named.items() if k not in ("g1", "b1")]
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(RuntimeError, match="no CUDA kernels"):
         tatt.layer_attention(*bare, **kw)
-    assert asked == ["attention_core", "attention"]
+    assert asked == ["attention_core", "attention", "attention"]
     assert tops.launch_counts()["attention"] == 0
     assert tops.launch_counts()["layer_attention_ln"] == 0
+    assert tops.launch_counts()["layer_attention"] == 0
 
 
 @pytest.mark.parametrize("n", [561, 700, 4096])

@@ -240,9 +240,10 @@ def test_bwd_ctx_checks_take_the_backward_limits():
     backward streaming 64-row tiles through a two-stage ring, any N: its
     shared memory per CTA is at most 64536 bytes at dh 80 whatever N is
     (three CTAs fit an SM).  The sublayer backwards run the same streamed
-    core and take N = 800 at head dim 80 too, where the staged core that A7's
-    forward keeps cannot hold it.  A9's forward streams its tiles too and
-    takes N = 800 as well."""
+    core and take N = 800 at head dim 80 too, past the 624 keys that the
+    staged forward core once held; so does A7's forward, now on the
+    streamed forward core.  A9's forward streams its tiles too and takes
+    N = 800 as well."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -256,9 +257,9 @@ def test_bwd_ctx_checks_take_the_backward_limits():
     x = meta(1, 800, 160)
     sub = dict(x=x, wqkv=meta(160, 480), bqkv=meta(480), wproj=meta(160, 160),
                bproj=meta(160), mask=meta(160), do=x)
-    assert tatt._check_attention(x, sub, 2, streamed=True) == (1, 800, 160,
-                                                               160)
-    assert tatt._core_smem_bytes(800, 80) > tatt._SMEM_LIMIT
+    assert tatt._check_attention(x, sub, 2) == (1, 800, 160, 160)
+    sub.pop("do")
+    assert tatt._check_attention(x, sub, 2) == (1, 800, 160, 160)
     assert tatt._check_core({k: named[k] for k in ("q", "k", "v")},
                             backward=False) == (1, 1, 800, 80)
 

@@ -366,11 +366,11 @@ def test_backward_checks_refuse_what_the_kernels_cannot_take():
 
     x, named = attention_named(13, _MAX_DM_BWD + 8)
     with pytest.raises(ValueError, match="unsupported x shape"):
-        _check_attention(x, named, 1, max_dm=_MAX_DM_BWD, streamed=True)
+        _check_attention(x, named, 1, max_dm=_MAX_DM_BWD)
     for n in (704, 705):
         x, named = attention_named(n, 64)
-        assert _check_attention(x, named, 1, max_dm=_MAX_DM_BWD,
-                                streamed=True) == (1, n, 64, 64)
+        assert _check_attention(x, named, 1,
+                                max_dm=_MAX_DM_BWD) == (1, n, 64, 64)
     dm = _MAX_DM_BWD + 8
     x = meta(1, 13, dm)
     named = dict(g2=meta(dm, dtype=f32), b2=meta(dm, dtype=f32),

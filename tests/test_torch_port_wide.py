@@ -294,8 +294,7 @@ def test_sublayer_checks_take_even_head_dims_up_to_80(heads, dh, ok):
                  bqkv=_meta(3 * da), wproj=_meta(da, dm), bproj=_meta(dm),
                  mask=_meta(da))
     if ok:
-        assert tatt._check_attention(x, named, heads, streamed=True) == (
-            2, 13, dm, da)
+        assert tatt._check_attention(x, named, heads) == (2, 13, dm, da)
     else:
         with pytest.raises(ValueError, match="attention width"):
             tatt._check_attention(x, named, heads)

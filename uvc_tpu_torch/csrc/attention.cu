@@ -1,36 +1,40 @@
 // LN-fused attention sublayer, forward (kernel K1):
 //   out = x + (mask * MHA(LN1(x) @ Wqkv + bqkv)) @ Wproj + bproj
+// and the same sublayer without LayerNorm and residual (A7's forward):
+//   out = (mask * MHA(x @ Wqkv + bqkv)) @ Wproj + bproj
 //
 // Replaces uvc_tpu/ops/attention.py::_layer_ln_fwd_kernel (called through
-// _call_layer_ln_fwd).  The backward, uvc_layer_attention_ln_bwd, replaces
-// _layer_ln_bwd_kernel, and uvc_layer_attention / uvc_layer_attention_bwd
-// replace _layer_fwd_kernel / _layer_bwd_kernel (the same sublayer without
-// LayerNorm and residual); their notes (bound, design) are at their entry
-// points below.
+// _call_layer_ln_fwd) and ::_layer_fwd_kernel (through _fused_layer).  The
+// backwards, uvc_layer_attention_ln_bwd and uvc_layer_attention_bwd,
+// replace _layer_ln_bwd_kernel and _layer_bwd_kernel; their notes (bound,
+// design) are at their entry points below.
 //
-// What bounds it on the H100: the tensor cores.  At ViT-H/14's stage-1
-// shape (B = 32, N = 257, dm = da = 1280, 16 heads of 80) it does 118.6
-// GFLOP (qkv 80.8, the attention core 10.8, the projection 27.0) against
-// ~45 MB of inputs, weights and output: 119.9 us at 989 TFLOP/s, 13 us at
-// 3.35 TB/s.  At DeiT-Small's (dm = da = 384, N = 197, 6 heads of 64,
-// B = 64) ~18.7 GFLOP against ~20 MB: ~19 us.
+// What bounds the forward on the H100: the tensor cores.  At ViT-H/14's
+// stage-1 shape (B = 32, N = 257, dm = da = 1280, 16 heads of 80) it does
+// 118.6 GFLOP (qkv 80.8, the attention core 10.8, the projection 27.0)
+// against ~45 MB of inputs, weights and output: 119.9 us at 989 TFLOP/s,
+// 13 us at 3.35 TB/s.  At DeiT-Small's (dm = da = 384, N = 197, 6 heads of
+// 64, B = 64) ~18.7 GFLOP against ~20 MB: ~19 us.
 //
-// Design: four launches on the caller's stream.
-//   1. layer_norm_kernel (common.cuh): a_in = bf16(LN1(x)) in f32 ->
-//      [B*N, dm].
-//   2. gemm_wg_kernel<EPI_BIAS> (gemm_wg.cuh, TMA and wgmma):
+// Design: one sequence of launches on the caller's stream for both
+// (layer_ln_fwd below), K1 with a LayerNorm pass in front of it.
+//   0. (K1) layer_norm_kernel (common.cuh): a_in = bf16(LN1(x)) in f32 ->
+//      [B*N, dm]; A7 takes x itself as a_in.
+//   1. gemm_wg_kernel<EPI_BIAS> (gemm_wg.cuh, TMA and wgmma):
 //      qkv = bf16(a_in @ Wqkv + bqkv) -> [B*N, 3*da].
-//   3. core_fwd_wg_kernel<DHP, MASK> (attention_core_fwd.cuh, the streamed
+//   2. core_fwd_wg_kernel<DHP, MASK> (attention_core_fwd.cuh, the streamed
 //      core that A9's forward runs too, at the head dim padded to 16, 32,
 //      48, 64 or 80): one CTA per (64-query tile, head, image), q, k and v
 //      read as head views of the packed qkv rows (TMA at head dims 64 and
 //      80), K and V streamed in 64-row tiles, the softmax online in f32,
 //      the normalisation after P @ V as the Pallas body does;
 //      ctx = bf16(bf16(ctx) * mask) -> ctx [B*N, da], head-major.
-//   4. gemm_wg_kernel<EPI_RESID>: out = bf16(x + (ctx @ Wproj + bproj)).
+//   3. gemm_wg_kernel<EPI_RESID> (K1): out = bf16(x + (ctx @ Wproj +
+//      bproj)); gemm_wg_kernel<EPI_BIAS> (A7): out = bf16(ctx @ Wproj +
+//      bproj).
 // Against the bound: the two products (107.8 of the 118.6 GFLOP at ViT-H)
 // run on wgmma from TMA-fed shared memory, the core on wgmma from
-// streamed tiles, and N is not bounded by shared memory.  The TPU kernel
+// streamed tiles, and N is not bounded by shared memory.  The TPU kernels
 // kept a_in, qkv and ctx in VMEM; here they make one round trip each
 // through device memory (~8 x 21 MB at ViT-H: ~50 us at 3.35 TB/s, spread
 // over the launches that write and read them).  The attention width
@@ -52,50 +56,10 @@ static OutHeads packed_out(bf16* rows, int n, int ld, int dh) {
   return {rows, (long long)n * ld, dh, ld};
 }
 
-// qkv = bf16(a . Wqkv + bqkv); ctx = bf16(bf16(MHA(qkv)) * mask);
-// out = bf16(ctx . Wproj + bproj): A7's forward, three launches on the
-// mma.sync GEMM of common.cuh and the staged core of attention_core.cuh.
-static cudaError_t sublayer_fwd(const bf16* a, const bf16* wqkv,
-                                const bf16* bqkv, const bf16* wproj,
-                                const bf16* bproj, const bf16* mask,
-                                bf16* qkv, bf16* ctx, bf16* out, int batch,
-                                int n, int dm, int da, int heads, float scale,
-                                cudaStream_t s) {
-  const int rows = batch * n;
-  GemmArgs p = {};
-  p.a = a;
-  p.w = wqkv;
-  p.bias = bqkv;
-  p.out = qkv;
-  p.M = rows;
-  p.N = 3 * da;
-  p.K = dm;
-  cudaError_t err = launch_gemm<EPI_BIAS>(p, s);
-  if (err != cudaSuccess) return err;
-
-  const int ld = 3 * da, dh = da / heads;
-  err = with_head_dim(dh, [&](auto d) {
-    return launch_core_fwd<decltype(d)::value>(
-        packed_in(qkv, n, ld, dh), packed_in(qkv + da, n, ld, dh),
-        packed_in(qkv + 2 * da, n, ld, dh), packed_out(ctx, n, da, dh), mask,
-        batch, heads, n, dh, scale, s);
-  });
-  if (err != cudaSuccess) return err;
-
-  GemmArgs q = {};
-  q.a = ctx;
-  q.w = wproj;
-  q.bias = bproj;
-  q.out = out;
-  q.M = rows;
-  q.N = dm;
-  q.K = da;
-  return launch_gemm<EPI_BIAS>(q, s);
-}
-
-// K1's launches 2-4 from a = bf16(LN1(x)): qkv on gemm_wg, the streamed
-// core with the ctx mask, out = bf16(x + (ctx . Wproj + bproj)) on
-// gemm_wg.
+// The forward's launches 1-3 from a (K1: bf16(LN1(x)); A7: x): qkv on
+// gemm_wg, the streamed core with the ctx mask, the projection on gemm_wg,
+// out = bf16(x + (ctx . Wproj + bproj)) with the residual x (K1) or
+// bf16(ctx . Wproj + bproj) where x is null (A7).
 static cudaError_t layer_ln_fwd(const bf16* a, const bf16* wqkv,
                                 const bf16* bqkv, const bf16* wproj,
                                 const bf16* bproj, const bf16* mask,
@@ -131,6 +95,7 @@ static cudaError_t layer_ln_fwd(const bf16* a, const bf16* wqkv,
   q.M = rows;
   q.N = dm;
   q.K = da;
+  if (x == nullptr) return launch_gemm_wg<EPI_BIAS>(q, s);
   q.resid = x;
   return launch_gemm_wg<EPI_RESID>(q, s);
 }
@@ -270,27 +235,24 @@ extern "C" int uvc_layer_attention_ln(
 // The port of uvc_tpu/ops/attention.py::_layer_fwd_kernel (called through
 // _fused_layer), kernel A7: the separate-LN branch of a block whose
 // sublayer output is scaled before the residual add (part gating,
-// drop-path).  It is K1's function without the LayerNorm pass and with
-// the bias epilogue in place of the residual one, in three launches
-// (sublayer_fwd above: the mma.sync GEMM of common.cuh and the staged core
-// of attention_core.cuh, whose shared memory holds the head's whole K and
-// V and so bounds N); the same bound (~18.7 GFLOP against ~20 MB at
-// B = 64, N = 197, dm = da = 384: the tensor cores, ~19 us).  qkv
-// [B*N, 3*da] and ctx [B*N, da] (bf16) are scratch that the caller
-// allocates.
+// drop-path).  What bounds it: the tensor cores, as K1 (~18.7 GFLOP
+// against ~20 MB at B = 64, N = 197, dm = da = 384: ~19 us).  Design:
+// K1's sequence from x itself (layer_ln_fwd with no residual): qkv on
+// gemm_wg, the streamed core with the ctx mask, the projection on gemm_wg
+// with the bias epilogue; three launches, any N.  qkv [B*N, 3*da] and ctx
+// [B*N, da] (bf16) are scratch that the caller allocates.
 extern "C" int uvc_layer_attention(
     const void* x, const void* wqkv, const void* bqkv, const void* wproj,
     const void* bproj, const void* mask, void* qkv, void* ctx, void* out,
     int batch, int n, int dm, int da, int heads, float scale, void* stream) {
-  return (int)uvc::sublayer_fwd(
+  return (int)uvc::layer_ln_fwd(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wproj),
       static_cast<const bf16*>(bproj), static_cast<const bf16*>(mask),
-      static_cast<bf16*>(qkv), static_cast<bf16*>(ctx),
+      nullptr, static_cast<bf16*>(qkv), static_cast<bf16*>(ctx),
       static_cast<bf16*>(out), batch, n, dm, da, heads, scale,
       static_cast<cudaStream_t>(stream));
 }
-
 
 // Backward of the LN-fused attention sublayer: the port of
 // uvc_tpu/ops/attention.py::_layer_ln_bwd_kernel (called through

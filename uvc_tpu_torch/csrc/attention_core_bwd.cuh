@@ -3,9 +3,8 @@
 // (::_bwd_kernel), on [B, H, N, dh] operands at any strides
 // (attention_core.cu), and the attention step of the sublayer backwards
 // A2 and A7 (::_layer_ln_bwd_kernel, ::_layer_bwd_kernel, attention.cu),
-// on head views of the packed qkv, dctx and dqkv rows.  K1 and A9's
-// forward run the streamed forward of attention_core_fwd.cuh; A7's
-// forward keeps the staged core of attention_core.cuh.
+// on head views of the packed qkv, dctx and dqkv rows.  K1, A7's forward
+// and A9's forward run the streamed forward of attention_core_fwd.cuh.
 //
 // Numerics: the Pallas bodies' rounding order, as attention_bwd_ctx_plain
 // in uvc_tpu_torch/ops/attention.py writes it: logits = (q . k^T) * scale

@@ -2,16 +2,16 @@
 //   ctx = softmax(q . k^T * scale) . v
 // per (image, head) on [B, H, N, dh] operands at any strides.  It runs
 // kernel A9's forward (uvc_tpu/ops/attention.py::_fwd_kernel, through
-// attention_core.cu) and the attention step of K1 (::_layer_ln_fwd_kernel,
-// through attention.cu, on head views of the packed qkv rows, with the ctx
-// mask).  The head tiles, their TMA maps and copies, and the products on
-// them are shared with the backward (attention_core_bwd.cuh), which
-// includes this file.
+// attention_core.cu) and the attention step of K1 (::_layer_ln_fwd_kernel)
+// and of A7's forward (::_layer_fwd_kernel), both through attention.cu, on
+// head views of the packed qkv rows, with the ctx mask.  The head tiles,
+// their TMA maps and copies, and the products on them are shared with the
+// backward (attention_core_bwd.cuh), which includes this file.
 //
 // Numerics: the Pallas bodies' order, as attention_plain in
 // uvc_tpu_torch/ops/attention.py writes it: logits = (q . k^T) * scale in
 // f32, p = exp(logit - max), s = sum(p) of the unrounded p, ctx =
-// (bf16(p) . V) / s, the normalisation after P . V; with a mask (K1),
+// (bf16(p) . V) / s, the normalisation after P . V; with a mask (K1, A7),
 // bf16(bf16(ctx) * mask).  Two changes of order, both in f32, as in the
 // backward: the max and s are online over 64-key tiles, the running sum
 // and the context accumulator rescaled by 2^(old max - new max) when a
@@ -34,7 +34,7 @@
 // wgmma (m64nDHPk16) with its A operand S's accumulator converted to bf16
 // in place (the accumulator's layout is wgmma's register layout of A) and
 // V read along its rows (MN-major).  One pass over the keys, where the
-// staged design took two (the max, then p and P . V).
+// Pallas body takes two (the max, then p and P . V).
 //
 // Tiles: 16-column boxes of 64 rows x 32 bytes in the 32-byte swizzle (the
 // 16-byte halves of a row swapped on rows 4-7 of every 8), which TMA
@@ -46,12 +46,13 @@
 // requests, not the bytes, set the pace of the 16-column tiles on the
 // card).  Loads: TMA (cp.async.bulk.tensor, completion on an mbarrier)
 // when every operand is a full tile (dh equal to the padded head dim,
-// 16-byte strides and base: K1's head views of qkv at head dims 64 and 80,
-// A9's contiguous heads of 16-80); otherwise cp.async into the 16-column
-// layout at the widest copy the operands allow (16 or 4 bytes; at an odd
-// head dim, aligned 4-byte loads shifted into place), the columns past dh
-// and the rows past N zero-filled, as TMA fills rows past N.  The columns
-// past dh add zero to every product; the keys past N get a logit of -inf.
+// 16-byte strides and base: K1's and A7's head views of qkv at head dims
+// 64 and 80, A9's contiguous heads of 16-80); otherwise cp.async into the
+// 16-column layout at the widest copy the operands allow (16 or 4 bytes;
+// at an odd head dim, aligned 4-byte loads shifted into place), the
+// columns past dh and the rows past N zero-filled, as TMA fills rows past
+// N.  The columns past dh add zero to every product; the keys past N get
+// a logit of -inf.
 // Stores: full tiles go through shared memory and out 16 bytes a thread;
 // the copy paths store 4 bytes (or one element) a thread from registers.
 #pragma once

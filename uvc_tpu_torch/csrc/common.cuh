@@ -1,9 +1,9 @@
 // Shared device code of the kernels (attention.cu, attention_core.cu,
-// mlp.cu, performer.cu; the attention core itself is attention_core.cuh): the
-// LayerNorm pass and its backward, one bf16 tensor-core GEMM (mma.sync
-// m16n8k16, f32 accumulators) in the three operand layouts the forward and
-// backward sublayers need with their epilogues, and the deterministic
-// column sums of the backward.
+// mlp.cu, performer.cu): the LayerNorm pass and its backward, one bf16
+// tensor-core GEMM (mma.sync m16n8k16, f32 accumulators: K3, A4, A6 and
+// the performer; the others run gemm_wg.cuh) in the three operand layouts
+// the forward and backward sublayers need with their epilogues, and the
+// deterministic column sums of the backward.
 //
 // Numerics follow the Pallas bodies (uvc_tpu/ops/attention.py
 // _layer_ln_fwd_kernel / _layer_ln_bwd_kernel, uvc_tpu/ops/mlp.py

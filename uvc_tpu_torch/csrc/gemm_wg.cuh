@@ -8,14 +8,17 @@
 //   B_K = false:  B stored [K][N] (MN-major: the weight stored (in, out) as
 //                 the JAX package stores it);  B_K = true: B stored [N][K]
 //                 (K-major: . W^T)
-// K1's two products and the five of the sublayer backwards A2 and A7
-// (attention.cu) run it; K2, K3, A4, A6 and A7's forward keep the mma.sync
-// GEMM of common.cuh.
+// The two products of K1 and of A7's forward and the five of the sublayer
+// backwards A2 and A7 (attention.cu), and K2's fc1 and fc2 (mlp.cu) run
+// it; K3, A4 and A6 keep the mma.sync GEMM of common.cuh.
 //
 // Epilogues (a template parameter; common.cuh's Epilogue values, in f32 in
 // the Pallas bodies' order, one rounding to bf16):
-//   EPI_BIAS      out = bf16(acc + bias)              (qkv)
-//   EPI_RESID     out = bf16(resid + (acc + bias))    (the output projection)
+//   EPI_BIAS      out = bf16(acc + bias)              (qkv, A7's projection)
+//   EPI_GELU_MASK out = bf16(gelu_erf(acc + bias) * mask), mask null: all
+//                 ones                                (K2's fc1)
+//   EPI_RESID     out = bf16(resid + (acc + bias))    (K1's projection, K2's
+//                                                      fc2)
 //   EPI_F32       out32 = acc                         (d a_in; split partials)
 //   EPI_F32_MASK  out32 = acc, out = bf16(acc * mask) (do . Wproj^T)
 //   EPI_SCALE     out = bf16(acc * d[1]), or bf16(acc) when d is null
@@ -168,7 +171,8 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
   // row 16 warp + g + 8 hh of the warpgroup's 64, column 8 j + 2 t (+ 1).
   asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
   constexpr int LDS = BN + 4;
-  constexpr bool BIAS = EPI == EPI_BIAS || EPI == EPI_RESID;
+  constexpr bool BIAS =
+      EPI == EPI_BIAS || EPI == EPI_GELU_MASK || EPI == EPI_RESID;
   static_assert(GW_BM * LDS * 4 <= G::STAGES * G::STAGE, "staging");
   float* tile = reinterpret_cast<float*>(ring);
   const int g = lane >> 2, t = lane & 3;
@@ -212,6 +216,15 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
     } else if (EPI == EPI_SCALE) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] *= mul;
+    } else if (EPI == EPI_GELU_MASK) {
+      // the exact erf GELU, then the mask, in common.cuh's order
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = v[e] * (0.5f * (1.f + erff(v[e] * 0.70710678118654752f)));
+      if (p.mask != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] *= bf2f(p.mask[col + e]);
+      }
     } else if (EPI == EPI_RESID) {
       const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + off);
       const bf16* re = reinterpret_cast<const bf16*>(&rv);
@@ -246,12 +259,13 @@ static cudaError_t run_gemm_wg(const GemmArgs& p, cudaStream_t s) {
 // out = epilogue(op(a) . op(w)) on the caller's stream: p.a [M][K] (or
 // [K][M] with A_MN), p.w [K][N] (or [N][K] with B_K), 16-byte aligned, K
 // and N (and M with A_MN) multiples of 8; p.bias [N] (EPI_BIAS,
-// EPI_RESID), p.resid [M][N] (EPI_RESID), p.mask [N] or null
-// (EPI_F32_MASK), p.d [2] or null (EPI_SCALE).
+// EPI_GELU_MASK, EPI_RESID), p.resid [M][N] (EPI_RESID), p.mask [N] or
+// null (EPI_GELU_MASK, EPI_F32_MASK), p.d [2] or null (EPI_SCALE).
 template <int EPI, bool A_MN = false, bool B_K = false>
 static cudaError_t launch_gemm_wg(const GemmArgs& p, cudaStream_t s) {
-  static_assert(EPI == EPI_BIAS || EPI == EPI_RESID || EPI == EPI_F32 ||
-                    EPI == EPI_F32_MASK || EPI == EPI_SCALE,
+  static_assert(EPI == EPI_BIAS || EPI == EPI_GELU_MASK || EPI == EPI_RESID ||
+                    EPI == EPI_F32 || EPI == EPI_F32_MASK ||
+                    EPI == EPI_SCALE,
                 "gemm_wg epilogue");
   return p.N >= GW_WIDE_N ? run_gemm_wg<EPI, 256, A_MN, B_K>(p, s)
                           : run_gemm_wg<EPI, 128, A_MN, B_K>(p, s);

@@ -36,29 +36,19 @@ from uvc_tpu_torch.ops import _cuda
 _MAX_DM_BWD = 1024
 
 # the attention cores' head dims (instantiated for the padded head dims 16,
-# 32, 48, 64 and 80) and their shared memory.  The staged core of A7's
-# forward (csrc/attention_core.cuh) holds a 64-row query tile and the
-# head's whole K and V at a row stride of the padded head dim + 8, so N is
-# bounded there.
+# 32, 48, 64 and 80) and the shared memory a CTA may take
 _CORE_MAX_HEAD_DIM = 80
 _SMEM_LIMIT = 232448
 
 
-def _core_smem_bytes(n: int, dh: int) -> int:
-    """The staged forward core's shared memory at N tokens, head dim dh."""
-    np_ = -(-n // 16) * 16
-    ld = -(-dh // 16) * 16 + 8
-    return (64 + 2 * np_) * ld * 2
-
-
-# the streamed cores of A9 and K1's forward (csrc/attention_core_fwd.cuh)
-# and of A8's, A9's, A2's and A7's backward (csrc/attention_core_bwd.cuh)
-# stream 64-row tiles through a ring of two stages, so their shared memory
-# does not depend on N: the forward holds its query tile and two stages of
-# K and V;
-# the backward's query side two own tiles and two stages of K and V, its
-# key side two own tiles and two stages of Q, dO and a tile's 64 float4
-# statistics; 1024 bytes of alignment and the mbarriers besides
+# the streamed cores of A9's, K1's and A7's forward
+# (csrc/attention_core_fwd.cuh) and of A8's, A9's, A2's and A7's backward
+# (csrc/attention_core_bwd.cuh) stream 64-row tiles through a ring of two
+# stages, so their shared memory does not depend on N: the forward holds
+# its query tile and two stages of K and V; the backward's query side two
+# own tiles and two stages of K and V, its key side two own tiles and two
+# stages of Q, dO and a tile's 64 float4 statistics; 1024 bytes of
+# alignment and the mbarriers besides
 _TILE_ROWS = 64
 _BWD_STAGES = 2
 _FWD_STAGES = 2
@@ -157,12 +147,11 @@ def _check_cuda(x, named, dtypes):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_attention(x, named, num_heads, max_dm=None, streamed=False):
+def _check_attention(x, named, num_heads, max_dm=None):
     """The kernels' checks of the attention sublayer's operands; returns
     (B, N, dm, da).  The head dim is ``wqkv``'s width over 3 heads: even,
-    at most 80.  N is bounded by the staged core's shared memory at that
-    head dim (A7's forward), and not at all with ``streamed`` (K1, A2 and
-    A7's backward, on the streamed cores)."""
+    at most 80.  Every sublayer kernel (K1, A2, A7 forward and backward)
+    streams its attention core's tiles, so N is not bounded."""
     bf16, f32 = torch.bfloat16, torch.float32
     _check_cuda(x, named, {k: f32 if k in ("g1", "b1") else bf16
                            for k in named})
@@ -183,12 +172,10 @@ def _check_attention(x, named, num_heads, max_dm=None, streamed=False):
         if name != "x" and tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]} for {num_heads} "
                              f"heads of {dh}, got {tuple(t.shape)}")
-    if (dm % 8 or n == 0 or b == 0 or (max_dm and dm > max_dm)
-            or (not streamed and _core_smem_bytes(n, dh) > _SMEM_LIMIT)):
+    if dm % 8 or n == 0 or b == 0 or (max_dm and dm > max_dm):
         limit = "" if max_dm is None else f" and <= {max_dm}"
         raise ValueError(f"unsupported x shape {tuple(x.shape)}: dm must be "
-                         f"a multiple of 8{limit}, N > 0 and small enough "
-                         f"for the kernel's shared memory at head dim {dh}")
+                         f"a multiple of 8{limit} and N > 0")
     return b, n, dm, da
 
 
@@ -197,7 +184,7 @@ def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     bf16 = torch.bfloat16
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
                  bproj=bproj, mask=mask)
-    b, n, dm, da = _check_attention(x, named, num_heads, streamed=True)
+    b, n, dm, da = _check_attention(x, named, num_heads)
     lib = _cuda.library("attention")
     rows = b * n
     a_in = torch.empty((rows, dm), dtype=bf16, device=x.device)
@@ -385,8 +372,7 @@ def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
     f32 = torch.float32
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
                  bproj=bproj, mask=mask, do=do)
-    b, n, dm, da = _check_attention(x, named, num_heads, max_dm=_MAX_DM_BWD,
-                                    streamed=True)
+    b, n, dm, da = _check_attention(x, named, num_heads, max_dm=_MAX_DM_BWD)
     lib = _cuda.library("attention")
     scratch, splits = _sublayer_bwd_scratch(
         b, n, dm, da, num_heads, x.device, _sm_count(x.device.index or 0),
@@ -498,7 +484,7 @@ def layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads: int,
     """``(mask * MHA(x @ wqkv + bqkv)) @ wproj + bproj``: the attention
     sublayer without LayerNorm and residual (the port of
     ``fused_layer_attention``).  Shapes as ``layer_attention_ln``; on
-    CUDA bf16 operands, even head dims up to 80.
+    CUDA bf16 operands, even head dims up to 80, any N.
     ``layer_attention.launches`` counts kernel launches."""
     kw = dict(num_heads=num_heads, scale=scale)
     if x.device.type == "cpu":
@@ -516,7 +502,7 @@ def _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do, *,
                               num_heads, scale):
     named = dict(x=x, wqkv=wqkv, bqkv=bqkv, wproj=wproj, bproj=bproj,
                  mask=mask, do=do)
-    b, n, dm, da = _check_attention(x, named, num_heads, streamed=True)
+    b, n, dm, da = _check_attention(x, named, num_heads)
     lib = _cuda.library("attention")
     scratch, splits = _sublayer_bwd_scratch(
         b, n, dm, da, num_heads, x.device, _sm_count(x.device.index or 0),
