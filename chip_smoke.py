@@ -33,8 +33,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ViT-H/14 runs them), and A7's forward at "long" (B=4, N=1025, dm=1280,
    16 heads of 80: past the 624 keys that its staged core once held);
    every forward kernel's two launches bit for bit; K1's four launches
-   (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's three
-   (LayerNorm, fc1 GEMM, fc2 GEMM) one by one at "vit_h" and "eval", and
+   (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's and
+   K3's three (LayerNorm, fc1 GEMM, fc2 GEMM) one by one at "vit_h" and
+   "eval", and
    A7's forward's three (qkv GEMM, core, projection GEMM) at "dense" and
    "h80", from a profile, with the GEMMs' rates and the host time of one
    call, each of the model's blocks (32, 12) with its own weights, and K1
@@ -42,7 +43,10 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ``--kernels-only``, A2's eighteen and A7's backward's
    fourteen launches one by one at each of their shapes the same way, with
    their five GEMMs' rates (in another tree's sequence, under the kernels'
-   own names); the attention
+   own names), and A9's backward's (the pack where its operands take it,
+   the query side, the key side; on contiguous heads and on head views)
+   at every core shape and A8's at its shapes, under the kernels' own
+   names; the attention
    core A9 at "se" (B=64, H=6, N=197,
    dh=64), "dense_odd" (H=8, dh=41), "dense_wide" (H=8, dh=74), "ragged"
    (B=3, H=2, N=50, dh=24), "vit_h" (B=32, H=16, N=257, dh=80) and "long"
@@ -127,8 +131,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
    backward; a gating-warmup step that must leave the gating logits
    unchanged bit for bit; peak memory; a profiled step (with the device
    time of A8, query and key side, of K1's, K2's and K3's launches, K1's
-   attention core, K2's fc1 GEMM and the LayerNorm passes); one block's
-   composed routes timed alone; and
+   attention core, K2's and K3's fc1 GEMMs and the LayerNorm passes); the
+   same
+   step's device time by autograd node and that of the gradient
+   accumulation's adds and fills; one block's composed routes timed
+   alone; and
    one step at depth 4 and batch 2 on the card against the CPU plain
    path.
 
@@ -451,6 +458,8 @@ FWD_BREAKDOWNS = {
                            {"vit_h": 32, "eval": 12}),
     "mlp_ln": ("K2", ("layer norm", "fc1 GEMM", "fc2 GEMM"),
                {"vit_h": 32, "eval": 12}),
+    "mlp_ln_blend": ("K3", ("layer norm", "fc1 GEMM", "fc2 GEMM"),
+                     {"vit_h": 32, "eval": 12}),
     "layer_attention": ("A7 forward", ("qkv GEMM", "core",
                                        "projection GEMM"),
                         {"dense": 12, "h80": 12}),
@@ -544,7 +553,7 @@ def _fwd_calls(name, t, eps, stream):
     order)."""
     from uvc_tpu_torch.ops import _cuda
     from uvc_tpu_torch.ops.attention import layer_attention, layer_attention_ln
-    from uvc_tpu_torch.ops.mlp import mlp_ln
+    from uvc_tpu_torch.ops.mlp import mlp_ln, mlp_ln_blend
 
     x = t["x"]
     b, n, dm = x.shape
@@ -559,19 +568,24 @@ def _fwd_calls(name, t, eps, stream):
     def ptrs(*ts):
         return [a.data_ptr() for a in ts]
 
-    if name == "mlp_ln":
+    if name in ("mlp_ln", "mlp_ln_blend"):
         lib, scratch = _cuda.library("mlp"), empty(dm, f)
         keys = ("w1", "b1", "w2", "b2")
+        # K3 (mlp_ln_blend) takes the block's input xin and the gating
+        # distribution d after x
+        blend = (t["xin"], t["d"]) if name == "mlp_ln_blend" else ()
+        fn, c_fn = ((mlp_ln_blend, lib.uvc_mlp_ln_blend) if blend
+                    else (mlp_ln, lib.uvc_mlp_ln))
 
         def call(w):
-            return lambda: mlp_ln(x, t["g"], t["b"], w["w1"], w["b1"],
-                                  w["w2"], w["b2"], t["fmask"], eps=eps)
+            return lambda: fn(x, *blend, t["g"], t["b"], w["w1"], w["b1"],
+                              w["w2"], w["b2"], t["fmask"], eps=eps)
 
         def entry(w):
-            args = (*ptrs(x, t["g"], t["b"], w["w1"], w["b1"], w["w2"],
-                          w["b2"], t["fmask"], *scratch), rows, dm, f,
-                    float(eps), stream)
-            return lambda: lib.uvc_mlp_ln(*args)
+            args = (*ptrs(x, *blend, t["g"], t["b"], w["w1"], w["b1"],
+                          w["w2"], w["b2"], t["fmask"], *scratch), rows, dm,
+                    f, float(eps), stream)
+            return lambda: c_fn(*args)
         return keys, call, entry, (2 * rows * dm * f, 2 * rows * f * dm)
 
     lib = _cuda.library("attention")
@@ -716,6 +730,30 @@ def sublayer_bwd_breakdown(eps, card):
                 t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
                 t["amask"], do, **skw),
             card, A7_BWD_LAUNCHES, gemm_flops)
+
+
+def core_bwd_breakdown(card):
+    """A9's backward (``attention_bwd``) launch by launch
+    (``launch_breakdown``, under the kernels' own names: the pack where the
+    operands take it, the query side, the key side) at every shape of
+    CORE_SHAPES, on contiguous heads and on head views of one packed
+    buffer (``_packed_views``, the models' layout), and A8
+    (``attention_bwd_ctx``) at BWD_CTX_SHAPES."""
+    from uvc_tpu_torch.ops.attention import attention_bwd, attention_bwd_ctx
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for shape, (b, h, n, dh) in CORE_SHAPES.items():
+        ops = [torch.randn(b, h, n, dh, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(4)]
+        views = _packed_views(*ops)
+        scale = dh ** -0.5
+        launch_breakdown("A9 backward", shape,
+                         lambda: attention_bwd(*ops, scale), card)
+        launch_breakdown("A9 backward on head views", shape,
+                         lambda: attention_bwd(*views, scale), card)
+        if shape in BWD_CTX_SHAPES:
+            launch_breakdown("A8", shape,
+                             lambda: attention_bwd_ctx(*ops, scale), card)
 
 
 # backward kernels against their plain backwards at the stage-1 train shape
@@ -2264,11 +2302,15 @@ def vit_h_phase(card):
                "K2 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
                    "layer_norm_kernel", "gemm_wg_kernel<1,",
                    "gemm_wg_kernel<2,"),
-               "K2's fc1 GEMM (gemm_wg<EPI_GELU_MASK>)": "gemm_wg_kernel<1,",
+               "K2's and K3's fc1 GEMMs (gemm_wg<EPI_GELU_MASK>)":
+                   "gemm_wg_kernel<1,",
                "K3 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
-                   "layer_norm_kernel", "gemm_kernel<1,", "gemm_kernel<3,"),
+                   "layer_norm_kernel", "gemm_wg_kernel<1,",
+                   "gemm_wg_kernel<3,"),
                "LayerNorm (K1 64, K2 32, K3 32 a step)":
                    "layer_norm_kernel"})
+    autograd_profile(card, "ViT-H/14 stage-1 train step",
+                     lambda: run(state, step, 1))
     composed_route_times(card, cfg)
     del state, params, teacher
 
@@ -2287,6 +2329,42 @@ def vit_h_phase(card):
     card_vs_cpu(f"ViT-H/14 stage-1 step (depth {VIT_H_CPU_DEPTH})", sb, gm,
                 cm, ("loss", "grad_norm", "resource"))
     return counts
+
+
+# the PyTorch operations whose device time autograd_profile lists beside
+# the autograd nodes: the gradient accumulation's adds and the fills of
+# the zero gradients that a select's backward writes
+GLUE_OPS = ("aten::add_", "aten::add", "aten::fill_", "aten::zero_",
+            "aten::copy_", "aten::stack")
+
+
+def autograd_profile(card, label, fn, top=12):
+    """The device time of one call of fn by autograd node (torch.profiler's
+    ``autograd::engine::evaluate_function`` ranges, each charged the
+    kernels launched inside it, the gradient accumulation of its outputs
+    included), the ``top`` nodes by total device ms, and the device time
+    of GLUE_OPS wherever they run (forward, backward, optimizer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    prefix = "autograd::engine::evaluate_function: "
+    nodes = sorted(((e.device_time_total, e.count, e.key[len(prefix):])
+                    for e in avgs if e.key.startswith(prefix)),
+                   reverse=True)
+    print(f"autograd nodes of one {label} by device time [{card}]:")
+    for t, count, key in nodes[:top]:
+        print(f"  {t / 1e3:9.3f} ms  x{count:<5d} {key}")
+    glue = {e.key: (e.device_time_total, e.count) for e in avgs
+            if e.key in GLUE_OPS}
+    print("  glue ops (anywhere in the step): " + ", ".join(
+        f"{k} {glue[k][0] / 1e3:.3f} ms x{glue[k][1]}" for k in GLUE_OPS
+        if k in glue), flush=True)
 
 
 def composed_route_times(card, cfg):
@@ -2375,6 +2453,8 @@ def main():
         # left phase 9's timed window 8-12% slower on the H100
         sublayer_bwd_breakdown(eps, card)
     res.update(core_kernel_phase(args.digests))
+    if args.kernels_only:
+        core_bwd_breakdown(card)
     if args.digests:
         performer_kernel_phase(digests_only=True)
     if args.kernels_only or args.digests:

@@ -169,8 +169,8 @@ static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
         packed_in(b.qkv + 2 * b.da, b.n, ld, dh),
         packed_in(b.dctx, b.n, b.da, dh), packed_out(b.dqkv, b.n, ld, dh),
         packed_out(b.dqkv + b.da, b.n, ld, dh),
-        packed_out(b.dqkv + 2 * b.da, b.n, ld, dh), cx, b.stats, b.batch,
-        b.heads, b.n, dh, b.scale, s);
+        packed_out(b.dqkv + 2 * b.da, b.n, ld, dh), cx, b.stats, nullptr,
+        b.batch, b.heads, b.n, dh, b.scale, s);
   });
   if (err != cudaSuccess) return err;
   // dmask's partials, one row per query tile of an image, in order

@@ -26,17 +26,20 @@
 // streamed core of attention_core_bwd.cuh (its note there and at
 // uvc_attention_bwd_ctx below), both instantiated for the padded head
 // dims DHP = 16, 32, 48, 64 and 80, one warpgroup per CTA on wgmma, the
-// other side's rows streamed in 64-row tiles, so any N.  Any dh <= DHP is
-// taken by zero-filling columns dh..DHP-1 of the tiles in shared memory
-// (exact); contiguous heads whose head dim is DHP load by TMA, others by
-// cp.async 16 or 4 bytes wide as dh and the strides allow (the Dense
-// variant's head dims 20, 28, ..., 74 go 4 bytes at a time, its odd ones,
-// 41, 49, 57, 65, as aligned 4-byte words shifted into place).  Padding in
-// the wrapper instead would cost a padded copy of q, k, v and dO and a
-// slice of each output through device memory on every call.  The
-// operands are read where they lie, at the strides the caller passes (the
-// models hand over head views of one projection), so nothing is copied
-// before or after a call.
+// other side's rows streamed in 64-row tiles, so any N.  Operands are
+// read where they lie, at the strides the caller passes (the models hand
+// over head views of one projection), and the outputs are written in the
+// caller's layout.  Full tiles (dh equal to DHP, 16-byte strides and
+// base) load by TMA.  The forward takes any other dh <= DHP by cp.async
+// 16 or 4 bytes wide as dh and the strides allow (at an odd head dim as
+// aligned 4-byte words shifted into place), zero-filling columns
+// dh..DHP-1 of its tiles in shared memory (exact); so does the backward
+// where 16-byte copies are allowed.  Where they are not (the Dense
+// variant's head dims 41 and 74), the backward, whose operands are read
+// many times more, first packs the operands into zero-padded
+// [B, H, N, DHP] scratch that the caller allocates, one copy launch, as
+// the reference's wrapper pads with jnp.pad, and loads them by TMA from
+// there.
 #include "attention_core_bwd.cuh"
 
 namespace uvc {
@@ -79,10 +82,10 @@ extern "C" int uvc_attention(const void* q, const void* k, const void* v,
 // ctx, in that order.
 template <bool CTX>
 static int core_backward(const void* q, const void* k, const void* v,
-                         const void* dout, void* stats, void* ctx, void* dq,
-                         void* dk, void* dv, const long long* strides,
-                         int batch, int heads, int n, int dh, float scale,
-                         void* stream) {
+                         const void* dout, void* stats, void* pack, void* ctx,
+                         void* dq, void* dk, void* dv,
+                         const long long* strides, int batch, int heads,
+                         int n, int dh, float scale, void* stream) {
   const InHeads qh = uvc::heads_at<const bf16>(q, strides, 0),
                 kh = uvc::heads_at<const bf16>(k, strides, 1),
                 vh = uvc::heads_at<const bf16>(v, strides, 2),
@@ -97,10 +100,13 @@ static int core_backward(const void* q, const void* k, const void* v,
   float4* st = static_cast<float4*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)uvc::with_head_dim(dh, [&](auto d) {
-    return uvc::launch_core_bwd_wg<decltype(d)::value,
-                                   CTX ? uvc::CTX_BF16 : uvc::CTX_NONE>(
-        qh, kh, vh, doh, dqh, dkh, dvh, cx, st, batch, heads, n, dh, scale,
-        s);
+    constexpr int DHP = decltype(d)::value;
+    // operands read below 16 bytes a copy go through the pack
+    if (pack == nullptr && uvc::ops_vec(dh, qh, kh, vh, doh) < 8)
+      return cudaErrorInvalidValue;
+    return uvc::launch_core_bwd_wg<DHP, CTX ? uvc::CTX_BF16 : uvc::CTX_NONE>(
+        qh, kh, vh, doh, dqh, dkh, dvh, cx, st, static_cast<bf16*>(pack),
+        batch, heads, n, dh, scale, s);
   });
 }
 
@@ -108,14 +114,20 @@ static int core_backward(const void* q, const void* k, const void* v,
 // q, k, v, dout, dq, dk, dv: [B, H, N, dh] bf16, unit stride in dh,
 // strides: their (batch, head, row) strides, seven rows of three in that
 // order; stats: [B * H * ceil(N / 64) * 64] float4 scratch that the caller
-// allocates.
+// allocates; pack: [4, B, H, N, DHP] bf16 scratch (DHP the padded head
+// dim) where q, k, v and dout do not all allow 16-byte copies (dh, the
+// strides and the base multiples of 8 elements), else null; null where
+// it is needed is refused (cudaErrorInvalidValue).  Two launches, three
+// with the pack.
 extern "C" int uvc_attention_bwd(const void* q, const void* k, const void* v,
-                                 const void* dout, void* stats, void* dq,
-                                 void* dk, void* dv, const long long* strides,
-                                 int batch, int heads, int n, int dh,
-                                 float scale, void* stream) {
-  return core_backward<false>(q, k, v, dout, stats, nullptr, dq, dk, dv,
-                              strides, batch, heads, n, dh, scale, stream);
+                                 const void* dout, void* stats, void* pack,
+                                 void* dq, void* dk, void* dv,
+                                 const long long* strides, int batch,
+                                 int heads, int n, int dh, float scale,
+                                 void* stream) {
+  return core_backward<false>(q, k, v, dout, stats, pack, nullptr, dq, dk,
+                              dv, strides, batch, heads, n, dh, scale,
+                              stream);
 }
 
 // Kernel A8, the port of uvc_tpu/ops/attention.py::_bwd_ctx_kernel: the
@@ -139,14 +151,15 @@ extern "C" int uvc_attention_bwd(const void* q, const void* k, const void* v,
 // sublayer backward) passes dq, dk, dv as head views of one [B, N, 3 da]
 // buffer and ctx as head views of [B, N, da], the layouts its matrix
 // products take, so nothing is stacked or transposed after the call.
-// strides: eight rows of three, q, k, v, dout, dq, dk, dv, ctx.
+// strides: eight rows of three, q, k, v, dout, dq, dk, dv, ctx; pack as
+// A9's.
 extern "C" int uvc_attention_bwd_ctx(const void* q, const void* k,
                                      const void* v, const void* dout,
-                                     void* stats, void* ctx, void* dq,
-                                     void* dk, void* dv,
+                                     void* stats, void* pack, void* ctx,
+                                     void* dq, void* dk, void* dv,
                                      const long long* strides, int batch,
                                      int heads, int n, int dh, float scale,
                                      void* stream) {
-  return core_backward<true>(q, k, v, dout, stats, ctx, dq, dk, dv, strides,
-                             batch, heads, n, dh, scale, stream);
+  return core_backward<true>(q, k, v, dout, stats, pack, ctx, dq, dk, dv,
+                             strides, batch, heads, n, dh, scale, stream);
 }

@@ -25,8 +25,9 @@
 // (for dWproj) and per-CTA partial sums of dmask = sum(t * ctx), ctx in
 // f32 as the Pallas body takes it, with t = do . Wproj^T read back.
 //
-// Design.  Two launches, no float atomics, each output tile written by one
-// CTA (two launches give the same bits):
+// Design.  Two launches (after the pack where it applies, below), no float
+// atomics, each output tile written by one CTA (two calls give the same
+// bits):
 //   core_bwd_q_wg_kernel, one CTA per (64-query tile, head, image): three
 //     passes over the 64-key tiles: (max, s) online; row = sum(dp * probs)
 //     and, for A8 and the sublayers, ctx = bf16(probs) . V; ds and
@@ -51,11 +52,29 @@
 // the H100.
 //
 // Tiles and loads: those of the forward (attention_core_fwd.cuh, which
-// holds them and the products on them): 32-byte-swizzled 16-column boxes,
-// TMA when every operand is a full tile (A8's and the sublayers' head
-// views of the qkv rows at head dims 64 and 80, A9's contiguous heads of
-// 16-80), else cp.async at the widest copy the operands allow (the
-// sublayers' 4-byte copies at resnext's head dim 12).
+// holds them and the products on them).  Operands that are full tiles
+// (head dim equal to its padded width, 16-byte strides and base: A8's and
+// the sublayers' head views of the qkv rows at head dims 64 and 80, A9's
+// contiguous heads at 16-80) load by TMA as they lie, at head dims 64 and
+// 80 in wide_tile's layout (the first 64 columns in one 128-byte-swizzled
+// box, one or two requests a row where 16-column boxes take four or five;
+// the K-major products S and dp and the MN-major reads of the register-A
+// products take it as the forward's do).  A9's and A8's other operands
+// (the Dense variant's head dims 41 and 74, head views on 2- or 4-byte
+// strides) are first packed by pack_heads_kernel into zero-padded
+// contiguous [B, H, N, DHP] scratch, one launch for the four, and load by
+// TMA from there: the padded copy (72 MB at the Dense variant's head dim
+// 41, B 64, H 8, N 197: ~22 us at 3.35 TB/s) costs less than the copy
+// path, whose loads at an odd head dim are synchronous and at 4 bytes
+// take 37 requests a row.  The sublayers' head views at resnext's head
+// dim 12 keep the copy path (cp.async, 4 bytes), as do operands that
+// allow 16-byte copies at a head dim below its padded width (no main
+// path's).  The outputs are written at the true dh into the caller's
+// layout: on the TMA path staged through shared memory and stored 16
+// bytes a thread where every output allows it, else 4 bytes (or one
+// element) a thread from registers.  (Staged on the copy path too, the
+// 6-CTA "ragged" call of chip_smoke.py ran ~3% slower on the H100: a sync
+// and a round trip through shared memory at the end of every CTA.)
 #pragma once
 
 #include "attention_core_fwd.cuh"
@@ -64,6 +83,9 @@ namespace uvc {
 
 constexpr int BWD_STAGES = 2;                     // the streamed ring
 constexpr int BWD_STAT_BYTES = TILE_ROWS * 16;    // a tile's (max, 1/s, row, 0)
+
+// the backward's maps of q, k, v and dout
+typedef HeadMaps<4> CoreMaps;
 
 // what the query side writes of ctx = bf16(probs) . V
 enum CtxMode { CTX_NONE = 0, CTX_BF16 = 1, CTX_SUBLAYER = 2 };
@@ -145,6 +167,96 @@ __device__ __forceinline__ void dmask_partial(const CtxOut& cx,
         red[tid] + red[DHP + tid] + red[2 * DHP + tid] + red[3 * DHP + tid];
 }
 
+// An m64nDHP accumulator's 64 rows as bf16(acc * mul) in shared memory
+// for store_staged; every thread of the CTA calls it
+template <int DHP>
+__device__ __forceinline__ void stage_rows(bf16* rows,
+                                           const float (&acc)[DHP / 2],
+                                           float mul, int tid) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + g + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < DHP / 8; ++j)
+      *reinterpret_cast<uint32_t*>(rows + r * STAGED_PITCH<DHP> + 8 * j +
+                                   2 * t) =
+          pack_f32(acc[4 * j + 2 * hh] * mul, acc[4 * j + 2 * hh + 1] * mul);
+  }
+}
+
+// The pack: q, k, v and dout (any strides, dh columns) copied into
+// zero-padded contiguous [B, H, N, DHP] heads, one after another in pack,
+// so that the core's TMA path loads them as full tiles.  The columns past
+// dh are zeros, which add exact zeros to every product: the tiles in
+// shared memory hold what the copy path writes there.  Thread i writes
+// the 16 bytes of columns 8 (i % (DHP / 8)) .. + 7 of row i / (DHP / 8)
+// of operand blockIdx.y, reading them 16, 4 or 2 bytes at a time as vec
+// allows (8, 2, 1).
+constexpr int PACK_THREADS = 256;
+
+struct PackOps {
+  InHeads x[4];
+};
+
+template <int DHP>
+static __global__ void __launch_bounds__(PACK_THREADS)
+    pack_heads_kernel(const __grid_constant__ PackOps ops,
+                      bf16* __restrict__ pack, int heads,
+                      int n, int dh, int vec, long long rows) {
+  constexpr int CH = DHP / 8;
+  const long long i = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (i >= rows * CH) return;
+  const long long r = i / CH;
+  const int c = (int)(i % CH) * 8, row = (int)(r % n);
+  const long long bh = r / n;
+  const InHeads& x = ops.x[blockIdx.y];
+  const bf16* src = x.head((int)(bh / heads), (int)(bh % heads)) +
+                    row * x.sr + c;
+  uint4 out = make_uint4(0u, 0u, 0u, 0u);
+  if (c < dh) {
+    if (vec == 8) {
+      out = *reinterpret_cast<const uint4*>(src);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (vec == 2) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + 2 * e < dh) w[e] = *reinterpret_cast<const uint32_t*>(
+                                  src + 2 * e);
+      } else {
+        const unsigned short* hs = reinterpret_cast<const unsigned short*>(
+            src);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (c + e < dh) w[e >> 1] |= (uint32_t)hs[e] << (16 * (e & 1));
+      }
+      out = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  *reinterpret_cast<uint4*>(pack + ((long long)blockIdx.y * rows + r) * DHP +
+                            c) = out;
+}
+
+// q, k, v, dout packed into pack (4 [batch, heads, n, DHP] bf16) and
+// returned as its heads
+template <int DHP>
+static cudaError_t launch_pack_heads(InHeads (&ops)[4], bf16* pack,
+                                     int batch, int heads, int n, int dh,
+                                     cudaStream_t s) {
+  const int vec = ops_vec(dh, ops[0], ops[1], ops[2], ops[3]);
+  const long long rows = (long long)batch * heads * n;
+  const long long chunks = rows * (DHP / 8);
+  const dim3 grid((unsigned)((chunks + PACK_THREADS - 1) / PACK_THREADS), 4);
+  pack_heads_kernel<DHP><<<grid, PACK_THREADS, 0, s>>>(
+      PackOps{{ops[0], ops[1], ops[2], ops[3]}}, pack, heads, n, dh, vec,
+      rows);
+  for (int i = 0; i < 4; ++i)
+    ops[i] = {pack + i * rows * DHP, (long long)heads * n * DHP,
+              (long long)n * DHP, DHP};
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
@@ -175,7 +287,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
                          InHeads k, InHeads v, InHeads dout, OutHeads dq,
                          CtxOut cx, float4* __restrict__ stats, int n,
                          int dh, float scale, int vec) {
-  if (TMA) dh = DHP, vec = 8;
+  constexpr bool WIDE = wide_tile<DHP, TMA>();
   constexpr int TILE = head_tile<DHP>(), S = BWD_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* Qs = smem_1k(smem_raw);
@@ -200,8 +312,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
         if (tid == 0) {
           uint64_t* full = bar + 1 + it % S;
           mbar_expect_tx(full, with_v ? 2 * TILE : TILE);
-          tma_tile<DHP>(Ks, maps.k, full, b, h, row0);
-          if (with_v) tma_tile<DHP>(Ks + TILE, maps.v, full, b, h, row0);
+          tma_rows<DHP>(Ks, maps, OP_K, full, b, h, row0);
+          if (with_v) tma_rows<DHP>(Ks + TILE, maps, OP_V, full, b, h, row0);
         }
       } else {
         async_tile<DHP>(Ks, k, b, h, row0, n, dh, vec, tid);
@@ -215,8 +327,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
   if (TMA) {
     if (tid == 0) {
       mbar_expect_tx(bar, 2 * TILE);
-      tma_tile<DHP>(Qs, maps.q, bar, b, h, qt * TILE_ROWS);
-      tma_tile<DHP>(Ds, maps.dout, bar, b, h, qt * TILE_ROWS);
+      tma_rows<DHP>(Qs, maps, OP_Q, bar, b, h, qt * TILE_ROWS);
+      tma_rows<DHP>(Ds, maps, OP_DOUT, bar, b, h, qt * TILE_ROWS);
     }
   } else {
     async_tile<DHP>(Qs, q, b, h, qt * TILE_ROWS, n, dh, vec, tid);
@@ -250,8 +362,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
     const unsigned char* Vs = Ks + TILE;
 
     wg_fence();
-    tile_dot<DHP>(s, Qs, Ks);
-    if (pass > 0) tile_dot<DHP>(dp, Ds, Vs);
+    head_dot<DHP, WIDE>(s, Qs, Ks);
+    if (pass > 0) head_dot<DHP, WIDE>(dp, Ds, Vs);
     wg_commit();
     wg_wait();
     fence_acc(s);
@@ -306,7 +418,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
         if (CTX != CTX_NONE) {
           pack_a(a, s);
           wg_fence();
-          tile_acc<DHP>(acc, a, Vs);
+          head_acc<DHP, WIDE>(acc, a, Vs);
           wg_commit();
           wg_wait();
           fence_acc(acc);
@@ -342,7 +454,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
         for (int i = 0; i < 32; ++i) s[i] *= dp[i] - rw[(i >> 1) & 1];
         pack_a(a, s);
         wg_fence();
-        tile_acc<DHP>(acc, a, Ks);
+        head_acc<DHP, WIDE>(acc, a, Ks);
         wg_commit();
         wg_wait();
         fence_acc(acc);
@@ -351,6 +463,15 @@ static __global__ void __launch_bounds__(CORE_THREADS, 3)
     __syncthreads();  // the stage is free for the next refill
   }
 
+  // the ring is free: on the TMA path dq's rows through it where they
+  // take 16-byte stores
+  if (TMA && vec == 8) {
+    stage_rows<DHP>(reinterpret_cast<bf16*>(ring), acc, scale, tid);
+    __syncthreads();
+    store_staged<DHP>(dq, reinterpret_cast<const bf16*>(ring), b, h,
+                      qt * TILE_ROWS, n, dh, tid);
+    return;
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int qi = qt * TILE_ROWS + warp * 16 + g + 8 * hh;
@@ -368,7 +489,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
                           InHeads k, InHeads v, InHeads dout,
                           const float4* __restrict__ stats, OutHeads dk,
                           OutHeads dv, int n, int dh, float scale, int vec) {
-  if (TMA) dh = DHP, vec = 8;
+  constexpr bool WIDE = wide_tile<DHP, TMA>();
   constexpr int TILE = head_tile<DHP>(), S = BWD_STAGES;
   constexpr int STAGE = 2 * TILE + BWD_STAT_BYTES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -393,8 +514,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
         if (tid == 0) {
           uint64_t* full = bar + 1 + it % S;
           mbar_expect_tx(full, STAGE);
-          tma_tile<DHP>(Qs, maps.q, full, b, h, it * TILE_ROWS);
-          tma_tile<DHP>(Qs + TILE, maps.dout, full, b, h, it * TILE_ROWS);
+          tma_rows<DHP>(Qs, maps, OP_Q, full, b, h, it * TILE_ROWS);
+          tma_rows<DHP>(Qs + TILE, maps, OP_DOUT, full, b, h, it * TILE_ROWS);
           bulk_load(Qs + 2 * TILE, st_head + it * TILE_ROWS, BWD_STAT_BYTES,
                     full);
         }
@@ -413,8 +534,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
   if (TMA) {
     if (tid == 0) {
       mbar_expect_tx(bar, 2 * TILE);
-      tma_tile<DHP>(Ks, maps.k, bar, b, h, kt * TILE_ROWS);
-      tma_tile<DHP>(Vs, maps.v, bar, b, h, kt * TILE_ROWS);
+      tma_rows<DHP>(Ks, maps, OP_K, bar, b, h, kt * TILE_ROWS);
+      tma_rows<DHP>(Vs, maps, OP_V, bar, b, h, kt * TILE_ROWS);
     }
   } else {
     async_tile<DHP>(Ks, k, b, h, kt * TILE_ROWS, n, dh, vec, tid);
@@ -447,8 +568,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
     const float4* St = reinterpret_cast<const float4*>(Qs + 2 * TILE);
 
     wg_fence();
-    tile_dot<DHP>(s, Ks, Qs);
-    tile_dot<DHP>(dp, Vs, Ds);
+    head_dot<DHP, WIDE>(s, Ks, Qs);
+    head_dot<DHP, WIDE>(dp, Vs, Ds);
     wg_commit();
     wg_wait();
     fence_acc(s);
@@ -474,8 +595,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
     pack_a(ap, s);
     pack_a(as, dp);
     wg_fence();
-    tile_acc<DHP>(av, ap, Ds);
-    tile_acc<DHP>(ak, as, Qs);
+    head_acc<DHP, WIDE>(av, ap, Ds);
+    head_acc<DHP, WIDE>(ak, as, Qs);
     wg_commit();
     wg_wait();
     fence_acc(av);
@@ -483,6 +604,18 @@ static __global__ void __launch_bounds__(CORE_THREADS, 2)
     __syncthreads();  // the stage is free for the next refill
   }
 
+  // the ring is free: on the TMA path dk's and dv's rows through it where
+  // they take 16-byte stores
+  if (TMA && vec == 8) {
+    bf16* rows = reinterpret_cast<bf16*>(ring);
+    stage_rows<DHP>(rows, ak, scale, tid);
+    stage_rows<DHP>(rows + STAGED_ROWS<DHP>, av, 1.f, tid);
+    __syncthreads();
+    store_staged<DHP>(dk, rows, b, h, kt * TILE_ROWS, n, dh, tid);
+    store_staged<DHP>(dv, rows + STAGED_ROWS<DHP>, b, h, kt * TILE_ROWS, n,
+                      dh, tid);
+    return;
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = kt * TILE_ROWS + warp * 16 + g + 8 * hh;
@@ -520,34 +653,47 @@ static cudaError_t run_core_bwd_wg(const CoreMaps& maps, InHeads q, InHeads k,
   return cudaGetLastError();
 }
 
-// Backward, two launches on the caller's stream: dq, dk, dv and what CTX
-// asks of ctx (cx; unused with CTX_NONE).  stats: [B * heads *
-// ceil(N / 64) * 64] float4 scratch.
+// Backward on the caller's stream: dq, dk, dv and what CTX asks of ctx
+// (cx; unused with CTX_NONE).  stats: [B * heads * ceil(N / 64) * 64]
+// float4 scratch.  The route follows the operands: inputs that are full
+// tiles (full_tiles) load by TMA as they lie; inputs that allow 16-byte
+// copies load by cp.async (a head dim below its padded width); the
+// others, given pack (4 [B, heads, N, DHP] bf16 scratch), are packed into
+// it by one more launch first and load by TMA from there, and without
+// pack load by cp.async 4 or 2 bytes wide (the sublayers at resnext's
+// head dim 12).  The outputs are written at dh into the caller's layout,
+// on the TMA path staged through shared memory where every output takes
+// 16-byte stores.
 template <int DHP, int CTX>
 static cudaError_t launch_core_bwd_wg(InHeads q, InHeads k, InHeads v,
                                       InHeads dout, OutHeads dq, OutHeads dk,
                                       OutHeads dv, const CtxOut& cx,
-                                      float4* stats, int batch, int heads,
-                                      int n, int dh, float scale,
+                                      float4* stats, bf16* pack, int batch,
+                                      int heads, int n, int dh, float scale,
                                       cudaStream_t s) {
   // cx is all zeros (any copy width) with CTX_NONE
-  const int vec = ops_vec(dh, q, k, v, dout, dq, dk, dv, cx.heads());
-  if (dh == DHP && vec == 8 && has_strides(q) && has_strides(k) &&
-      has_strides(v) && has_strides(dout)) {
-    CoreMaps maps;
-    cudaError_t err = tile_map(maps.q, q, batch, heads, n, dh);
-    if (err == cudaSuccess) err = tile_map(maps.k, k, batch, heads, n, dh);
-    if (err == cudaSuccess) err = tile_map(maps.v, v, batch, heads, n, dh);
-    if (err == cudaSuccess)
-      err = tile_map(maps.dout, dout, batch, heads, n, dh);
+  const int out_vec = ops_vec(dh, dq, dk, dv, cx.heads());
+  const int in_vec = ops_vec(dh, q, k, v, dout);
+  InHeads in[4] = {q, k, v, dout};
+  bool full = full_tiles<DHP>(dh, q, k, v, dout);
+  if (in_vec < 8 && pack != nullptr) {
+    const cudaError_t err =
+        launch_pack_heads<DHP>(in, pack, batch, heads, n, dh, s);
     if (err != cudaSuccess) return err;
-    return run_core_bwd_wg<DHP, CTX, true>(maps, q, k, v, dout, dq, dk, dv,
-                                           cx, stats, batch, heads, n, dh,
-                                           scale, vec, s);
+    full = true;
   }
-  return run_core_bwd_wg<DHP, CTX, false>(CoreMaps{}, q, k, v, dout, dq, dk,
-                                          dv, cx, stats, batch, heads, n, dh,
-                                          scale, vec, s);
+  if (full) {
+    CoreMaps maps;
+    const InHeads* ops[4] = {&in[0], &in[1], &in[2], &in[3]};
+    const cudaError_t err = head_maps<DHP>(maps, ops, batch, heads, n);
+    if (err != cudaSuccess) return err;
+    return run_core_bwd_wg<DHP, CTX, true>(maps, in[0], in[1], in[2], in[3],
+                                           dq, dk, dv, cx, stats, batch,
+                                           heads, n, dh, scale, out_vec, s);
+  }
+  return run_core_bwd_wg<DHP, CTX, false>(
+      CoreMaps{}, q, k, v, dout, dq, dk, dv, cx, stats, batch, heads, n, dh,
+      scale, std::min(out_vec, in_vec), s);
 }
 
 }  // namespace uvc

@@ -38,11 +38,11 @@
 //
 // Tiles: 16-column boxes of 64 rows x 32 bytes in the 32-byte swizzle (the
 // 16-byte halves of a row swapped on rows 4-7 of every 8), which TMA
-// writes and wgmma reads as its B32 layout (the backward's tiles, and the
-// forward's at head dims 16-48 and on the copy paths); the forward's TMA
-// tiles at head dims 64 and 80 hold their first 64 columns in one box of
-// 64 rows x 128 bytes in the 128-byte swizzle instead, so TMA reads a row
-// in one or two requests where 16-column boxes take four or five (the
+// writes and wgmma reads as its B32 layout (the tiles at head dims 16-48
+// and on the copy paths); the TMA tiles at head dims 64 and 80, here and
+// in the backward, hold their first 64 columns in one box of 64 rows x
+// 128 bytes in the 128-byte swizzle instead (wide_tile), so TMA reads a
+// row in one or two requests where 16-column boxes take four or five (the
 // requests, not the bytes, set the pace of the 16-column tiles on the
 // card).  Loads: TMA (cp.async.bulk.tensor, completion on an mbarrier)
 // when every operand is a full tile (dh equal to the padded head dim,
@@ -76,9 +76,25 @@ struct TileMap {
   int slot[3];
 };
 
-struct CoreMaps {
-  TileMap q, k, v, dout;
+// A core's TMA maps of its operands (q, k, v and, for the backward, dout):
+// boxes of 16 columns (the head tiles of head dims 16-48, and the last 16
+// columns at 80) and of 64 columns (the first 64 at head dims 64 and 80).
+template <int OPS>
+struct HeadMaps {
+  TileMap narrow[OPS], wide[OPS];
 };
+enum { OP_Q = 0, OP_K = 1, OP_V = 2, OP_DOUT = 3 };
+constexpr int WIDE_BOX = TILE_ROWS * 128;  // 64 rows x 64 columns
+
+// A full tile of head dim DHP >= 64 loaded by TMA holds its first 64
+// columns in one box of 64 rows x 128 bytes in the 128-byte swizzle
+// (WIDE_BOX bytes), its 16 columns past them (head dim 80) in a 16-column
+// box after it, so TMA reads a row in one or two requests where 16-column
+// boxes take four or five; the products below take both layouts.
+template <int DHP, bool TMA>
+__host__ __device__ constexpr bool wide_tile() {
+  return TMA && DHP >= 64;
+}
 
 // rows row0 .. row0 + 63 of head (b, h) by TMA, one box per 16 columns;
 // one thread issues it
@@ -208,6 +224,65 @@ __device__ __forceinline__ void tile_acc(float (&acc)[DHP / 2],
     wgmma_rs<DHP>(acc, a[s], desc_mnmajor(tile, s), 1);
 }
 
+// rows row0 .. row0 + 63 of operand i by TMA in the tile layout of
+// wide_tile; one thread issues it
+template <int DHP, int OPS>
+__device__ __forceinline__ void tma_rows(unsigned char* dst,
+                                         const HeadMaps<OPS>& maps, int i,
+                                         uint64_t* bar, int b, int h,
+                                         int row0) {
+  if constexpr (DHP >= 64) {
+    tma_box(dst, maps.wide[i], bar, b, h, row0, 0);
+    if constexpr (DHP > 64)
+      tma_box(dst + WIDE_BOX, maps.narrow[i], bar, b, h, row0, 64);
+  } else {
+    tma_tile<DHP>(dst, maps.narrow[i], bar, b, h, row0);
+  }
+}
+
+// tile_dot on tiles in either layout (WIDE: wide_tile's), k16 step by
+// step in the same order
+template <int DHP, bool WIDE>
+__device__ __forceinline__ void head_dot(float (&d)[32],
+                                         const unsigned char* a,
+                                         const unsigned char* b) {
+  if constexpr (WIDE) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss64(d, gmma_desc128(a + 32 * kk, 16, 1024),
+                 gmma_desc128(b + 32 * kk, 16, 1024), kk);
+    if constexpr (DHP > 64)
+      wgmma_ss64(d, desc_kmajor(a + WIDE_BOX, 0), desc_kmajor(b + WIDE_BOX, 0),
+                 1);
+  } else {
+    tile_dot<DHP>(d, a, b);
+  }
+}
+
+// tile_acc on a tile in either layout: with WIDE, the n64 part of the
+// product from the wide box and the n16 part (head dim 80) from the box
+// after it; each output column sums the same k16 steps in the same order
+template <int DHP, bool WIDE>
+__device__ __forceinline__ void head_acc(float (&acc)[DHP / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const unsigned char* tile) {
+  if constexpr (WIDE) {
+    float(&lo)[32] = *reinterpret_cast<float(*)[32]>(acc);
+#pragma unroll
+    for (int st = 0; st < 4; ++st)
+      wgmma_rs<64>(lo, a[st], gmma_desc128(tile + 2048 * st, WIDE_BOX, 1024),
+                   1);
+    if constexpr (DHP > 64) {
+      float(&hi)[8] = *reinterpret_cast<float(*)[8]>(acc + 32);
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+        wgmma_rs<16>(hi, a[st], desc_mnmajor(tile + WIDE_BOX, st), 1);
+    }
+  } else {
+    tile_acc<DHP>(acc, a, tile);
+  }
+}
+
 // rows g and g + 8 of this warp's 16 of an m64nDHP accumulator, bf16, at
 // `row` of each head row; half hh
 template <int DHP>
@@ -255,13 +330,57 @@ static cudaError_t tile_map(TileMap& tm, const InHeads& x, int batch,
 // stride: none of them 0
 static bool has_strides(const InHeads& x) { return x.sb && x.sh && x.sr; }
 
+// Operands that TMA loads as they lie: dh equal to the padded head dim,
+// 16-byte strides and base, no stride 0.
+template <int DHP, typename... T>
+static bool full_tiles(int dh, const T&... ops) {
+  return dh == DHP && ops_vec(dh, ops...) == 8 && (has_strides(ops) && ...);
+}
+
+// the maps of the full-tile operands ops[0 .. OPS - 1] in the tile layout
+// of wide_tile<DHP, true>
+template <int DHP, int OPS>
+static cudaError_t head_maps(HeadMaps<OPS>& maps, const InHeads* const* ops,
+                             int batch, int heads, int n) {
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < OPS && err == cudaSuccess; ++i) {
+    if (DHP % 64) err = tile_map(maps.narrow[i], *ops[i], batch, heads, n,
+                                 DHP);
+    if (DHP >= 64 && err == cudaSuccess)
+      err = tile_map(maps.wide[i], *ops[i], batch, heads, n, DHP, 64);
+  }
+  return err;
+}
+
+// A tile's 64 output rows staged in shared memory at a pitch of DHP + 8
+// elements (a warp's stores spread over the banks)
+template <int DHP>
+constexpr int STAGED_PITCH = DHP + 8;
+template <int DHP>
+constexpr int STAGED_ROWS = TILE_ROWS * STAGED_PITCH<DHP>;
+
+// rows row0 .. row0 + 63 (those below n) of head (b, h) of out from the
+// staged rows, 16 bytes a thread (dh, out's strides and base multiples of
+// 8 elements); after a __syncthreads that follows the staging
+template <int DHP>
+__device__ __forceinline__ void store_staged(const OutHeads& out,
+                                             const bf16* rows, int b, int h,
+                                             int row0, int n, int dh,
+                                             int tid) {
+  for (int i = tid; i < TILE_ROWS * (DHP / 8); i += CORE_THREADS) {
+    const int r = i / (DHP / 8), c = (i % (DHP / 8)) * 8;
+    if (row0 + r < n && c < dh)
+      *reinterpret_cast<uint4*>(out.head(b, h) + (row0 + r) * out.sr + c) =
+          *reinterpret_cast<const uint4*>(rows + r * STAGED_PITCH<DHP> + c);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the forward kernel
 // ---------------------------------------------------------------------------
 
 constexpr int FWD_STAGES = 2;  // the streamed ring of K and V tiles
 constexpr int FWD_CTAS = 4;    // CTAs per SM (128 registers a thread)
-constexpr int WIDE_BOX = TILE_ROWS * 128;  // 64 rows x 64 columns
 
 template <int DHP>
 static size_t fwd_smem() {
@@ -269,21 +388,12 @@ static size_t fwd_smem() {
          (1 + FWD_STAGES) * 8;
 }
 
-// The forward's TMA maps of q, k and v: boxes of 16 columns (the head
-// tiles of head dims 16-48, and the last 16 columns at 80) and of 64
-// columns (the first 64 at head dims 64 and 80).
-struct FwdMaps {
-  TileMap narrow[3], wide[3];
-};
+// the forward's maps of q, k and v
+typedef HeadMaps<3> FwdMaps;
 
 // One CTA per (64-query tile, head, image).  Items 0 .. tiles - 1 stream
 // the key tiles once, K and V.  mask: with MASK, [heads * dh], dh even.
-// WIDE (TMA at head dims 64 and 80): a tile's first 64 columns are one
-// box of 64 rows x 128 bytes in the 128-byte swizzle (WIDE_BOX bytes), its
-// 16 columns past them (head dim 80) a 16-column box after it, so TMA
-// reads a row in one or two requests where 16-column boxes take four or
-// five; the products take both layouts, k16 steps 0-3 (and the n64 part
-// of P . V) from the wide box.
+// TMA at head dims 64 and 80 loads the tiles of wide_tile.
 template <int DHP, bool MASK, bool TMA>
 static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
     core_fwd_wg_kernel(const __grid_constant__ FwdMaps maps, InHeads q,
@@ -291,7 +401,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
                        const bf16* __restrict__ mask, int n, int dh,
                        float scale, int vec) {
   static_assert(DHP <= 80, "head dims up to 80");
-  constexpr bool WIDE = TMA && DHP >= 64;
+  constexpr bool WIDE = wide_tile<DHP, TMA>();
   if (TMA) dh = DHP, vec = 8;
   constexpr int TILE = head_tile<DHP>(), S = FWD_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -306,17 +416,6 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
   const float c2 = scale * LOG2E;
   if (TMA) init_bars<S>(bar, tid);
 
-  // operand i (q, k, v) rows row0 .. row0 + 63 by TMA; one thread issues
-  auto tma_rows = [&](unsigned char* dst, int i, uint64_t* full, int row0) {
-    if (WIDE) {
-      tma_box(dst, maps.wide[i], full, b, h, row0, 0);
-      if (DHP > 64)
-        tma_box(dst + WIDE_BOX, maps.narrow[i], full, b, h, row0, 64);
-    } else {
-      tma_tile<DHP>(dst, maps.narrow[i], full, b, h, row0);
-    }
-  };
-
   // bar[0]: Q; bar[1 + i]: stage i
   auto issue = [&](int it) {
     if (it < tiles) {
@@ -325,8 +424,8 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
         if (tid == 0) {
           uint64_t* full = bar + 1 + it % S;
           mbar_expect_tx(full, 2 * TILE);
-          tma_rows(Ks, 1, full, it * TILE_ROWS);
-          tma_rows(Ks + TILE, 2, full, it * TILE_ROWS);
+          tma_rows<DHP>(Ks, maps, OP_K, full, b, h, it * TILE_ROWS);
+          tma_rows<DHP>(Ks + TILE, maps, OP_V, full, b, h, it * TILE_ROWS);
         }
       } else {
         async_tile<DHP>(Ks, k, b, h, it * TILE_ROWS, n, dh, vec, tid);
@@ -340,7 +439,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
   if (TMA) {
     if (tid == 0) {
       mbar_expect_tx(bar, TILE);
-      tma_rows(Qs, 0, bar, qt * TILE_ROWS);
+      tma_rows<DHP>(Qs, maps, OP_Q, bar, b, h, qt * TILE_ROWS);
     }
   } else {
     async_tile<DHP>(Qs, q, b, h, qt * TILE_ROWS, n, dh, vec, tid);
@@ -373,17 +472,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
 
     // S = Q . K^T over the head dim, k16 step by step
     wg_fence();
-    if constexpr (WIDE) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss64(s, gmma_desc128(Qs + 32 * kk, 16, 1024),
-                   gmma_desc128(Ks + 32 * kk, 16, 1024), kk);
-      if constexpr (DHP > 64)
-        wgmma_ss64(s, desc_kmajor(Qs + WIDE_BOX, 0),
-                   desc_kmajor(Ks + WIDE_BOX, 0), 1);
-    } else {
-      tile_dot<DHP>(s, Qs, Ks);
-    }
+    head_dot<DHP, WIDE>(s, Qs, Ks);
     wg_commit();
     wg_wait();
     fence_acc(s);
@@ -428,21 +517,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
     uint32_t a[4][4];
     pack_a(a, s);
     wg_fence();
-    if constexpr (WIDE) {
-      float(&lo)[32] = *reinterpret_cast<float(*)[32]>(acc);
-#pragma unroll
-      for (int st = 0; st < 4; ++st)
-        wgmma_rs<64>(lo, a[st], gmma_desc128(Vs + 2048 * st, WIDE_BOX, 1024),
-                     1);
-      if constexpr (DHP > 64) {
-        float(&hi)[8] = *reinterpret_cast<float(*)[8]>(acc + 32);
-#pragma unroll
-        for (int st = 0; st < 4; ++st)
-          wgmma_rs<16>(hi, a[st], desc_mnmajor(Vs + WIDE_BOX, st), 1);
-      }
-    } else {
-      tile_acc<DHP>(acc, a, Vs);
-    }
+    head_acc<DHP, WIDE>(acc, a, Vs);
     wg_commit();
     wg_wait();
     fence_acc(acc);
@@ -467,9 +542,7 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
   };
   if constexpr (TMA) {
     // full tiles, 16-byte rows: the tile's rows through shared memory (the
-    // ring, free now; a padded row pitch spreads a warp's stores over the
-    // banks), then 16 bytes a thread
-    constexpr int PITCH = DHP + 8;
+    // ring, free now), then 16 bytes a thread
     bf16* rows = reinterpret_cast<bf16*>(ring);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -478,18 +551,12 @@ static __global__ void __launch_bounds__(CORE_THREADS, FWD_CTAS)
       for (int j = 0; j < DHP / 8; ++j) {
         float c0, c1;
         ctx_pair(j, hh, c0, c1);
-        *reinterpret_cast<uint32_t*>(rows + r * PITCH + 8 * j + 2 * t) =
-            pack_f32(c0, c1);
+        *reinterpret_cast<uint32_t*>(rows + r * STAGED_PITCH<DHP> + 8 * j +
+                                     2 * t) = pack_f32(c0, c1);
       }
     }
     __syncthreads();
-    for (int i = tid; i < TILE_ROWS * (DHP / 8); i += CORE_THREADS) {
-      const int r = i / (DHP / 8), c = (i % (DHP / 8)) * 8;
-      const int qi = qt * TILE_ROWS + r;
-      if (qi < n)
-        *reinterpret_cast<uint4*>(out.head(b, h) + qi * out.sr + c) =
-            *reinterpret_cast<const uint4*>(rows + r * PITCH + c);
-    }
+    store_staged<DHP>(out, rows, b, h, qt * TILE_ROWS, n, dh, tid);
   } else {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -528,17 +595,10 @@ static cudaError_t launch_core_fwd_wg(InHeads q, InHeads k, InHeads v,
                                       int batch, int heads, int n, int dh,
                                       float scale, cudaStream_t s) {
   const int vec = ops_vec(dh, q, k, v, out);
-  if (dh == DHP && vec == 8 && has_strides(q) && has_strides(k) &&
-      has_strides(v)) {
+  if (vec == 8 && full_tiles<DHP>(dh, q, k, v)) {
     FwdMaps maps;
     const InHeads* ops[3] = {&q, &k, &v};
-    cudaError_t err = cudaSuccess;
-    for (int i = 0; i < 3 && err == cudaSuccess; ++i) {
-      if (DHP % 64) err = tile_map(maps.narrow[i], *ops[i], batch, heads, n,
-                                   dh);
-      if (DHP >= 64 && err == cudaSuccess)
-        err = tile_map(maps.wide[i], *ops[i], batch, heads, n, dh, 64);
-    }
+    const cudaError_t err = head_maps<DHP>(maps, ops, batch, heads, n);
     if (err != cudaSuccess) return err;
     return run_core_fwd_wg<DHP, MASK, true>(maps, q, k, v, out, mask, batch,
                                             heads, n, dh, scale, vec, s);

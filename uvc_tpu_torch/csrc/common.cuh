@@ -185,7 +185,8 @@ enum Epilogue {
   EPI_BIAS = 0,       // bf16(acc + bias)                        (qkv)
   EPI_GELU_MASK = 1,  // bf16(gelu_erf(acc + bias) * mask)       (fc1)
   EPI_RESID = 2,      // bf16(resid + (acc + bias))              (proj, fc2)
-  EPI_BLEND = 3,      // bf16(d1 * (resid + (acc + bias)) + d0 * xin)  (fc2)
+  EPI_BLEND = 3,      // bf16(d1 * (resid + (acc + bias)) + d0 * xin)
+                      //   (K3's fc2; gemm_wg.cuh only)
   EPI_F32 = 4,        // out32 = acc (+ bias when bias is given)
   EPI_F32_MASK = 5,   // out32 = acc, out = bf16(acc * mask)     (do @ Wproj^T)
   EPI_SCALE = 6,      // bf16(acc * d[1]), or bf16(acc) when d is null
@@ -353,14 +354,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
   // epilogue: accumulator element e of tile (mi, ni) sits at
   // row g + 8 * (e / 2), column 2 * t + (e % 2)
-  float d0 = 0.f, d1 = 1.f;
-  if (EPI == EPI_BLEND) {
-    d0 = p.d[0];
-    d1 = p.d[1];
-  }
+  float d1 = 1.f;
   if (EPI == EPI_SCALE && p.d != nullptr) d1 = p.d[1];
-  const bool has_bias =
-      EPI <= EPI_BLEND || EPI == EPI_RESID32 || (EPI == EPI_F32 && p.bias);
+  const bool has_bias = EPI <= EPI_RESID || EPI == EPI_RESID32 ||
+                        (EPI == EPI_F32 && p.bias);
   float* out32 = p.out32 ? p.out32 + (size_t)blockIdx.z * p.M * p.N : nullptr;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
@@ -398,17 +395,11 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
           const float2 r = *reinterpret_cast<const float2*>(p.resid32 + off);
           v0 = r.x + v0;
           v1 = r.y + v1;
-        } else if (EPI == EPI_RESID || EPI == EPI_BLEND) {
+        } else if (EPI == EPI_RESID) {
           const __nv_bfloat162 r =
               *reinterpret_cast<const __nv_bfloat162*>(p.resid + off);
           v0 = bf2f(r.x) + v0;
           v1 = bf2f(r.y) + v1;
-          if (EPI == EPI_BLEND) {
-            const __nv_bfloat162 xi =
-                *reinterpret_cast<const __nv_bfloat162*>(p.xin + off);
-            v0 = d1 * v0 + d0 * bf2f(xi.x);
-            v1 = d1 * v1 + d0 * bf2f(xi.y);
-          }
         }
         *reinterpret_cast<uint32_t*>(p.out + off) = pack_f32(v0, v1);
       }
@@ -418,7 +409,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
 template <int EPI, bool A_KM = false, bool B_NK = false>
 static inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
-  static_assert(EPI != EPI_F32_MASK, "EPI_F32_MASK runs on gemm_wg.cuh");
+  static_assert(EPI != EPI_F32_MASK && EPI != EPI_BLEND,
+                "EPI_F32_MASK and EPI_BLEND run on gemm_wg.cuh");
   const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM,
                   p.kchunk ? (p.K + p.kchunk - 1) / p.kchunk : 1);
   gemm_kernel<EPI, A_KM, B_NK><<<grid, GEMM_THREADS, 0, stream>>>(p);

@@ -9,8 +9,9 @@
 //                 the JAX package stores it);  B_K = true: B stored [N][K]
 //                 (K-major: . W^T)
 // The two products of K1 and of A7's forward and the five of the sublayer
-// backwards A2 and A7 (attention.cu), and K2's fc1 and fc2 (mlp.cu) run
-// it; K3, A4 and A6 keep the mma.sync GEMM of common.cuh.
+// backwards A2 and A7 (attention.cu), and the fc1 and fc2 of K2 and K3
+// (mlp.cu) run it; A4, A6 and the performer keep the mma.sync GEMM of
+// common.cuh.
 //
 // Epilogues (a template parameter; common.cuh's Epilogue values, in f32 in
 // the Pallas bodies' order, one rounding to bf16):
@@ -19,6 +20,8 @@
 //                 ones                                (K2's fc1)
 //   EPI_RESID     out = bf16(resid + (acc + bias))    (K1's projection, K2's
 //                                                      fc2)
+//   EPI_BLEND     out = bf16(d1 (resid + (acc + bias)) + d0 xin), d = p.d
+//                 read on the device                  (K3's fc2)
 //   EPI_F32       out32 = acc                         (d a_in; split partials)
 //   EPI_F32_MASK  out32 = acc, out = bf16(acc * mask) (do . Wproj^T)
 //   EPI_SCALE     out = bf16(acc * d[1]), or bf16(acc) when d is null
@@ -43,8 +46,8 @@
 // tile.  TMA zero-fills rows and columns past M, N and K, so any M, and N
 // and K multiples of 8 (16-byte rows), are taken; the stores are masked.
 // The epilogue stages acc (+ bias) in f32 in the ring's shared memory,
-// then reads the residual and writes the outputs 16 bytes a thread (32 for
-// f32), a warp's accesses covering whole rows.
+// then reads the residual (and the blend's xin) and writes the outputs 16
+// bytes a thread (32 for f32), a warp's accesses covering whole rows.
 #pragma once
 
 #include "hopper.cuh"
@@ -171,8 +174,8 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
   // row 16 warp + g + 8 hh of the warpgroup's 64, column 8 j + 2 t (+ 1).
   asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
   constexpr int LDS = BN + 4;
-  constexpr bool BIAS =
-      EPI == EPI_BIAS || EPI == EPI_GELU_MASK || EPI == EPI_RESID;
+  constexpr bool BIAS = EPI == EPI_BIAS || EPI == EPI_GELU_MASK ||
+                       EPI == EPI_RESID || EPI == EPI_BLEND;
   static_assert(GW_BM * LDS * 4 <= G::STAGES * G::STAGE, "staging");
   float* tile = reinterpret_cast<float*>(ring);
   const int g = lane >> 2, t = lane & 3;
@@ -192,8 +195,12 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
-  float mul = 1.f;
+  float mul = 1.f, d0 = 0.f;
   if (EPI == EPI_SCALE && p.d != nullptr) mul = p.d[1];
+  if (EPI == EPI_BLEND) {
+    d0 = p.d[0];
+    mul = p.d[1];
+  }
   float* out32 = p.out32 + (size_t)blockIdx.z * p.M * p.N;
   // eight columns a thread
   for (int i = tid; i < GW_BM * (BN / 8); i += GW_CONSUMERS * 128) {
@@ -225,11 +232,18 @@ static __global__ void __launch_bounds__(GW_THREADS, GemmWg<BN>::CTAS)
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] *= bf2f(p.mask[col + e]);
       }
-    } else if (EPI == EPI_RESID) {
+    } else if (EPI == EPI_RESID || EPI == EPI_BLEND) {
       const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + off);
       const bf16* re = reinterpret_cast<const bf16*>(&rv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = bf2f(re[e]) + v[e];
+      if (EPI == EPI_BLEND) {
+        // the gating blend in common.cuh's order, one rounding after it
+        const uint4 xv = *reinterpret_cast<const uint4*>(p.xin + off);
+        const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = mul * v[e] + d0 * bf2f(xe[e]);
+      }
     }
     const uint4 o = make_uint4(pack_f32(v[0], v[1]), pack_f32(v[2], v[3]),
                                pack_f32(v[4], v[5]), pack_f32(v[6], v[7]));
@@ -259,13 +273,15 @@ static cudaError_t run_gemm_wg(const GemmArgs& p, cudaStream_t s) {
 // out = epilogue(op(a) . op(w)) on the caller's stream: p.a [M][K] (or
 // [K][M] with A_MN), p.w [K][N] (or [N][K] with B_K), 16-byte aligned, K
 // and N (and M with A_MN) multiples of 8; p.bias [N] (EPI_BIAS,
-// EPI_GELU_MASK, EPI_RESID), p.resid [M][N] (EPI_RESID), p.mask [N] or
-// null (EPI_GELU_MASK, EPI_F32_MASK), p.d [2] or null (EPI_SCALE).
+// EPI_GELU_MASK, EPI_RESID, EPI_BLEND), p.resid [M][N] (EPI_RESID,
+// EPI_BLEND), p.xin [M][N] and p.d [2] (EPI_BLEND), p.mask [N] or null
+// (EPI_GELU_MASK, EPI_F32_MASK), p.d [2] or null (EPI_SCALE).  Every
+// epilogue of common.cuh's Epilogue but the performer's EPI_RESID32.
 template <int EPI, bool A_MN = false, bool B_K = false>
 static cudaError_t launch_gemm_wg(const GemmArgs& p, cudaStream_t s) {
   static_assert(EPI == EPI_BIAS || EPI == EPI_GELU_MASK || EPI == EPI_RESID ||
-                    EPI == EPI_F32 || EPI == EPI_F32_MASK ||
-                    EPI == EPI_SCALE,
+                    EPI == EPI_BLEND || EPI == EPI_F32 ||
+                    EPI == EPI_F32_MASK || EPI == EPI_SCALE,
                 "gemm_wg epilogue");
   return p.N >= GW_WIDE_N ? run_gemm_wg<EPI, 256, A_MN, B_K>(p, s)
                           : run_gemm_wg<EPI, 128, A_MN, B_K>(p, s);

@@ -18,23 +18,22 @@
 // Design: three launches on the caller's stream.
 //   1. layer_norm_kernel: a_in = bf16(LN2(x)) in f32 -> [B*N, dm].
 //   2. fc1, hidden = bf16(gelu_erf(a_in @ W1 + b1) * mask) -> [B*N, F]:
-//      mlp_ln on gemm_wg_kernel<EPI_GELU_MASK> (gemm_wg.cuh: TMA, a
-//      producer warp, two wgmma consumer warpgroups, 128 x 256 tiles at
-//      F >= 2048 and 128 x 128 below, the bias, the GELU and the mask in
-//      the f32 epilogue staged in shared memory, one rounding);
-//      mlp_ln_blend on common.cuh's mma.sync gemm_kernel<EPI_GELU_MASK>.
+//      gemm_wg_kernel<EPI_GELU_MASK> (gemm_wg.cuh: TMA, a producer warp,
+//      two wgmma consumer warpgroups, 128 x 256 tiles at F >= 2048 and
+//      128 x 128 below, the bias, the GELU and the mask in the f32
+//      epilogue staged in shared memory, one rounding).
 //   3. fc2 with the residual add in its epilogue: mlp_ln on
 //      gemm_wg_kernel<EPI_RESID>, out = bf16(x + (hidden @ W2 + b2));
-//      mlp_ln_blend on gemm_kernel<EPI_BLEND>, d1 * (x + out) + d0 * xin,
-//      d read on the device, so the gating distribution never syncs the
-//      host.
-// Against the bound: mlp_ln's two products run on wgmma from TMA-fed
-// shared memory; mlp_ln_blend keeps the mma.sync GEMM (5-15% of the bf16
-// peak) until its blend epilogue moves to gemm_wg.  The TPU kernel kept
-// the LN output and the hidden activations in VMEM; here they make one
-// round trip each through device memory (~2 x 9.7 MB and ~2 x 38.7 MB at
-// B = 64, F = 1536; the hidden layer ~2 x 84 MB at ViT-H/14, ~50 us at
-// 3.35 TB/s).  Fusing fc1 and fc2 is later work.
+//      mlp_ln_blend on gemm_wg_kernel<EPI_BLEND>, bf16(d1 * (x + (hidden
+//      @ W2 + b2)) + d0 * xin), d read on the device, so the gating
+//      distribution never syncs the host, x and xin read 16 bytes a
+//      thread.
+// Against the bound: the two products run on wgmma from TMA-fed shared
+// memory; the blend adds one read of xin to fc2's epilogue.  The TPU
+// kernel kept the LN output and the hidden activations in VMEM; here they
+// make one round trip each through device memory (~2 x 9.7 MB and ~2 x
+// 38.7 MB at B = 64, F = 1536; the hidden layer ~2 x 84 MB at ViT-H/14,
+// ~50 us at 3.35 TB/s).  Fusing fc1 and fc2 is later work.
 // GELU: erff is exact; the Pallas body uses the Abramowitz-Stegun erf
 // (|err| < 1.5e-7), far below the bf16 rounding of the hidden layer.
 #include "gemm_wg.cuh"
@@ -43,7 +42,7 @@ using uvc::bf16;
 
 namespace {
 
-// K2 (xin null) on gemm_wg; K3 (xin and d given) on the mma.sync GEMM
+// K2 (xin null) and K3 (xin and d given)
 int mlp_forward(const void* x, const void* xin, const void* d, const void* g2,
                 const void* b2, const void* w1, const void* bias1,
                 const void* w2, const void* bias2, const void* mask,
@@ -64,8 +63,7 @@ int mlp_forward(const void* x, const void* xin, const void* d, const void* g2,
   p.N = f;
   p.K = dm;
   p.mask = static_cast<const bf16*>(mask);
-  err = xin == nullptr ? uvc::launch_gemm_wg<uvc::EPI_GELU_MASK>(p, s)
-                       : uvc::launch_gemm<uvc::EPI_GELU_MASK>(p, s);
+  err = uvc::launch_gemm_wg<uvc::EPI_GELU_MASK>(p, s);
   if (err != cudaSuccess) return (int)err;
 
   uvc::GemmArgs q = {};
@@ -80,7 +78,7 @@ int mlp_forward(const void* x, const void* xin, const void* d, const void* g2,
   if (xin == nullptr) return (int)uvc::launch_gemm_wg<uvc::EPI_RESID>(q, s);
   q.xin = static_cast<const bf16*>(xin);
   q.d = static_cast<const float*>(d);
-  return (int)uvc::launch_gemm<uvc::EPI_BLEND>(q, s);
+  return (int)uvc::launch_gemm_wg<uvc::EPI_BLEND>(q, s);
 }
 
 }  // namespace

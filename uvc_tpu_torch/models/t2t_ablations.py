@@ -73,7 +73,7 @@ def _attn_apply(p, x, num_heads, scale, dtype):
     b, n, d = x.shape
     qkv = _apply_lin(p["qkv"], x, dtype).reshape(b, n, 3, num_heads,
                                                  d // num_heads)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
     ctx = attention_core(q, k, v, scale).to(dtype)
     return _apply_lin(p["proj"], ctx.transpose(1, 2).reshape(b, n, d), dtype)
 

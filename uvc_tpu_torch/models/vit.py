@@ -316,6 +316,15 @@ def apply(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
                          token_mask=token_mask)
 
 
+def _per_block(t: Optional[torch.Tensor], depth: int):
+    """A stacked ``[L, ...]`` leaf as its L blocks (L Nones for None): one
+    unbind, whose backward stacks the blocks' gradients once, where a
+    select per block would fill and add L dense ``[L, ...]`` gradients (the
+    reference's ``lax.scan`` over the stacked leaves stacks them once
+    too)."""
+    return [None] * depth if t is None else t.unbind(0)
+
+
 def transformer_encode(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
                        gating_distrib=None, attn_distrib=None,
                        mlp_distrib=None, masks=None, jumping: bool = False,
@@ -339,17 +348,20 @@ def transformer_encode(params: dict, x: torch.Tensor, cfg: ViTConfig, *,
             raise ValueError("drop_path_rate > 0 needs the drop_path keep "
                              "decisions [L, 2, B]")
         rates = drop_path_rates(cfg.depth, drop_path_rate)
-    blocks = params["blocks"]
+    depth = cfg.depth
+    blocks = {name: {k: _per_block(v, depth) for k, v in sub.items()}
+              for name, sub in params["blocks"].items()}
+    attn_ms, mlp_ms = (_per_block(None if masks is None else masks[k], depth)
+                       for k in ("attn", "mlp"))
+    distribs, a_ds, m_ds = (_per_block(t, depth) for t in (
+        gating_distrib, attn_distrib, mlp_distrib))
     h = x
     accum = torch.zeros_like(x) if jumping else None
     for i in range(cfg.depth):
         blk = {name: {k: v[i] for k, v in sub.items()}
                for name, sub in blocks.items()}
-        attn_m = None if masks is None else masks["attn"][i]
-        mlp_m = None if masks is None else masks["mlp"][i]
-        distrib = None if gating_distrib is None else gating_distrib[i]
-        a_d = None if attn_distrib is None else attn_distrib[i]
-        m_d = None if mlp_distrib is None else mlp_distrib[i]
+        attn_m, mlp_m = attn_ms[i], mlp_ms[i]
+        distrib, a_d, m_d = distribs[i], a_ds[i], m_ds[i]
 
         if a_d is None and not use_dp:
             z = _attention_ln(h, blk, cfg.num_heads, scale, attn_m, eps,

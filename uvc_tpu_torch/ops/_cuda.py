@@ -43,8 +43,8 @@ _LIBS = {
     }),
     "attention_core": ("attention_core.cu", {
         "uvc_attention": [_P] * 4 + [_LP] + [_I] * 4 + [_F, _P],
-        "uvc_attention_bwd": [_P] * 8 + [_LP] + [_I] * 4 + [_F, _P],
-        "uvc_attention_bwd_ctx": [_P] * 9 + [_LP] + [_I] * 4 + [_F, _P],
+        "uvc_attention_bwd": [_P] * 9 + [_LP] + [_I] * 4 + [_F, _P],
+        "uvc_attention_bwd_ctx": [_P] * 10 + [_LP] + [_I] * 4 + [_F, _P],
     }),
     "mlp": ("mlp.cu", {
         "uvc_mlp_ln": [_P] * 11 + [_I] * 3 + [_F, _P],

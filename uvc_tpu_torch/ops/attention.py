@@ -72,11 +72,39 @@ def _core_bwd_smem_bytes(dh: int) -> int:
     return max(query_side, key_side)
 
 
+def _empty(shape, dtype, device) -> torch.Tensor:
+    """An uninitialised tensor: the core wrappers' outputs and scratch."""
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 def _core_bwd_stats(b: int, h: int, n: int, device) -> torch.Tensor:
     """The backward's per-query scratch (max * log2 e, 1 / s, row, 0):
     every row of every 64-row tile of every head."""
     rows = -(-n // _TILE_ROWS) * _TILE_ROWS
-    return torch.empty((b * h * rows, 4), dtype=torch.float32, device=device)
+    return _empty((b * h * rows, 4), torch.float32, device)
+
+
+def _copies_16_bytes(*ts) -> bool:
+    """Whether every ``[B, H, N, dh]`` operand in ``ts`` allows the core
+    kernels' 16-byte copies (``heads_vec`` in csrc/attention_core.cuh):
+    dh, the (batch, head, row) strides and the base multiples of 8
+    elements."""
+    return ts[0].shape[-1] % 8 == 0 and all(
+        all(st % 8 == 0 for st in t.stride()[:3])
+        and t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _core_bwd_pack(q, k, v, do):
+    """The core backward's pack scratch, ``[4, B, H, N, DHP]`` in q's dtype
+    with DHP the head dim padded to 16, where the operands do not allow
+    16-byte copies (an odd head dim, 4-byte strides): the kernel copies q,
+    k, v and do into it zero-padded and loads them from there by TMA, as
+    the reference's wrapper pads with ``jnp.pad``.  None where they do
+    (the kernel reads them as they lie)."""
+    if _copies_16_bytes(q, k, v, do):
+        return None
+    b, h, n, dh = q.shape
+    return _empty((4, b, h, n, -(-dh // 16) * 16), q.dtype, q.device)
 
 
 def _ln_rows(x32, gamma, beta, eps):
@@ -662,7 +690,7 @@ def _head_major(q):
     ``[B, N, H, dh]``: its ``transpose(1, 2).reshape(B, N, H * dh)``, the
     models' next step, is a view."""
     b, h, n, dh = q.shape
-    return q.new_empty((b, n, h, dh)).transpose(1, 2)
+    return _empty((b, n, h, dh), q.dtype, q.device).transpose(1, 2)
 
 
 def _strides(*ts):
@@ -699,8 +727,9 @@ attention.launches = 0
 def attention_bwd(q, k, v, do, scale: float):
     """(dq, dk, dv) of ``attention`` given the output cotangent ``do``
     (kernel A9's backward).  On CUDA: the forward's operand types, the
-    gradients laid out ``[B, N, H, dh]``.  ``attention_bwd.launches``
-    counts kernel launches."""
+    gradients laid out ``[B, N, H, dh]``; operands that do not allow
+    16-byte copies are packed first (``_core_bwd_pack``).
+    ``attention_bwd.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, do, scale)
     if q.device.type != "cuda":
@@ -709,13 +738,15 @@ def attention_bwd(q, k, v, do, scale: float):
     b, h, n, dh = _check_core(dict(q=q, k=k, v=v, do=do), backward=True)
     lib = _cuda.library("attention_core")
     stats = _core_bwd_stats(b, h, n, q.device)
+    pack = _core_bwd_pack(q, k, v, do)
     grads = tuple(_head_major(q) for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.uvc_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            stats.data_ptr(), *(g.data_ptr() for g in grads),
-            _strides(q, k, v, do, *grads), b, h, n, dh, float(scale), stream)
+            stats.data_ptr(), None if pack is None else pack.data_ptr(),
+            *(g.data_ptr() for g in grads), _strides(q, k, v, do, *grads),
+            b, h, n, dh, float(scale), stream)
     _cuda.check(err, "attention_bwd")
     attention_bwd.launches += 1
     return grads
@@ -741,14 +772,16 @@ def _attention_bwd_ctx_into(q, k, v, do, scale, outs):
                               backward=True)
     lib = _cuda.library("attention_core")
     stats = _core_bwd_stats(b, h, n, q.device)
+    pack = _core_bwd_pack(q, k, v, do)
     ctx, dq, dk, dv = outs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.uvc_attention_bwd_ctx(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            stats.data_ptr(), ctx.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv, ctx), b, h, n,
-            dh, float(scale), stream)
+            stats.data_ptr(), None if pack is None else pack.data_ptr(),
+            ctx.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, do, dq, dk, dv, ctx), b, h, n, dh,
+            float(scale), stream)
     _cuda.check(err, "attention_bwd_ctx")
     attention_bwd_ctx.launches += 1
     return outs
@@ -862,7 +895,8 @@ def fused_attention(q, k, v, scale: float):
     ``attention`` alone).  The route follows the tensors' device: the
     kernels on the card, their plain versions on the CPU.  Head views of a
     projection go to the kernels as they lie, and the kernels mask N
-    themselves: nothing is copied or padded."""
+    themselves; only the backward copies operands that do not allow
+    16-byte copies into zero-padded scratch (``_core_bwd_pack``)."""
     if not torch.is_grad_enabled():
         return attention(q, k, v, scale)
     return _FusedAttention.apply(q, k, v, scale)
