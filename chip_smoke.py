@@ -9,7 +9,7 @@
                                            # phase 7's performer kernels'
     python3 chip_smoke_new.py --kernels-only --refused-ok
                                            # this script in an older
-                                           # checkout: a forward row whose
+                                           # checkout: a phase-3 row whose
                                            # kernel refuses its shape is
                                            # printed, not failed
 
@@ -29,8 +29,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    N=197, 6 heads, F=1536) and a ragged one ("ragged": B=3, so B*N=591);
    the sublayer kernels K1, A2 and A7 at head dim 12 ("resnext": B=64,
    N=197, dm=384, 32 heads) and 80 ("h80": B=8, N=257, dm=640, 8 heads);
-   A7's forward and backward at "vit_h" too (dm 1280, where a part-gated
-   ViT-H/14 runs them), and A7's forward at "long" (B=4, N=1025, dm=1280,
+   A7's forward and the four backward kernels (A2, A4, A6, A7's) at
+   "vit_h" too (dm 1280, where ViT-H/14's student runs A2 and A4 and a
+   part-gated one A7), and A7's forward at "long" (B=4, N=1025, dm=1280,
    16 heads of 80: past the 624 keys that its staged core once held);
    every forward kernel's two launches bit for bit; K1's four launches
    (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's and
@@ -40,10 +41,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
    "h80", from a profile, with the GEMMs' rates and the host time of one
    call, each of the model's blocks (32, 12) with its own weights, and K1
    and K2 interleaved block by block as a forward pass issues them; with
-   ``--kernels-only``, A2's eighteen and A7's backward's
-   fourteen launches one by one at each of their shapes the same way, with
-   their five GEMMs' rates (in another tree's sequence, under the kernels'
-   own names), and A9's backward's (the pack where its operands take it,
+   ``--kernels-only``, A2's sixteen and A7's backward's
+   fourteen launches one by one at each of their shapes the same way, and
+   A6's and A4's twelve at "train" and "vit_h", with their GEMMs' rates
+   and the LayerNorm backward's time (in another tree's
+   sequence, under the kernels' own names), and A9's backward's (the pack where its operands take it,
    the query side, the key side; on contiguous heads and on head views)
    at every core shape and A8's at its shapes, under the kernels' own
    names; the attention
@@ -124,20 +126,19 @@ Phases, each of which stops the run with a non-zero exit on failure:
    1280, 16 heads of 80, F 5120, 224 px, patch 14) with bench.py's
    flagship settings and a dense teacher at batch 32: 3 untimed + 10 timed
    steps, per step ``layer_attention_ln`` 64, ``mlp_ln`` 32,
-   ``mlp_ln_blend`` 32 forward and, the width being past the fused
-   backwards' 1024, the composed backward of every student block (32 of
-   ``layer_attention_ln_bwd_composed`` with one ``attention_bwd_ctx`` (A8)
-   each, 32 of ``mlp_ln_blend_bwd_composed``) and no fused sublayer
-   backward; a gating-warmup step that must leave the gating logits
-   unchanged bit for bit; peak memory; a profiled step (with the device
-   time of A8, query and key side, of K1's, K2's and K3's launches, K1's
-   attention core, K2's and K3's fc1 GEMMs and the LayerNorm passes); the
-   same
-   step's device time by autograd node and that of the gradient
-   accumulation's adds and fills; one block's composed routes timed
-   alone; and
-   one step at depth 4 and batch 2 on the card against the CPU plain
-   path.
+   ``mlp_ln_blend`` 32 forward and, dm 1280 being within the LayerNorm
+   backward's width, ``layer_attention_ln_bwd`` (A2) 32 and
+   ``mlp_ln_blend_bwd`` (A4) 32 backward, no composed route and no A8; a
+   gating-warmup step that must leave the gating logits unchanged bit for
+   bit; peak memory; a profiled step (with the device time of A2's first
+   launches, the core backward, A4's h and dam0 GEMMs with the activation
+   backward, the LayerNorm backward, the in-order sums, K1's, K2's and
+   K3's launches, K1's attention core, K2's and K3's fc1 GEMMs and the
+   LayerNorm passes); the same step's device time by autograd node and
+   that of the gradient accumulation's adds and fills; one block's
+   backward by either route timed alone (A2 and A4 beside the composed
+   routes, with A8 and the composed route's f32 product); and one step at
+   depth 4 and batch 2 on the card against the CPU plain path.
 
 10. T2T-ViT-14-resnext -- the stage-1 step of phase 7 on the resnext
    structure ablation (32 heads of 12): 1 untimed + 5 timed steps at
@@ -688,30 +689,51 @@ def forward_breakdowns(eps, card, calls=10):
                     shape, 4 * blocks, host, card)
 
 
-# A2's and A7's backward launches in their order: sublayer_bwd's thirteen
-# (csrc/attention.cu) inside A2's LayerNorm pass and LN backward, and
-# before A7's dx product
+# A2's and A7's backward launches in their order: sublayer_bwd's eleven
+# (csrc/attention.cu) inside A2's LayerNorm pass and LN backward (whose
+# pass over do gives dbproj), and before A7's dbproj column sums and dx
+# product
 SUBLAYER_BWD_LAUNCHES = (
     "qkv GEMM", "t GEMM", "core q", "core kv", "dmask sum", "dWqkv GEMM",
-    "dWqkv sum", "dWproj GEMM", "dWproj sum", "dbqkv colsum", "dbqkv sum",
-    "dbproj colsum", "dbproj sum")
-A2_LAUNCHES = (("layer norm",) + SUBLAYER_BWD_LAUNCHES
-               + ("d a_in GEMM", "LN backward", "dgamma sum", "dbeta sum"))
-A7_BWD_LAUNCHES = SUBLAYER_BWD_LAUNCHES + ("dx GEMM",)
+    "dWqkv sum", "dWproj GEMM", "dWproj sum", "dbqkv colsum", "dbqkv sum")
+LN_BWD_LAUNCHES = ("LN backward", "LN sums", "LN finish")
+A2_LAUNCHES = (("layer norm",) + SUBLAYER_BWD_LAUNCHES + ("d a_in GEMM",)
+               + LN_BWD_LAUNCHES)
+A7_BWD_LAUNCHES = SUBLAYER_BWD_LAUNCHES + ("dbproj colsum", "dbproj sum",
+                                           "dx GEMM")
+# A6's and A4's (csrc/mlp.cu::mlp_backward), where the weight gradients
+# are split over the rows (at "vit_h" they are not: no sums, the breakdown
+# then goes by the kernels' names)
+MLP_BWD_LAUNCHES = (
+    "layer norm", "h and dam0 GEMMs + act", "dmask sum", "db1 sum",
+    "dW2 GEMM", "dW2 sum", "dW1 GEMM", "dW1 sum", "dmi GEMM") \
+    + LN_BWD_LAUNCHES
 
 
-def sublayer_bwd_breakdown(eps, card):
+def _breakdown_or_refused(refused_ok, label, shape, *args):
+    """``launch_breakdown``, or with ``refused_ok`` a line saying that the
+    kernel refuses the shape (an older tree's wrapper raising ValueError)."""
+    try:
+        launch_breakdown(label, shape, *args)
+    except ValueError as e:
+        if not refused_ok:
+            raise
+        print(f"{label} launches [{shape}]: refused: {e}", flush=True)
+
+
+def sublayer_bwd_breakdown(eps, card, refused_ok=False):
     """A2's and A7's backward launch by launch (``launch_breakdown``) at
     every shape of BWD_SHAPES that holds them, with the five GEMMs' rates
     (in launch order: the qkv recompute, t = do . Wproj^T, dWqkv, dWproj,
-    d a_in or dx)."""
+    d a_in or dx); A6's and A4's at "train" and "vit_h", with theirs (h and
+    dam0 in one launch, dW2, dW1, dmi) and the LayerNorm backward's
+    time."""
     from uvc_tpu_torch.ops.attention import (layer_attention_bwd,
                                              layer_attention_ln_bwd)
+    from uvc_tpu_torch.ops.mlp import mlp_ln_blend_bwd, mlp_ln_bwd
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     for shape, (b, n, dm, heads, f, dh, kernels) in BWD_SHAPES.items():
-        if "layer_attention_bwd" not in kernels:
-            continue
         t = _inputs(gen, b, n, dm, heads, f, dh)
         do = (torch.randn(b, n, dm, generator=gen, device="cuda")
               * 0.1).to(torch.bfloat16)
@@ -720,16 +742,32 @@ def sublayer_bwd_breakdown(eps, card):
                            (3 * da, da, 3 * da, da, 3 * da))
         skw = dict(num_heads=heads, scale=dh ** -0.5)
         if "layer_attention_ln_bwd" in kernels:
-            launch_breakdown(
-                "A2", shape, lambda: layer_attention_ln_bwd(
+            _breakdown_or_refused(
+                refused_ok, "A2", shape, lambda: layer_attention_ln_bwd(
                     t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
                     t["bproj"], t["amask"], do, eps=eps, **skw),
                 card, A2_LAUNCHES, gemm_flops)
-        launch_breakdown(
-            "A7 backward", shape, lambda: layer_attention_bwd(
-                t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
-                t["amask"], do, **skw),
-            card, A7_BWD_LAUNCHES, gemm_flops)
+        if "layer_attention_bwd" in kernels:
+            launch_breakdown(
+                "A7 backward", shape, lambda: layer_attention_bwd(
+                    t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
+                    t["amask"], do, **skw),
+                card, A7_BWD_LAUNCHES, gemm_flops)
+        if shape not in ("train", "vit_h"):
+            continue
+        margs = (t["g"], t["b"], t["w1"], t["b1"], t["w2"], t["b2"],
+                 t["fmask"], do)
+        # h and dam0 in one launch, then dW2, dW1, dmi
+        mflops = (4 * rows * dm * f,) + (2 * rows * dm * f,) * 3
+        _breakdown_or_refused(
+            refused_ok, "A6", shape,
+            lambda: mlp_ln_bwd(t["x"], *margs, eps=eps), card,
+            MLP_BWD_LAUNCHES, mflops)
+        _breakdown_or_refused(
+            refused_ok, "A4", shape,
+            lambda: mlp_ln_blend_bwd(t["x"], t["xin"], t["d"], *margs,
+                                     eps=eps),
+            card, MLP_BWD_LAUNCHES, mflops)
 
 
 def core_bwd_breakdown(card):
@@ -776,9 +814,10 @@ BWD_SHAPES = {
                 ("layer_attention_ln_bwd", "layer_attention_bwd")),
     "h80": (8, 257, 640, 8, 2560, 80,
             ("layer_attention_ln_bwd", "layer_attention_bwd")),
-    # A7's backward where a part-gated ViT-H/14 runs it (dm 1280, past the
-    # LayerNorm backward's 1024 columns, which A7 does not have)
-    "vit_h": (32, 257, 1280, 16, 5120, 80, ("layer_attention_bwd",)),
+    # ViT-H/14's stage 1 (A2 and A4 in the student, A7's backward in a
+    # part-gated one, A6 with block gating off): dm 1280, the LayerNorm
+    # backward's widest
+    "vit_h": (32, 257, 1280, 16, 5120, 80, ALL_BWD),
 }
 
 
@@ -790,7 +829,7 @@ def _library_backward(run, leaves, do):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
-def backward_kernel_phase(eps, digests_only=False):
+def backward_kernel_phase(eps, digests_only=False, refused_ok=False):
     from uvc_tpu_torch.ops.attention import (layer_attention_bwd,
                                              layer_attention_bwd_plain,
                                              layer_attention_ln_bwd,
@@ -867,7 +906,14 @@ def backward_kernel_phase(eps, digests_only=False):
         }
         for name in kernels:
             kern, plain, library, flops, nbytes = cases[name]
-            outs = kern()
+            try:
+                outs = kern()
+            except ValueError as e:
+                if not refused_ok:
+                    raise
+                print(f"kernel {name:22s} [{shape:6s}] refused: {e}",
+                      flush=True)
+                continue
             torch.cuda.synchronize()
             again = kern()
             refs = plain()
@@ -1672,6 +1718,7 @@ def t2t_training_phase(card, name="t2t_vit_14", label="T2T-ViT-14", seed=12,
     from uvc_tpu_torch.configs import get_config
     from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
                                    launch_counts, reset_launch_counts)
+    from uvc_tpu_torch.ops.attention import _MAX_DM_BWD
     from uvc_tpu_torch.train.state import TrainHParams, create_train_state
     from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
 
@@ -2197,18 +2244,19 @@ def vit_h_phase(card):
     """The stage-1 step on ViT-H/14 at full width and depth (32 blocks,
     dm 1280, 16 heads of 80, F 5120, N 257) with bench.py's flagship
     settings at batch 32: per step K1 64 (student and teacher), K3 32, K2
-    32 forward, and per student block the composed backward (dm > 1024),
-    whose attention part is A8; no fused sublayer backward.  3 untimed and
-    10 timed steps, a gating-warmup step, a profiled step, the composed
-    routes timed alone at one block, and one step at depth 4 and batch 2 on
-    the card against the CPU plain path.  Returns the timed window's
-    launch counts."""
+    32 forward, and per student block A2 and A4 (dm 1280, within the
+    LayerNorm backward's width; past it the composed routes with A8).  3
+    untimed and 10 timed steps, a gating-warmup step, a profiled step, one
+    block's backward by either route timed alone, and one step at depth 4
+    and batch 2 on the card against the CPU plain path.  Returns the timed
+    window's launch counts."""
     from uvc_tpu_torch.compress.minimax import init_compression_state
     from uvc_tpu_torch.compress.resource import build_macs_table
     from uvc_tpu_torch.compress.state import MinimaxHParams
     from uvc_tpu_torch.configs import get_config
     from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
                                    launch_counts, reset_launch_counts)
+    from uvc_tpu_torch.ops.attention import _MAX_DM_BWD
     from uvc_tpu_torch.train.state import TrainHParams, create_train_state
     from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
     from uvc_tpu_torch.utils.tree import tree_leaves
@@ -2259,10 +2307,15 @@ def vit_h_phase(card):
               **composed_counts()}
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in counts}
+    # the student's backward: A2 and A4 up to the LayerNorm backward's
+    # width, the composed routes (with A8) past it
+    bwd = (dict(attention_bwd_ctx=ln, layer_attention_ln_bwd_composed=ln,
+                mlp_ln_blend_bwd_composed=ln)
+           if cfg.embed_dim > _MAX_DM_BWD else
+           dict(layer_attention_ln_bwd=ln, mlp_ln_blend_bwd=ln))
     want.update({k: v * TRAIN_TIMED for k, v in dict(
         layer_attention_ln=2 * ln, mlp_ln=ln, mlp_ln_blend=ln,
-        attention_bwd_ctx=ln, layer_attention_ln_bwd_composed=ln,
-        mlp_ln_blend_bwd_composed=ln).items()})
+        **bwd).items()})
     print(f"launches ViT-H/14 stage-1 {counts} (expected {want})")
     check(counts == want, "ViT-H/14 stage-1 step launch counts differ")
     losses = torch.stack(losses).float().cpu()
@@ -2292,9 +2345,17 @@ def vit_h_phase(card):
 
     profile_phase(card, {"ViT-H/14 stage-1 train step": lambda: run(
         state, step, 1)}, top=30, batch=b,
-        watch={"A8 (attention_bwd_ctx)": "core_bwd_",
-               "A8 query side": "core_bwd_q_wg_kernel",
-               "A8 key side": "core_bwd_kv_wg_kernel",
+        watch={"A2 (LayerNorm, qkv GEMM, t GEMM, core q, core kv, ...)": (
+                   "layer_norm_kernel", "gemm_wg_kernel<0,",
+                   "gemm_wg_kernel<5,", "core_bwd_q_wg_kernel",
+                   "core_bwd_kv_wg_kernel"),
+               "the core backward, query and key side (A2; A8 on the "
+               "composed route)": "core_bwd_",
+               "A4's h and dam0 GEMMs with the activation backward "
+               "(gemm_act_bwd)": "gemm_act_bwd_kernel",
+               "the LayerNorm backward (A2 and A4)": "ln_bwd_kernel",
+               "the in-order sums (reduce_parts_kernel)":
+                   "reduce_parts_kernel",
                "K1 (LayerNorm, qkv GEMM, core, projection GEMM)": (
                    "layer_norm_kernel", "gemm_wg_kernel<0,",
                    "core_fwd_wg_kernel", "gemm_wg_kernel<2,"),
@@ -2307,7 +2368,7 @@ def vit_h_phase(card):
                "K3 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
                    "layer_norm_kernel", "gemm_wg_kernel<1,",
                    "gemm_wg_kernel<3,"),
-               "LayerNorm (K1 64, K2 32, K3 32 a step)":
+               "LayerNorm (K1 64, K2 32, K3 32, A2 32, A4 32 a step)":
                    "layer_norm_kernel"})
     autograd_profile(card, "ViT-H/14 stage-1 train step",
                      lambda: run(state, step, 1))
@@ -2368,13 +2429,18 @@ def autograd_profile(card, label, fn, top=12):
 
 
 def composed_route_times(card, cfg):
-    """One block's composed backwards at ViT-H/14's stage-1 shape, timed
-    alone beside A8 and the f32 matmul of ``dmask`` (the one product the
-    route keeps in f32): where the route's time goes."""
-    from uvc_tpu_torch.ops.attention import (_rows_as_heads,
+    """One block's backward at ViT-H/14's stage-1 shape by either route,
+    each timed alone: the kernels A2 (``layer_attention_ln_bwd``) and A4
+    (``mlp_ln_blend_bwd``) beside the composed routes, with the composed
+    attention route's A8 and its f32 matmul of ``dmask`` (the one product
+    it keeps in f32); the route whose block is faster is the one the
+    autograd Functions should take at dm 1280 (``_MAX_DM_BWD``)."""
+    from uvc_tpu_torch.ops.attention import (_MAX_DM_BWD, _rows_as_heads,
                                              attention_bwd_ctx,
+                                             layer_attention_ln_bwd,
                                              layer_attention_ln_bwd_composed)
-    from uvc_tpu_torch.ops.mlp import mlp_ln_blend_bwd_composed
+    from uvc_tpu_torch.ops.mlp import (mlp_ln_blend_bwd,
+                                       mlp_ln_blend_bwd_composed)
 
     b, n, dm, heads, f = VIT_H_BATCH, cfg.seq_len, cfg.embed_dim, \
         cfg.num_heads, cfg.mlp_hidden
@@ -2392,23 +2458,36 @@ def composed_route_times(card, cfg):
     q, k, v = _rows_as_heads(qkv, 3, heads)
     dctx_h, = _rows_as_heads(dctx, 1, heads)
     wproj32 = t["wproj"].float()
+    aargs = (t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
+             t["bproj"], t["amask"], do)
+    margs = (t["x"], t["xin"], t["d"], t["g"], t["b"], t["w1"], t["b1"],
+             t["w2"], t["b2"], t["fmask"], do)
     times = {
         "layer_attention_ln_bwd_composed": time_ms(
-            lambda: layer_attention_ln_bwd_composed(
-                t["x"], t["g"], t["b"], t["wqkv"], t["bqkv"], t["wproj"],
-                t["bproj"], t["amask"], do, **akw), 10),
+            lambda: layer_attention_ln_bwd_composed(*aargs, **akw), 10),
         "  of it attention_bwd_ctx (A8)": time_ms(
             lambda: attention_bwd_ctx(q, k, v, dctx_h, dh ** -0.5), 10),
         "  of it the f32 matmul do . Wproj^T (dmask)": time_ms(
             lambda: do.float() @ wproj32.T, 10),
+        "layer_attention_ln_bwd (A2)": time_ms(
+            lambda: layer_attention_ln_bwd(*aargs, **akw), 10),
         "mlp_ln_blend_bwd_composed": time_ms(
-            lambda: mlp_ln_blend_bwd_composed(
-                t["x"], t["xin"], t["d"], t["g"], t["b"], t["w1"], t["b1"],
-                t["w2"], t["b2"], t["fmask"], do, eps=eps), 10),
+            lambda: mlp_ln_blend_bwd_composed(*margs, eps=eps), 10),
+        "mlp_ln_blend_bwd (A4)": time_ms(
+            lambda: mlp_ln_blend_bwd(*margs, eps=eps), 10),
     }
     for name, ms in times.items():
-        print(f"composed route at ViT-H/14 [B={b} N={n} dm={dm} F={f}], one "
-              f"block: {name} {ms:.4f} ms [{card}]")
+        print(f"one block's backward at ViT-H/14 [B={b} N={n} dm={dm} "
+              f"F={f}]: {name} {ms:.4f} ms [{card}]")
+    route = "kernel" if dm <= _MAX_DM_BWD else "composed"
+    for kern, comp in (("layer_attention_ln_bwd (A2)",
+                        "layer_attention_ln_bwd_composed"),
+                       ("mlp_ln_blend_bwd (A4)",
+                        "mlp_ln_blend_bwd_composed")):
+        faster = "kernel" if times[kern] < times[comp] else "composed"
+        print(f"  {kern}: {times[kern]:.4f} ms against the composed "
+              f"{times[comp]:.4f} ms: the {faster} route is faster; the "
+              f"step takes the {route} route at dm {dm}")
 
 
 def main():
@@ -2416,9 +2495,10 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (the kernels)")
     ap.add_argument("--refused-ok", action="store_true",
-                    help="print a phase-3 forward row whose kernel refuses "
-                    "the shape instead of failing: for running this script "
-                    "in a checkout whose kernels predate the shape")
+                    help="print a phase-3 row (or launch breakdown) whose "
+                    "kernel refuses the shape instead of failing: for "
+                    "running this script in a checkout whose kernels "
+                    "predate the shape")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -2447,11 +2527,11 @@ def main():
     res = kernel_phase(eps, args.digests, args.refused_ok)
     if not args.digests:
         forward_breakdowns(eps, card)
-    res.update(backward_kernel_phase(eps, args.digests))
+    res.update(backward_kernel_phase(eps, args.digests, args.refused_ok))
     if args.kernels_only:
         # not in the whole run: profiling A7's backward at "vit_h" here
         # left phase 9's timed window 8-12% slower on the H100
-        sublayer_bwd_breakdown(eps, card)
+        sublayer_bwd_breakdown(eps, card, args.refused_ok)
     res.update(core_kernel_phase(args.digests))
     if args.kernels_only:
         core_bwd_breakdown(card)
@@ -2478,8 +2558,9 @@ def main():
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
     # T2T-ViT-14 stage-1 window and its serving (A10 / A11), the ablations'
-    # fine-tune and the SE eval (A9), the timed ViT-H/14 window (A8) and
-    # the resnext window
+    # fine-tune and the SE eval (A9), the timed ViT-H/14 window (A2 and A4
+    # at dm 1280; A8 only on the composed route, past it) and the resnext
+    # window
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts):

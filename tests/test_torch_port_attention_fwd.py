@@ -296,7 +296,7 @@ def test_wrappers_send_long_sequences_to_the_kernels(monkeypatch):
 
 @pytest.mark.parametrize("n", [561, 700, 4096])
 def test_k1_with_its_gradient_checks_the_backward_limit(monkeypatch, n):
-    """K1 takes any N and, its backward (A2, at dm <= 1024) streaming its
+    """K1 takes any N and, its backward (A2, at dm <= 1280) streaming its
     core as well, so does ``fused_layer_attention_ln`` with the gradient
     recorded: N past the 560 that A2's old staged core held at head dim 80
     reaches the forward's library (none here) and is refused nowhere

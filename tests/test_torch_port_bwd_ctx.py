@@ -22,7 +22,9 @@ package on the CPU.
   f32), so ``dd`` is held to the f32 autodiff of the same composition at
   the same bf16 values instead, at the same 1e-2.
 * The route: the autograd Functions take the composed backward exactly
-  when dm > 1024, read from the counters.
+  when dm > 1280 (past the LayerNorm backward's width; ViT-H/14's 1280
+  takes the fused backwards), read from the counters.  The composed
+  routes stay held at dm 1280 above by direct calls.
 """
 
 import math
@@ -416,7 +418,7 @@ def _route_inputs(dm, f, seed):
 def test_autograd_functions_take_the_composed_route_exactly_when_wide(dm):
     """The three autograd Functions route their backward by the model
     width alone, before anything runs: the fused backward's plain version
-    at dm <= 1024, the composed route (one call each) above; on the CPU no
+    at dm <= 1280, the composed route (one call each) above; on the CPU no
     kernel launches either way.  Both routes give the same f32
     gradients."""
     t = _route_inputs(dm, 64, 6)

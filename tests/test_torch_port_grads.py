@@ -345,7 +345,7 @@ def test_backward_wrappers_refuse_other_devices():
 
 
 def test_backward_checks_refuse_what_the_kernels_cannot_take():
-    """The LayerNorm backward holds at most 1024 columns of a row: a wider
+    """The LayerNorm backward holds at most 1280 columns of a row: a wider
     operand is refused before any launch.  The attention backward streams
     its core, so its shared memory does not grow with N: N = 705, past the
     704 that its old staged core held at head dim 64, is taken (meta

@@ -308,12 +308,14 @@ def test_backward_wrappers_size_stats_as_the_streamed_core(b, n, dm, heads,
 
 def test_weight_grad_splits_cover_the_card():
     """dWqkv and dWproj at DeiT-Small's train shape split 5 and 15 ways
-    (27 and 9 output tiles of 128 x 128: 135 CTAs for 132 SMs); never more
-    splits than 64-row k-tiles, never fewer than one."""
+    (27 and 9 output tiles of 128 x 128: 135 CTAs for 132 SMs); each split
+    at least 8 of the 64-row k-tiles (591 rows: one split; 2056 rows: at
+    most 4), never fewer than one."""
     rows = 64 * 197
     assert tatt._weight_grad_splits(384, 1152, rows, SMS) == 5
     assert tatt._weight_grad_splits(384, 384, rows, SMS) == 15
-    assert tatt._weight_grad_splits(384, 1152, 591, SMS) == 5
-    assert tatt._weight_grad_splits(384, 384, 591, SMS) == 10
+    assert tatt._weight_grad_splits(384, 1152, 591, SMS) == 1
+    assert tatt._weight_grad_splits(384, 384, 591, SMS) == 1
+    assert tatt._weight_grad_splits(640, 640, 8 * 257, SMS) == 4
     assert tatt._weight_grad_splits(1280, 3840, 32 * 257, SMS) == 1
     assert tatt._weight_grad_splits(16, 16, 13, SMS) == 1

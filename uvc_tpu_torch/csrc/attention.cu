@@ -42,6 +42,7 @@
 // (compacted layers).
 #include "attention_core_bwd.cuh"
 #include "gemm_wg.cuh"
+#include "ln_bwd.cuh"
 
 namespace uvc {
 
@@ -110,14 +111,14 @@ struct SublayerBwd {
   float4* stats;   // [B * heads * ceil(N / 64) * 64]  per query
   bf16* dqkv;      // [rows, 3 da]
   float* part;     // dmask, split-K and column-sum partials
-  bf16 *dwqkv, *dbqkv, *dwproj, *dbproj, *dmask;
+  bf16 *dwqkv, *dbqkv, *dwproj, *dmask;
   int batch, n, dm, da, heads;
   int splits_qkv, splits_proj;  // CTAs along K of dWqkv and dWproj
   float scale;
 };
 
 // Recomputes qkv from a, then emits dqkv (attention core), dWqkv, dWproj,
-// dbqkv, dbproj and dmask = sum(t * ctx).  Thirteen launches:
+// dbqkv and dmask = sum(t * ctx).  Eleven launches:
 //   1. gemm_wg <EPI_BIAS>: qkv = bf16(a . Wqkv + bqkv).
 //   2. gemm_wg <EPI_F32_MASK, K-major B>: t = do . Wproj^T (f32),
 //      dctx = bf16(t * mask).
@@ -132,9 +133,10 @@ struct SublayerBwd {
 //      dWqkv = a^T . dqkv as f32 partials, then their in-order sum,
 //      rounded once.
 //   8-9. the same for dWproj = ctxm^T . do.
-//   10-13. two column sums, each partials per 128 rows and then an
-//      in-order pass: dbqkv, dbproj.
-// The caller takes d a = dqkv . Wqkv^T from dqkv.
+//   10-11. dbqkv: column sums of dqkv (ln_bwd.cuh: partials over blocks
+//      of rows that cover the SMs twice), then an in-order pass.
+// The caller takes d a = dqkv . Wqkv^T from dqkv, and dbproj = colsum(do):
+// A2 in its LayerNorm backward's pass over do, A7 by a column sum.
 static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   const int rows = b.batch * b.n;
   GemmArgs p = {};
@@ -196,11 +198,8 @@ static cudaError_t sublayer_bwd(const SublayerBwd& b, cudaStream_t s) {
   err = weight_grad_wg(p, b.splits_proj, b.part, b.dwproj, s);
   if (err != cudaSuccess) return err;
 
-  err = column_sum(b.dqkv, static_cast<const bf16*>(nullptr), rows, 3 * b.da,
-                   b.part, nullptr, nullptr, b.dbqkv, s);
-  if (err != cudaSuccess) return err;
-  return column_sum(b.dout, static_cast<const bf16*>(nullptr), rows, b.dm,
-                    b.part, nullptr, nullptr, b.dbproj, s);
+  return column_sum(b.dqkv, rows, 3 * b.da, b.part, nullptr, nullptr,
+                    b.dbqkv, s);
 }
 
 }  // namespace uvc
@@ -266,27 +265,28 @@ extern "C" int uvc_layer_attention(
 // pairs, 11.44) against ~30 MB of inputs and outputs, so the tensor cores
 // set the floor: ~53 us at 989 TFLOP/s.
 //
-// Design: eighteen launches on the caller's stream, no float atomics.
+// Design: sixteen launches on the caller's stream, no float atomics.
 //   1. layer_norm_kernel: a_in = bf16(LN1(x)).
-//   2-14. sublayer_bwd above with a = a_in: the five products on gemm_wg
+//   2-12. sublayer_bwd above with a = a_in: the five products on gemm_wg
 //      (TMA and wgmma: the qkv recompute, t and dctx, then dWqkv and
 //      dWproj split over the B*N rows so that their few output tiles fill
 //      the card, each followed by the in-order sum of its f32 partials),
 //      the streamed core backward (two launches, with dmask's partials and
-//      their sum) and the column sums.
-//  15. gemm_wg <EPI_F32, K-major B>: d a_in = dqkv . Wqkv^T (f32).
-//  16. ln_bwd_kernel: dx = bf16(LN VJP + do), partial dgamma1 / dbeta1;
-//      17-18. their fixed-order reductions.
+//      their sum) and dbqkv's column sums.
+//  13. gemm_wg <EPI_F32, K-major B>: d a_in = dqkv . Wqkv^T (f32).
+//  14. ln_bwd_kernel (ln_bwd.cuh): dx = bf16(LN VJP + do), a warp a row,
+//      about twice as many CTAs as SMs, per CTA partials of dgamma1,
+//      dbeta1 and colsum(do) (dbproj); 15. their in-order sum;
+//  16. ln_bwd_finish_kernel: dgamma1, dbeta1 and dbproj = bf16(colsum).
 // Against the bound: every product on wgmma from TMA-fed shared memory,
 // the core streamed with N not bounded by shared memory.  The TPU kernel
 // kept every intermediate in VMEM and accumulated the weight gradients
 // over its sequential grid; here a_in, qkv, t, dctx, ctxm, dqkv and
 // d a_in make a round trip through device memory (~9.7 MB each in bf16 at
 // the train shape, twice that in f32), and the split partials one more
-// (~9 MB); the logits, the probabilities and the f32 ctx never do.  On
-// the H100 (chip_smoke.py's breakdown at the train shape) the core takes
-// about a third of the time, the products a third, the LN backward and
-// the column sums most of the rest; PERF.md has the launches' times.
+// (~9 MB); the logits, the probabilities and the f32 ctx never do.  Any
+// dm up to LNB_MAX_DM (1280: ViT-H/14).  PERF.md has the launches' times
+// (chip_smoke.py's breakdown).
 extern "C" int uvc_layer_attention_ln_bwd(
     const void* x, const void* g1, const void* b1, const void* wqkv,
     const void* bqkv, const void* wproj, const void* mask, const void* dout,
@@ -312,8 +312,7 @@ extern "C" int uvc_layer_attention_ln_bwd(
       static_cast<bf16*>(dctx), static_cast<bf16*>(ctxm),
       static_cast<float4*>(stats), static_cast<bf16*>(dqkv), partf,
       static_cast<bf16*>(dwqkv), static_cast<bf16*>(dbqkv),
-      static_cast<bf16*>(dwproj),
-      static_cast<bf16*>(dbproj), static_cast<bf16*>(dmask), batch, n, dm,
+      static_cast<bf16*>(dwproj), static_cast<bf16*>(dmask), batch, n, dm,
       da, heads, splits_qkv, splits_proj, scale};
   err = uvc::sublayer_bwd(b, s);
   if (err != cudaSuccess) return (int)err;
@@ -329,24 +328,23 @@ extern "C" int uvc_layer_attention_ln_bwd(
   if (err != cudaSuccess) return (int)err;
 
   uvc::LnBwdArgs l = {};
-  const int lnp = uvc::ln_bwd_ctas(rows);
   l.x = xb;
   l.gamma = static_cast<const float*>(g1);
   l.dy = static_cast<const float*>(da_in);
   l.resid = b.dout;
   l.dx = static_cast<bf16*>(dx);
-  l.part_dg = partf;
-  l.part_db = partf + (size_t)lnp * dm;
+  l.part = partf;
   l.rows = rows;
   l.dm = dm;
   l.eps = eps;
-  err = uvc::launch_ln_bwd(l, s);
+  // the sums after the partials
+  float* sums = partf + (size_t)uvc::ln_bwd_split(rows, dm).ctas *
+                            uvc::ln_bwd_part_cols(dm);
+  err = uvc::launch_ln_bwd(l, sums, s);
   if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(l.part_dg, lnp, dm, nullptr,
-                           static_cast<float*>(dg1), nullptr, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)uvc::launch_reduce(l.part_db, lnp, dm, nullptr,
-                                 static_cast<float*>(db1), nullptr, s);
+  return (int)uvc::launch_ln_bwd_finish(
+      sums, dm, nullptr, static_cast<float*>(dg1), static_cast<float*>(db1),
+      static_cast<bf16*>(dbproj), nullptr, 0, nullptr, nullptr, s);
 }
 
 // Backward of the bare attention sublayer: the port of
@@ -357,10 +355,11 @@ extern "C" int uvc_layer_attention_ln_bwd(
 //
 // What bounds it: the same products as uvc_layer_attention_ln_bwd (~52.3
 // GFLOP at the train shape against ~30 MB: the tensor cores, ~53 us).
-// Design: sublayer_bwd with a = x (thirteen launches), then one gemm_wg
-// <EPI_SCALE, K-major B> that rounds dx = dqkv . Wqkv^T to bf16 in its
-// epilogue: A2's sequence without the LayerNorm pass, the LN backward and
-// its two reductions.  Fourteen launches, no float atomics.  Any dm: a
+// Design: sublayer_bwd with a = x (eleven launches), dbproj's column sums
+// of do (two), then one gemm_wg <EPI_SCALE, K-major B> that rounds
+// dx = dqkv . Wqkv^T to bf16 in its epilogue: A2's sequence without the
+// LayerNorm pass and the LN backward.  Fourteen launches, no float
+// atomics.  Any dm: a
 // part-gated ViT-H/14 (dm 1280) runs it.
 extern "C" int uvc_layer_attention_bwd(
     const void* x, const void* wqkv, const void* bqkv, const void* wproj,
@@ -378,11 +377,13 @@ extern "C" int uvc_layer_attention_bwd(
       static_cast<bf16*>(dctx), static_cast<bf16*>(ctxm),
       static_cast<float4*>(stats), static_cast<bf16*>(dqkv),
       static_cast<float*>(part), static_cast<bf16*>(dwqkv),
-      static_cast<bf16*>(dbqkv),
-      static_cast<bf16*>(dwproj), static_cast<bf16*>(dbproj),
+      static_cast<bf16*>(dbqkv), static_cast<bf16*>(dwproj),
       static_cast<bf16*>(dmask), batch, n, dm, da, heads, splits_qkv,
       splits_proj, scale};
   cudaError_t err = uvc::sublayer_bwd(b, s);
+  if (err != cudaSuccess) return (int)err;
+  err = uvc::column_sum(b.dout, batch * n, dm, b.part, nullptr, nullptr,
+                        static_cast<bf16*>(dbproj), s);
   if (err != cudaSuccess) return (int)err;
 
   uvc::GemmArgs p = {};

@@ -1,9 +1,9 @@
 // Shared device code of the kernels (attention.cu, attention_core.cu,
-// mlp.cu, performer.cu): the LayerNorm pass and its backward, one bf16
-// tensor-core GEMM (mma.sync m16n8k16, f32 accumulators: K3, A4, A6 and
-// the performer; the others run gemm_wg.cuh) in the three operand layouts
-// the forward and backward sublayers need with their epilogues, and the
-// deterministic column sums of the backward.
+// mlp.cu, performer.cu): the LayerNorm pass, one bf16 tensor-core GEMM
+// (mma.sync m16n8k16, f32 accumulators: the performer's; the sublayers
+// run gemm_wg.cuh) in the three operand layouts with its epilogues, the
+// GEMMs' argument block and epilogue codes, and the in-order reduction of
+// per-CTA partials that the backwards' sums end with.
 //
 // Numerics follow the Pallas bodies (uvc_tpu/ops/attention.py
 // _layer_ln_fwd_kernel / _layer_ln_bwd_kernel, uvc_tpu/ops/mlp.py
@@ -204,8 +204,15 @@ struct GemmArgs {
   const bf16* xin;    // [M, N] (EPI_BLEND)
   const float* d;     // [2]  (EPI_BLEND, EPI_SCALE): (skip, keep)
   float* out32;       // [M, N] (EPI_F32, EPI_F32_MASK); [K / kchunk, M, N]
+                      //   split; gemm_act_bwd: [tiles_m, tiles_n] dd1
   const float* resid32;  // [M, N] (EPI_RESID32)
   int kchunk;         // rows of K per CTA along z; 0: all of K
+  // gemm_wg.cuh's gemm_act_bwd: its second product's A [M, K] and B [N, K],
+  // its second output and its column-sum partials
+  const bf16* a2;
+  const bf16* w2;
+  bf16* out2;         // [M, N] dh
+  float* part;        // [tiles_m, N] dmask, then [tiles_m, N] db1
 };
 
 constexpr int GEMM_BM = 128;
@@ -421,241 +428,31 @@ static inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
 // Backward helpers.  Every sum over the B*N rows is taken in a fixed order:
 // per-CTA partials over a fixed block of rows, then a second pass that adds
 // the partials in index order.  No float atomics, so a run on the card is
-// reproducible bit for bit.
+// reproducible bit for bit.  The LayerNorm backward and the column sums
+// that produce such partials are in ln_bwd.cuh.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const bf16* p) { return bf2f(*p); }
-
-// LayerNorm backward with the residual, one warp per row, in f32 (the LN
-// VJP of _layer_ln_bwd_kernel / _mlp_ln_bwd_kernel):
-//   xhat, inv recomputed from x;  dg = dy * gamma
-//   dx = bf16(inv * (dg - mean(dg) - xhat * mean(dg * xhat)) + c * resid)
-// with c = d[1] when d is given (the blend), else 1.  Per CTA it writes the
-// partial column sums of dy * xhat and dy (dgamma, dbeta) over its rows.
-// With xin (the blend): dxin = bf16(d[0] * resid) and the partial sums of
-// resid * x and resid * xin (terms of dd1 and dd0).  dm is a multiple of 8
-// and at most LNB_MAX_DM.
-constexpr int LNB_WARPS = 8;
-constexpr int LNB_ROWS_PER_WARP = 16;
-constexpr int LNB_ROWS = LNB_WARPS * LNB_ROWS_PER_WARP;   // rows per CTA
-constexpr int LNB_MAX_DM = 1024;
-
-struct LnBwdArgs {
-  const bf16* x;        // [rows, dm]
-  const float* gamma;   // [dm]
-  const float* dy;      // [rows, dm] f32: d(LN output)
-  const bf16* resid;    // [rows, dm]: the sublayer's output cotangent
-  const float* d;       // [2] or null
-  const bf16* xin;      // [rows, dm] or null
-  bf16* dx;             // [rows, dm]
-  bf16* dxin;           // [rows, dm] (with xin)
-  float* part_dg;       // [CTAs, dm]
-  float* part_db;       // [CTAs, dm]
-  float* part_dot;      // [CTAs, 2] (with xin)
-  int rows, dm;
-  float eps;
-};
-
-static __global__ void __launch_bounds__(LNB_WARPS * 32)
-    ln_bwd_kernel(LnBwdArgs p) {
-  __shared__ float red[LNB_WARPS][LNB_MAX_DM];
-  __shared__ float red2[LNB_WARPS][2];
-  constexpr int CH = LNB_MAX_DM / 256;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dm = p.dm;
-  const float c_res = p.d ? p.d[1] : 1.f;
-  const float d0 = p.d ? p.d[0] : 0.f;
-  float accg[CH][8], accb[CH][8];
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) accg[ch][j] = accb[ch][j] = 0.f;
-  float sx = 0.f, sxin = 0.f;
-
-  for (int i = 0; i < LNB_ROWS_PER_WARP; ++i) {
-    const int row = blockIdx.x * LNB_ROWS + warp * LNB_ROWS_PER_WARP + i;
-    if (row >= p.rows) break;
-    const size_t base = (size_t)row * dm;
-    float xv[CH][8];
-    float s = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c = lane * 8 + ch * 256;
-      if (c < dm) {
-        const uint4 v = *reinterpret_cast<const uint4*>(p.x + base + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          xv[ch][j] = bf2f(e[j]);
-          s += xv[ch][j];
-        }
-      }
-    }
-    const float mean = warp_sum(s) / dm;
-    float q = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch)
-      if (lane * 8 + ch * 256 < dm)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float dv = xv[ch][j] - mean;
-          q += dv * dv;
-        }
-    const float inv = rsqrtf(warp_sum(q) / dm + p.eps);
-    // xv becomes xhat; dgv holds dy * gamma
-    float dgv[CH][8];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c = lane * 8 + ch * 256;
-      if (c < dm) {
-        const float4 y0 = *reinterpret_cast<const float4*>(p.dy + base + c);
-        const float4 y1 = *reinterpret_cast<const float4*>(p.dy + base + c + 4);
-        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float xh = (xv[ch][j] - mean) * inv;
-          xv[ch][j] = xh;
-          const float dg = yv[j] * p.gamma[c + j];
-          dgv[ch][j] = dg;
-          s1 += dg;
-          s2 += dg * xh;
-          accg[ch][j] += yv[j] * xh;
-          accb[ch][j] += yv[j];
-        }
-      }
-    }
-    const float m1 = warp_sum(s1) / dm;
-    const float m2 = warp_sum(s2) / dm;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c = lane * 8 + ch * 256;
-      if (c < dm) {
-        const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + base + c);
-        const bf16* re = reinterpret_cast<const bf16*>(&rv);
-        uint4 o;
-        bf16* oe = reinterpret_cast<bf16*>(&o);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float dz = (dgv[ch][j] - m1 - xv[ch][j] * m2) * inv;
-          oe[j] = f2bf(dz + c_res * bf2f(re[j]));
-        }
-        *reinterpret_cast<uint4*>(p.dx + base + c) = o;
-        if (p.xin) {
-          const uint4 iv = *reinterpret_cast<const uint4*>(p.xin + base + c);
-          const uint4 xr = *reinterpret_cast<const uint4*>(p.x + base + c);
-          const bf16* ie = reinterpret_cast<const bf16*>(&iv);
-          const bf16* xe = reinterpret_cast<const bf16*>(&xr);
-          uint4 di;
-          bf16* de = reinterpret_cast<bf16*>(&di);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float r = bf2f(re[j]);
-            sx += r * bf2f(xe[j]);
-            sxin += r * bf2f(ie[j]);
-            de[j] = f2bf(d0 * r);
-          }
-          *reinterpret_cast<uint4*>(p.dxin + base + c) = di;
-        }
-      }
-    }
-  }
-
-  // fixed-order reduction over the CTA's warps
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c = lane * 8 + ch * 256;
-      if (c < dm)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          red[warp][c + j] = pass == 0 ? accg[ch][j] : accb[ch][j];
-    }
-    __syncthreads();
-    float* out = (pass == 0 ? p.part_dg : p.part_db) + (size_t)blockIdx.x * dm;
-    for (int c = threadIdx.x; c < dm; c += blockDim.x) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < LNB_WARPS; ++w) v += red[w][c];
-      out[c] = v;
-    }
-    __syncthreads();
-  }
-  if (p.xin) {
-    sx = warp_sum(sx);
-    sxin = warp_sum(sxin);
-    if (lane == 0) {
-      red2[warp][0] = sx;
-      red2[warp][1] = sxin;
-    }
-    __syncthreads();
-    if (threadIdx.x < 2) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < LNB_WARPS; ++w) v += red2[w][threadIdx.x];
-      p.part_dot[blockIdx.x * 2 + threadIdx.x] = v;
-    }
-  }
-}
-
-static inline int ln_bwd_ctas(int rows) {
-  return (rows + LNB_ROWS - 1) / LNB_ROWS;
-}
-
-static inline cudaError_t launch_ln_bwd(const LnBwdArgs& p,
-                                        cudaStream_t stream) {
-  ln_bwd_kernel<<<ln_bwd_ctas(p.rows), LNB_WARPS * 32, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// Partial column sums of a (times b when b is given) over blocks of
-// CS_ROWS rows: part[blockIdx.y, c] = sum_r a[r, c] * b[r, c].
-constexpr int CS_ROWS = 128;
-constexpr int CS_THREADS = 128;
-
-template <typename TA, typename TB>
-__global__ void __launch_bounds__(CS_THREADS)
-    colsum_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
-                  int rows, int cols, float* __restrict__ part) {
-  const int c = blockIdx.x * CS_THREADS + threadIdx.x;
-  if (c >= cols) return;
-  const int r0 = blockIdx.y * CS_ROWS;
-  const int r1 = min(rows, r0 + CS_ROWS);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t off = (size_t)r * cols + c;
-    float v = ldf(a + off);
-    if (b) v *= ldf(b + off);
-    s += v;
-  }
-  part[(size_t)blockIdx.y * cols + c] = s;
-}
-
-static inline int colsum_parts(int rows) {
-  return (rows + CS_ROWS - 1) / CS_ROWS;
-}
-
-template <typename TA, typename TB>
-static inline cudaError_t launch_colsum(const TA* a, const TB* b, int rows,
-                                        int cols, float* part,
-                                        cudaStream_t stream) {
-  const dim3 grid((cols + CS_THREADS - 1) / CS_THREADS, colsum_parts(rows));
-  colsum_kernel<TA, TB><<<grid, CS_THREADS, 0, stream>>>(a, b, rows, cols,
-                                                         part);
-  return cudaGetLastError();
-}
-
-// out[c] = scale * sum_p part[p, c], the partials added in index order;
-// scale = d[1] when d is given, else 1.  Written as f32 and / or bf16.
+// out[c] = scale * sum_p part[p, c], the partials added in index order
+// (32 loads in flight, the adds one after another: the bits of the plain
+// loop); scale = d[1] when d is given, else 1.  Written as f32
+// and / or bf16.
 static __global__ void reduce_parts_kernel(const float* __restrict__ part,
                                            int nparts, int cols,
                                            const float* d, float* out32,
                                            bf16* out16) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
+  const float* col = part + c;
   float s = 0.f;
-  for (int i = 0; i < nparts; ++i) s += part[(size_t)i * cols + c];
+  int i = 0;
+  for (; i + 32 <= nparts; i += 32) {
+    float v[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) v[j] = col[(size_t)(i + j) * cols];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s += v[j];
+  }
+  for (; i < nparts; ++i) s += col[(size_t)i * cols];
   if (d) s *= d[1];
   if (out32) out32[c] = s;
   if (out16) out16[c] = f2bf(s);
@@ -668,18 +465,6 @@ static inline cudaError_t launch_reduce(const float* part, int nparts,
   reduce_parts_kernel<<<(cols + 127) / 128, 128, 0, stream>>>(
       part, nparts, cols, d, out32, out16);
   return cudaGetLastError();
-}
-
-// colsum -> reduce: out = scale * sum_r a[r, :] (* b[r, :])
-template <typename TA, typename TB>
-static inline cudaError_t column_sum(const TA* a, const TB* b, int rows,
-                                     int cols, float* part, const float* d,
-                                     float* out32, bf16* out16,
-                                     cudaStream_t stream) {
-  cudaError_t err = launch_colsum(a, b, rows, cols, part, stream);
-  if (err != cudaSuccess) return err;
-  return launch_reduce(part, colsum_parts(rows), cols, d, out32, out16,
-                       stream);
 }
 
 }  // namespace uvc

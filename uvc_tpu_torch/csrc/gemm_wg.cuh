@@ -9,9 +9,10 @@
 //                 the JAX package stores it);  B_K = true: B stored [N][K]
 //                 (K-major: . W^T)
 // The two products of K1 and of A7's forward and the five of the sublayer
-// backwards A2 and A7 (attention.cu), and the fc1 and fc2 of K2 and K3
-// (mlp.cu) run it; A4, A6 and the performer keep the mma.sync GEMM of
-// common.cuh.
+// backwards A2 and A7 (attention.cu), the fc1 and fc2 of K2 and K3 and
+// the products of their backwards A6 and A4 (mlp.cu: dW1, dW2 and dmi
+// here, h and dam0 in one tile by gemm_act_bwd_kernel below) run it; the
+// performer keeps the mma.sync GEMM of common.cuh.
 //
 // Epilogues (a template parameter; common.cuh's Epilogue values, in f32 in
 // the Pallas bodies' order, one rounding to bf16):
@@ -74,6 +75,96 @@ struct GemmWg {
                                  2 * STAGES * 8;
 };
 constexpr int GW_BOX = GW_BK * 64 * 2;               // a B box, 8 KB
+
+// gemm_act_bwd_kernel's epilogue, from the staged tiles h = acc_h + b1 and
+// dam0 = acc_d (f32, rows of LDS = BN + 4) and the mask, in the Pallas
+// body's order:
+//   a = gelu_erf(h), am32 = a * mask, dam = d1 * dam0 (d1 = p.d[1], or 1),
+//   dh = dam * mask * gelu'(h);  out = bf16(am32), out2 = bf16(dh),
+// eight columns a thread; then the tile's column sums of dam * a (dmask)
+// and dh (db1) over its 128 rows and its sum of dam0 * am32 (dd1), the
+// threads' row groups and the warps added in a fixed order in red (shared
+// memory after the tiles), into p.part: [tiles_m][N] dmask, then
+// [tiles_m][N] db1; dd1's into p.out32 [tiles_m][tiles_n].
+template <int BN>
+__device__ __forceinline__ void act_bwd_epilogue(const float* tile,
+                                                 const float* dtile,
+                                                 float* red,
+                                                 const GemmArgs& p, int m0,
+                                                 int n0, int tid) {
+  constexpr int LDS = BN + 4, CHUNKS = BN / 8;
+  constexpr int GROUPS = GW_CONSUMERS * 128 / CHUNKS;  // rows in parallel
+  const float d1 = p.d != nullptr ? p.d[1] : 1.f;
+  const int c = (tid % CHUNKS) * 8, g = tid / CHUNKS, col = n0 + c;
+  float sm[8], sb[8], mk[8], sdd = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sm[e] = sb[e] = 0.f;
+    mk[e] = 1.f;
+  }
+  if (col < p.N) {
+    if (p.mask != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mk[e] = bf2f(p.mask[col + e]);
+    }
+    for (int r = g; r < GW_BM && m0 + r < p.M; r += GROUPS) {
+      const size_t off = (size_t)(m0 + r) * p.N + col;
+      const float4 lo = *reinterpret_cast<const float4*>(tile + r * LDS + c);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(tile + r * LDS + c + 4);
+      const float4 dlo =
+          *reinterpret_cast<const float4*>(dtile + r * LDS + c);
+      const float4 dhi =
+          *reinterpret_cast<const float4*>(dtile + r * LDS + c + 4);
+      const float h[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const float d0v[8] = {dlo.x, dlo.y, dlo.z, dlo.w,
+                            dhi.x, dhi.y, dhi.z, dhi.w};
+      float am[8], dh[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float hv = h[e];
+        const float phi = 0.5f * (1.f + erff(hv * 0.70710678118654752f));
+        const float pdf = expf(-0.5f * hv * hv) * 0.39894228040143268f;
+        const float a = hv * phi;
+        am[e] = a * mk[e];
+        const float dam = d0v[e] * d1;
+        dh[e] = dam * mk[e] * (phi + hv * pdf);
+        sm[e] += dam * a;
+        sb[e] += dh[e];
+        sdd += d0v[e] * am[e];
+      }
+      *reinterpret_cast<uint4*>(p.out + off) =
+          make_uint4(pack_f32(am[0], am[1]), pack_f32(am[2], am[3]),
+                     pack_f32(am[4], am[5]), pack_f32(am[6], am[7]));
+      *reinterpret_cast<uint4*>(p.out2 + off) =
+          make_uint4(pack_f32(dh[0], dh[1]), pack_f32(dh[2], dh[3]),
+                     pack_f32(dh[4], dh[5]), pack_f32(dh[6], dh[7]));
+    }
+  }
+  // red: [GROUPS][2][BN] row-group sums, then the 8 warps' dd1 sums
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red[(2 * g) * BN + c + e] = sm[e];
+    red[(2 * g + 1) * BN + c + e] = sb[e];
+  }
+  sdd = warp_sum(sdd);
+  if ((tid & 31) == 0) red[2 * GROUPS * BN + (tid >> 5)] = sdd;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
+  const size_t plane = (size_t)gridDim.y * p.N;
+  for (int j = tid; j < 2 * BN; j += GW_CONSUMERS * 128) {
+    const int which = j / BN, cc = j % BN;
+    if (n0 + cc >= p.N) continue;
+    float v = red[which * BN + cc];
+    for (int gg = 1; gg < GROUPS; ++gg) v += red[(2 * gg + which) * BN + cc];
+    p.part[which * plane + (size_t)blockIdx.y * p.N + n0 + cc] = v;
+  }
+  if (tid == 0) {
+    float v = red[2 * GROUPS * BN];
+#pragma unroll
+    for (int w = 1; w < GW_CONSUMERS * 4; ++w) v += red[2 * GROUPS * BN + w];
+    p.out32[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = v;
+  }
+}
 
 // Maps: a K-major A in boxes of 64 k x 128 rows, an MN-major A in boxes
 // of 64 m x 64 k; a K-major B in boxes of 64 k x BN rows, an MN-major B in
@@ -287,22 +378,171 @@ static cudaError_t launch_gemm_wg(const GemmArgs& p, cudaStream_t s) {
                           : run_gemm_wg<EPI, 128, A_MN, B_K>(p, s);
 }
 
-// w_grad = bf16(sum over K of op(a) . w) split over K: `splits` CTAs along
-// K per output tile, each writing its f32 partial into part
-// [splits, M, N], then the partials added in index order and rounded once
-// (no float atomics: two launches give the same bits).  p.a [K][M]
-// (MN-major), p.w [K][N]; K is the B*N rows and may be ragged.
-static cudaError_t weight_grad_wg(GemmArgs p, int splits, float* part,
-                                  bf16* out, cudaStream_t s) {
+// The MLP activation backward of A4 and A6 (mlp.cu) on two products of
+// one 128 x 128 output tile over the same K = dm:
+//   h = m_in . W1 + b1 (p.a [M][K], p.w = W1 [K][N], MN-major) and
+//   dam0 = do . W2^T (p.a2 = do [M][K], p.w2 = W2 [N][K], K-major),
+// both accumulated in registers (64 + 64 f32 a consumer thread), staged in
+// f32 in shared memory and handed to act_bwd_epilogue, so that neither
+// h nor dam0 leaves the tile.  gemm_wg_kernel's ring, producer and
+// consumers with four boxes a stage (A1, B1, A2, B2: 64 KB), three stages,
+// one CTA an SM.  Any M; N and K multiples of 8.
+constexpr int AB_BN = 128, AB_STAGES = 3;
+constexpr int AB_BOX = GW_BM * GW_BK * 2;            // 16 KB: an A or a B
+constexpr int AB_STAGE = 4 * AB_BOX;
+constexpr size_t AB_SMEM = 1024 + (size_t)AB_STAGES * AB_STAGE +
+                           2 * AB_STAGES * 8;
+
+static __global__ void __launch_bounds__(GW_THREADS, 1)
+    gemm_act_bwd_kernel(const __grid_constant__ CUtensorMap a1map,
+                      const __grid_constant__ CUtensorMap b1map,
+                      const __grid_constant__ CUtensorMap a2map,
+                      const __grid_constant__ CUtensorMap b2map,
+                      GemmArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + AB_STAGES * AB_STAGE);
+  uint64_t* empty = full + AB_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.y * GW_BM, n0 = blockIdx.x * AB_BN;
   const int ktiles = (p.K + GW_BK - 1) / GW_BK;
-  if (splits < 1) splits = 1;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < AB_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, GW_CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == GW_CONSUMERS) {
+    if (tid == GW_CONSUMERS * 128) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int st = kt % AB_STAGES, k0 = kt * GW_BK;
+        if (kt >= AB_STAGES) mbar_wait(empty + st, (kt / AB_STAGES - 1) & 1);
+        unsigned char* a1 = ring + st * AB_STAGE;
+        mbar_expect_tx(full + st, AB_STAGE);
+        tma_load_2d(a1, &a1map, full + st, k0, m0);
+        tma_load_2d(a1 + AB_BOX, &b1map, full + st, n0, k0);
+        tma_load_2d(a1 + AB_BOX + GW_BOX, &b1map, full + st, n0 + 64, k0);
+        tma_load_2d(a1 + 2 * AB_BOX, &a2map, full + st, k0, m0);
+        tma_load_2d(a1 + 3 * AB_BOX, &b2map, full + st, k0, n0);
+      }
+    }
+    return;
+  }
+
+  float acc_h[AB_BN / 2], acc_d[AB_BN / 2];
+#pragma unroll
+  for (int i = 0; i < AB_BN / 2; ++i) acc_h[i] = acc_d[i] = 0.f;
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int st = kt % AB_STAGES;
+    mbar_wait(full + st, (kt / AB_STAGES) & 1);
+    const unsigned char* a1 = ring + st * AB_STAGE + wg * (AB_BOX / 2);
+    const unsigned char* b1 = ring + st * AB_STAGE + AB_BOX;
+    const unsigned char* a2 = a1 + 2 * AB_BOX;
+    const unsigned char* b2 = b1 + 2 * AB_BOX;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < GW_BK / 16; ++kk) {
+      wgmma_ss_n<AB_BN, false, true>(
+          acc_h, gmma_desc128(a1 + 32 * kk, 16, 1024),
+          gmma_desc128(b1 + 2048 * kk, GW_BOX, 1024), 1);
+      wgmma_ss_n<AB_BN, false, false>(
+          acc_d, gmma_desc128(a2 + 32 * kk, 16, 1024),
+          gmma_desc128(b2 + 32 * kk, 16, 1024), 1);
+    }
+    wg_commit();
+    wg_wait1();
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (kt - 1) % AB_STAGES);
+    }
+  }
+  wg_wait();
+  fence_acc(acc_h);
+  fence_acc(acc_d);
+
+  // both products done: the ring holds h + b1 and dam0 in f32, [128][LDS]
+  // each, then the epilogue's sums
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
+  constexpr int LDS = AB_BN + 4;
+  constexpr int GROUPS = GW_CONSUMERS * 128 / (AB_BN / 8);
+  static_assert((2 * GW_BM * LDS + 2 * GROUPS * AB_BN + GW_CONSUMERS * 4) *
+                        4 <= AB_STAGES * AB_STAGE,
+                "gemm_act_bwd's staging");
+  float* tile = reinterpret_cast<float*>(ring);
+  float* dtile = tile + GW_BM * LDS;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wg * 64 + warp * 16 + g + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < AB_BN / 8; ++j) {
+      const int c = 8 * j + 2 * t, col = n0 + c;
+      float b0 = 0.f, bb1 = 0.f;
+      if (col < p.N) {
+        b0 = bf2f(p.bias[col]);
+        bb1 = bf2f(p.bias[col + 1]);
+      }
+      *reinterpret_cast<float2*>(tile + r * LDS + c) = make_float2(
+          acc_h[4 * j + 2 * hh] + b0, acc_h[4 * j + 2 * hh + 1] + bb1);
+      *reinterpret_cast<float2*>(dtile + r * LDS + c) =
+          make_float2(acc_d[4 * j + 2 * hh], acc_d[4 * j + 2 * hh + 1]);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GW_CONSUMERS * 128) : "memory");
+  act_bwd_epilogue<AB_BN>(tile, dtile, dtile + GW_BM * LDS, p, m0, n0, tid);
+}
+
+// The MLP activation backward (gemm_act_bwd_kernel) on the caller's stream:
+// p.a = m_in and p.a2 = do [M][K], p.w = W1 [K][N], p.w2 = W2 [N][K],
+// p.bias = b1 [N], p.mask [N] or null, p.d [2] or null; writes p.out = am
+// and p.out2 = dh [M][N] (bf16), p.part (2 tiles_m N) and p.out32
+// (tiles_m tiles_n), tiles of 128 x 128.
+static cudaError_t launch_gemm_act_bwd(const GemmArgs& p, cudaStream_t s) {
+  CUtensorMap a1map, b1map, a2map, b2map;
+  cudaError_t err = matrix_map(a1map, p.a, p.M, p.K, p.K, GW_BK, GW_BM);
+  if (err == cudaSuccess)
+    err = matrix_map(b1map, p.w, p.K, p.N, p.N, 64, GW_BK);
+  if (err == cudaSuccess)
+    err = matrix_map(a2map, p.a2, p.M, p.K, p.K, GW_BK, GW_BM);
+  if (err == cudaSuccess)
+    err = matrix_map(b2map, p.w2, p.N, p.K, p.K, GW_BK, AB_BN);
+  if (err == cudaSuccess) err = smem_once<gemm_act_bwd_kernel>(AB_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + AB_BN - 1) / AB_BN, (p.M + GW_BM - 1) / GW_BM);
+  gemm_act_bwd_kernel<<<grid, GW_THREADS, AB_SMEM, s>>>(a1map, b1map, a2map,
+                                                     b2map, p);
+  return cudaGetLastError();
+}
+
+// w_grad = bf16(scale * sum over K of op(a) . w) split over K: `splits`
+// CTAs along K per output tile, each writing its f32 partial into part
+// [splits, M, N], then the partials added in index order, scaled (scale =
+// d[1] where d is given, else 1) and rounded once (no float atomics: two
+// launches give the same bits; one split: gemm_wg<EPI_SCALE> alone).
+// p.a [K][M] (MN-major), p.w [K][N]; K is the B*N rows and may be ragged.
+static cudaError_t weight_grad_wg(GemmArgs p, int splits, float* part,
+                                  bf16* out, cudaStream_t s,
+                                  const float* d = nullptr) {
+  if (splits <= 1) {
+    // one CTA along K: the scale and the rounding in the epilogue, the
+    // bits of one partial summed from 0, scaled and rounded
+    p.d = d;
+    p.out = out;
+    return launch_gemm_wg<EPI_SCALE, true, false>(p, s);
+  }
+  const int ktiles = (p.K + GW_BK - 1) / GW_BK;
   const int per = (ktiles + splits - 1) / splits;
   p.kchunk = (per > 0 ? per : 1) * GW_BK;
   p.out32 = part;
   cudaError_t err = launch_gemm_wg<EPI_F32, true, false>(p, s);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, (p.K + p.kchunk - 1) / p.kchunk, p.M * p.N,
-                       nullptr, nullptr, out, s);
+                       d, nullptr, out, s);
 }
 
 }  // namespace uvc

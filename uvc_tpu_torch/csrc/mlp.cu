@@ -37,6 +37,7 @@
 // GELU: erff is exact; the Pallas body uses the Abramowitz-Stegun erf
 // (|err| < 1.5e-7), far below the bf16 rounding of the hidden layer.
 #include "gemm_wg.cuh"
+#include "ln_bwd.cuh"
 
 using uvc::bf16;
 
@@ -107,203 +108,112 @@ extern "C" int uvc_mlp_ln_blend(const void* x, const void* xin, const void* d,
                      static_cast<cudaStream_t>(stream));
 }
 
-namespace uvc {
-
-// The MLP activation backward, elementwise over [rows, F] with per-column
-// sums: from h = m_in . W1 + b1 (f32) and dam0 = do . W2^T (f32),
-//   a = gelu_erf(h), am = a * mask, dam = d1 * dam0,
-//   dh = dam * mask * gelu'(h);
-// writes bf16(am) and bf16(dh), the partial column sums of dam * a (dmask)
-// and dh (db1) over CS_ROWS rows, and one partial sum of dam0 * am per
-// CTA (the sum(dam0 * am) term of dd1).  d1 = d[1], or 1 without d.
-static __global__ void __launch_bounds__(CS_THREADS)
-    mlp_act_bwd_kernel(const float* __restrict__ h,
-                       const float* __restrict__ dam0,
-                       const bf16* __restrict__ mask, const float* d,
-                       int rows, int f, bf16* __restrict__ am,
-                       bf16* __restrict__ dh, float* __restrict__ part_mask,
-                       float* __restrict__ part_b1,
-                       float* __restrict__ part_dd1) {
-  __shared__ float red[CS_THREADS / 32];
-  const int c = blockIdx.x * CS_THREADS + threadIdx.x;
-  const int r0 = blockIdx.y * CS_ROWS;
-  const int r1 = min(rows, r0 + CS_ROWS);
-  const float d1 = d ? d[1] : 1.f;
-  float sm = 0.f, sb = 0.f, sdd = 0.f;
-  if (c < f) {
-    const float mk = bf2f(mask[c]);
-    for (int r = r0; r < r1; ++r) {
-      const size_t off = (size_t)r * f + c;
-      const float hv = h[off];
-      const float phi = 0.5f * (1.f + erff(hv * 0.70710678118654752f));
-      const float pdf = expf(-0.5f * hv * hv) * 0.39894228040143268f;
-      const float a = hv * phi;
-      const float am32 = a * mk;
-      const float d0v = dam0[off];
-      const float dam = d0v * d1;
-      const float dhv = dam * mk * (phi + hv * pdf);
-      am[off] = f2bf(am32);
-      dh[off] = f2bf(dhv);
-      sm += dam * a;
-      sb += dhv;
-      sdd += d0v * am32;
-    }
-    part_mask[(size_t)blockIdx.y * f + c] = sm;
-    part_b1[(size_t)blockIdx.y * f + c] = sb;
-  }
-  sdd = warp_sum(sdd);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sdd;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < CS_THREADS / 32; ++w) v += red[w];
-    part_dd1[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = v;
-  }
-}
-
-// The blend's gating gradients from the finished sums (one CTA, a fixed
-// order): dd0 = sum(do * xin); dd1 = sum(dam0 * am) + sum(do * x)
-// + colsum(do) . b2.  sums = {sum(dam0 * am), sum(do * x), sum(do * xin)}.
-static __global__ void blend_dd_kernel(const float* __restrict__ sums,
-                                       const float* __restrict__ colsum_do,
-                                       const bf16* __restrict__ bias2, int dm,
-                                       float* __restrict__ dd) {
-  __shared__ float red[128];
-  float v = 0.f;
-  for (int c = threadIdx.x; c < dm; c += 128) v += colsum_do[c] * bf2f(bias2[c]);
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = 64; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    dd[0] = sums[2];
-    dd[1] = sums[0] + sums[1] + red[0];
-  }
-}
-
-}  // namespace uvc
-
 namespace {
 
 // Backward of both MLP sublayers: the port of
-// uvc_tpu/ops/mlp.py::_mlp_ln_bwd_kernel (xin == nullptr) and
-// _mlp_ln_blend_bwd_kernel (with xin and d; full=True, and the
+// uvc_tpu/ops/mlp.py::_mlp_ln_bwd_kernel (A6, xin == nullptr) and
+// _mlp_ln_blend_bwd_kernel (A4, with xin and d; full=True, and the
 // hidden-group split's parts at once: the split is a VMEM work-around, and
 // one pass over all F hidden units computes what its parts sum to).
 // Emits dx, dgamma2, dbeta2, dW1, db1, dW2, db2 and dmask; the blend also
 // dxin = d0 * do and dd = (dd0, dd1) from the gating identities of
 // mlp.py:185-188, so the pre-blend output is never needed.
 //
-// What bounds it on the H100: at the stage-1 train shape (B = 64, N = 197,
-// dm = 384, F = 1536) five GEMMs of 2 B N dm F = 14.87 GFLOP each (h, dam0,
-// dW2, dW1, dmi), ~74 GFLOP, against ~30 MB of inputs and outputs: the
-// tensor cores set the floor at ~75 us (989 TFLOP/s).
+// What bounds it on the H100: the tensor cores.  Five products of
+// 2 B N dm F each (dam0, h, dW2, dW1, dmi): at the stage-1 train shape
+// (B = 64, N = 197, dm = 384, F = 1536) 14.87 GFLOP each, ~74 GFLOP
+// against ~30 MB of inputs and outputs, ~75 us at 989 TFLOP/s; at
+// ViT-H/14's (B = 32, N = 257, dm = 1280, F = 5120) 107.8 GFLOP each,
+// ~539 GFLOP, ~545 us.
 //
-// Design: fifteen launches on the caller's stream (eighteen with the
-// blend), no float atomics.
+// Design: twelve launches on the caller's stream, every product on TMA
+// and wgmma (gemm_wg.cuh), no float atomics.
 //   1. layer_norm_kernel: m_in = bf16(LN2(x)).
-//   2. gemm <EPI_F32, [N][K] B>: dam0 = do . W2^T (f32).
-//   3. gemm <EPI_F32>: h = m_in . W1 + b1 (f32).
-//   4. mlp_act_bwd_kernel: bf16(am), bf16(dh), partial dmask / db1 / dd1;
-//      5-6. dmask and db1 reduced in order (the blend: also dd1's part).
-//   7. gemm <EPI_SCALE, [K][M] A>: dW2 = d1 * am^T . do (ragged K = B*N).
-//   8. gemm <EPI_SCALE, [K][M] A>: dW1 = m_in^T . dh.
-//   9. gemm <EPI_F32, [N][K] B>: dmi = dh . W1^T (f32).
-//  10. ln_bwd_kernel: dx = bf16(LN VJP + d1 * do), partial dgamma2 /
-//      dbeta2 (and for the blend dxin and the do . x, do . xin sums);
-//      11-12. their reductions (the blend: also the two sums).
-//  13-15. the column sums of do (partials, then in order), then
-//      db2 = d1 * colsum(do).
-//  (blend) blend_dd_kernel: dd from the sums and colsum(do) . b2.
-// The TPU kernel kept h, the activations and dh in VMEM.  Here h and dam0
-// (f32) and am and dh (bf16) make a round trip through device memory
-// (~77 MB each in f32 at the train shape); fusing the activation backward
-// into the GEMM epilogues and wgmma/TMA are later work.
+//   2. gemm_act_bwd_kernel: h = m_in . W1 + b1 and dam0 = do . W2^T for one
+//      128 x 128 tile in registers, staged in shared memory; the epilogue
+//      writes bf16(am) and bf16(dh), with per-tile partials of dmask, db1
+//      and dd1's sum(dam0 * am): neither h nor dam0 leaves the tile.
+//      3-4. dmask and db1 summed in order.
+//   5-6. weight_grad_wg: dW2 = d1 * am^T . do, split over the B*N rows,
+//      the partials summed in order and scaled by d1 (one split: the
+//      scale in the product's epilogue, no sum).
+//   7-8. weight_grad_wg: dW1 = m_in^T . dh.
+//   9. gemm_wg <EPI_F32, K-major B>: dmi = dh . W1^T (f32).
+//  10-11. ln_bwd_kernel (ln_bwd.cuh): dx = bf16(LN VJP + d1 * do), and
+//      per CTA partials of dgamma2, dbeta2 and colsum(do) (and for the
+//      blend dxin and the do . x, do . xin sums), then their in-order sum.
+//  12. ln_bwd_finish_kernel: dgamma2, dbeta2, db2 = bf16(d1 * colsum(do))
+//      and, for the blend, dd (dd1's tile partials summed there).
+// Against the bound: the five products on wgmma from TMA-fed shared
+// memory; h and dam0 never leave the tile (77.5 MB each in f32 at the
+// train shape, written and read back otherwise).  What still
+// makes a round trip through device memory: am and dh (bf16), m_in, dmi
+// (f32), the split partials of dW1 and dW2, and the LayerNorm backward's
+// per-CTA partials.  The TPU kernel kept all of them in VMEM.
 int mlp_backward(const void* x, const void* xin, const void* d,
                  const void* g2, const void* b2, const void* w1,
                  const void* bias1, const void* w2, const void* bias2,
-                 const void* mask, const void* dout, void* m_in, void* h32,
-                 void* dam0, void* am, void* dh, void* dmi, void* part,
-                 void* sums, void* dx, void* dxin, void* dd, void* dg2,
-                 void* db2, void* dw1, void* db1, void* dw2, void* dbias2,
-                 void* dmask, int rows, int dm, int f, float eps,
-                 cudaStream_t s) {
+                 const void* mask, const void* dout, void* m_in, void* am,
+                 void* dh, void* dmi, void* part, void* sums,
+                 void* dx, void* dxin, void* dd, void* dg2, void* db2,
+                 void* dw1, void* db1, void* dw2, void* dbias2, void* dmask,
+                 int rows, int dm, int f, int splits_w2, int splits_w1,
+                 float eps, cudaStream_t s) {
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* dob = static_cast<const bf16*>(dout);
   const float* dp = static_cast<const float*>(d);
   float* partf = static_cast<float*>(part);
   float* sumsf = static_cast<float*>(sums);
+  // dd1's per-tile partials of sum(dam0 * am), after the LN sums
+  float* act_dd1 = sumsf + uvc::ln_bwd_part_cols(dm);
   cudaError_t err = uvc::launch_layer_norm(
       xb, static_cast<const float*>(g2), static_cast<const float*>(b2), rows,
       dm, eps, static_cast<bf16*>(m_in), s);
   if (err != cudaSuccess) return (int)err;
 
   uvc::GemmArgs p = {};
-  p.a = dob;
-  p.w = static_cast<const bf16*>(w2);
-  p.out32 = static_cast<float*>(dam0);
-  p.M = rows;
-  p.N = f;
-  p.K = dm;
-  err = uvc::launch_gemm<uvc::EPI_F32, false, true>(p, s);
-  if (err != cudaSuccess) return (int)err;
-
-  p = {};
   p.a = static_cast<const bf16*>(m_in);
   p.w = static_cast<const bf16*>(w1);
+  p.a2 = dob;
+  p.w2 = static_cast<const bf16*>(w2);
   p.bias = static_cast<const bf16*>(bias1);
-  p.out32 = static_cast<float*>(h32);
+  p.mask = static_cast<const bf16*>(mask);
+  p.d = dp;
+  p.out = static_cast<bf16*>(am);
+  p.out2 = static_cast<bf16*>(dh);
+  p.part = partf;
+  p.out32 = act_dd1;
   p.M = rows;
   p.N = f;
   p.K = dm;
-  err = uvc::launch_gemm<uvc::EPI_F32>(p, s);
+  err = uvc::launch_gemm_act_bwd(p, s);
   if (err != cudaSuccess) return (int)err;
-
-  const int nparts = uvc::colsum_parts(rows);
-  const dim3 agrid((f + uvc::CS_THREADS - 1) / uvc::CS_THREADS, nparts);
-  float* part_mask = partf;
-  float* part_b1 = partf + (size_t)nparts * f;
-  float* part_dd1 = part_b1 + (size_t)nparts * f;
-  uvc::mlp_act_bwd_kernel<<<agrid, uvc::CS_THREADS, 0, s>>>(
-      static_cast<const float*>(h32), static_cast<const float*>(dam0),
-      static_cast<const bf16*>(mask), dp, rows, f, static_cast<bf16*>(am),
-      static_cast<bf16*>(dh), part_mask, part_b1, part_dd1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(part_mask, nparts, f, nullptr, nullptr,
+  const int tm = (rows + uvc::GW_BM - 1) / uvc::GW_BM;
+  const int tn = (f + uvc::AB_BN - 1) / uvc::AB_BN;
+  err = uvc::launch_reduce(partf, tm, f, nullptr, nullptr,
                            static_cast<bf16*>(dmask), s);
   if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(part_b1, nparts, f, nullptr, nullptr,
+  err = uvc::launch_reduce(partf + (size_t)tm * f, tm, f, nullptr, nullptr,
                            static_cast<bf16*>(db1), s);
   if (err != cudaSuccess) return (int)err;
-  if (xin != nullptr) {
-    err = uvc::launch_reduce(part_dd1, nparts * (int)agrid.x, 1, nullptr,
-                             sumsf, nullptr, s);
-    if (err != cudaSuccess) return (int)err;
-  }
 
   p = {};
   p.a = static_cast<const bf16*>(am);
   p.w = dob;
-  p.d = dp;
-  p.out = static_cast<bf16*>(dw2);
   p.M = f;
   p.N = dm;
   p.K = rows;
-  err = uvc::launch_gemm<uvc::EPI_SCALE, true, false>(p, s);
+  err = uvc::weight_grad_wg(p, splits_w2, partf, static_cast<bf16*>(dw2), s,
+                            dp);
   if (err != cudaSuccess) return (int)err;
 
   p = {};
   p.a = static_cast<const bf16*>(m_in);
   p.w = static_cast<const bf16*>(dh);
-  p.out = static_cast<bf16*>(dw1);
   p.M = dm;
   p.N = f;
   p.K = rows;
-  err = uvc::launch_gemm<uvc::EPI_SCALE, true, false>(p, s);
+  err = uvc::weight_grad_wg(p, splits_w1, partf, static_cast<bf16*>(dw1), s);
   if (err != cudaSuccess) return (int)err;
 
   p = {};
@@ -313,11 +223,10 @@ int mlp_backward(const void* x, const void* xin, const void* d,
   p.M = rows;
   p.N = dm;
   p.K = f;
-  err = uvc::launch_gemm<uvc::EPI_F32, false, true>(p, s);
+  err = uvc::launch_gemm_wg<uvc::EPI_F32, false, true>(p, s);
   if (err != cudaSuccess) return (int)err;
 
   uvc::LnBwdArgs l = {};
-  const int lnp = uvc::ln_bwd_ctas(rows);
   l.x = xb;
   l.gamma = static_cast<const float*>(g2);
   l.dy = static_cast<const float*>(dmi);
@@ -326,63 +235,41 @@ int mlp_backward(const void* x, const void* xin, const void* d,
   l.xin = static_cast<const bf16*>(xin);
   l.dx = static_cast<bf16*>(dx);
   l.dxin = static_cast<bf16*>(dxin);
-  l.part_dg = partf;
-  l.part_db = partf + (size_t)lnp * dm;
-  l.part_dot = partf + (size_t)2 * lnp * dm;
+  l.part = partf;
   l.rows = rows;
   l.dm = dm;
   l.eps = eps;
-  err = uvc::launch_ln_bwd(l, s);
+  err = uvc::launch_ln_bwd(l, sumsf, s);
   if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(l.part_dg, lnp, dm, nullptr,
-                           static_cast<float*>(dg2), nullptr, s);
-  if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(l.part_db, lnp, dm, nullptr,
-                           static_cast<float*>(db2), nullptr, s);
-  if (err != cudaSuccess) return (int)err;
-  if (xin != nullptr) {
-    err = uvc::launch_reduce(l.part_dot, lnp, 2, nullptr, sumsf + 1, nullptr,
-                             s);
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  // colsum(do): raw (f32, for dd1) and d1-scaled (db2)
-  float* colsum_do = sumsf + 4;
-  err = uvc::launch_colsum(dob, static_cast<const bf16*>(nullptr), rows, dm,
-                           partf, s);
-  if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(partf, nparts, dm, nullptr, colsum_do, nullptr, s);
-  if (err != cudaSuccess) return (int)err;
-  err = uvc::launch_reduce(colsum_do, 1, dm, dp, nullptr,
-                           static_cast<bf16*>(dbias2), s);
-  if (err != cudaSuccess) return (int)err;
-  if (xin == nullptr) return 0;
-  uvc::blend_dd_kernel<<<1, 128, 0, s>>>(sumsf, colsum_do,
-                                         static_cast<const bf16*>(bias2), dm,
-                                         static_cast<float*>(dd));
-  return (int)cudaGetLastError();
+  return (int)uvc::launch_ln_bwd_finish(
+      sumsf, dm, dp, static_cast<float*>(dg2), static_cast<float*>(db2),
+      static_cast<bf16*>(dbias2), act_dd1, tm * tn,
+      static_cast<const bf16*>(bias2), static_cast<float*>(dd), s);
 }
 
 }  // namespace
 
 // Both return 0 or the first CUDA error code.  All buffers are device
 // pointers.  Scratch the caller allocates: m_in [rows, dm], am and dh
-// [rows, f] (bf16); h32 and dam0 [rows, f], dmi [rows, dm] (f32); part
-// (f32, ceil(rows / 128) * max(2 f + ceil(f / 128), 2 dm + 2) elements)
-// and sums (f32, 4 + dm).  Outputs: dx (and dxin) [rows, dm] bf16, dd [2] f32,
-// dg2 / db2 [dm] f32, dw1 [dm, f], db1 [f], dw2 [f, dm], dbias2 [dm],
-// dmask [f] bf16.
+// [rows, f] (bf16); dmi [rows, dm] (f32); part (f32, the
+// largest of the activation partials 2 tm f, the split partials
+// splits_w2 * f * dm and splits_w1 * dm * f, and the LayerNorm backward's
+// ln_bwd_split(rows, dm).ctas * (3 dm + 2)) and sums (f32, 3 dm + 2 +
+// tm tn; tm, tn: the 128 x 128 tiles of gemm_act_bwd_kernel).
+// Outputs: dx (and dxin) [rows, dm] bf16, dd [2] f32, dg2 / db2 [dm] f32,
+// dw1 [dm, f], db1 [f], dw2 [f, dm], dbias2 [dm], dmask [f] bf16.
+// splits_w2 and splits_w1: CTAs along the B*N rows of dW2 and dW1.
 extern "C" int uvc_mlp_ln_bwd(
     const void* x, const void* g2, const void* b2, const void* w1,
     const void* bias1, const void* w2, const void* mask, const void* dout,
-    void* m_in, void* h32, void* dam0, void* am, void* dh, void* dmi,
-    void* part, void* sums, void* dx, void* dg2, void* db2, void* dw1,
-    void* db1, void* dw2, void* dbias2, void* dmask, int rows, int dm, int f,
-    float eps, void* stream) {
+    void* m_in, void* am, void* dh, void* dmi, void* part, void* sums,
+    void* dx, void* dg2, void* db2, void* dw1, void* db1,
+    void* dw2, void* dbias2, void* dmask, int rows, int dm, int f,
+    int splits_w2, int splits_w1, float eps, void* stream) {
   return mlp_backward(x, nullptr, nullptr, g2, b2, w1, bias1, w2, nullptr,
-                      mask, dout, m_in, h32, dam0, am, dh, dmi, part, sums,
-                      dx, nullptr, nullptr, dg2, db2, dw1, db1, dw2, dbias2,
-                      dmask, rows, dm, f, eps,
+                      mask, dout, m_in, am, dh, dmi, part, sums, dx,
+                      nullptr, nullptr, dg2, db2, dw1, db1, dw2, dbias2,
+                      dmask, rows, dm, f, splits_w2, splits_w1, eps,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -390,12 +277,13 @@ extern "C" int uvc_mlp_ln_blend_bwd(
     const void* x, const void* xin, const void* d, const void* g2,
     const void* b2, const void* w1, const void* bias1, const void* w2,
     const void* bias2, const void* mask, const void* dout, void* m_in,
-    void* h32, void* dam0, void* am, void* dh, void* dmi, void* part,
-    void* sums, void* dx, void* dxin, void* dd, void* dg2, void* db2,
-    void* dw1, void* db1, void* dw2, void* dbias2, void* dmask, int rows,
-    int dm, int f, float eps, void* stream) {
+    void* am, void* dh, void* dmi, void* part, void* sums,
+    void* dx, void* dxin, void* dd, void* dg2, void* db2, void* dw1,
+    void* db1, void* dw2, void* dbias2, void* dmask, int rows, int dm, int f,
+    int splits_w2, int splits_w1, float eps, void* stream) {
   return mlp_backward(x, xin, d, g2, b2, w1, bias1, w2, bias2, mask, dout,
-                      m_in, h32, dam0, am, dh, dmi, part, sums, dx, dxin, dd,
-                      dg2, db2, dw1, db1, dw2, dbias2, dmask, rows, dm, f,
-                      eps, static_cast<cudaStream_t>(stream));
+                      m_in, am, dh, dmi, part, sums, dx, dxin, dd, dg2,
+                      db2, dw1, db1, dw2, dbias2, dmask, rows, dm, f,
+                      splits_w2, splits_w1, eps,
+                      static_cast<cudaStream_t>(stream));
 }

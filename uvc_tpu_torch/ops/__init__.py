@@ -5,7 +5,7 @@ where it launches its kernel.  ``launch_counts`` reads the forward kernels'
 (the serving path's), ``backward_launch_counts`` the backward kernels'
 (the training path's), and ``reset_launch_counts`` sets them all to 0, so a
 run can show that its main path went through the kernels.  The wide-model
-backward routes (``dm > 1024``, composed in PyTorch around kernel A8 as
+backward routes (``dm > 1280``, composed in PyTorch around kernel A8 as
 the JAX package composes them) count their calls in ``calls``, read by
 ``composed_counts`` and reset with the rest.
 """

@@ -49,8 +49,8 @@ _LIBS = {
     "mlp": ("mlp.cu", {
         "uvc_mlp_ln": [_P] * 11 + [_I] * 3 + [_F, _P],
         "uvc_mlp_ln_blend": [_P] * 13 + [_I] * 3 + [_F, _P],
-        "uvc_mlp_ln_bwd": [_P] * 24 + [_I] * 3 + [_F, _P],
-        "uvc_mlp_ln_blend_bwd": [_P] * 29 + [_I] * 3 + [_F, _P],
+        "uvc_mlp_ln_bwd": [_P] * 22 + [_I] * 5 + [_F, _P],
+        "uvc_mlp_ln_blend_bwd": [_P] * 27 + [_I] * 5 + [_F, _P],
     }),
     "performer": ("performer.cu", {
         "uvc_performer_workspace": [_I] * 4,

@@ -31,9 +31,9 @@ import torch
 from uvc_tpu_torch.ops import _cuda
 
 # the LayerNorm backward keeps a row in registers (LNB_MAX_DM in
-# csrc/common.cuh); wider models take the composed backward, as the JAX
-# package does beyond its VMEM budget
-_MAX_DM_BWD = 1024
+# csrc/ln_bwd.cuh: ViT-H/14's 1280); wider models take the composed
+# backward, as the JAX package does beyond its VMEM budget
+_MAX_DM_BWD = 1280
 
 # the attention cores' head dims (instantiated for the padded head dims 16,
 # 32, 48, 64 and 80) and the shared memory a CTA may take
@@ -349,16 +349,19 @@ def layer_attention_bwd_plain(x, wqkv, bqkv, wproj, bproj, mask, do, *,
 
 
 # the weight-gradient products of the sublayer backwards (csrc/gemm_wg.cuh)
-# run 128 x 128 output tiles over 64-row k-tiles of the B*N rows
-_WG_TILE, _WG_KTILE = 128, 64
+# run 128 x 128 output tiles over 64-row k-tiles of the B*N rows; a split
+# sums at least 8 k-tiles, as a shorter one costs its in-order sum more
+# than it saves
+_WG_TILE, _WG_KTILE, _WG_MIN_KTILES = 128, 64, 8
 
 
 def _weight_grad_splits(m: int, n: int, k: int, sms: int) -> int:
     """CTAs along K of an ``[m, n]`` weight gradient over ``k`` rows: enough
     that its output tiles, each split that many ways, cover the card's
-    ``sms`` SMs once (no more than the k-tiles)."""
+    ``sms`` SMs once, each split at least ``_WG_MIN_KTILES`` k-tiles long
+    (one split where K is shorter than two of those)."""
     tiles = -(-m // _WG_TILE) * -(-n // _WG_TILE)
-    return max(1, min(-(-k // _WG_KTILE), -(-sms // tiles)))
+    return max(1, min(k // _WG_KTILE // _WG_MIN_KTILES, -(-sms // tiles)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -366,13 +369,46 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the row and column sums of the backwards (csrc/ln_bwd.cuh) aim for twice
+# the H100's 132 SMs in CTAs
+_SUMS_TARGET_CTAS = 264
+_LNB_MIN_ROWS, _LNB_MAX_ROWS, _LNB_MAX_WARPS = 4, 32, 8
+_CS_WARPS, _CS_COLS = 8, 256
+
+
+def _ln_bwd_split(rows: int, dm: int):
+    """The LayerNorm backward's partition of the B*N rows (``ln_bwd_split``
+    in csrc/ln_bwd.cuh): (rows a CTA, warps a CTA, CTAs).  A warp takes a
+    row at a time, every warps-th row of its CTA's block; each CTA writes
+    one partial row of ``3 dm + 2`` floats."""
+    per = max(_LNB_MIN_ROWS, min(_LNB_MAX_ROWS, rows // _SUMS_TARGET_CTAS))
+    warps = max(1, min(per, _LNB_MAX_WARPS, 16 // -(-dm // 256)))
+    return per, warps, -(-rows // per)
+
+
+def _ln_bwd_floats(rows: int, dm: int) -> int:
+    """f32 scratch of the LayerNorm backward: its partial rows, then their
+    sums ``[dgamma | dbeta | colsum(do) | do . x, do . xin]``."""
+    return (_ln_bwd_split(rows, dm)[2] + 1) * (3 * dm + 2)
+
+
+def _colsum_split(rows: int, cols: int):
+    """The column sums' partition (``colsum_rows`` in csrc/ln_bwd.cuh):
+    (rows a block, blocks).  A CTA sums 256 columns of a block, so that
+    the grid covers about ``_SUMS_TARGET_CTAS`` CTAs."""
+    per = max(_CS_WARPS, rows * -(-cols // _CS_COLS) // _SUMS_TARGET_CTAS
+              // _CS_WARPS * _CS_WARPS)
+    return per, -(-rows // per)
+
+
 def _sublayer_bwd_scratch(b, n, dm, da, num_heads, device, sms, ln):
     """The scratch of the sublayer backward kernels (A2 with ``ln``, else
     A7), in the order their entry points take it, and the split counts of
     dWqkv and dWproj.  ``part`` holds, one after the other, dmask's partial
     sums (one row per 64-row query tile of an image), the split-K partials
-    ``[splits, M, N]`` of either weight gradient and the column sums' (and,
-    with ``ln``, the LayerNorm backward's) per-128-row partials."""
+    ``[splits, M, N]`` of either weight gradient, dbqkv's column-sum
+    partials and A7's dbproj's (``_colsum_split``), or A2's LayerNorm
+    backward's partials and sums (``_ln_bwd_floats``)."""
     bf16, f32 = torch.bfloat16, torch.float32
     rows = b * n
     splits = (_weight_grad_splits(dm, 3 * da, rows, sms),
@@ -383,7 +419,9 @@ def _sublayer_bwd_scratch(b, n, dm, da, num_heads, device, sms, ln):
 
     part = max(b * -(-n // _TILE_ROWS) * da,
                splits[0] * dm * 3 * da, splits[1] * da * dm,
-               -(-rows // 128) * max(2 * dm if ln else dm, 3 * da))
+               _colsum_split(rows, 3 * da)[1] * 3 * da,
+               _ln_bwd_floats(rows, dm) if ln
+               else _colsum_split(rows, dm)[1] * dm)
     scratch = dict(
         qkv=new(rows, 3 * da), t=new(rows, da, dtype=f32), dctx=new(rows, da),
         ctxm=new(rows, da), stats=_core_bwd_stats(b, num_heads, n, device),
@@ -426,7 +464,7 @@ def layer_attention_ln_bwd(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, *,
                            num_heads: int, scale: float, eps: float):
     """Gradients of ``layer_attention_ln`` with respect to its eight tensor
     inputs, given the output cotangent ``do`` (same shape and dtype as
-    ``x``).  On CUDA: the forward's operand types, ``dm <= 1024`` (wider
+    ``x``).  On CUDA: the forward's operand types, ``dm <= 1280`` (wider
     models take ``layer_attention_ln_bwd_composed``).
     ``layer_attention_ln_bwd.launches`` counts kernel launches."""
     kw = dict(num_heads=num_heads, scale=scale, eps=eps)
@@ -445,7 +483,7 @@ layer_attention_ln_bwd.launches = 0
 
 class _FusedLayerAttentionLN(torch.autograd.Function):
     """``layer_attention_ln`` forward, ``layer_attention_ln_bwd`` backward,
-    or ``layer_attention_ln_bwd_composed`` at ``dm > 1024`` (the port of
+    or ``layer_attention_ln_bwd_composed`` at ``dm > 1280`` (the port of
     the JAX custom VJP ``_fused_layer_ln``, which peels the LayerNorm off
     and composes the backward where its kernel's VMEM budget refuses the
     width)."""

@@ -10,7 +10,7 @@ kernels (``csrc/mlp.cu``, the ports of ``_mlp_ln_fwd_kernel``,
 ``_mlp_ln_blend_fwd_kernel``, ``_mlp_ln_bwd_kernel`` and
 ``_mlp_ln_blend_bwd_kernel``); a CPU tensor goes to the plain PyTorch
 versions, which keep the kernels' rounding order.  There is no other
-route.  Models wider than the backward kernels (dm > 1024) take
+route.  Models wider than the backward kernels (dm > 1280) take
 ``mlp_ln_bwd_composed`` / ``mlp_ln_blend_bwd_composed``, the autograd of
 the JAX package's composition, as the JAX package does where its kernels'
 VMEM budget refuses the width.
@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from uvc_tpu_torch.ops import _cuda
 from uvc_tpu_torch.ops.attention import (_MAX_DM_BWD, _check_cuda,
-                                         _ln_rows)
+                                         _ln_bwd_floats, _ln_rows,
+                                         _sm_count, _weight_grad_splits)
 
 
 def _residual_sum32(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
@@ -237,31 +238,53 @@ def mlp_ln_blend_bwd_plain(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask,
     return tuple(g[k] for k in _BLEND_GRADS)
 
 
-def _mlp_bwd_cuda(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, eps):
+# the backward's h and dam0 products (csrc/gemm_wg.cuh::gemm_act_bwd_kernel)
+# run 128 x 128 tiles
+_ACT_TILE = 128
+
+
+def _mlp_bwd_scratch(rows, dm, f, device, sms):
+    """The scratch of the MLP backward kernels (A6, A4) in their entry
+    points' order and the split counts of dW2 and dW1 over the B*N rows.
+    ``part`` holds, one after the other, the h product's per-tile partials
+    (dmask and db1 a 128-row tile), the split-K partials of either weight
+    gradient and the LayerNorm backward's partials and sums
+    (``_ln_bwd_floats``); ``sums`` the LayerNorm backward's sums, then the
+    h product's partials of dd1's term ``sum(dam0 * am)``, one a tile."""
     bf16, f32 = torch.bfloat16, torch.float32
+    splits = (_weight_grad_splits(f, dm, rows, sms),
+              _weight_grad_splits(dm, f, rows, sms))
+    tm, tn = -(-rows // _ACT_TILE), -(-f // _ACT_TILE)
+    part = max(2 * tm * f, splits[0] * f * dm, splits[1] * dm * f,
+               _ln_bwd_floats(rows, dm))
+
+    def new(*shape, dtype=bf16):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    scratch = dict(m_in=new(rows, dm), am=new(rows, f), dh=new(rows, f),
+                   dmi=new(rows, dm, dtype=f32), part=new(part, dtype=f32),
+                   sums=new(3 * dm + 2 + tm * tn, dtype=f32))
+    return scratch, splits
+
+
+def _mlp_bwd_cuda(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, eps):
+    f32 = torch.float32
     b, n, dm, f = _check_mlp(x, xin, d, dict(
         g2=g2, b2=b2, wfc1=wfc1, bfc1=bfc1, wfc2=wfc2, bfc2=bfc2, mask=mask,
         do=do), max_dm=_MAX_DM_BWD)
     lib = _cuda.library("mlp")
     rows = b * n
-    parts = -(-rows // 128)
-
-    def new(*shape, dtype=bf16):
-        return torch.empty(shape, dtype=dtype, device=x.device)
-
-    scratch = (new(rows, dm), new(rows, f, dtype=f32), new(rows, f, dtype=f32),
-               new(rows, f), new(rows, f), new(rows, dm, dtype=f32),
-               new(parts * max(2 * f + -(-f // 128), 2 * dm + 2), dtype=f32),
-               new(4 + dm, dtype=f32))
-    grads = dict(dx=torch.empty_like(x), dg2=new(dm, dtype=f32),
-                 db2=new(dm, dtype=f32), dwfc1=torch.empty_like(wfc1),
+    scratch, splits = _mlp_bwd_scratch(rows, dm, f, x.device,
+                                       _sm_count(x.device.index or 0))
+    grads = dict(dx=torch.empty_like(x), dg2=x.new_empty(dm, dtype=f32),
+                 db2=x.new_empty(dm, dtype=f32), dwfc1=torch.empty_like(wfc1),
                  dbfc1=torch.empty_like(bfc1), dwfc2=torch.empty_like(wfc2),
                  dbfc2=torch.empty_like(bfc2), dmask=torch.empty_like(mask))
     tail = (*(grads[k].data_ptr() for k in _MLP_GRADS[1:]), rows, dm, f,
-            float(eps))
+            *splits, float(eps))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = [t.data_ptr() for t in scratch]
+        ptrs = [t.data_ptr() for t in scratch.values()]
         if xin is None:
             err = lib.uvc_mlp_ln_bwd(
                 x.data_ptr(), g2.data_ptr(), b2.data_ptr(), wfc1.data_ptr(),
@@ -374,7 +397,7 @@ mlp_ln_blend_bwd_composed.calls = 0
 
 class _FusedMlpLN(torch.autograd.Function):
     """``mlp_ln`` forward, ``mlp_ln_bwd`` backward, or
-    ``mlp_ln_bwd_composed`` at ``dm > 1024`` (the port of the JAX custom
+    ``mlp_ln_bwd_composed`` at ``dm > 1280`` (the port of the JAX custom
     VJP ``_fused_mlp_ln``)."""
 
     @staticmethod
@@ -394,7 +417,7 @@ class _FusedMlpLN(torch.autograd.Function):
 
 class _FusedMlpLNBlend(torch.autograd.Function):
     """``mlp_ln_blend`` forward, ``mlp_ln_blend_bwd`` backward, or
-    ``mlp_ln_blend_bwd_composed`` at ``dm > 1024`` (the port of the JAX
+    ``mlp_ln_blend_bwd_composed`` at ``dm > 1280`` (the port of the JAX
     custom VJP ``_fused_mlp_ln_blend``)."""
 
     @staticmethod
