@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``uvc_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1-3, then the card line
+    python3 chip_smoke.py --kernels-only   # phases 1-3 and phase 7's kernel
+                                           # rows, then the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -99,13 +100,19 @@ Phases, each of which stops the run with a non-zero exit on failure:
    versions at "t2t_stage1" (B=64, N=3136, dim 192 with the 147 live slots
    of the space-to-depth layout), "t2t_stage2" (B=64, N=784, dim 576) and
    "ragged" (B=3, N=50), every output, two backward launches bit for bit,
-   beside a PyTorch composition of the stage as the yardstick; then
+   the backward without dx (the stem's first stage) against the plain
+   version's and its gradients bit for bit the full backward's, beside a
+   PyTorch composition of the stage as the yardstick (with
+   ``--kernels-only`` too, and each launch of the forward, the backward
+   and the dx-less backward at the two stages with its bytes, GB/s and
+   TFLOP/s); then
    T2T-ViT-14 at full width and depth with seeded random weights: the
    stage-1 step with bench.py's flagship settings and a dense teacher (3
    untimed + 10 timed steps, per step ``performer`` 4, ``performer_bwd``
    2, ``layer_attention_ln`` 28, ``mlp_ln`` 14, ``mlp_ln_blend`` 14,
    ``layer_attention_ln_bwd`` 14, ``mlp_ln_blend_bwd`` 14), a profiled
-   step and one batch-8 step against the CPU plain path; and serving a
+   step (with the performer kernels' device ms a step) and one batch-8
+   step against the CPU plain path; and serving a
    seeded discovered architecture (3 of 6 heads, 576 of 1152 units, 2 of
    14 blocks gated off) through ``compact_model`` + ``apply_compact`` and
    ``eval_step`` (5 passes of 8 batches of 64, ``performer`` 2 per
@@ -1626,7 +1633,34 @@ def _check_outputs(name, shape, outs, refs, rel_tol, again=None):
     return errs
 
 
-def performer_kernel_phase(digests_only=False):
+def _performer_nodx(shape, ops, kptv, kpsum, do, fc, grads, refused_ok):
+    """The dx-less backward (the stem's first stage) against the plain
+    version's, and its gradients bit for bit the full backward's; returns
+    a call of it, or None where ``refused_ok`` and the kernel takes no
+    ``dx`` (another tree's)."""
+    from uvc_tpu_torch.ops.performer import performer_bwd, performer_bwd_plain
+
+    def run():
+        return performer_bwd(*ops, kptv, kpsum, do, fcount=fc, dx=False)
+    try:
+        nodx = run()
+    except TypeError:
+        if not refused_ok:
+            raise
+        print(f"kernel performer_bwd  [{shape:10s}] no dx: refused")
+        return None
+    torch.cuda.synchronize()
+    check(nodx[0] is None, f"performer_bwd [{shape}] without dx gave a dx")
+    nrefs = performer_bwd_plain(*ops, kptv, kpsum, do, fcount=fc, dx=False)
+    _check_outputs("performer_bwd (no dx)", shape, nodx[1:], nrefs[1:],
+                   BWD_REL_TOL)
+    check(all(torch.equal(a, b) for a, b in zip(nodx[1:], grads[1:])),
+          f"performer_bwd [{shape}]: the dx-less gradients differ from the "
+          f"full backward's")
+    return run
+
+
+def performer_kernel_phase(digests_only=False, refused_ok=False):
     from uvc_tpu_torch.ops.performer import (performer, performer_bwd,
                                              performer_bwd_plain,
                                              performer_plain)
@@ -1655,6 +1689,8 @@ def performer_kernel_phase(digests_only=False):
             print(f"kernel performer_bwd  [{shape:10s}] "
                   f"digest={digest(grads)}", flush=True)
             continue
+        nodx = _performer_nodx(shape, ops, kptv, kpsum, do, fc, grads,
+                               refused_ok)
         library = _library_performer(ops)
         names = ("x", "g1", "b1", "wkqv", "bkqv", "w", "fmask", "wproj",
                  "bproj", "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
@@ -1681,6 +1717,8 @@ def performer_kernel_phase(digests_only=False):
                      library_ms=time_ms(lib, 10), bound_ms=bound_ms,
                      bound_by=bound_by, flops=flops, bytes=nbytes,
                      library="composition")
+            if bwd and nodx is not None:
+                r["nodx_ms"] = time_ms(nodx, 10)
             results[(name, shape)] = r
             print(f"kernel {name:13s} [{shape:10s} B={b} N={n} dim={dim} "
                   f"live={int(fc)}] rel_fro per output "
@@ -1689,10 +1727,92 @@ def performer_kernel_phase(digests_only=False):
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms(composition)={r['library_ms']:.4f} "
                   f"bound={bound_ms * 1e3:.1f}us ({bound_by})"
+                  + (f" no-dx ms={r['nodx_ms']:.4f} (the other gradients bit "
+                     f"for bit)" if "nodx_ms" in r else "")
                   + (" two launches bit-identical" if bwd else "")
                   + f" digest={digest(grads if bwd else outs)}",
                   flush=True)
     return results
+
+
+# the performer kernels' launches: the forward's two, the backward's q and
+# k|v kernels, its four products (dWkqv, dWfc2, dWfc1, dWproj), the dWkqv
+# assembly and the sums
+PERF_FWD_LAUNCHES = ("fwd_sums", "fwd_apply")
+# their device time in a profiled step: the forward's two launches and
+# the backward's eight, each run in launch order
+PERFORMER_WATCH = {
+    "performer (A10 forward)": ("performer::fwd_sums_kernel",
+                                "performer::fwd_apply_kernel"),
+    "performer_bwd (A10 backward)": (
+        "performer::bwd_q_kernel", "performer::bwd_kv_kernel",
+        "gemm_wg_kernel", "gemm_wg_kernel", "gemm_wg_kernel",
+        "gemm_wg_kernel", "performer::assemble_dw_kernel",
+        "performer::finish_kernel")}
+PERF_BWD_LAUNCHES = ("bwd_q", "bwd_kv", "dWkqv GEMM", "dWfc2 GEMM",
+                     "dWfc1 GEMM", "dWproj GEMM", "assemble dWkqv", "finish")
+
+
+def _performer_launch_work(b, n, dim, dx=True):
+    """(bytes, bf16 FLOP) of each launch of PERF_FWD_LAUNCHES and
+    PERF_BWD_LAUNCHES: each input read once, each output written once (the
+    partials and the weights left out), the products' operations."""
+    rows, e, m = b * n, 64, 32
+    x, h, st = rows * dim * 2, rows * e * 2, rows * 4 * 4
+    fwd = [(x + rows * m * 4 + h, 2 * rows * (3 * dim * e)),
+           (rows * m * 4 + 2 * h, 2 * rows * (m * e + 3 * e * e))]
+    front, vjp = 2 * rows * 2 * dim * e, 2 * rows * 2 * e * dim
+    # the q kernel: x, do -> xn, [dq | dattn], [y | h2 | a | dhh], the row
+    # statistics; the k|v kernel: x, the statistics, [dq | dattn] -> [dk |
+    # dv] (and dx): both halves of LN1's VJP, twice with dx
+    bwd = [(x + h + x + 2 * h + 4 * h + st,
+            front + 2 * rows * (m * e + 5 * e * e + 3 * e * m)),
+           (x + st + 4 * h + (x if dx else 0),
+            front + 2 * rows * (3 * e * m) + 2 * vjp * (2 if dx else 1)),
+           (x + 4 * h, 2 * rows * dim * 4 * e)] + \
+        [(2 * h, 2 * rows * e * e)] * 3 + [(0, 0)] * 2
+    return fwd, bwd
+
+
+def performer_breakdown(card, refused_ok=False):
+    """The performer kernels launch by launch (``launch_breakdown``) at
+    "t2t_stage1" and "t2t_stage2", forward, backward and the backward
+    without dx, each launch's bytes with its GB/s and its products'
+    TFLOP/s (under the kernels' own names where another tree launches
+    another sequence)."""
+    from uvc_tpu_torch.ops.performer import performer, performer_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for shape in ("t2t_stage1", "t2t_stage2"):
+        b, n, dim, masked = PERF_SHAPES[shape]
+        ops, fc = _performer_inputs(gen, b, n, dim, masked)
+        do = (torch.randn(b, n, 64, generator=gen, device="cuda")
+              * 0.1).to(torch.bfloat16)
+        _, kptv, kpsum = performer(*ops, fcount=fc)
+        fwd, bwd = _performer_launch_work(b, n, dim)
+        _, bwd_nodx = _performer_launch_work(b, n, dim, dx=False)
+        runs = [("A10 forward", lambda: performer(*ops, fcount=fc),
+                 PERF_FWD_LAUNCHES, fwd),
+                ("A10 backward", lambda: performer_bwd(
+                    *ops, kptv, kpsum, do, fcount=fc), PERF_BWD_LAUNCHES,
+                 bwd)]
+        try:
+            performer_bwd(*ops, kptv, kpsum, do, fcount=fc, dx=False)
+            runs.append(("A10 backward without dx", lambda: performer_bwd(
+                *ops, kptv, kpsum, do, fcount=fc, dx=False),
+                PERF_BWD_LAUNCHES, bwd_nodx))
+        except TypeError:
+            if not refused_ok:
+                raise
+        for label, run, names, work in runs:
+            ms = launch_breakdown(label, shape, run, card, names)
+            if len(ms) != len(names):
+                continue
+            print(f"{label} [{shape}] per launch: " + ", ".join(
+                f"{nm} {nb / 1e6:.1f} MB {nb / t / 1e6:.0f} GB/s"
+                + (f" {fl / t / 1e9:.1f} TFLOP/s" if fl else "")
+                for nm, t, (nb, fl) in zip(names, ms, work) if t > 0)
+                + f" [{card}]", flush=True)
 
 
 def _t2t_model(gen, cfg):
@@ -1788,7 +1908,8 @@ def t2t_training_phase(card, name="t2t_vit_14", label="T2T-ViT-14", seed=12,
           f"({peak / 2**20:.1f} MiB) [{card}]")
 
     profile_phase(card, {f"{label} stage-1 train step":
-                         lambda: run(state, 1)}, top=14)
+                         lambda: run(state, 1)}, top=14,
+                  watch=PERFORMER_WATCH)
 
     small = 8
     noise = draw_stage1_noise(ngen, cfg, hp, thp, small, "cpu")
@@ -2493,7 +2614,8 @@ def composed_route_times(card, cfg):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3 (the kernels)")
+                    help="stop after phase 3 (the kernels) and phase 7's "
+                    "kernel rows")
     ap.add_argument("--refused-ok", action="store_true",
                     help="print a phase-3 row (or launch breakdown) whose "
                     "kernel refuses the shape instead of failing: for "
@@ -2535,6 +2657,8 @@ def main():
     res.update(core_kernel_phase(args.digests))
     if args.kernels_only:
         core_bwd_breakdown(card)
+        res.update(performer_kernel_phase(refused_ok=args.refused_ok))
+        performer_breakdown(card, args.refused_ok)
     if args.digests:
         performer_kernel_phase(digests_only=True)
     if args.kernels_only or args.digests:

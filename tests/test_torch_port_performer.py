@@ -306,5 +306,5 @@ def test_fused_performer_off_the_cpu_never_runs_the_plain_version():
 
 
 def test_entry_points_are_bound():
-    assert {"uvc_performer", "uvc_performer_bwd",
-            "uvc_performer_workspace"} == set(_cuda._LIBS["performer"][1])
+    assert {"uvc_performer", "uvc_performer_bwd"} == set(
+        _cuda._LIBS["performer"][1])

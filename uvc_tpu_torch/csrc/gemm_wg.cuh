@@ -11,8 +11,8 @@
 // The two products of K1 and of A7's forward and the five of the sublayer
 // backwards A2 and A7 (attention.cu), the fc1 and fc2 of K2 and K3 and
 // the products of their backwards A6 and A4 (mlp.cu: dW1, dW2 and dmi
-// here, h and dam0 in one tile by gemm_act_bwd_kernel below) run it; the
-// performer keeps the mma.sync GEMM of common.cuh.
+// here, h and dam0 in one tile by gemm_act_bwd_kernel below) and the
+// performer backward's dWkqv (performer.cu) run it.
 //
 // Epilogues (a template parameter; common.cuh's Epilogue values, in f32 in
 // the Pallas bodies' order, one rounding to bf16):
@@ -367,7 +367,7 @@ static cudaError_t run_gemm_wg(const GemmArgs& p, cudaStream_t s) {
 // EPI_GELU_MASK, EPI_RESID, EPI_BLEND), p.resid [M][N] (EPI_RESID,
 // EPI_BLEND), p.xin [M][N] and p.d [2] (EPI_BLEND), p.mask [N] or null
 // (EPI_GELU_MASK, EPI_F32_MASK), p.d [2] or null (EPI_SCALE).  Every
-// epilogue of common.cuh's Epilogue but the performer's EPI_RESID32.
+// epilogue of common.cuh's Epilogue.
 template <int EPI, bool A_MN = false, bool B_K = false>
 static cudaError_t launch_gemm_wg(const GemmArgs& p, cudaStream_t s) {
   static_assert(EPI == EPI_BIAS || EPI == EPI_GELU_MASK || EPI == EPI_RESID ||

@@ -53,9 +53,8 @@ _LIBS = {
         "uvc_mlp_ln_blend_bwd": [_P] * 27 + [_I] * 5 + [_F, _P],
     }),
     "performer": ("performer.cu", {
-        "uvc_performer_workspace": [_I] * 4,
-        "uvc_performer": [_P] * 19 + [_I] * 3 + [_F, _P],
-        "uvc_performer_bwd": [_P] * 34 + [_I] * 3 + [_F, _P],
+        "uvc_performer": [_P] * 21 + [_I] * 5 + [_F, _P],
+        "uvc_performer_bwd": [_P] * 41 + [_I] * 7 + [_F, _P],
     }),
 }
 

@@ -15,12 +15,14 @@ feature layout (``feat_idx``) and casts the weights.
 A CUDA tensor goes to the hand-written kernels (``csrc/performer.cu``, the
 port of both Pallas forms, the merged ``_fwd_merged_kernel`` /
 ``_bwd_merged_kernel`` and the split ``_sums_kernel`` + ``_apply_kernel``
-/ ``_bwd1_kernel`` + ``_bwd2_kernel``, which compute one function); a CPU
-tensor goes to the ``*_plain`` functions, the same function in plain
-PyTorch in the Pallas bodies' rounding order: bf16 matmul inputs with f32
-accumulation, LayerNorms, random features and the global sums in f32.
-There is no other route.  GELU is the exact erf form (the Pallas bodies
-use the Abramowitz-Stegun erf, |err| < 1.5e-7).
+/ ``_bwd1_kernel`` + ``_bwd2_kernel``, which compute one function:
+per-tile kernels over 64-token tiles, each CTA walking a run of an
+image's tiles, ``_tile_split``); a CPU tensor goes to the ``*_plain``
+functions, the same function in plain PyTorch in the Pallas bodies'
+rounding order: bf16 matmul inputs with f32 accumulation, LayerNorms,
+random features and the global sums in f32.  There is no other route.
+GELU is the exact erf form (the Pallas bodies use the Abramowitz-Stegun
+erf, |err| < 1.5e-7).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from uvc_tpu_torch.ops import _cuda
-from uvc_tpu_torch.ops.attention import _check_cuda, _ln_rows
+from uvc_tpu_torch.ops.attention import (_check_cuda, _ln_rows, _sm_count,
+                                         _weight_grad_splits)
 
 # nn.LayerNorm's default eps in the reference Token_performer
 _LN_EPS = 1e-5
@@ -41,8 +44,22 @@ _LN_EPS = 1e-5
 _D_EPS = 1e-8
 # the kernels' widths: every T2T config has token_dim 64, kernel ratio 0.5
 _EMB, _M = 64, 32
-# csrc/performer.cu keeps one row of the LN1 backward in registers
+# the widths the kernels take (the T2T stems': 192 and 576)
 _MAX_DIM = 1024
+# csrc/performer.cu: 64-token tiles; the CTAs a kernel aims for, per SM
+# (what its shared memory and registers let one SM hold): the forward's
+# first and second kernels, the backward's q and k|v kernels
+_TILE = 64
+_CTAS_PER_SM = dict(fwd_sums=2, fwd_apply=4, bwd_q=2, bwd_kv=2)
+# the per-CTA partials (floats): kptv | kpsum (and dkptv | dkpsum); the q
+# kernel's six column sums, the k|v kernel's two; dLN1's [2, dim] a tile
+# (the k|v kernel's)
+_PART = _EMB * _M + _M
+_Q_SUMS = 6 * _EMB
+_KV_SUMS = 2 * _EMB
+# the weight-gradient products' operands: [dk | dv | dq | dattn] and
+# [y | h2 | a | dhh] a row
+_DKQV = 4 * _EMB
 
 OPERANDS = ("x", "g1", "b1", "wkqv", "bkqv", "w", "fmask", "wproj", "bproj",
             "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
@@ -90,8 +107,40 @@ def _front(x, g1, b1, wkqv, bkqv, fmask, fcount):
     return xn32, xhat, rstd, kqv
 
 
+class _Sums:
+    """The sums over the B*N tokens of the plain versions, each named by the
+    kernel that takes it on the card (``kernel``: "fwd_sums", "bwd_q",
+    "bwd_kv", or the products "dwkqv" and "dw64"); a replay of the kernels'
+    order stands in for them in the tests."""
+
+    @staticmethod
+    def tokens(a, b, kernel):
+        """Each image's sum over its tokens of a_t (x) b_t: [B, A, B']."""
+        return a.transpose(-1, -2) @ b
+
+    @staticmethod
+    def token_sum(t, kernel):
+        """Each image's sum over its tokens: [B, 1, C]."""
+        return t.sum(dim=1, keepdim=True)
+
+    @staticmethod
+    def wgrad(a, b, kernel):
+        """The sum over all tokens of a_t (x) b_t."""
+        return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+
+    @staticmethod
+    def colsum(t, kernel):
+        return t.sum((0, 1))
+
+    @staticmethod
+    def ln1(dxn1, dxn2, xhat1):
+        """dLN1's (dgamma, dbeta) from the two halves of dxn."""
+        d = dxn1 + dxn2
+        return (d * xhat1).sum((0, 1)), d.sum((0, 1))
+
+
 def performer_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2,
-                    wfc1, bfc1, wfc2, bfc2, *, fcount: float):
+                    wfc1, bfc1, wfc2, bfc2, *, fcount: float, sums=_Sums):
     """Plain version of the stage forward in the rounding order of
     ``_fwd_merged_kernel``: kp, v, qp, y, attn, the LN2 output and the GELU
     output rounded to ``x.dtype`` where the Pallas body rounds them.
@@ -106,8 +155,8 @@ def performer_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2,
     v = kqv[..., 2 * emb:].to(dt).float()
     kp = _prm(k, w32).to(dt).float()
     qp32 = _prm(q, w32)
-    kptv = v.transpose(-1, -2) @ kp                      # [B, emb, m]
-    kpsum = kp.sum(dim=1, keepdim=True)                  # [B, 1, m]
+    kptv = sums.tokens(v, kp, "fwd_sums")                # [B, emb, m]
+    kpsum = sums.token_sum(kp, "fwd_sums")               # [B, 1, m]
     d = (qp32 * kpsum).sum(-1, keepdim=True)             # [B, N, 1]
     y = (qp32.to(dt).float() @ kptv.to(dt).float().transpose(-1, -2)
          / (d + _D_EPS))
@@ -120,7 +169,7 @@ def performer_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2,
 
 def performer_bwd_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2,
                         b2, wfc1, bfc1, wfc2, bfc2, kptv, kpsum, do, *,
-                        fcount: float):
+                        fcount: float, dx: bool = True, sums=_Sums):
     """Plain version of the stage backward in the rounding order of
     ``_bwd_merged_kernel``: phase 1 recomputes the forward and runs the
     local gradients (MLP, LN2, proj, the q path) while summing the global
@@ -128,16 +177,14 @@ def performer_bwd_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2,
     The two halves of dx are rounded to ``x.dtype`` before their sum, and
     dWkqv / dbkqv are assembled from the q|v and k|v halves as at
     performer.py:1004-1008.  Returns the gradients named in ``GRADS``, each
-    in its operand's dtype; ``w`` and ``fmask`` get none."""
+    in its operand's dtype; ``w`` and ``fmask`` get none.  With ``dx``
+    False the input gradient is None and left uncomputed; every other
+    gradient is the same."""
     dt = x.dtype
     emb = wkqv.shape[1] // 3
-    rows = (0, 1)
 
     def r(t):
         return t.to(dt).float()
-
-    def wgrad(a, b):
-        return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
 
     w32, wb = w.float(), r(w)
     g1f, fm = g1.float(), fmask.float()
@@ -173,13 +220,12 @@ def performer_bwd_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2,
     dy_pre_b = r(dy * dd_inv)
     dd = -(dy * y).sum(-1, keepdim=True) * dd_inv
     dqp = dy_pre_b @ kptv_b + dd * kpsum
-    dkptv = dy_pre_b.transpose(-1, -2) @ qp              # [B, emb, m]
-    dkpsum = (dd * qp32).sum(dim=1, keepdim=True)        # [B, 1, m]
+    dkptv = sums.tokens(dy_pre_b, qp, "bwd_q")           # [B, emb, m]
+    dkpsum = sums.token_sum(dd * qp32, "bwd_q")          # [B, 1, m]
     dwtx = qp32 * dqp
     dq = r(dwtx) @ wb - q32 * dwtx.sum(-1, keepdim=True)
     dqv = torch.cat([dq, dattn], dim=-1)
     dxn1 = r(dqv) @ wkqv[:, emb:].float().T
-    dx1 = _masked_ln_vjp(dxn1, xhat1, rstd1, g1f, fm, fcount).to(dt)
     # phase 2: the k / v path from the complete global cotangents
     dkptv_b = r(dkptv)
     dv = r(kp32) @ dkptv_b.transpose(-1, -2)
@@ -188,26 +234,35 @@ def performer_bwd_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2,
     dkv = torch.cat([dk, dv], dim=-1)
     wkv = torch.cat([wkqv[:, :emb], wkqv[:, 2 * emb:]], dim=1).float()
     dxn2 = r(dkv) @ wkv.T
-    dx2 = _masked_ln_vjp(dxn2, xhat1, rstd1, g1f, fm, fcount).to(dt)
+    dx_out = None
+    if dx:
+        dx1 = _masked_ln_vjp(dxn1, xhat1, rstd1, g1f, fm, fcount).to(dt)
+        dx2 = _masked_ln_vjp(dxn2, xhat1, rstd1, g1f, fm, fcount).to(dt)
+        dx_out = (dx1.float() + dx2.float()).to(dt)
 
     xnb = r(xn32)
-    dwqv, dwkv = wgrad(xnb, r(dqv)), wgrad(xnb, r(dkv))
-    dbqv, dbkv = dqv.sum(rows), dkv.sum(rows)
+    dwqv = sums.wgrad(xnb, r(dqv), "dwkqv")
+    dwkv = sums.wgrad(xnb, r(dkv), "dwkqv")
+    dbqv, dbkv = sums.colsum(dqv, "bwd_q"), sums.colsum(dkv, "bwd_kv")
+    dg1, db1 = sums.ln1(dxn1, dxn2, xhat1)
     grads = dict(
-        dx=(dx1.float() + dx2.float()).to(dt),
-        dg1=((dxn1 + dxn2) * xhat1).sum(rows),
-        db1=(dxn1 + dxn2).sum(rows),
+        dx=dx_out, dg1=dg1, db1=db1,
         dwkqv=torch.cat([dwkv[:, :emb], dwqv[:, :emb],
                          dwqv[:, emb:] + dwkv[:, emb:]], dim=1),
         dbkqv=torch.cat([dbkv[:emb], dbqv[:emb], dbqv[emb:] + dbkv[emb:]]),
-        dwproj=wgrad(r(y), dattn_b), dbproj=dattn.sum(rows),
-        dg2=(dh2 * xhat2).sum(rows), db2=dh2.sum(rows),
-        dwfc1=wgrad(h2, dhh_b), dbfc1=dhh.sum(rows),
-        dwfc2=wgrad(a, dob), dbfc2=do32.sum(rows))
+        dwproj=sums.wgrad(r(y), dattn_b, "dw64"),
+        dbproj=sums.colsum(dattn, "bwd_q"),
+        dg2=sums.colsum(dh2 * xhat2, "bwd_q"),
+        db2=sums.colsum(dh2, "bwd_q"),
+        dwfc1=sums.wgrad(h2, dhh_b, "dw64"),
+        dbfc1=sums.colsum(dhh, "bwd_q"),
+        dwfc2=sums.wgrad(a, dob, "dw64"),
+        dbfc2=sums.colsum(do32, "bwd_q"))
     dtypes = dict(dx=x, dg1=g1, db1=b1, dwkqv=wkqv, dbkqv=bkqv, dwproj=wproj,
                   dbproj=bproj, dg2=g2, db2=b2, dwfc1=wfc1, dbfc1=bfc1,
                   dwfc2=wfc2, dbfc2=bfc2)
-    return tuple(grads[k].to(dtypes[k].dtype) for k in GRADS)
+    return tuple(None if grads[k] is None else grads[k].to(dtypes[k].dtype)
+                 for k in GRADS)
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +295,61 @@ def _check_performer(x, named):
     return b, n, dim
 
 
-def _workspace(lib, b, n, dim, backward, device):
-    blocks = lib.uvc_performer_workspace(b, n, dim, int(backward))
-    return torch.empty(blocks * 256, dtype=torch.uint8, device=device)
+def _tile_split(b: int, n: int, ctas: int):
+    """A kernel's partition of each image's ``ceil(n / 64)`` token tiles:
+    (tiles a CTA walks, CTAs an image), contiguous runs in tile order,
+    about ``ctas`` CTAs in all.  The grid is (CTAs an image, b); a
+    partial per CTA, image-major."""
+    ntiles = -(-n // _TILE)
+    per = -(-ntiles // max(1, min(ntiles, ctas // b)))
+    return per, -(-ntiles // per)
+
+
+def _splits(b: int, n: int, sms: int) -> dict:
+    """Each kernel's ``_tile_split`` on a card of ``sms`` SMs."""
+    return {k: _tile_split(b, n, c * sms) for k, c in _CTAS_PER_SM.items()}
+
+
+def _fwd_scratch(b, n, device, sms):
+    """qp [B N, m] f32 and v [B N, emb] bf16 of the first kernel for the
+    second, and the first kernel's partials; the tiles a CTA walks."""
+    sp = _splits(b, n, sms)
+    rows, f32 = b * n, torch.float32
+    scratch = dict(
+        qp=torch.empty(rows, _M, dtype=f32, device=device),
+        v=torch.empty(rows, _EMB, dtype=torch.bfloat16, device=device),
+        part=torch.empty(b * sp["fwd_sums"][1], _PART, dtype=f32,
+                         device=device))
+    return scratch, (sp["fwd_sums"][0], sp["fwd_apply"][0])
+
+
+def _bwd_scratch(b, n, dim, device, sms):
+    """The backward's scratch in the order the entry point takes it: the
+    weight-gradient products' operands xn [B N, dim], [dk | dv | dq |
+    dattn] and [y | h2 | a | dhh] [B N, 256] (bf16); the q kernel's dkptv /
+    dkpsum and column-sum partials a CTA, the k|v kernel's, dLN1's a tile
+    (of the k|v kernel), the dWkqv product's and the three 64 x 64
+    products' split partials, and a row's LN1 (mean, rstd) from the q
+    kernel for the k|v kernel (f32); with
+    (tiles a CTA of the q and k|v kernels, the dWkqv and 64 x 64 products'
+    splits)."""
+    sp = _splits(b, n, sms)
+    rows, bf16, f32 = b * n, torch.bfloat16, torch.float32
+    splits = (_weight_grad_splits(dim, _DKQV, rows, sms),
+              _weight_grad_splits(_EMB, _EMB, rows, sms))
+    c1, c2 = b * sp["bwd_q"][1], b * sp["bwd_kv"][1]
+    tiles = b * -(-n // _TILE)
+
+    def new(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    scratch = dict(
+        xn=new(rows, dim, dtype=bf16), dkqv=new(rows, _DKQV, dtype=bf16),
+        g=new(rows, _DKQV, dtype=bf16), kpart=new(c1, _PART),
+        part1=new(c1, _Q_SUMS), part2=new(c2, _KV_SUMS),
+        lnpart=new(tiles, 2 * dim), dpart=new(splits[0], dim, _DKQV),
+        wpart=new(3, splits[1], _EMB * _EMB), rstat=new(rows, 2))
+    return scratch, (sp["bwd_q"][0], sp["bwd_kv"][0], *splits)
 
 
 def _fcount(fcount, fmask):
@@ -276,26 +383,31 @@ def performer(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
     kptv = torch.empty((b, _EMB, _M), dtype=torch.float32, device=x.device)
     kpsum = torch.empty((b, 1, _M), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        ws = _workspace(lib, b, n, dim, False, x.device)
+        scratch, (per1, per2) = _fwd_scratch(
+            b, n, x.device, _sm_count(x.device.index or 0))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.uvc_performer(
             *(t.data_ptr() for t in ops), out.data_ptr(), kptv.data_ptr(),
-            kpsum.data_ptr(), ws.data_ptr(), b, n, dim, fc, stream)
+            kpsum.data_ptr(), *(t.data_ptr() for t in scratch.values()), b,
+            n, dim, per1, per2, fc, stream)
     _cuda.check(err, "performer")
     performer.launches += 1
     return out, kptv, kpsum
 
 
 def performer_bwd(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
-                  bfc1, wfc2, bfc2, kptv, kpsum, do, *, fcount: float):
+                  bfc1, wfc2, bfc2, kptv, kpsum, do, *, fcount: float,
+                  dx: bool = True):
     """Gradients of ``performer``'s output with respect to its operands
     (named in ``GRADS``, each in its operand's dtype; ``w`` and ``fmask``
     get none), given the forward's ``kptv`` / ``kpsum`` and the output
-    cotangent ``do``.  ``performer_bwd.launches`` counts kernel launches."""
+    cotangent ``do``; with ``dx`` False no input gradient (None), the
+    others unchanged.  ``performer_bwd.launches`` counts kernel
+    launches."""
     if x.device.type == "cpu":
         return performer_bwd_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj,
                                    bproj, g2, b2, wfc1, bfc1, wfc2, bfc2,
-                                   kptv, kpsum, do, fcount=fcount)
+                                   kptv, kpsum, do, fcount=fcount, dx=dx)
     if x.device.type != "cuda":
         raise ValueError(f"performer_bwd runs on cpu or cuda, not {x.device}")
     ops = (x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1, bfc1,
@@ -304,21 +416,18 @@ def performer_bwd(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
         zip(OPERANDS[1:], ops[1:]), kptv=kptv, kpsum=kpsum, do=do))
     fc = _fcount(fcount, fmask)
     lib = _cuda.library("performer")
-    e = _EMB
-    # the q|v and k|v column blocks of wkqv, as _split_kqv forms them
-    wqv = wkqv[:, e:].contiguous()
-    wkv = torch.cat([wkqv[:, :e], wkqv[:, 2 * e:]], dim=1)
-    grads = [torch.empty_like(t) for t in
+    grads = [torch.empty_like(t) if t is not x or dx else None for t in
              (x, g1, b1, wkqv, bkqv, wproj, bproj, g2, b2, wfc1, bfc1, wfc2,
               bfc2)]
     with torch.cuda.device(x.device):
-        ws = _workspace(lib, b, n, dim, True, x.device)
+        scratch, (per1, per2, splits, wsplits) = _bwd_scratch(
+            b, n, dim, x.device, _sm_count(x.device.index or 0))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.uvc_performer_bwd(
             *(t.data_ptr() for t in ops), kptv.data_ptr(), kpsum.data_ptr(),
-            do.data_ptr(), wqv.data_ptr(), wkv.data_ptr(),
-            *(g.data_ptr() for g in grads), ws.data_ptr(), b, n, dim, fc,
-            stream)
+            do.data_ptr(), *(0 if g is None else g.data_ptr() for g in grads),
+            *(t.data_ptr() for t in scratch.values()), b, n, dim, per1, per2,
+            splits, wsplits, fc, stream)
     _cuda.check(err, "performer_bwd")
     performer_bwd.launches += 1
     return tuple(grads)
@@ -347,9 +456,11 @@ class _FusedPerformer(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
+        # no dx where x needs none (the stem's first stage reads the image)
         (dx, dg1, db1, dwkqv, dbkqv, dwproj, dbproj, dg2, db2, dwfc1, dbfc1,
          dwfc2, dbfc2) = performer_bwd(*ctx.saved_tensors, do.contiguous(),
-                                       fcount=ctx.fcount)
+                                       fcount=ctx.fcount,
+                                       dx=ctx.needs_input_grad[0])
         # the random features are frozen and the slot mask is a constant
         return (dx, dg1, db1, dwkqv, dbkqv, None, None, dwproj, dbproj, dg2,
                 db2, dwfc1, dbfc1, dwfc2, dbfc2, None)
