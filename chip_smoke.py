@@ -33,7 +33,17 @@ Phases, each of which stops the run with a non-zero exit on failure:
    A7's forward and the four backward kernels (A2, A4, A6, A7's) at
    "vit_h" too (dm 1280, where ViT-H/14's student runs A2 and A4 and a
    part-gated one A7), and A7's forward at "long" (B=4, N=1025, dm=1280,
-   16 heads of 80: past the 624 keys that its staged core once held);
+   16 heads of 80: past the 624 keys that its staged core once held); the
+   stage-2 paths' backward shapes of phase 11 (B=64, N=138, dm=384): A2 at
+   "compact_ft" (3 heads, da 192) and "one_head" (da 64), A6 at
+   "compact_ft" (F 768, W1 / b1 / W2 zero past 700 units, all-ones mask:
+   the padding slots' gradients exactly zero), A4 at "stage2" (F 1536, d
+   (0, 1)) and "stage2_skip" (d (1, 0): every gradient into the block
+   exactly zero, dxin = do), and T2T-ViT-14's at N 197: A2 and A6 at
+   "t2t_compact" (3 heads, F 640, W1 / b1 / W2 zero past 576 units), A4
+   at "t2t_stage2" and "t2t_stage2_skip" (F 1152, d (0, 1) and (1, 0)),
+   each output also within 1/64 of its largest value, and each also
+   under ``--digests``;
    every forward kernel's two launches bit for bit; K1's four launches
    (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's and
    K3's three (LayerNorm, fc1 GEMM, fc2 GEMM) one by one at "vit_h" and
@@ -151,6 +161,33 @@ Phases, each of which stops the run with a non-zero exit on failure:
    structure ablation (32 heads of 12): 1 untimed + 5 timed steps at
    batch 64 (per step ``layer_attention_ln_bwd`` 14 at head dim 12), a
    profiled step, and one batch-8 step against the CPU plain path.
+
+11. stage 2 -- DeiT-Small at full width with phase 4's seeded discovered
+   architecture (3 of 6 heads, random within-head dims, blocks 3 and 8
+   gated off) keeping 700 of 1536 MLP units per layer, a seeded random
+   dense teacher and the post_train recipe (soft distillation, mixup /
+   cutmix, smoothing 0.1, AdamW, bf16, token ratio 0.7), batch 64: the
+   dense stage-2 step (``build_stage2_step``; per step
+   ``layer_attention_ln`` 24, ``mlp_ln`` 12, ``mlp_ln_blend`` 12,
+   ``layer_attention_ln_bwd`` 12, ``mlp_ln_blend_bwd`` 12) and compact_ft
+   (``compact_train_tree`` + ``build_compact_stage2_step`` on the dense
+   run's state, 10 layers of 3 heads and fk 768; per step
+   ``layer_attention_ln`` 22, ``mlp_ln`` 22, ``layer_attention_ln_bwd``
+   10, ``mlp_ln_bwd`` 10), each 3 untimed + 10 timed steps with 0 of
+   every other kernel; ``block_gating`` and ``token_scorer`` unchanged bit
+   for bit; AdamW's first moment exactly 0 at every coordinate whose
+   gradient is (the skipped blocks, the pruned units, the heads pruned
+   whole, the pruned dims' v and proj); compact_ft's padding slots and
+   v-masked moments exactly 0; one step of each from one state with one
+   draw (loss and grad_norm, and ``scatter_to_dense`` of the compact
+   result on the kept coordinates, within 2e-2, the qkv biases' key
+   thirds, whose gradient is rounding noise, within the step's lr); a
+   profiled step of each; one batch-8 step of each against the CPU plain
+   path.  Then T2T-ViT-14 with phase 7's seeded architecture (blocks 4
+   and 9 off): the dense and compact stage-2 steps, 1 untimed + 2 counted
+   steps each (``performer`` 4 and ``performer_bwd`` 2 per step), the
+   compact run's padding slots and v-masked moments exactly 0, and one
+   batch-8 compact step against the CPU.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -358,7 +395,9 @@ FWD_SHAPES = {
 # ``--digests`` holds the kernels there only, so that the same script can
 # run in a checkout of the parent
 PARENT_SHAPES = ("eval", "compact", "dense", "train", "ragged", "se",
-                 "dense_odd", "dense_wide")
+                 "dense_odd", "dense_wide", "compact_ft", "one_head",
+                 "stage2", "stage2_skip", "t2t_compact", "t2t_stage2",
+                 "t2t_stage2_skip")
 
 
 def kernel_phase(eps, digests_only=False, refused_ok=False):
@@ -825,6 +864,32 @@ BWD_SHAPES = {
     # part-gated one, A6 with block gating off): dm 1280, the LayerNorm
     # backward's widest
     "vit_h": (32, 257, 1280, 16, 5120, 80, ALL_BWD),
+    # the stage-2 paths of phase 11, after the token drop (N 138), each
+    # with its own seed: A2 at compact_ft's sliced attention widths, da 192
+    # (3 heads) and 64 (one head) below dm 384; A6 at a compact layer's
+    # padded width, W1 / b1 / W2 zero past its 700 kept units and an
+    # all-ones mask, whose padding slots must get exactly zero gradients;
+    # A4 with the frozen gating's one-hot d, a kept block (0, 1) and a
+    # skipped one (1, 0), whose gradients into the block must be exactly 0
+    "compact_ft": (BATCH, N_KEPT, 384, 3, 768, 64,
+                   ("layer_attention_ln_bwd", "mlp_ln_bwd"),
+                   dict(seed=31, units=700)),
+    "one_head": (BATCH, N_KEPT, 384, 1, 768, 64,
+                 ("layer_attention_ln_bwd",), dict(seed=32)),
+    "stage2": (BATCH, N_KEPT, 384, 6, 1536, 64, ("mlp_ln_blend_bwd",),
+               dict(seed=33, d=(0.0, 1.0))),
+    "stage2_skip": (BATCH, N_KEPT, 384, 6, 1536, 64, ("mlp_ln_blend_bwd",),
+                    dict(seed=34, d=(1.0, 0.0))),
+    # the T2T-ViT-14 stage-2 paths of phase 11 (N 197: no token drop): A2
+    # at 3 heads and A6 at fk 640 with 576 kept units; A4 at F 1152 with
+    # the one-hot d of a kept and of a skipped block
+    "t2t_compact": (BATCH, 197, 384, 3, 640, 64,
+                    ("layer_attention_ln_bwd", "mlp_ln_bwd"),
+                    dict(seed=35, units=576)),
+    "t2t_stage2": (BATCH, 197, 384, 6, 1152, 64, ("mlp_ln_blend_bwd",),
+                   dict(seed=36, d=(0.0, 1.0))),
+    "t2t_stage2_skip": (BATCH, 197, 384, 6, 1152, 64, ("mlp_ln_blend_bwd",),
+                        dict(seed=37, d=(1.0, 0.0))),
 }
 
 
@@ -847,12 +912,25 @@ def backward_kernel_phase(eps, digests_only=False, refused_ok=False):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     results = {}
-    for shape, (b, n, dm, heads, f, dh, kernels) in BWD_SHAPES.items():
+    for shape, (b, n, dm, heads, f, dh, kernels, *opt) in BWD_SHAPES.items():
         if digests_only and shape not in PARENT_SHAPES:
             continue
-        t = _inputs(gen, b, n, dm, heads, f, dh)
-        do = (torch.randn(b, n, dm, generator=gen, device="cuda")
+        opt = opt[0] if opt else {}
+        g = (torch.Generator(device="cuda").manual_seed(opt["seed"])
+             if "seed" in opt else gen)
+        t = _inputs(g, b, n, dm, heads, f, dh)
+        do = (torch.randn(b, n, dm, generator=g, device="cuda")
               * 0.1).to(torch.bfloat16)
+        units = opt.get("units", f)
+        if "units" in opt:
+            # a compact layer: the padding slots past the kept units are
+            # zero in W1, b1 and W2, and the hidden mask is all ones
+            t["w1"][:, units:] = 0
+            t["b1"][units:] = 0
+            t["w2"][units:] = 0
+            t["fmask"] = torch.ones_like(t["fmask"])
+        if "d" in opt:
+            t["d"] = torch.tensor(opt["d"], device="cuda")
         da = dh * heads
         rows = b * n
         act = rows * dm * 2
@@ -933,7 +1011,35 @@ def backward_kernel_phase(eps, digests_only=False, refused_ok=False):
                       f"{name} [{shape}] output {i}: non-finite")
                 check(torch.equal(o, again[i]),
                       f"{name} [{shape}] output {i}: two launches differ")
+                if not r.any():
+                    # a gradient that is exactly zero (a skipped block's)
+                    # must come out exactly zero
+                    check(not o.any().item(),
+                          f"{name} [{shape}] output {i}: nonzero where the "
+                          f"plain version is exactly zero")
+                    errs.append((0.0, 0.0))
+                    continue
                 errs.append(rel_err(o, r))
+                if opt:
+                    # the stage-2 rows are held to the forward kernels'
+                    # max-abs rule too, output by output
+                    max_tol = KERNEL_MAX_TOL * r.float().abs().max().item()
+                    check(errs[-1][1] <= max_tol,
+                          f"{name} [{shape}] output {i}: max_abs "
+                          f"{errs[-1][1]:.3e} (tol {max_tol:.3e})")
+            if name == "mlp_ln_bwd" and units < f:
+                # dwfc1, dbfc1, dwfc2, dmask at the padding slots
+                pad = (outs[3][:, units:], outs[4][units:], outs[5][units:],
+                       outs[7][units:])
+                check(not any(p.any().item() for p in pad),
+                      f"{name} [{shape}]: a padding slot got a gradient")
+            if opt.get("d") == (1.0, 0.0):
+                # dx, dg2, db2, dwfc1, dbfc1, dwfc2, dbfc2, dmask
+                check(not any(outs[k].any().item() for k in
+                              (0, 3, 4, 5, 6, 7, 8, 9)),
+                      f"{name} [{shape}]: a skipped block got a gradient")
+                check(torch.equal(outs[1], do),
+                      f"{name} [{shape}]: dxin is not do")
             worst = max(e[0] for e in errs)
             mx = max(e[1] for e in errs)
             check(worst <= BWD_REL_TOL,
@@ -2611,6 +2717,405 @@ def composed_route_times(card, cfg):
               f"step takes the {route} route at dm {dm}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: stage 2 and compact stage 2
+# ---------------------------------------------------------------------------
+
+# MLP units each layer keeps in phase 11: 700 of DeiT-Small's 1536, so a
+# compact layer's padded width fk is 768 with 68 padding slots (with 768
+# kept units the padding checks would check nothing); T2T-ViT-14 keeps
+# 576 of 1152 (fk 640), as in phase 7
+S2_KEPT_UNITS = 700
+
+
+def _stage2_model(cfg, seed, skipped, kept_units):
+    """A seeded random student with phase 4's discovered architecture (3
+    of the heads pruned whole, random within-head dims, ``kept_units`` MLP
+    units kept in each layer, the blocks ``skipped`` gated off), its masks
+    and a seeded random dense teacher."""
+    from uvc_tpu_torch.compress.masks import build_masks
+    from uvc_tpu_torch.models import get_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = get_model(cfg)
+    params, teacher = (model.init_params(gen, cfg) for _ in range(2))
+    for tree in (params, teacher):
+        tree["head"]["kernel"] = 0.05 * torch.randn(
+            tree["head"]["kernel"].shape, generator=gen).cuda()
+    ln = cfg.depth
+    # s[:, 1] counts the pruned units (compress/masks.py)
+    s = torch.tensor([[3.0, float(cfg.mlp_hidden - kept_units)]] * ln)
+    r = torch.randint(0, cfg.head_size // 4 + 1, (ln, cfg.num_heads),
+                      generator=gen).float()
+    masks = build_masks(params, s.cuda(), r.cuda(), cfg)
+    for i in skipped:
+        params["block_gating"][i] = torch.tensor([1.0, -1.0])
+    check(bool((masks["mlp"].sum(dim=1) == kept_units).all()),
+          "the masks do not keep the asked MLP units")
+    return params, teacher, masks
+
+
+def _stage2_runner(fn, cfg, thp, teacher, masks, x, labels, ngen):
+    """``run(state, n, b)``: n steps of the stage-2 step ``fn`` on the
+    first b images, each with a fresh draw from ``ngen``; returns (state,
+    losses, the last metrics)."""
+    from uvc_tpu_torch.train.step import draw_stage2_noise
+
+    def run(st, n, b=BATCH):
+        losses = []
+        for _ in range(n):
+            noise = draw_stage2_noise(ngen, cfg, thp, b, "cuda")
+            st, m = fn(st, teacher, masks, x[:b], labels[:b], noise)
+            losses.append(m["loss"])
+        return st, losses, m
+    return run
+
+
+def _count_window(run, state, steps):
+    """``steps`` steps timed as one window from an idle card, their
+    launches counted; returns (state, losses, metrics, counts, window s,
+    the host's issue s, peak bytes)."""
+    from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
+                                   launch_counts, reset_launch_counts)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, m = run(state, steps)
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    counts = {**launch_counts(), **backward_launch_counts(),
+              **composed_counts()}
+    return (state, torch.stack(losses).float().cpu(), m, counts, window,
+            issued, torch.cuda.max_memory_allocated())
+
+
+def _frozen_moment_leaks(mu, masks, cfg, skipped):
+    """(coordinates, of them with a nonzero AdamW first moment) over every
+    coordinate whose stage-2 gradient is exactly zero: each parameter of
+    the skipped blocks; the pruned units' fc1 columns, fc1 biases and fc2
+    rows; q, k, v (weights and biases) of each head pruned whole; the v
+    columns and proj rows of each pruned dim.  A kept head's pruned dims
+    keep their q and k gradients."""
+    from uvc_tpu_torch.utils.tree import tree_leaves
+
+    d, h, hs = cfg.embed_dim, cfg.num_heads, cfg.head_size
+    blocks = mu["blocks"]
+    picks = [leaf[i] for i in skipped for leaf in tree_leaves(blocks)]
+    for i in range(cfg.depth):
+        if i in skipped:
+            continue
+        units = masks["mlp"][i] == 0
+        cols = masks["attn"][i] == 0
+        whole = (~masks["attn"][i].reshape(h, hs).bool().any(dim=1)
+                 ).repeat_interleave(hs)
+        w, b = blocks["qkv"]["kernel"][i], blocks["qkv"]["bias"][i]
+        picks += [blocks["fc1"]["kernel"][i][:, units],
+                  blocks["fc1"]["bias"][i][units],
+                  blocks["fc2"]["kernel"][i][units],
+                  blocks["proj"]["kernel"][i][cols],
+                  w[:, 2 * d:][:, cols], b[2 * d:][cols]]
+        for part in (slice(0, d), slice(d, 2 * d)):
+            picks += [w[:, part][:, whole], b[part][whole]]
+    return (sum(p.numel() for p in picks),
+            sum(int((p != 0).sum()) for p in picks))
+
+
+def _compact_leaks(state, meta):
+    """(padding and v-masked coordinates, of them nonzero): the fc1 / fc2
+    padding slots of the compact weights and their first moments, and the
+    first moments of the v-masked proj rows and qkv v columns."""
+    picks = []
+    for blk, mu, plan in zip(state.params["layers"],
+                             state.opt_state.mu["layers"], meta.plans):
+        nk = len(plan["kept_units"])
+        for tree in (blk, mu):
+            picks += [tree["fc1"]["kernel"][:, nk:], tree["fc1"]["bias"][nk:],
+                      tree["fc2"]["kernel"][nk:]]
+        rows = torch.as_tensor(plan["vmask"],
+                               device=mu["proj"]["kernel"].device) == 0
+        da = len(plan["vmask"])
+        picks += [mu["proj"]["kernel"][rows],
+                  mu["qkv"]["kernel"][:, 2 * da:][:, rows],
+                  mu["qkv"]["bias"][2 * da:][rows]]
+    return (sum(p.numel() for p in picks),
+            sum(int((p != 0).sum()) for p in picks))
+
+
+def _dense_layer_stubs(cfg):
+    """``compact_flops_fraction``'s view of the dense student's blocks
+    (all of them run in the dense step), on the meta device."""
+    return [{"proj": {"kernel": torch.empty(cfg.embed_dim, cfg.embed_dim,
+                                            device="meta")},
+             "fc1": {"kernel": torch.empty(cfg.embed_dim, cfg.mlp_hidden,
+                                           device="meta")}}
+            for _ in range(cfg.depth)]
+
+
+def stage2_phase(card):
+    """Phase 11 on DeiT-Small: the dense stage-2 step and compact_ft, each
+    3 untimed + 10 timed steps with their exact launches, the frozen and
+    padded coordinates checked, one step of each from one state, the card
+    against the CPU, a profiled step of each.  Returns the launch counts
+    of the two timed windows."""
+    import dataclasses
+
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.infer.compact import compact_flops_fraction
+    from uvc_tpu_torch.train.compact_ft import (build_compact_stage2_step,
+                                                compact_train_tree,
+                                                scatter_to_dense)
+    from uvc_tpu_torch.train.state import (AdamWState, TrainHParams,
+                                           create_train_state)
+    from uvc_tpu_torch.train.step import build_stage2_step, draw_stage2_noise
+    from uvc_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    cfg = get_config("deit_small_patch16_224")
+    ln, kept = cfg.depth, cfg.depth - len(SKIPPED_BLOCKS)
+    params, teacher, masks = _stage2_model(cfg, 60, SKIPPED_BLOCKS,
+                                           S2_KEPT_UNITS)
+    # the post_train recipe: soft distillation, mixup / cutmix, smoothing
+    # 0.1, AdamW, bf16; the physical token drop at ratio 0.7
+    hp = MinimaxHParams(enable_patch_gating=2, patch_ratio=TOKEN_RATIO)
+    thp = TrainHParams()
+    igen = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(62)
+
+    def runner(fn):
+        return _stage2_runner(fn, cfg, thp, teacher, masks, x, labels, ngen)
+
+    def window(label, run, state, want):
+        t0 = time.perf_counter()
+        state, _, _ = run(state, TRAIN_WARM)
+        torch.cuda.synchronize()
+        print(f"{label}: {TRAIN_WARM} untimed steps in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        state, losses, m, counts, secs, issued, peak = _count_window(
+            run, state, TRAIN_TIMED)
+        expect = {k: 0 for k in counts}
+        expect.update({k: v * TRAIN_TIMED for k, v in want.items()})
+        print(f"launches {label} {counts} (expected {expect})")
+        check(counts == expect, f"{label} launch counts differ")
+        check(torch.isfinite(losses).all().item(),
+              f"non-finite {label} losses {losses.tolist()}")
+        print(f"{label} (DeiT-Small, batch {BATCH}, bf16, token ratio "
+              f"{TOKEN_RATIO}): {TRAIN_TIMED * BATCH / secs:.1f} img/s "
+              f"({TRAIN_TIMED} steps in {secs:.4f} s, "
+              f"{1e3 * secs / TRAIN_TIMED:.2f} ms/step; the host had issued "
+              f"them after {issued:.4f} s) [{card}]")
+        print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
+              f"grad_norm={float(m['grad_norm']):.4f} lr={float(m['lr']):.3e}")
+        print(f"{label} max_memory_allocated={peak} bytes "
+              f"({peak / 2**20:.1f} MiB) [{card}]")
+        return state, counts
+
+    # dense stage 2: the student's 12 blocks run K1 and K3 forward, A2 and
+    # A4 backward (a skipped block's blend with d = (1, 0) too); the
+    # teacher K1 and K2
+    step = build_stage2_step(cfg, hp, thp)
+    run = runner(step)
+    state, counts = window("stage-2 train step", run,
+                           create_train_state(params, thp), dict(
+                               layer_attention_ln=2 * ln, mlp_ln=ln,
+                               mlp_ln_blend=ln, layer_attention_ln_bwd=ln,
+                               mlp_ln_blend_bwd=ln))
+    for key in ("block_gating", "token_scorer"):
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(state.params[key]), tree_leaves(params[key])))
+        check(same, f"the stage-2 steps moved {key}")
+    print("stage-2: block_gating and token_scorer unchanged bit for bit")
+    n_zero, leaked = _frozen_moment_leaks(state.opt_state.mu, masks, cfg,
+                                          SKIPPED_BLOCKS)
+    print(f"stage-2 coordinates with an exactly-zero gradient: {n_zero}, "
+          f"with a nonzero AdamW first moment: {leaked}")
+    check(n_zero > 0 and leaked == 0,
+          "a masked, pruned or skipped coordinate received a gradient")
+
+    # compact_ft on the same state: 10 kept layers at 3 heads (da 192) and
+    # fk 768; the student runs K1 / K2 forward, A2 / A6 backward
+    ctree, meta = compact_train_tree(state.params, masks, cfg)
+    check(len(meta.plans) == kept
+          and all(p["hk"] == 3 and p["fk"] == 768 for p in meta.plans),
+          "compact_ft layers are not 3 heads / fk 768")
+    cstep = build_compact_stage2_step(cfg, hp, thp, meta)
+    crun = runner(cstep)
+    cstate, ccounts = window("compact stage-2 train step", crun,
+                             create_train_state(ctree, thp), dict(
+                                 layer_attention_ln=ln + kept,
+                                 mlp_ln=ln + kept,
+                                 layer_attention_ln_bwd=kept,
+                                 mlp_ln_bwd=kept))
+    n_pad, leaked = _compact_leaks(cstate, meta)
+    print(f"compact_ft padding and v-masked coordinates: {n_pad}, nonzero: "
+          f"{leaked}")
+    check(n_pad > 0 and leaked == 0,
+          "a compact padding slot or v-masked row moved")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(cstate.params["top"]["token_scorer"]),
+        tree_leaves(params["token_scorer"]))), "compact_ft moved the scorer")
+    frac_c = compact_flops_fraction(ctree["layers"], cfg, TOKEN_RATIO)
+    frac_d = compact_flops_fraction(_dense_layer_stubs(cfg), cfg,
+                                    TOKEN_RATIO)
+    print(f"student forward FLOPs, compact / dense stage 2: "
+          f"{frac_c / frac_d:.4f} ({frac_c:.4f} / {frac_d:.4f} of the dense "
+          f"model without the token drop)")
+
+    # one step of each from one state with one draw: the compact state is
+    # the dense one's kept coordinates, moments and count included
+    keep = meta.block_keep
+
+    def project(tree):
+        return compact_train_tree(tree, masks, cfg, block_keep=keep)[0]
+
+    opt = state.opt_state
+    c_one = dataclasses.replace(
+        state, params=project(state.params),
+        opt_state=AdamWState(opt.count, project(opt.mu), project(opt.nu)))
+    noise = draw_stage2_noise(ngen, cfg, thp, BATCH, "cuda")
+    d_new, dm_ = step(state, teacher, masks, x, labels, noise)
+    c_new, cm_ = cstep(c_one, teacher, masks, x, labels, noise)
+    for k in ("loss", "grad_norm"):
+        a, b = float(cm_[k]), float(dm_[k])
+        rel = abs(a - b) / abs(b)
+        print(f"compact vs dense stage-2 step (batch {BATCH}): {k} {a:.6f} "
+              f"vs {b:.6f}, rel {rel:.2e} (tol {TRAIN_REL_TOL})")
+        check(rel <= TRAIN_REL_TOL, f"compact and dense steps disagree on {k}")
+    scattered = scatter_to_dense(c_new.params, meta, d_new.params)
+    # the key third of the qkv bias gets a rounding-noise gradient (a
+    # key's bias adds one constant to a query's logits): it is held to the
+    # step's lr, the most that one AdamW step moves it, the rest relative
+    lr = float(dm_["lr"])
+    worst, key_bias = (0.0, ""), 0.0
+    for (path, a), (_, b) in zip(tree_leaves_with_path(project(scattered)),
+                                 tree_leaves_with_path(
+                                     project(d_new.params))):
+        if path[-2:] == ("qkv", "bias"):
+            third = a.shape[0] // 3
+            key_bias = max(key_bias, (a[third:2 * third]
+                                      - b[third:2 * third]).abs().max().item())
+            a, b = (torch.cat([t[:third], t[2 * third:]]) for t in (a, b))
+        if b.any():
+            worst = max(worst, (rel_err(a, b)[0], ".".join(path)))
+    print(f"scatter_to_dense(compact step) vs the dense step on the kept "
+          f"coordinates: worst leaf rel_fro {worst[0]:.2e} ({worst[1]}) "
+          f"(tol {TRAIN_REL_TOL}); the qkv biases' key thirds max_abs "
+          f"{key_bias:.2e} (tol lr {lr:.3e})")
+    check(worst[0] <= TRAIN_REL_TOL,
+          "compact and dense step results disagree on the kept coordinates")
+    check(key_bias <= lr, "the qkv biases' key thirds moved more than lr")
+    mu_c = torch.cat([t.flatten() for t in tree_leaves(c_new.opt_state.mu)])
+    mu_d = torch.cat([t.flatten() for t in tree_leaves(
+        project(d_new.opt_state.mu))])
+    print(f"  the step's first moments, compact vs dense, kept coordinates: "
+          f"rel_fro {rel_err(mu_c, mu_d)[0]:.2e}")
+
+    profile_phase(card, {"stage-2 train step": lambda: run(state, 1),
+                         "compact stage-2 train step":
+                             lambda: crun(cstate, 1)}, top=14)
+
+    # the card against the CPU plain path: one step of each at batch 8
+    small = 8
+    for label, fn, st in (("stage-2", step, state),
+                          ("compact stage-2", cstep, cstate)):
+        noise = draw_stage2_noise(ngen, cfg, thp, small, "cpu")
+        _, gm = fn(st, teacher, masks, x[:small], labels[:small],
+                   _noise_to(noise, "cuda"))
+        _, cm = fn(_state_to(st, "cpu"), _tree_to(teacher, "cpu"),
+                   _tree_to(masks, "cpu"), x[:small].cpu(),
+                   labels[:small].cpu(), noise)
+        card_vs_cpu(f"{label} step", small, gm, cm, ("loss", "grad_norm"))
+    return counts, ccounts
+
+
+def t2t_stage2_phase(card):
+    """Phase 11 on T2T-ViT-14 with phase 7's seeded architecture (blocks 4
+    and 9 gated off): the dense and compact stage-2 steps, 1 untimed + 2
+    counted steps each at batch 64, and one batch-8 compact step on the
+    card against the CPU.  Returns the launch counts."""
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.train.compact_ft import (build_compact_stage2_step,
+                                                compact_train_tree)
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.step import build_stage2_step, draw_stage2_noise
+
+    cfg = get_config("t2t_vit_14")
+    ln, kept = cfg.depth, cfg.depth - len(T2T_SKIPPED_BLOCKS)
+    params, teacher, masks = _stage2_model(cfg, 63, T2T_SKIPPED_BLOCKS,
+                                           cfg.mlp_hidden // 2)
+    hp = MinimaxHParams()          # the T2T forward selects no tokens
+    thp = TrainHParams()
+    igen = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(65)
+
+    step = build_stage2_step(cfg, hp, thp)
+    ctree, meta = compact_train_tree(params, masks, cfg)
+    check(len(meta.plans) == kept
+          and all(p["hk"] == 3 and p["fk"] == 640 for p in meta.plans),
+          "compact T2T layers are not 3 heads / fk 640")
+    cstep = build_compact_stage2_step(cfg, hp, thp, meta)
+    # per step: the performer's two stages in student and teacher, the
+    # student's backward through both (the first without dx)
+    paths = (("T2T-ViT-14 stage-2", step, create_train_state(params, thp),
+              dict(layer_attention_ln=2 * ln, mlp_ln=ln, mlp_ln_blend=ln,
+                   layer_attention_ln_bwd=ln, mlp_ln_blend_bwd=ln)),
+             ("T2T-ViT-14 compact stage-2", cstep,
+              create_train_state(ctree, thp),
+              dict(layer_attention_ln=ln + kept, mlp_ln=ln + kept,
+                   layer_attention_ln_bwd=kept, mlp_ln_bwd=kept)))
+    all_counts = []
+    for label, fn, st, want in paths:
+        run = _stage2_runner(fn, cfg, thp, teacher, masks, x, labels, ngen)
+        st, _, _ = run(st, 1)
+        st, losses, m, counts, secs, issued, _ = _count_window(run, st, 2)
+        expect = {k: 0 for k in counts}
+        expect.update({k: 2 * v for k, v in dict(
+            want, performer=4, performer_bwd=2).items()})
+        print(f"launches {label} {counts} (expected {expect})")
+        check(counts == expect, f"{label} launch counts differ")
+        check(torch.isfinite(losses).all().item(),
+              f"non-finite {label} losses {losses.tolist()}")
+        check(torch.equal(st.params["t2t"]["attention1"]["prm_w"]
+                          if "t2t" in st.params else
+                          st.params["top"]["t2t"]["attention1"]["prm_w"],
+                          params["t2t"]["attention1"]["prm_w"]),
+              f"{label}: the frozen random features moved")
+        print(f"{label} step (batch {BATCH}, bf16): 2 steps in {secs:.4f} s "
+              f"({2 * BATCH / secs:.1f} img/s; issued after {issued:.4f} s) "
+              f"losses {[round(v, 4) for v in losses.tolist()]} [{card}]")
+        all_counts.append(counts)
+        last = (fn, st)
+
+    n_pad, leaked = _compact_leaks(last[1], meta)
+    print(f"T2T-ViT-14 compact_ft padding and v-masked coordinates: {n_pad}, "
+          f"nonzero: {leaked}")
+    check(n_pad > 0 and leaked == 0,
+          "a T2T compact padding slot or v-masked row moved")
+
+    fn, st = last
+    small = 8
+    noise = draw_stage2_noise(ngen, cfg, thp, small, "cpu")
+    _, gm = fn(st, teacher, masks, x[:small], labels[:small],
+               _noise_to(noise, "cuda"))
+    _, cm = fn(_state_to(st, "cpu"), _tree_to(teacher, "cpu"),
+               _tree_to(masks, "cpu"), x[:small].cpu(), labels[:small].cpu(),
+               noise)
+    card_vs_cpu("T2T-ViT-14 compact stage-2 step", small, gm, cm,
+                ("loss", "grad_norm"))
+    return {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2678,16 +3183,21 @@ def main():
     resnext_counts = t2t_training_phase(
         card, "t2t_vit_14_resnext", "T2T-ViT-14-resnext", seed=50, warm=1,
         timed=5)
+    # phase 11: stage 2 and compact stage 2 (DeiT-Small, T2T-ViT-14)
+    stage2_counts, compact_counts = stage2_phase(card)
+    t2t_stage2_counts = t2t_stage2_phase(card)
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
     # T2T-ViT-14 stage-1 window and its serving (A10 / A11), the ablations'
     # fine-tune and the SE eval (A9), the timed ViT-H/14 window (A2 and A4
     # at dm 1280; A8 only on the composed route, past it) and the resnext
-    # window
+    # window, and phase 11's stage-2 windows (A6 at a compact layer's
+    # padded width, A2 below dm)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
-                   vit_h_counts, resnext_counts):
+                   vit_h_counts, resnext_counts, stage2_counts,
+                   compact_counts, t2t_stage2_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -4,7 +4,8 @@
 ``make_weight_optimizer`` is AdamW written out with optax's update rule
 (``optax.adamw``: bias-corrected moments, eps outside the sqrt, decoupled
 weight decay on every leaf, the learning rate taken from the schedule at
-the optimizer's own count), working on the carried state so that a
+the optimizer's own count), or stage 2's heavy-ball SGD (``optax.chain(
+add_decayed_weights, sgd)``), working on the carried state so that a
 trajectory can be held against the JAX package's step by step.
 """
 
@@ -142,20 +143,56 @@ class AdamW:
         return tree_map(upd, mu, nu, params), AdamWState(count, mu, nu)
 
 
+@dataclasses.dataclass
+class SGDState:
+    count: int      # updates taken (the schedule)
+    trace: Any      # momentum buffers, a tree like the parameters
+
+
+class SGD:
+    """``optax.chain(add_decayed_weights(wd), sgd(lr_fn, momentum,
+    nesterov))``: ``g += wd * p`` (coupled decay, after the step's clip),
+    ``t = g + momentum * t``, the update ``g + momentum * t`` with Nesterov
+    or ``t`` without, times ``-lr(count)`` with the schedule read at the
+    count before the update."""
+
+    def __init__(self, lr_fn: Callable, momentum: float, nesterov: bool,
+                 weight_decay: float):
+        self.lr_fn, self.momentum = lr_fn, momentum
+        self.nesterov, self.weight_decay = nesterov, weight_decay
+
+    def init(self, params) -> SGDState:
+        return SGDState(count=0, trace=tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(self, grads, state: SGDState, params):
+        """(updates, new state); ``params + updates`` is the step."""
+        mom, wd = self.momentum, self.weight_decay
+        grads = tree_map(lambda g, p: g + wd * p, grads, params)
+        trace = tree_map(lambda g, t: g + mom * t, grads, state.trace)
+        lr = float(self.lr_fn(state.count))
+        if self.nesterov:
+            updates = tree_map(lambda g, t: -lr * (g + mom * t), grads,
+                               trace)
+        else:
+            updates = tree_map(lambda t: -lr * t, trace)
+        return updates, SGDState(state.count + 1, trace)
+
+
 def make_weight_optimizer(thp: TrainHParams,
-                          lr_fn: Optional[Callable] = None) -> AdamW:
+                          lr_fn: Optional[Callable] = None):
     """AdamW over every parameter (decoupled decay on norms, biases and
     tokens too), with the warmup-cosine / linear schedule or ``lr_fn``
-    (the constant ``warmup_lr`` of the gating warmup).  Global-norm
-    clipping happens in the step, before this update.  The stage-2
-    SGD / momentum surface (``thp.opt``) is not ported yet."""
-    if thp.opt != "adamw":
-        raise NotImplementedError(
-            f"optimizer {thp.opt!r} is not ported yet (adamw only); see "
-            "ROADMAP.md")
+    (the constant ``warmup_lr`` of the gating warmup).  ``thp.opt`` "sgd"
+    (timm's Nesterov SGD) or "momentum" (heavy ball without Nesterov)
+    selects stage 2's ``SGD`` with coupled decay instead; ``opt_eps`` and
+    ``opt_betas`` then go unused.  Global-norm clipping happens in the
+    step, before this update."""
+    lr_fn = lr_fn or thp.lr_schedule()
+    if thp.opt in ("sgd", "momentum"):
+        return SGD(lr_fn, thp.momentum, thp.opt == "sgd", thp.weight_decay)
     b1, b2 = thp.opt_betas or (0.9, 0.999)
-    return AdamW(lr_fn or thp.lr_schedule(), b1, b2, thp.opt_eps,
-                 thp.weight_decay)
+    return AdamW(lr_fn, b1, b2, thp.opt_eps, thp.weight_decay)
 
 
 def zero_frozen_updates(updates):

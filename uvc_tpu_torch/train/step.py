@@ -1,5 +1,5 @@
-"""The stage-1 UVC train step and the eval step (counterpart of
-``uvc_tpu/train/step.py``).
+"""The stage-1 and stage-2 UVC train steps and the eval step (counterpart
+of ``uvc_tpu/train/step.py``).
 
 PyTorch runs eagerly, so a step is a plain function where the JAX package
 returns a jitted program; the JAX ``bundle`` (several steps scanned in one
@@ -22,6 +22,13 @@ a step is drawn up front by ``draw_stage1_noise`` from a CPU
 Gumbel noise, the resource's two draws), so a run on the card and a run on
 the CPU from one seed see the same draws, and a test can hand the step the
 JAX package's own draws instead.
+
+The stage-2 step (``build_stage2_step``) fine-tunes the discovered
+architecture: the masks on the activations, the block gating frozen to
+its hard decision (the student's blend kernel K3 / A4 with a one-hot
+distribution), the physical top-k token drop by the frozen scorer, soft
+distillation, clip and AdamW or SGD.  Its only draw is the mixup
+(``draw_stage2_noise``).
 """
 
 from __future__ import annotations
@@ -61,6 +68,20 @@ class Stage1Noise(NamedTuple):
     part_mlp: Optional[torch.Tensor] = None   # [L, 2] MLP part gating
 
 
+def _draw_mixup(generator: torch.Generator, cfg: ViTConfig,
+                thp: TrainHParams, batch: int, device) -> Optional[MixupDraw]:
+    """One step's mixing decision(s) on ``device``, None when mixup and
+    cutmix are off."""
+    if not (thp.mixup > 0 or thp.cutmix > 0):
+        return None
+    mix = sample_mixup(
+        generator, cfg.img_size, cfg.img_size,
+        decisions=None if thp.mixup_mode == "batch" else batch,
+        mixup_alpha=thp.mixup, cutmix_alpha=thp.cutmix, prob=thp.mixup_prob,
+        switch_prob=thp.mixup_switch_prob, cutmix_minmax=thp.cutmix_minmax)
+    return MixupDraw(*(host_to_device(t, device) for t in mix))
+
+
 def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
                       hp: MinimaxHParams, thp: TrainHParams, batch: int,
                       device="cuda") -> Stage1Noise:
@@ -68,15 +89,7 @@ def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
     the CPU) and move it to ``device`` (the card unless the caller asks
     for the CPU)."""
     device = resolve_device(device)
-    mix = None
-    if thp.mixup > 0 or thp.cutmix > 0:
-        mix = sample_mixup(
-            generator, cfg.img_size, cfg.img_size,
-            decisions=None if thp.mixup_mode == "batch" else batch,
-            mixup_alpha=thp.mixup, cutmix_alpha=thp.cutmix,
-            prob=thp.mixup_prob, switch_prob=thp.mixup_switch_prob,
-            cutmix_minmax=thp.cutmix_minmax)
-        mix = MixupDraw(*(host_to_device(t, device) for t in mix))
+    mix = _draw_mixup(generator, cfg, thp, batch, device)
     gating = hp.enable_block_gating and hp.use_gumbel
     l2 = (cfg.depth, 2)
 
@@ -91,6 +104,23 @@ def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
         res1=draw(l2, gating), res2=draw(l2, gating),
         part_attn=draw(l2, hp.enable_part_gating),
         part_mlp=draw(l2, hp.enable_part_gating))
+
+
+class Stage2Noise(NamedTuple):
+    """The random numbers of one stage-2 step: the mixup only (None when
+    mixup and cutmix are off)."""
+
+    mixup: Optional[MixupDraw]
+
+
+def draw_stage2_noise(generator: torch.Generator, cfg: ViTConfig,
+                      thp: TrainHParams, batch: int,
+                      device="cuda") -> Stage2Noise:
+    """Draw one stage-2 step's mixup from ``generator`` (on its device,
+    usually the CPU) and move it to ``device`` (the card unless the caller
+    asks for the CPU)."""
+    return Stage2Noise(mixup=_draw_mixup(generator, cfg, thp, batch,
+                                         resolve_device(device)))
 
 
 def _base_loss(logits, targets, labels, thp: TrainHParams):
@@ -109,6 +139,39 @@ def _teacher_logits(teacher_params, x, cfg: ViTConfig, dtype):
     model = get_model(cfg)
     out = model.apply(teacher_params, x, cfg, dtype=dtype, train=False)
     return model.eval_logits(out, cfg)
+
+
+def _mixed(x, labels, mixup: Optional[MixupDraw], thp: TrainHParams):
+    """The step's images and soft targets: mixup / cutmix when on, else
+    the one-hot labels."""
+    if thp.mixup > 0 or thp.cutmix > 0:
+        return mixup_cutmix(x, labels, mixup, num_classes=thp.num_classes,
+                            smoothing=thp.smoothing, mode=thp.mixup_mode)
+    return x, torch.nn.functional.one_hot(labels.long(),
+                                          thp.num_classes).float()
+
+
+def _distilled_loss(out, x, targets, labels, teacher_params,
+                    cfg: ViTConfig, thp: TrainHParams):
+    """The base loss plus distillation against the dense teacher."""
+    base = _base_loss(out.logits, targets, labels, thp)
+    t_logits = _teacher_logits(teacher_params, x, cfg, thp.compute_dtype)
+    return distillation_loss(
+        base, out.logits_kd, t_logits, kind=thp.distillation_type,
+        alpha=thp.distillation_alpha, tau=thp.distillation_tau)
+
+
+def _value_and_grad(loss_fn, tree):
+    """(loss, gradient tree) of ``loss_fn(tree)``; leaves the loss does not
+    read (part-gating logits, ...) get zero gradients, as under
+    ``jax.grad``."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(tree)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(tree, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tree_unflatten(tree, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
 
 
 def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
@@ -163,36 +226,16 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
             patch_gate_mode=hp.enable_patch_gating,
             jumping=hp.enable_jumping, rng=noise.token, train=True,
             dtype=dtype)
-        base = _base_loss(out.logits, targets, labels, thp)
-        t_logits = _teacher_logits(teacher_params, x, cfg, dtype)
-        return distillation_loss(
-            base, out.logits_kd, t_logits, kind=thp.distillation_type,
-            alpha=thp.distillation_alpha, tau=thp.distillation_tau)
+        return _distilled_loss(out, x, targets, labels, teacher_params, cfg,
+                               thp)
 
     def step(state: TrainState, teacher_params, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage1Noise, tau):
-        if thp.mixup > 0 or thp.cutmix > 0:
-            x, targets = mixup_cutmix(x, labels, noise.mixup,
-                                      num_classes=thp.num_classes,
-                                      smoothing=thp.smoothing,
-                                      mode=thp.mixup_mode)
-        else:
-            targets = torch.nn.functional.one_hot(
-                labels.long(), thp.num_classes).float()
-
-        leaves = [p.detach().requires_grad_() for p in
-                  tree_leaves(state.params)]
-        params = tree_unflatten(state.params, leaves)
-        with torch.enable_grad():
-            loss = loss_fn(params, state.cstate, teacher_params, x, targets,
-                           labels, noise, tau)
-            # leaves the forward does not read (part-gating logits, ...)
-            # get zero gradients, as under jax.grad
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(state.params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
-        loss = loss.detach()
+        x, targets = _mixed(x, labels, noise.mixup, thp)
+        loss, grads = _value_and_grad(
+            lambda params: loss_fn(params, state.cstate, teacher_params, x,
+                                   targets, labels, noise, tau),
+            state.params)
 
         with torch.no_grad():
             if micro:
@@ -232,6 +275,108 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
                           grad_accum=grad_accum), metrics
 
     return step
+
+
+def _zero_subtrees(tree: dict, paths) -> dict:
+    """``tree`` with the subtree at each key path of ``paths`` zeroed (a
+    path that is absent is skipped); only the dicts on the way are
+    copied."""
+    for path in paths:
+        tree = _zero_at(tree, path)
+    return tree
+
+
+def _zero_at(tree: dict, path) -> dict:
+    key = path[0]
+    if key not in tree:
+        return tree
+    sub = (tree_map(torch.zeros_like, tree[key]) if len(path) == 1
+           else _zero_at(tree[key], path[1:]))
+    return dict(tree, **{key: sub})
+
+
+def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
+                 frozen_updates=(), micro: bool = False):
+    """The stage-2 update around ``loss_fn(params, teacher_params, masks,
+    x, targets, labels)``: mixup, the loss and its gradient, the
+    accumulation, the gradients at ``frozen_grads`` zeroed before the
+    clip, clip, the weight optimizer, the updates at ``frozen_updates``
+    (and of ``prm_w``) zeroed.  Shared by the dense step and the compact
+    one (``train/compact_ft.py``)."""
+    tx = make_weight_optimizer(thp)
+    lr_fn = thp.lr_schedule()
+    accum = thp.accum_steps
+
+    def step(state: TrainState, teacher_params, masks, x: torch.Tensor,
+             labels: torch.Tensor, noise: Stage2Noise):
+        x, targets = _mixed(x, labels, noise.mixup, thp)
+        loss, grads = _value_and_grad(
+            lambda params: loss_fn(params, teacher_params, masks, x, targets,
+                                   labels), state.params)
+        with torch.no_grad():
+            if micro:
+                new_accum = tree_map(lambda a, g: a + g / accum,
+                                     state.grad_accum, grads)
+                return state.replace(grad_accum=new_accum), {"loss": loss}
+            if accum > 1:
+                grads = tree_map(lambda a, g: a + g / accum,
+                                 state.grad_accum, grads)
+            grads = _zero_subtrees(grads, frozen_grads)
+            grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params)
+            # weight decay would otherwise still move the frozen leaves
+            updates = _zero_subtrees(zero_frozen_updates(updates),
+                                     frozen_updates)
+            params = tree_map(lambda p, u: p + u, state.params, updates)
+        grad_accum = state.grad_accum
+        if accum > 1:
+            grad_accum = tree_map(torch.zeros_like, state.grad_accum)
+        metrics = {"loss": loss, "grad_norm": grad_norm,
+                   "lr": lr_fn(state.step)}
+        return state.replace(step=state.step + 1, params=params,
+                             opt_state=opt_state,
+                             grad_accum=grad_accum), metrics
+
+    return step
+
+
+def build_stage2_step(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams,
+                      *, micro: bool = False):
+    """Returns the mask-frozen distillation fine-tune step ``step(state,
+    teacher_params, masks, x, labels, noise) -> (state', metrics)``,
+    ``noise`` a ``Stage2Noise``; metrics ``loss``, ``grad_norm``, ``lr``.
+
+    The masks act on the activations every step.  The block gating is
+    frozen to its hard decision ``keep = g1 > g0``, passed as the detached
+    one-hot distribution ``(1 - keep, keep)``, so a skipped block's blend
+    passes its input through and every gradient into the block is exactly
+    zero.  With ``hp.enable_patch_gating == 2`` the student drops tokens
+    physically by the deterministic top-k of the frozen scorer (the
+    serving semantics); the T2T forward ignores the token arguments.  The
+    ``block_gating`` gradient is zeroed before the clip, and its update
+    (and, under token selection, the ``token_scorer`` updates) after the
+    optimizer, as is ``prm_w``'s.  ``micro=True`` is the
+    gradient-accumulation micro-step, as in ``build_stage1_step``.  The
+    new state holds new tensors; ``state`` is not modified."""
+    model = get_model(cfg)
+    mode = 2 if hp.enable_patch_gating == 2 else 0
+
+    def loss_fn(params, teacher_params, masks, x, targets, labels):
+        g = params["block_gating"].detach()
+        keep = (g[:, 1] > g[:, 0]).float()
+        out = model.apply(
+            params, x, cfg, gating_distrib=torch.stack([1.0 - keep, keep],
+                                                       dim=-1),
+            masks=masks, patch_gate_mode=mode, patch_ratio=hp.patch_ratio,
+            patch_physical=True, train=True, dtype=thp.compute_dtype)
+        return _distilled_loss(out, x, targets, labels, teacher_params, cfg,
+                               thp)
+
+    frozen = (("block_gating",),) + ((("token_scorer",),) if mode == 2
+                                     else ())
+    return _stage2_step(thp, loss_fn, frozen_grads=(("block_gating",),),
+                        frozen_updates=frozen, micro=micro)
 
 
 @torch.no_grad()
