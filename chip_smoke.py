@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 and phase 7's kernel
-                                           # rows, then the card line
+                                           # rows, then the card line (no
+                                           # phase 12)
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -189,6 +190,34 @@ Phases, each of which stops the run with a non-zero exit on failure:
    compact run's padding slots and v-masked moments exactly 0, and one
    batch-8 compact step against the CPU.
 
+12. pipeline -- the two-stage pipeline through its CLIs, in this process
+   (so that the launch counters see it), in a temporary directory, on
+   DeiT-Small at full width and depth with random weights from the seed:
+   ``cli/joint_train.py`` with bench.py's flagship compression settings
+   (Gumbel block gating, Gumbel token top-k at ratio 0.9, mixup / cutmix,
+   soft distillation from the same dense weights) on ``--dataset
+   procedural`` at 224 px, batch 64, 12 steps an epoch, 2 stage-1 epochs
+   (1 warmup) and 1 inline stage-2 epoch, 8 eval batches a validation,
+   with a torch.profiler window over steps 3-7; its launches exactly 36
+   train steps' and 24 eval batches' (per step K1 24, K2 12, K3 12, A2
+   12, A4 12; per eval batch K1 12, K3 12; 0 of every other kernel and
+   composed route); both epoch checkpoints and the stage-2 one read back
+   through the codec bit for bit as the drivers held them when they saved;
+   ``metrics.jsonl``'s epoch reports; each epoch's img/s as joint_train
+   logs it beside phase 5's step alone, the procedural loader's host ms a
+   batch and the profiled window's device-busy share; ``device_prefetch``'s
+   batches on the card bit for bit the loader's.  Then a resume from the
+   epoch-1 checkpoint (its epoch-2 checkpoint against the first run's:
+   every leaf within 2e-2 relative Frobenius, step / epoch / key_seed
+   equal, the leaves bit for bit counted); ``cli/post_train.py
+   --compact_train`` for 1 epoch (per step K1 and K2 12 + the kept blocks,
+   A2 and A6 the kept blocks), its dense-layout checkpoint's pruned
+   coordinates bit for bit stage 1's; and ``cli/export_compact.py`` at
+   token ratio 0.7, the file read back with the codec and 8 batches of 64
+   served through ``apply_compact`` (K1 and K2 the kept blocks a batch)
+   against ``eval_step``'s forward on the dense-layout params with their
+   masks (within 2e-2).
+
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
@@ -201,6 +230,7 @@ shape of the path that launches it most: K1 and K3 at "eval", K2 at
 import argparse
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1308,6 +1338,8 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
 # ---------------------------------------------------------------------------
 
 TRAIN_WARM, TRAIN_TIMED, TRAIN_TAU = 3, 10, 5.0
+# phase 5's step-only rates, which phase 12 prints beside the drivers'
+STEP_RATES = {}
 # card vs CPU plain path, one bf16 step from one state with one set of
 # draws: the kernels and the plain versions round at the same places, and
 # the differences of summation order (one-ulp bf16 flips) pass through
@@ -1406,6 +1438,7 @@ def training_phase(card):
     losses = torch.stack(losses).float().cpu()
     check(torch.isfinite(losses).all().item(),
           f"non-finite stage-1 losses {losses.tolist()}")
+    STEP_RATES["stage-1 step"] = TRAIN_TIMED * BATCH / window
     print(f"stage-1 train step (DeiT-Small, batch {BATCH}, bf16): "
           f"{TRAIN_TIMED * BATCH / window:.1f} img/s ({TRAIN_TIMED} steps in "
           f"{window:.4f} s, {1e3 * window / TRAIN_TIMED:.2f} ms/step; the "
@@ -3116,6 +3149,469 @@ def t2t_stage2_phase(card):
     return {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the two-stage pipeline through its CLIs
+# ---------------------------------------------------------------------------
+
+PIPE_MODEL = "deit_small_patch16_224"
+PIPE_STEPS, PIPE_EVAL_BATCHES, PIPE_CLASSES = 12, 8, 10
+PIPE_TOKEN_RATIO = 0.7
+# every leaf of the resumed run's epoch-2 checkpoint against the first
+# run's, relative Frobenius
+RESUME_REL_TOL = 2e-2
+# the flagship settings' launches on DeiT-Small's 12 blocks: a train step
+# runs the student's and the teacher's K1, the teacher's K2, the gated
+# student's K3, and the student's A2 and A4; an eval batch (masked dense,
+# hard gating) K1 and K3 in every block, whichever blocks the gating
+# keeps, since the blend kernel passes a skipped block's input through
+PIPE_TRAIN_STEP = {"layer_attention_ln": 24, "mlp_ln": 12,
+                   "mlp_ln_blend": 12, "layer_attention_ln_bwd": 12,
+                   "mlp_ln_blend_bwd": 12}
+PIPE_EVAL_BATCH = {"layer_attention_ln": 12, "mlp_ln_blend": 12}
+
+
+class _Tee:
+    """A stream that writes to several."""
+
+    def __init__(self, *outs):
+        self.outs = outs
+
+    def write(self, s):
+        for o in self.outs:
+            o.write(s)
+        return len(s)
+
+    def flush(self):
+        for o in self.outs:
+            o.flush()
+
+
+def _run_cli(main, argv):
+    """Run a CLI's ``main`` in this process (so that the kernels' launch
+    counters see it), its output printed and returned, with the launches
+    it made."""
+    import contextlib
+    import io
+
+    from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
+                                   launch_counts, reset_launch_counts)
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), {**launch_counts(), **backward_launch_counts(),
+                            **composed_counts()}
+
+
+def _want(counts, **per):
+    """The expected launches: ``per`` maps (per-unit counts, units) pairs;
+    every other kernel and composed route 0."""
+    want = {name: 0 for name in counts}
+    for unit, n in per.values():
+        for name, k in unit.items():
+            want[name] += k * n
+    return want
+
+
+class _HeldTrees:
+    """Wraps ``save_checkpoint`` in ``train/stage1.py`` and
+    ``train/stage2.py``: keeps each tree as ``run_stage1`` / ``run_stage2``
+    held it when they saved, copied to the host, by file name."""
+
+    def __init__(self):
+        from uvc_tpu_torch.train import stage1, stage2
+        self.modules = (stage1, stage2)
+        self.real = stage1.save_checkpoint
+        self.trees = {}
+
+    def _save(self, path, tree):
+        self.trees[os.path.basename(path)] = _host_tree(tree)
+        self.real(path, tree)
+
+    def __enter__(self):
+        for m in self.modules:
+            m.save_checkpoint = self._save
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.save_checkpoint = self.real
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _held_mismatches(loaded, held):
+    """(leaves, leaves that differ) between a checkpoint read back and the
+    tree that was saved: tensors and arrays bit for bit with their
+    dtypes, scalars by value, None as None."""
+    import numpy as np
+    if isinstance(held, (dict, list)):
+        items = held.items() if isinstance(held, dict) else enumerate(held)
+        n = bad = 0
+        for k, v in items:
+            a, b = _held_mismatches(loaded[str(k)], v)
+            n, bad = n + a, bad + b
+        return n, bad
+    if held is None:
+        return 1, int(loaded is not None)
+    if torch.is_tensor(held) or isinstance(held, np.ndarray):
+        h = torch.as_tensor(held)
+        ok = (torch.is_tensor(loaded) and loaded.dtype == h.dtype
+              and loaded.shape == h.shape and torch.equal(loaded, h))
+        return 1, int(not ok)
+    return 1, int(loaded.item() != held)
+
+
+def _trace_busy(trace_dir):
+    """(device-busy us, window us, device events, trace file MB) of the
+    one Chrome trace in ``trace_dir``: the union of the kernel, copy and
+    fill intervals over the span of every event."""
+    import glob
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"expected one trace in {trace_dir}: {files}")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(len(dev) > 0, "the profiled window holds no device event")
+    busy, end = 0.0, -1.0
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    return busy, t1 - t0, len(dev), os.path.getsize(files[0]) / 2 ** 20
+
+
+def _ckpt_rel_errs(a, b):
+    """Per tensor leaf of two checkpoints read back: (path, relative
+    Frobenius error, bit for bit)."""
+    from uvc_tpu_torch.utils.tree import tree_leaves_with_path
+    la = dict(tree_leaves_with_path(a))
+    out = []
+    for path, ref in tree_leaves_with_path(b):
+        if not torch.is_tensor(ref) or ref.dim() == 0:
+            continue
+        x = la[path]
+        r, o = ref.double(), x.double()
+        den = r.norm().item()
+        err = (o - r).norm().item() / den if den else (o - r).abs().max()
+        out.append((".".join(path), float(err), torch.equal(x, ref)))
+    return out
+
+
+def _pruned_coordinates(p1, p2, masks, keep):
+    """(pruned coordinates, of them changed from stage 1, kept
+    coordinates, of them changed) between the stage-1 params ``p1`` and
+    the compact stage-2 checkpoint's dense-layout params ``p2``: every
+    parameter of a skipped block, a kept block's proj rows of the pruned
+    attention columns, and the pruned MLP units' fc1 columns, fc1 biases
+    and fc2 rows."""
+    b1, b2 = p1["blocks"], p2["blocks"]
+    pruned = kept = moved_pruned = moved_kept = 0
+    for i, k in enumerate(keep):
+        if not k:
+            for grp in b1:
+                for leaf in b1[grp]:
+                    a, b = b1[grp][leaf][i], b2[grp][leaf][i]
+                    pruned += a.numel()
+                    moved_pruned += int((a != b).sum())
+            continue
+        cols, units = masks["attn"][i] == 0, masks["mlp"][i] == 0
+        for sel, ksel in (
+                ((b1["proj"]["kernel"][i][cols], b2["proj"]["kernel"][i][cols]),
+                 (b1["proj"]["kernel"][i][~cols],
+                  b2["proj"]["kernel"][i][~cols])),
+                ((b1["fc1"]["kernel"][i][:, units],
+                  b2["fc1"]["kernel"][i][:, units]),
+                 (b1["fc1"]["kernel"][i][:, ~units],
+                  b2["fc1"]["kernel"][i][:, ~units])),
+                ((b1["fc1"]["bias"][i][units], b2["fc1"]["bias"][i][units]),
+                 (b1["fc1"]["bias"][i][~units],
+                  b2["fc1"]["bias"][i][~units])),
+                ((b1["fc2"]["kernel"][i][units],
+                  b2["fc2"]["kernel"][i][units]),
+                 (b1["fc2"]["kernel"][i][~units],
+                  b2["fc2"]["kernel"][i][~units]))):
+            pruned += sel[0].numel()
+            moved_pruned += int((sel[0] != sel[1]).sum())
+            kept += ksel[0].numel()
+            moved_kept += int((ksel[0] != ksel[1]).sum())
+    return pruned, moved_pruned, kept, moved_kept
+
+
+def pipeline_phase(card):
+    """Phase 12: the two-stage pipeline through the CLIs on DeiT-Small at
+    full width and depth: ``joint_train`` (stage 1 + the inline stage 2,
+    a profiled window), a resume, ``post_train --compact_train`` and
+    ``export_compact`` served through ``apply_compact``.  Returns the
+    launches of the CLI runs and of the serving."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from uvc_tpu_torch.cli import export_compact, joint_train, post_train
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.data.pipeline import (ProceduralLoader,
+                                             device_prefetch,
+                                             normalize_on_device)
+    from uvc_tpu_torch.infer.compact import apply_compact
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.ops import (launch_counts, reset_launch_counts)
+    from uvc_tpu_torch.train.step import eval_step
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = get_config(PIPE_MODEL).replace(num_classes=PIPE_CLASSES)
+    ln = cfg.depth
+    name = cfg.name
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="uvc_pipeline_") as tmp:
+        common = ["--model_type", PIPE_MODEL, "--dataset", "procedural",
+                  "--img_size", str(cfg.img_size), "--train_batch_size",
+                  str(BATCH), "--eval_batch_size", str(BATCH),
+                  "--synthetic_steps", str(PIPE_STEPS),
+                  "--distillation-type", "soft", "--dp", "1",
+                  "--output_dir", tmp]
+        trace_dir = os.path.join(tmp, "trace")
+
+        # -- 1. stage 1 + the inline stage 2 through joint_train ----------
+        t0 = time.perf_counter()
+        with _HeldTrees() as held:
+            out, counts = _run_cli(joint_train.main, common + [
+                "--num_epochs", "2", "--warmup_epochs", "1",
+                "--post_num_epochs", "1", "--name", "run",
+                "--profile_dir", trace_dir, "--profile_start", "3",
+                "--profile_steps", "5"])
+        wall = time.perf_counter() - t0
+        # stage 1: 2 epochs of 12 steps and a validation each; stage 2: 1
+        # epoch of 12 steps and the final validation
+        want = _want(counts, train=(PIPE_TRAIN_STEP, 3 * PIPE_STEPS),
+                     eval=(PIPE_EVAL_BATCH, 3 * PIPE_EVAL_BATCHES))
+        print(f"launches joint_train     {counts} (expected {want})")
+        check(counts == want, "joint_train launch counts differ")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        run_dir = os.path.join(tmp, "run")
+        files = [f"{name}_1.ckpt", f"{name}_2.ckpt", f"{name}_post_0.ckpt"]
+        for f in files:
+            path = os.path.join(run_dir, f)
+            check(os.path.exists(path) and f in held.trees,
+                  f"checkpoint {f} was not written")
+            n, bad = _held_mismatches(load_checkpoint(path), held.trees[f])
+            print(f"checkpoint {f}: {os.path.getsize(path) / 2 ** 20:.1f} "
+                  f"MiB, {n} leaves read back, {bad} differ from the "
+                  f"driver's state")
+            check(bad == 0, f"checkpoint {f} does not read back as saved")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        keys = set().union(*recs)
+        need = {"train/flops_expectation", "train/flops_real",
+                "train/flops_real_argmax", "train/param_size",
+                "test/accuracy"}
+        check(need <= keys, f"metrics.jsonl lacks {need - keys}")
+        for r in recs:
+            if "train/flops_real" in r:
+                print(f"  epoch report @ step {r['step']}: "
+                      + ", ".join(f"{k}={r[k]:.4f}" for k in sorted(need)
+                                  if k in r))
+        epochs = re.findall(r"\[Epoch (\d+)\] ([\d.]+)s \(([\d.]+) img/s\)",
+                            out)
+        check(len(epochs) == 2, f"epoch lines {epochs}")
+        busy, span, n_dev, mb = _trace_busy(trace_dir)
+        print(f"joint_train (DeiT-Small, batch {BATCH}, 2 + 1 epochs of "
+              f"{PIPE_STEPS} steps, {3 * PIPE_EVAL_BATCHES} eval batches): "
+              f"{wall:.2f} s wall in all [{card}]")
+        for ep, secs, rate in epochs:
+            print(f"  stage-1 epoch {ep} as joint_train logs it: {rate} img/s "
+                  f"({secs} s for {PIPE_STEPS} steps of {BATCH}"
+                  f"{'; holds the profiled window' if ep == '1' else ''}) "
+                  f"[{card}]")
+        print(f"  stage-1 step alone (phase 5, the same settings on one "
+              f"resident batch): {STEP_RATES.get('stage-1 step', 0.0):.1f} "
+              f"img/s [{card}]")
+        print(f"  profiled window (steps 3-7, torch.profiler): device busy "
+              f"{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms "
+              f"({100 * busy / span:.1f}%), {n_dev} device events, trace "
+              f"{mb:.1f} MiB [{card}]")
+
+        # the loader alone, on the host
+        loader = ProceduralLoader(BATCH, num_batches=PIPE_STEPS,
+                                  img_size=cfg.img_size,
+                                  num_classes=PIPE_CLASSES, train=True,
+                                  seed=42)
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        ref = list(loader)
+        host_ms = 1e3 * (time.perf_counter() - t0) / PIPE_STEPS
+        px = cfg.img_size
+        print(f"  procedural loader ({px} px, batch {BATCH}: {BATCH} x {px} "
+              f"x {px} x 3 uniform draws on the host): {host_ms:.1f} ms a "
+              f"batch on the host, synchronous with the steps [{card}]")
+        # device_prefetch: the batches on the card are the loader's
+        got = [(x.cpu(), y.cpu()) for x, y in
+               list(device_prefetch(iter(ref), depth=2))]
+        check(len(got) == len(ref) and all(
+            np.array_equal(x.numpy(), rx) and np.array_equal(y.numpy(), ry)
+            for (x, y), (rx, ry) in zip(got, ref)),
+            "device_prefetch changed a batch")
+        print(f"device_prefetch: {len(ref)} batches on the card bit for bit "
+              f"the loader's")
+
+        # -- 2. resume from the epoch-1 checkpoint -------------------------
+        ck1 = os.path.join(run_dir, f"{name}_1.ckpt")
+        out, counts = _run_cli(joint_train.main, common + [
+            "--num_epochs", "2", "--warmup_epochs", "1",
+            "--post_num_epochs", "0", "--resume", ck1, "--name",
+            "resumed"])
+        want = _want(counts, train=(PIPE_TRAIN_STEP, PIPE_STEPS),
+                     eval=(PIPE_EVAL_BATCH, 2 * PIPE_EVAL_BATCHES))
+        print(f"launches resumed run     {counts} (expected {want})")
+        check(counts == want, "resumed run launch counts differ")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        a = load_checkpoint(os.path.join(tmp, "resumed", f"{name}_2.ckpt"))
+        b = load_checkpoint(os.path.join(run_dir, f"{name}_2.ckpt"))
+        for k in ("step", "epoch", "global_step", "key_seed"):
+            check(int(a[k]) == int(b[k]), f"resumed {k} {a[k]} != {b[k]}")
+        errs = _ckpt_rel_errs(a, b)
+        worst = max(errs, key=lambda e: e[1])
+        exact = sum(e[2] for e in errs)
+        print(f"resume: epoch-2 checkpoint against the first run's: "
+              f"{len(errs)} tensor leaves, {exact} bit for bit, worst "
+              f"{worst[0]} rel_fro={worst[1]:.2e} (tol {RESUME_REL_TOL}); "
+              f"step, epoch, global_step, key_seed equal "
+              f"({int(a['global_step'])}, {int(a['epoch'])}, "
+              f"{int(a['global_step'])}, {int(a['key_seed'])})")
+        check(worst[1] <= RESUME_REL_TOL, "the resumed run drifted")
+
+        # -- 3. compact stage 2 through post_train -------------------------
+        ck2 = os.path.join(run_dir, f"{name}_2.ckpt")
+        g = b["params"]["block_gating"]
+        keep = (g[:, 1] > g[:, 0]).tolist()
+        kept = sum(keep)
+        out, counts = _run_cli(post_train.main, common + [
+            "--checkpoint_dir", ck2, "--compact_train", "--num_epochs", "1",
+            "--name", "compact"])
+        compact_step = {"layer_attention_ln": ln + kept, "mlp_ln": ln + kept,
+                        "layer_attention_ln_bwd": kept, "mlp_ln_bwd": kept}
+        want = _want(counts, train=(compact_step, PIPE_STEPS),
+                     eval=(PIPE_EVAL_BATCH, PIPE_EVAL_BATCHES))
+        print(f"launches post_train --compact_train ({kept} of {ln} blocks "
+              f"kept) {counts} (expected {want})")
+        check(counts == want, "compact post_train launch counts differ")
+        check(counts["mlp_ln_bwd"] > 0, "A6 did not launch")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        post = load_checkpoint(os.path.join(tmp, "compact",
+                                            f"{name}_post_0.ckpt"))
+        check(bool(post["compact"]), "the checkpoint is not a compact run's")
+        for k in ("attn", "mlp"):
+            check(torch.equal(post["masks"][k], b["masks"][k]),
+                  "post_train's masks are not stage 1's")
+        pruned, moved, kept_c, moved_kept = _pruned_coordinates(
+            b["params"], post["params"], post["masks"], keep)
+        print(f"compact stage-2 checkpoint (dense layout): {pruned} pruned "
+              f"coordinates, {moved} changed from stage 1 (they keep "
+              f"stage 1's values, as scatter_to_dense writes them, and the "
+              f"masks multiply them by 0); {moved_kept} of {kept_c} kept "
+              f"coordinates trained")
+        check(pruned > 0 and moved == 0, "a pruned coordinate moved")
+        check(moved_kept > 0, "compact stage 2 trained nothing")
+
+        # -- 4. export and serve -------------------------------------------
+        post_ck = os.path.join(tmp, "compact", f"{name}_post_0.ckpt")
+        export_file = os.path.join(tmp, "compact_serving.ckpt")
+        out, _ = _run_cli(export_compact.main, [
+            "--model_type", PIPE_MODEL, "--checkpoint", post_ck,
+            "--save_file", export_file, "--token_ratio",
+            str(PIPE_TOKEN_RATIO), "--num_classes", str(PIPE_CLASSES),
+            "--img_size", str(cfg.img_size)])
+        ex = load_checkpoint(export_file)
+        check(ex["model_type"] == PIPE_MODEL
+              and float(ex["token_ratio"]) == PIPE_TOKEN_RATIO,
+              "the export's fields")
+        layers = [_tree_to(ex["layers"][str(i)], "cuda")
+                  for i in range(len(ex["layers"]))]
+        for blk in layers:
+            blk["num_heads"] = int(blk["num_heads"])
+        top = _tree_to(ex["top"], "cuda")
+        check(len(layers) == kept, f"the export holds {len(layers)} layers")
+        dense = _tree_to(post["params"], "cuda")
+        masks = _tree_to(post["masks"], "cuda")
+        gd = dense["block_gating"]
+        k1 = (gd[:, 1] > gd[:, 0]).float()
+        gating = torch.stack([1.0 - k1, k1], dim=-1)
+        hp = MinimaxHParams(patch_ratio=PIPE_TOKEN_RATIO)
+        ev = ProceduralLoader(BATCH, num_batches=PIPE_EVAL_BATCHES,
+                              img_size=cfg.img_size,
+                              num_classes=PIPE_CLASSES, train=False, seed=42)
+        served, ref_logits, labels, correct, count = [], [], [], 0, 0
+        serve_counts = {}
+        with torch.no_grad():
+            for x, y in device_prefetch(iter(ev)):
+                xb, y = normalize_on_device(x), y.long()
+                labels.append(y)
+                reset_launch_counts()
+                served.append(apply_compact(
+                    layers, top, xb, cfg,
+                    token_ratio=PIPE_TOKEN_RATIO).logits.float())
+                for k, v in launch_counts().items():
+                    serve_counts[k] = serve_counts.get(k, 0) + v
+                # eval_step's forward (hard gating, masks, the physical
+                # deterministic top-k at the export's ratio), its logits
+                out_d = vit.apply(dense, xb, cfg, gating_distrib=gating,
+                                  masks=masks, tau=1.0,
+                                  patch_ratio=PIPE_TOKEN_RATIO,
+                                  patch_gate_mode=2, patch_hard=True,
+                                  patch_physical=True, rng=None, train=False,
+                                  dtype=torch.bfloat16)
+                ref_logits.append(vit.eval_logits(out_d, cfg).float())
+                m = eval_step(dense, masks, xb, y, cfg, hp)
+                correct += int(m["correct"])
+                count += int(m["count"])
+        want_serve = {name_: 0 for name_ in serve_counts}
+        want_serve.update(layer_attention_ln=kept * PIPE_EVAL_BATCHES,
+                          mlp_ln=kept * PIPE_EVAL_BATCHES)
+        print(f"launches served export   {serve_counts} (expected "
+              f"{want_serve})")
+        check(serve_counts == want_serve, "served export launch counts")
+        for k, v in serve_counts.items():
+            total[k] = total.get(k, 0) + v
+        s_all, r_all = torch.cat(served), torch.cat(ref_logits)
+        check(torch.isfinite(s_all).all().item()
+              and s_all.shape == (PIPE_EVAL_BATCHES * BATCH, PIPE_CLASSES),
+              "served logits not finite or of the wrong shape")
+        rel, mx = rel_err(s_all, r_all)
+        served_acc = float((s_all.argmax(-1) == torch.cat(labels))
+                           .float().mean())
+        print(f"export (token ratio {PIPE_TOKEN_RATIO}, "
+              f"{float(ex['flops_fraction']) * 100:.2f}% of dense FLOPs, "
+              f"{os.path.getsize(export_file) / 2 ** 20:.1f} MiB) served "
+              f"{PIPE_EVAL_BATCHES} batches of {BATCH} through apply_compact "
+              f"vs eval_step's forward on the dense-layout params: "
+              f"rel_fro={rel:.2e} max_abs={mx:.2e} (tol {MODEL_REL_TOL}); "
+              f"accuracy served {served_acc:.4f}, eval_step "
+              f"{correct / max(1, count):.4f}")
+        check(rel <= MODEL_REL_TOL, "served export and eval_step disagree")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3186,18 +3682,20 @@ def main():
     # phase 11: stage 2 and compact stage 2 (DeiT-Small, T2T-ViT-14)
     stage2_counts, compact_counts = stage2_phase(card)
     t2t_stage2_counts = t2t_stage2_phase(card)
+    # phase 12: the two-stage pipeline through its CLIs (DeiT-Small)
+    pipeline_counts = pipeline_phase(card)
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
     # T2T-ViT-14 stage-1 window and its serving (A10 / A11), the ablations'
     # fine-tune and the SE eval (A9), the timed ViT-H/14 window (A2 and A4
     # at dm 1280; A8 only on the composed route, past it) and the resnext
-    # window, and phase 11's stage-2 windows (A6 at a compact layer's
-    # padded width, A2 below dm)
+    # window, phase 11's stage-2 windows (A6 at a compact layer's
+    # padded width, A2 below dm), and phase 12's CLI runs and served export
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
-                   compact_counts, t2t_stage2_counts):
+                   compact_counts, t2t_stage2_counts, pipeline_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

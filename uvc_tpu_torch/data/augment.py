@@ -1,7 +1,15 @@
-"""Random erasing on the device (counterpart of
-``uvc_tpu/data/augment.py::random_erasing``, timm's ``RandomErasing``).
+"""DeiT training-recipe augmentation (counterpart of
+``uvc_tpu/data/augment.py``).
 
-As with mixup, the draw is split from its application: ``sample_erasing``
+The host side is the JAX package's, copied: ``RandAugment`` (timm's
+``rand-m9-mstd0.5-inc1`` policy of 15 increasing transforms on PIL
+images, applied per image in the loader's worker pool after the crop
+and flip), ``color_jitter_image`` (used only when RandAugment is off)
+and ``make_train_augment``, with timm's magnitude mappings
+(``_LEVEL_DENOM = 10``); PIL is imported where they run.
+
+Random erasing runs on the device (timm's ``RandomErasing``).  As with
+mixup, the draw is split from its application: ``sample_erasing``
 draws every rectangle and the fill, ``random_erasing`` applies a draw to
 a normalized NHWC batch on its device.  The rectangles are a few numbers
 per image and come from a CPU ``torch.Generator``; the ``pixel`` fill (one
@@ -16,9 +24,180 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from uvc_tpu_torch.interop import resolve_device
+
+_LEVEL_DENOM = 10.0
+_FILL = (124, 116, 104)  # timm default img_mean fill
+
+
+def _enhance(img, kind: str, factor: float):
+    from PIL import ImageEnhance
+    return {
+        "color": ImageEnhance.Color,
+        "contrast": ImageEnhance.Contrast,
+        "brightness": ImageEnhance.Brightness,
+        "sharpness": ImageEnhance.Sharpness,
+    }[kind](img).enhance(factor)
+
+
+def _resample(interpolation: str):
+    # timm passes the recipe's train interpolation into the aa params
+    # (DeiT: bicubic); PIL codes: 2 = BILINEAR, 3 = BICUBIC
+    return 3 if interpolation == "bicubic" else 2
+
+
+def _shear(img, ax: str, v: float, resample: int):
+    from PIL import Image
+    mat = (1, v, 0, 0, 1, 0) if ax == "x" else (1, 0, 0, v, 1, 0)
+    return img.transform(img.size, Image.AFFINE, mat,
+                         resample=resample, fillcolor=_FILL)
+
+
+def _translate(img, ax: str, frac: float, resample: int):
+    from PIL import Image
+    px = frac * (img.size[0] if ax == "x" else img.size[1])
+    mat = (1, 0, px, 0, 1, 0) if ax == "x" else (1, 0, 0, 0, 1, px)
+    return img.transform(img.size, Image.AFFINE, mat,
+                         resample=resample, fillcolor=_FILL)
+
+
+def _neg(rng, v):
+    return -v if rng.random() < 0.5 else v
+
+
+def _apply_op(img, name: str, level: float, rng: np.random.Generator,
+              resample: int = 2):
+    """One RandAugment op at the given (already noise-jittered) level.
+    Increasing-transform argument mappings: timm auto_augment.py
+    ``_RAND_INCREASING_TRANSFORMS`` + ``*_increasing_level_to_arg``."""
+    from PIL import ImageOps
+    frac = level / _LEVEL_DENOM
+    if name == "AutoContrast":
+        return ImageOps.autocontrast(img)
+    if name == "Equalize":
+        return ImageOps.equalize(img)
+    if name == "Invert":
+        return ImageOps.invert(img)
+    if name == "Rotate":
+        return img.rotate(_neg(rng, frac * 30.0), resample=resample,
+                          fillcolor=_FILL)
+    if name == "Posterize":
+        bits = 4 - int(frac * 4)
+        return ImageOps.posterize(img, bits) if bits < 8 else img
+    if name == "Solarize":
+        return ImageOps.solarize(img, int(256 - frac * 256))
+    if name == "SolarizeAdd":
+        add = int(frac * 110)
+        arr = np.asarray(img).astype(np.int32)
+        lut = arr + np.where(arr < 128, add, 0)
+        from PIL import Image
+        return Image.fromarray(np.clip(lut, 0, 255).astype(np.uint8))
+    if name in ("Color", "Contrast", "Brightness", "Sharpness"):
+        return _enhance(img, name.lower(), 1.0 + _neg(rng, frac * 0.9))
+    if name == "ShearX":
+        return _shear(img, "x", _neg(rng, frac * 0.3), resample)
+    if name == "ShearY":
+        return _shear(img, "y", _neg(rng, frac * 0.3), resample)
+    if name == "TranslateX":
+        return _translate(img, "x", _neg(rng, frac * 0.45), resample)
+    if name == "TranslateY":
+        return _translate(img, "y", _neg(rng, frac * 0.45), resample)
+    raise ValueError(name)
+
+
+_RAND_OPS = ("AutoContrast", "Equalize", "Invert", "Rotate", "Posterize",
+             "Solarize", "SolarizeAdd", "Color", "Contrast", "Brightness",
+             "Sharpness", "ShearX", "ShearY", "TranslateX", "TranslateY")
+
+
+class RandAugment:
+    """``rand-mM-mstdS-incl`` policy: ``num_ops`` ops drawn uniformly, each
+    applied with prob ``prob`` at magnitude ~ N(magnitude, mstd) clipped to
+    [0, 10]."""
+
+    def __init__(self, magnitude: float = 9.0, mstd: float = 0.5,
+                 num_ops: int = 2, prob: float = 0.5,
+                 interpolation: str = "bilinear"):
+        self.magnitude = magnitude
+        self.mstd = mstd
+        self.num_ops = num_ops
+        self.prob = prob
+        self.resample = _resample(interpolation)
+
+    @classmethod
+    def from_string(cls, spec: str,
+                    interpolation: str = "bilinear") -> "RandAugment":
+        """Parse a timm auto-augment string, e.g. ``rand-m9-mstd0.5-inc1``
+        (the ``inc`` flag is implicit: this implementation always uses the
+        increasing transforms, timm's recommended set)."""
+        if not spec.startswith("rand"):
+            raise ValueError(f"unsupported auto-augment policy: {spec}")
+        kw = dict(magnitude=9.0, mstd=0.5, num_ops=2, prob=0.5,
+                  interpolation=interpolation)
+        for part in spec.split("-")[1:]:
+            if part.startswith("mstd"):
+                kw["mstd"] = float(part[4:])
+            elif part.startswith("m"):
+                kw["magnitude"] = float(part[1:])
+            elif part.startswith("n"):
+                kw["num_ops"] = int(part[1:])
+            elif part.startswith("p"):
+                kw["prob"] = float(part[1:])
+            elif part.startswith("inc"):
+                pass  # increasing transforms are always used
+            elif part.startswith("w"):
+                pass  # weighted op choice: timm stub, never implemented
+        return cls(**kw)
+
+    def __call__(self, img, rng: np.random.Generator):
+        for _ in range(self.num_ops):
+            if rng.random() > self.prob:
+                continue
+            name = _RAND_OPS[rng.integers(len(_RAND_OPS))]
+            level = self.magnitude
+            if self.mstd > 0:
+                level = rng.normal(self.magnitude, self.mstd)
+            level = float(np.clip(level, 0.0, _LEVEL_DENOM))
+            img = _apply_op(img, name, level, rng, self.resample)
+        return img
+
+
+def color_jitter_image(img, rng: np.random.Generator, strength: float = 0.4):
+    """Brightness/contrast/saturation jitter with uniform factors in
+    [1-s, 1+s], random order (torchvision ColorJitter semantics used by
+    timm when no aa policy is given)."""
+    kinds = ["brightness", "contrast", "color"]
+    rng.shuffle(kinds)
+    for kind in kinds:
+        img = _enhance(img, kind, rng.uniform(1 - strength, 1 + strength))
+    return img
+
+
+def make_train_augment(aa: Optional[str] = None,
+                       color_jitter: float = 0.0,
+                       interpolation: str = "bilinear"):
+    """Returns ``fn(uint8_hwc_array, np_rng) -> uint8_hwc_array`` or None.
+
+    timm precedence: an auto-augment policy disables color jitter
+    (Baseline_pruning passes both; timm create_transform keeps only aa).
+    """
+    ra = RandAugment.from_string(aa, interpolation) \
+        if aa and aa != "none" else None
+    if ra is None and color_jitter <= 0:
+        return None
+
+    def fn(arr: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        from PIL import Image
+        img = Image.fromarray(arr)
+        img = ra(img, rng) if ra is not None \
+            else color_jitter_image(img, rng, color_jitter)
+        return np.asarray(img, np.uint8)
+
+    return fn
+
 
 
 class ErasingDraw(NamedTuple):

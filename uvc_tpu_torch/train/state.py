@@ -6,7 +6,11 @@
 weight decay on every leaf, the learning rate taken from the schedule at
 the optimizer's own count), or stage 2's heavy-ball SGD (``optax.chain(
 add_decayed_weights, sgd)``), working on the carried state so that a
-trajectory can be held against the JAX package's step by step.
+trajectory can be held against the JAX package's step by step.  The
+``*_state_dict`` functions give the optimizer state and the minimax state
+the layout that ``flax.serialization.to_state_dict`` gives the JAX
+package's (optax's chain states, the ``CompressionState`` fields), so that
+the two packages' checkpoints cross-load.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from uvc_tpu_torch.compress.state import CompressionState
+from uvc_tpu_torch.compress.state import CompressionState, OptState
 from uvc_tpu_torch.utils.schedules import (timm_epoch_schedule,
                                            warmup_cosine_schedule,
                                            warmup_linear_schedule)
@@ -221,3 +225,70 @@ def create_train_state(params, thp: TrainHParams,
     return TrainState(step=0, params=params,
                       opt_state=make_weight_optimizer(thp).init(params),
                       cstate=cstate, grad_accum=grad_accum)
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint layout: the JAX package's state dicts
+# ---------------------------------------------------------------------------
+
+
+def _count(n: int) -> np.ndarray:
+    """A step count as the JAX package stores it (a 0-d int32 array)."""
+    return np.asarray(int(n), np.int32)
+
+
+def opt_state_to_state_dict(opt_state) -> dict:
+    """The weight optimizer's state in the layout of
+    ``flax.serialization.to_state_dict`` of the optax state: AdamW's
+    ``(ScaleByAdamState, EmptyState, ScaleByScheduleState)``, SGD's
+    ``(EmptyState, (TraceState, ScaleByScheduleState))``."""
+    if isinstance(opt_state, AdamWState):
+        return {"0": {"count": _count(opt_state.count), "mu": opt_state.mu,
+                      "nu": opt_state.nu},
+                "1": {}, "2": {"count": _count(opt_state.count)}}
+    return {"0": {}, "1": {"0": {"trace": opt_state.trace},
+                           "1": {"count": _count(opt_state.count)}}}
+
+
+def opt_state_from_state_dict(state: dict, like):
+    """``opt_state_to_state_dict``'s inverse: the optimizer state of
+    ``like``'s kind and tree structure (its tensors' devices) holding
+    ``state``'s values."""
+    from uvc_tpu_torch.utils.checkpoint import restore_like
+    if isinstance(like, AdamWState):
+        adam = state["0"]
+        return AdamWState(count=int(adam["count"]),
+                          mu=restore_like(like.mu, adam["mu"]),
+                          nu=restore_like(like.nu, adam["nu"]))
+    return SGDState(count=int(state["1"]["1"]["count"]),
+                    trace=restore_like(like.trace,
+                                       state["1"]["0"]["trace"]))
+
+
+def cstate_to_state_dict(cstate: CompressionState) -> dict:
+    """The minimax state as ``to_state_dict`` of the JAX package's
+    ``CompressionState``: its fields, each tiny optimizer's as ``m`` /
+    ``v`` / ``count``."""
+    out = {}
+    for f in dataclasses.fields(cstate):
+        v = getattr(cstate, f.name)
+        if isinstance(v, OptState):
+            v = {"m": v.m, "v": v.v, "count": _count(v.count)}
+        out[f.name] = v
+    return out
+
+
+def cstate_from_state_dict(state: dict, device) -> CompressionState:
+    """``cstate_to_state_dict``'s inverse, the tensors on ``device``."""
+    def t(a):
+        return None if a is None else torch.as_tensor(a).to(device)
+
+    fields = {}
+    for f in dataclasses.fields(CompressionState):
+        v = state[f.name]
+        if f.name.endswith("_opt"):
+            v = OptState(m=t(v["m"]), v=t(v["v"]), count=int(v["count"]))
+        else:
+            v = t(v)
+        fields[f.name] = v
+    return CompressionState(**fields)

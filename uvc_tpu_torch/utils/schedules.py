@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -88,3 +89,16 @@ def timm_epoch_schedule(sched: str, base_lr: float, *, epochs: int,
         return torch.where(t < warmup_epochs, warm, main)
 
     return fn
+
+
+def get_tau(tau_max: float, tau_min: float, step, total_steps: int
+            ) -> float:
+    """The token-selection Gumbel temperature ramp
+    ``tau_min + (tau_max - tau_min) * clip(step / total_steps, 0, 1)``,
+    computed in f32 (the stage-1 driver calls it with (10, 0.1), so tau
+    rises from 0.1 to 10 over training); a host float, so the step gets it
+    without a copy to the device."""
+    frac = np.clip(np.float32(step) / np.float32(max(1, total_steps)),
+                   np.float32(0.0), np.float32(1.0))
+    return float(np.float32(tau_min)
+                 + np.float32(tau_max - tau_min) * frac)
