@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 and phase 7's kernel
                                            # rows, then the card line (no
-                                           # phase 12)
+                                           # phases 4-13)
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -44,7 +44,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    "t2t_compact" (3 heads, F 640, W1 / b1 / W2 zero past 576 units), A4
    at "t2t_stage2" and "t2t_stage2_skip" (F 1152, d (0, 1) and (1, 0)),
    each output also within 1/64 of its largest value, and each also
-   under ``--digests``;
+   under ``--digests``; K1, K2, A2 and A6 at "synflow" (B=1, N=197,
+   dm=384, 6 heads, F=1536: phase 13's SynFlow scoring pass on one
+   all-ones image);
    every forward kernel's two launches bit for bit; K1's four launches
    (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's and
    K3's three (LayerNorm, fc1 GEMM, fc2 GEMM) one by one at "vit_h" and
@@ -217,6 +219,40 @@ Phases, each of which stops the run with a non-zero exit on failure:
    served through ``apply_compact`` (K1 and K2 the kept blocks a batch)
    against ``eval_step``'s forward on the dense-layout params with their
    masks (within 2e-2).
+
+13. baseline suite -- the baseline-pruning suite through its CLIs, in this
+   process, in a temporary directory, on DeiT-Small at full width and
+   depth (1000 classes) with seeded random weights written as a timm
+   ``.pth`` by ``models/convert.py::to_torch_state_dict`` and read back bit
+   for bit (``load_torch_checkpoint``, ``joint_train``'s ``load_params``):
+   ``cli/generate_mask.py`` on ``--dataset synthetic`` at density 0.5 for
+   mag (global and local), synflow (100 rounds at batch 1), taylor (4
+   batches of 128) and sp (one batch of 128), each with its wall seconds,
+   its remaining density against ``--sparsity`` and its exact launches
+   (per scoring pass K1, K2, A2 and A6 12 each; 0 for mag); the scorers
+   held at batch 8 in bf16 against the plain versions on the card (the
+   four wrappers swapped for them): magnitude bit for bit, Taylor's scores
+   within 2e-2 per leaf and its kept sets' Jaccard at least 0.99, SP's
+   head and unit scores within 2e-2 and its masks equal in every layer
+   whose cut the score differences cannot move, SynFlow's kernels no
+   further from the f32 CPU plain path than 1.25 times the plain bf16
+   versions at the first, middle and last round of the plain trajectory
+   (each round's kernel vs plain scores and kept sets, and the two whole
+   runs' overlap, recorded: bf16 SynFlow is ill-conditioned, see
+   SYNFLOW_F32_RATIO); against the f32 CPU plain path
+   each type's overlap recorded (SynFlow at depth 4 when its 100 rounds
+   would take over 60 s there); ``cli/baseline_train.py`` from the
+   ``.pth`` on ``--dataset procedural`` (10 classes: the head
+   re-initialised), batch 64, 12 steps an epoch, 8 eval batches: 2
+   epochs with a magnitude mask and EMA (per step A7 forward and
+   backward 12, per eval batch K1 and K2 12), its epoch img/s beside
+   phase 6's step alone and the loader's host ms a batch, AdamW's moments
+   exactly 0 at every masked coordinate of its checkpoint, a resume from
+   epoch 0 whose epoch-1 checkpoint is bit for bit the first run's, a GMP
+   run whose two pruning events follow ``cubic_sparsity``, and
+   ``--eval --resume`` at the run's own epoch-1 accuracy; then
+   ``cli/show_gradient_sparsity.py`` over 4 batches of 64 (K1, K2, A2,
+   A6 48 each).
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -420,6 +456,8 @@ FWD_SHAPES = {
     # A7's forward past the 624 keys that its staged core once held at
     # head dim 80
     "long": (4, 1025, 1280, 16, 5120, 80, ("layer_attention",)),
+    # SynFlow's scoring pass on DeiT-Small: one all-ones image
+    "synflow": (1, 197, 384, 6, 1536, 64, ("layer_attention_ln", "mlp_ln")),
 }
 # the shapes that the parent commit's kernels take as well (head dim 64):
 # ``--digests`` holds the kernels there only, so that the same script can
@@ -427,7 +465,7 @@ FWD_SHAPES = {
 PARENT_SHAPES = ("eval", "compact", "dense", "train", "ragged", "se",
                  "dense_odd", "dense_wide", "compact_ft", "one_head",
                  "stage2", "stage2_skip", "t2t_compact", "t2t_stage2",
-                 "t2t_stage2_skip")
+                 "t2t_stage2_skip", "synflow")
 
 
 def kernel_phase(eps, digests_only=False, refused_ok=False):
@@ -920,6 +958,10 @@ BWD_SHAPES = {
                    dict(seed=36, d=(0.0, 1.0))),
     "t2t_stage2_skip": (BATCH, 197, 384, 6, 1152, 64, ("mlp_ln_blend_bwd",),
                         dict(seed=37, d=(1.0, 0.0))),
+    # SynFlow's scoring pass on DeiT-Small (one all-ones image), whose
+    # backward runs A2 and A6
+    "synflow": (1, 197, 384, 6, 1536, 64, ("layer_attention_ln_bwd",
+                                           "mlp_ln_bwd")),
 }
 
 
@@ -1617,6 +1659,8 @@ def baseline_phase(card, per_step, cfg_name="deit_small_patch16_224",
     print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
           f"grad_norm={float(m['grad_norm']):.4f}")
     if timed:
+        if label == "DeiT-Small":
+            STEP_RATES["baseline step"] = TRAIN_TIMED * BATCH / window
         print(f"baseline fine-tune step ({label}, batch {BATCH}, bf16, mask "
               f"density {density:.4f}, drop-path {BASE_DROP_PATH}, reprob "
               f"{BASE_REPROB}): {TRAIN_TIMED * BATCH / window:.1f} img/s "
@@ -3612,6 +3656,555 @@ def pipeline_phase(card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the baseline-pruning suite through its CLIs
+# ---------------------------------------------------------------------------
+
+SUITE_MODEL = "deit_small_patch16_224"
+SUITE_DENSITY = 0.5          # generate_mask's --sparsity (the density kept)
+SUITE_STEPS = 12             # baseline_train's steps an epoch
+TAYLOR_BATCHES = 4           # Taylor's --num_batches at the CLI's batch 128
+SYNFLOW_ROUNDS = 100
+HOLD_BATCH = 8               # the scorers held against the plain versions
+# kernel vs plain (both bf16 on the card): a scorer's scores per leaf
+# (relative Frobenius) and the kept sets of its masks (Jaccard); SP's
+# masks equal in every layer whose cut the score differences cannot move
+SCORE_REL_TOL = 2e-2
+JACCARD_MIN = 0.99
+# SynFlow's objective sums the logits of the |w| network on an all-ones
+# image: its bf16 residual stream carries a large component common to all
+# features, which the LayerNorms subtract, so one rounding of the stream
+# moves the scores by several percent (kernel vs plain 2-10% a round,
+# either vs f32 ~14% at round 0; PERF.md, PR 16).  Its kernels are held
+# to be no further from the f32 plain path than the plain bf16 versions
+# are, within this factor, at the first, middle and last round
+SYNFLOW_F32_RATIO = 1.25
+# the CPU f32 SynFlow runs at depth 4 when its 100 rounds at full depth
+# would take longer than this
+CPU_SYNFLOW_BUDGET_S = 60.0
+# a scoring pass (forward and backward through the LN-fused sublayers on
+# DeiT-Small's 12 blocks), a baseline_train step (drop-path: A7 forward
+# and backward, the MLP composed) and an eval batch (K1 and K2)
+SCORE_PASS = {"layer_attention_ln": 12, "mlp_ln": 12,
+              "layer_attention_ln_bwd": 12, "mlp_ln_bwd": 12}
+BASE_TRAIN_STEP = {"layer_attention": 12, "layer_attention_bwd": 12}
+BASE_EVAL_BATCH = {"layer_attention_ln": 12, "mlp_ln": 12}
+
+
+class _PlainSublayers:
+    """The LN-fused sublayers' kernel wrappers (K1, A2, K2, A6) swapped for
+    their plain PyTorch versions, which then run on the card's tensors in
+    the same dtype: the yardstick a scorer's kernel run is held to.  The
+    launch counters see none of these calls."""
+
+    def __enter__(self):
+        from uvc_tpu_torch.ops import attention, mlp
+        self.saved = []
+        for mod, name in ((attention, "layer_attention_ln"),
+                          (attention, "layer_attention_ln_bwd"),
+                          (mlp, "mlp_ln"), (mlp, "mlp_ln_bwd")):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, getattr(mod, name + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _masked_leaves(tree):
+    from uvc_tpu_torch.utils.tree import tree_leaves_with_path
+    return {".".join(p): t for p, t in tree_leaves_with_path(tree)}
+
+
+def _jaccard(a, b):
+    """The kept sets' Jaccard index of two mask trees (on their device)."""
+    fa, fb = _masked_leaves(a), _masked_leaves(b)
+    both = sum(float((fa[k] * fb[k]).sum()) for k in fa)
+    either = sum(float((fa[k] + fb[k] > 0).sum()) for k in fa)
+    return both / max(either, 1.0)
+
+
+def _global_rel(a, b):
+    """The relative Frobenius error of score tree ``a`` against ``b`` over
+    all their leaves together."""
+    fa, fb = _masked_leaves(a), _masked_leaves(b)
+    num = sum(((fa[k].double() - ref.double()) ** 2).sum().item()
+              for k, ref in fb.items())
+    den = sum((ref.double() ** 2).sum().item() for ref in fb.values())
+    return (num / den) ** 0.5
+
+
+def _worst_rel(a, b):
+    """(the worst per-leaf relative Frobenius error of score tree ``a``
+    against ``b``, its leaf)."""
+    fa, fb = _masked_leaves(a), _masked_leaves(b)
+    errs = []
+    for k, ref in fb.items():
+        ref = ref.double()
+        den = ref.norm().item()
+        err = (fa[k].double() - ref).norm().item()
+        errs.append((err / den if den else err, k))
+    return max(errs)
+
+
+def _sp_scores(params, grads, cfg):
+    """SP's head and unit scores (the quantities its masks rank)."""
+    l, h, hs, d = cfg.depth, cfg.num_heads, cfg.head_size, cfg.embed_dim
+    w = params["blocks"]["qkv"]["kernel"][:, :, 2 * d:].reshape(l, d, h, hs)
+    g = grads["blocks"]["qkv"]["kernel"][:, :, 2 * d:].reshape(l, d, h, hs)
+    heads = (w * g).sum(dim=(1, 3)).abs()
+    units = (grads["blocks"]["fc1"]["kernel"].abs().sum(dim=1)
+             + grads["blocks"]["fc2"]["kernel"].abs().sum(dim=2))
+    return {"attn": heads, "mlp": units}
+
+
+def _sp_disagreement(mk, mp, sk, sp, density):
+    """(the worst relative Frobenius error of the kernels' head / unit
+    scores ``sk`` against the plain versions' ``sp``, rows, rows whose cut
+    lies within twice the row's largest score difference, entries that
+    differ outside such rows).  A row's masks can differ only where the
+    score differences can move its cut: every other row must agree."""
+    worst = 0.0
+    rows = close = bad = 0
+    for kind in ("attn", "mlp"):
+        a, b = sk[kind].double().cpu(), sp[kind].double().cpu()
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
+        n = b.shape[1]
+        keep = max(int(density * n), 1)
+        srt = b.sort(dim=1, descending=True).values
+        for r in range(b.shape[0]):
+            rows += 1
+            delta = (a[r] - b[r]).abs().max().item()
+            lo = srt[r, keep - 1].item()
+            hi = srt[r, keep].item() if keep < n else float("-inf")
+            if lo - hi <= 2 * delta:
+                close += 1
+                continue
+            bad += int((mk[kind][r].cpu() != mp[kind][r].cpu()).sum())
+    return worst, rows, close, bad
+
+
+def _suite_weights(cfg, seed):
+    """DeiT-Small's tree from the seeded init, its zero-initialised head
+    drawn too (a zero head makes every gradient score zero)."""
+    from uvc_tpu_torch.models import get_model
+    gen = torch.Generator().manual_seed(seed)
+    params = get_model(cfg).init_params(gen, cfg, device="cpu")
+    params["head"]["kernel"] = 0.02 * torch.randn(
+        params["head"]["kernel"].shape, generator=gen)
+    return params
+
+
+def _scoring_fns(cfg, dtype):
+    """The loss and the SynFlow objective as ``cli/generate_mask.py``
+    builds them."""
+    from uvc_tpu_torch.models import get_model
+    model = get_model(cfg)
+
+    def loss_fn(p, x, y):
+        out = model.apply(p, x, cfg, train=True, dtype=dtype)
+        return -torch.log_softmax(out.logits, dim=-1).gather(
+            -1, y[:, None]).mean()
+
+    def forward_sum(p):
+        ones = torch.ones(1, cfg.img_size, cfg.img_size, cfg.in_chans,
+                          device=p["cls_token"].device)
+        return model.apply(p, ones, cfg, train=False,
+                           dtype=dtype).logits.sum()
+
+    return loss_fn, forward_sum
+
+
+def _cut_depth(params, cfg, depth):
+    """The first ``depth`` blocks of a tree and its config."""
+    out = dict(params)
+    out["blocks"] = {g: {k: v[:depth] for k, v in sub.items()}
+                     for g, sub in params["blocks"].items()}
+    for k in ("block_gating", "attn_gating", "mlp_gating"):
+        out[k] = params[k][:depth]
+    return out, cfg.replace(depth=depth)
+
+
+def _remain(out):
+    import re
+    return float(re.search(r"remain weight = ([\d.]+) %", out).group(1))
+
+
+def _hold_scorers(card, params, cfg, files):
+    """Phase 13's scorers held at batch 8 (SynFlow at its batch 1): the
+    kernels against the plain versions on the card in bf16 (gated), and
+    against the f32 plain path on the CPU (recorded: the evidence for
+    scoring in bf16 on the card)."""
+    import numpy as np
+
+    from uvc_tpu_torch.baselines import pruning
+    from uvc_tpu_torch.data.pipeline import (SyntheticLoader,
+                                             normalize_on_device)
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    from uvc_tpu_torch.utils.tree import tree_map
+
+    gp = _tree_to(params, "cuda")
+    cp = _tree_to(params, "cpu")
+    loss_k, fsum_k = _scoring_fns(cfg, torch.bfloat16)
+    loss_c, fsum_c = _scoring_fns(cfg, torch.float32)
+    x, y = next(iter(SyntheticLoader(HOLD_BATCH, num_batches=1,
+                                     img_size=cfg.img_size,
+                                     num_classes=cfg.num_classes, seed=0)))
+    xc = normalize_on_device(torch.from_numpy(x))
+    yc = torch.from_numpy(y).long()
+    gb = [(xc.to("cuda"), yc.to("cuda"))] * 2   # two batches: accumulation
+    cb = [(xc, yc)] * 2
+
+    # magnitude: no kernel; the CLI's file, the card and the CPU agree bit
+    # for bit
+    mag = pruning.global_threshold_mask(pruning.magnitude_scores(gp),
+                                        SUITE_DENSITY)
+    mag_cpu = pruning.global_threshold_mask(pruning.magnitude_scores(cp),
+                                            SUITE_DENSITY)
+    ref = load_checkpoint(files["mag_global"])
+    flat, flat_cpu = pruning.masks_to_flat(mag), pruning.masks_to_flat(
+        mag_cpu)
+    same = all(np.array_equal(flat[k], ref[k].numpy())
+               and np.array_equal(flat_cpu[k], flat[k]) for k in ref)
+    print(f"hold mag: the CLI's mask, the card's and the CPU's f32 bit for "
+          f"bit: {same}")
+    check(same, "magnitude masks differ")
+
+    # Taylor over two batches of 8
+    tk = pruning.taylor_scores(gp, loss_k, gb)
+    with _PlainSublayers():
+        tp = pruning.taylor_scores(gp, loss_k, gb)
+    tc = pruning.taylor_scores(cp, loss_c, cb)
+    mk, mp, mc = (pruning.global_threshold_mask(t, SUITE_DENSITY)
+                  for t in (tk, tp, tc))
+    rel, leaf = _worst_rel(tk, tp)
+    jac = _jaccard(mk, mp)
+    jac_cpu = _jaccard(_tree_to(mk, "cpu"), mc)
+    rel_cpu, _ = _worst_rel(_tree_to(tk, "cpu"), tc)
+    rel_plain_cpu, _ = _worst_rel(_tree_to(tp, "cpu"), tc)
+    print(f"hold taylor (batch {HOLD_BATCH} x 2, density {SUITE_DENSITY}): "
+          f"kernel vs plain on the card (bf16): worst leaf {leaf} "
+          f"rel_fro={rel:.2e} (tol {SCORE_REL_TOL}), kept sets' Jaccard "
+          f"{jac:.5f} (min {JACCARD_MIN}); vs the CPU f32 plain path "
+          f"(recorded): the kernels' worst rel_fro={rel_cpu:.2e} (the plain "
+          f"versions' {rel_plain_cpu:.2e}), Jaccard {jac_cpu:.5f}")
+    check(rel <= SCORE_REL_TOL and jac >= JACCARD_MIN,
+          "Taylor: the kernels and the plain versions disagree")
+
+    # SP on one batch of 8
+    g_k = pruning.tree_grad(loss_k, gp, *gb[0])
+    with _PlainSublayers():
+        g_p = pruning.tree_grad(loss_k, gp, *gb[0])
+    g_c = pruning.tree_grad(loss_c, cp, *cb[0])
+    sk, sp_, sc = (pruning.sp_structured_masks(p_, g, cfg, SUITE_DENSITY,
+                                               SUITE_DENSITY)
+                   for p_, g in ((gp, g_k), (gp, g_p), (cp, g_c)))
+    rel, rows, close, bad = _sp_disagreement(
+        sk, sp_, _sp_scores(gp, g_k, cfg), _sp_scores(gp, g_p, cfg),
+        SUITE_DENSITY)
+    differ = sum(int((sk[k] != sp_[k]).sum()) for k in ("attn", "mlp"))
+    agree_cpu = sum(float((sk[k].cpu() == sc[k]).float().mean())
+                    for k in ("attn", "mlp")) / 2
+    print(f"hold sp (batch {HOLD_BATCH}): kernel vs plain on the card: head "
+          f"and unit scores rel_fro={rel:.2e} (tol {SCORE_REL_TOL}); {rows} "
+          f"rows, {close} whose cut lies within twice the row's largest "
+          f"score difference, {differ} entries differ, {bad} of them "
+          f"elsewhere; vs the CPU f32 plain path (recorded): "
+          f"{agree_cpu:.4f} of the entries equal")
+    check(rel <= SCORE_REL_TOL and bad == 0,
+          "SP: the kernels and the plain versions disagree")
+
+    # SynFlow: each round of the plain versions' trajectory scored again
+    # by the kernels on the same masks; at the first, middle and last
+    # round by the f32 CPU plain path too; then the kernels' whole run
+    # (the CLI's file) against the plain one (recorded)
+    abs_p = tree_map(torch.abs, gp)
+    abs_c = tree_map(torch.abs, cp)
+    masks = pruning.identity_masks(abs_p)
+    f32_rounds = (0, SYNFLOW_ROUNDS // 2 - 1, SYNFLOW_ROUNDS - 1)
+    worst, worst_jac = (0.0, -1), (2.0, -1)
+    t0 = time.perf_counter()
+    for e in range(SYNFLOW_ROUNDS):
+        with _PlainSublayers():
+            sp_round = pruning.synflow_round(abs_p, masks, fsum_k)
+        sk_round = pruning.synflow_round(abs_p, masks, fsum_k)
+        d = SUITE_DENSITY ** ((e + 1) / SYNFLOW_ROUNDS)
+        new_p = pruning.global_threshold_mask(sp_round, d)
+        new_k = pruning.global_threshold_mask(sk_round, d)
+        worst = max(worst, (_global_rel(sk_round, sp_round), e))
+        worst_jac = min(worst_jac, (_jaccard(new_k, new_p), e))
+        if e in f32_rounds:
+            sc_round = _tree_to(pruning.synflow_round(
+                abs_c, _tree_to(masks, "cpu"), fsum_c), "cuda")
+            rk = _global_rel(sk_round, sc_round)
+            rp = _global_rel(sp_round, sc_round)
+            print(f"hold synflow round {e}: against the f32 CPU plain path "
+                  f"the kernels' scores rel_fro={rk:.3e}, the plain "
+                  f"versions' {rp:.3e} (the kernels within "
+                  f"{SYNFLOW_F32_RATIO} x the plain versions'); kernel vs "
+                  f"plain {_global_rel(sk_round, sp_round):.3e}")
+            check(rk <= SYNFLOW_F32_RATIO * rp,
+                  f"SynFlow round {e}: the kernels are further from f32 "
+                  f"than the plain versions")
+        masks = new_p
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    cli = pruning.masks_from_flat(load_checkpoint(files["synflow"]), gp)
+    whole = _jaccard(cli, masks)
+    print(f"hold synflow ({SYNFLOW_ROUNDS} rounds, batch 1), each round of "
+          f"the plain trajectory scored by the kernels on its masks "
+          f"(recorded): worst round {worst[1]} rel_fro={worst[0]:.3e}, "
+          f"lowest kept sets' Jaccard {worst_jac[0]:.5f} (round "
+          f"{worst_jac[1]}); the kernels' whole run (the CLI's file) vs the "
+          f"plain versions' whole run (recorded): Jaccard {whole:.5f}; "
+          f"{rounds_s:.2f} s for the 2 x {SYNFLOW_ROUNDS} rounds [{card}]")
+
+    # the CPU f32 SynFlow (recorded): at full depth if its 100 rounds fit
+    # the budget, else at depth 4 against the card's kernels at depth 4
+    t0 = time.perf_counter()
+    pruning.global_threshold_mask(pruning.synflow_round(
+        abs_c, pruning.identity_masks(abs_c), fsum_c), 0.9)
+    per_round = time.perf_counter() - t0
+    depth = cfg.depth
+    if per_round * SYNFLOW_ROUNDS > CPU_SYNFLOW_BUDGET_S:
+        depth = 4
+    if depth == cfg.depth:
+        kern_masks, ccfg, cparams = _tree_to(cli, "cpu"), cfg, cp
+    else:
+        gcut, ccfg = _cut_depth(gp, cfg, depth)
+        cparams, _ = _cut_depth(cp, cfg, depth)
+        _, fsum_kd = _scoring_fns(ccfg, torch.bfloat16)
+        _, kern_masks = pruning.synflow_scores(gcut, fsum_kd, SUITE_DENSITY,
+                                               SYNFLOW_ROUNDS)
+        kern_masks = _tree_to(kern_masks, "cpu")
+    _, fsum_cd = _scoring_fns(ccfg, torch.float32)
+    t0 = time.perf_counter()
+    _, cpu_masks = pruning.synflow_scores(cparams, fsum_cd, SUITE_DENSITY,
+                                          SYNFLOW_ROUNDS)
+    cpu_s = time.perf_counter() - t0
+    print(f"hold synflow vs the CPU f32 plain path (recorded"
+          + ("" if depth == cfg.depth else
+             f"; at depth {depth}: {SYNFLOW_ROUNDS} rounds at full depth "
+             f"would take {per_round * SYNFLOW_ROUNDS:.0f} s on the CPU, "
+             f"over the {CPU_SYNFLOW_BUDGET_S:.0f} s budget")
+          + f"): kept sets' Jaccard {_jaccard(kern_masks, cpu_masks):.5f} "
+          f"({cpu_s:.1f} s on the CPU)")
+
+
+def baseline_suite_phase(card):
+    """Phase 13: the baseline-pruning suite through its CLIs on DeiT-Small
+    at full width and depth with seeded random weights written as a timm
+    ``.pth``: ``generate_mask`` (each type), the scorers held at batch 8,
+    ``baseline_train`` (a one-shot mask run with EMA, its resume, GMP,
+    ``--eval``) and ``show_gradient_sparsity``.  Returns the launches of
+    the CLI runs."""
+    import argparse
+    import re
+    import tempfile
+
+    from uvc_tpu_torch.baselines.gmp import cubic_sparsity
+    from uvc_tpu_torch.cli import (baseline_train, generate_mask,
+                                   joint_train, show_gradient_sparsity)
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.data.pipeline import ProceduralLoader
+    from uvc_tpu_torch.models import convert
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    from uvc_tpu_torch.utils.tree import leaf_at, tree_leaves_with_path
+
+    # the synthetic data's 1000 classes, as an ImageNet checkpoint has
+    cfg = get_config(SUITE_MODEL).replace(num_classes=1000)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="uvc_baselines_") as tmp:
+        # -- 1. the weights as a timm .pth, read back -----------------------
+        params = _suite_weights(cfg, seed=60)
+        pth = os.path.join(tmp, "deit_small.pth")
+        torch.save({"model": convert.to_torch_state_dict(params, cfg)}, pth)
+        via_cli = joint_train.load_params(argparse.Namespace(
+            pretrained=1, model_path=pth, seed=0, device="cuda"), cfg)
+        n = bad = 0
+        for loaded in (convert.load_torch_checkpoint(pth, cfg), via_cli):
+            for path, leaf in tree_leaves_with_path(params):
+                n += 1
+                bad += int(not torch.equal(leaf_at(loaded, path), leaf))
+        print(f"weights: {os.path.getsize(pth) / 2 ** 20:.1f} MiB .pth "
+              f"(to_torch_state_dict), read back through "
+              f"load_torch_checkpoint and joint_train's load_params: {n} "
+              f"leaves, {bad} differ")
+        check(bad == 0, "the .pth does not read back bit for bit")
+
+        # -- 2. generate_mask, each type -----------------------------------
+        gen = ["--model_type", SUITE_MODEL, "--pretrained", pth,
+               "--dataset", "synthetic", "--sparsity", str(SUITE_DENSITY)]
+        runs = {"mag_global": (["--type", "mag"], {}),
+                "mag_local": (["--type", "mag", "--scope", "local"], {}),
+                "synflow": (["--type", "synflow"],
+                            dict(score=(SCORE_PASS, SYNFLOW_ROUNDS))),
+                "taylor": (["--type", "taylor", "--num_batches",
+                            str(TAYLOR_BATCHES)],
+                           dict(score=(SCORE_PASS, TAYLOR_BATCHES))),
+                "sp": (["--type", "sp"], dict(score=(SCORE_PASS, 1)))}
+        files = {}
+        for kind, (extra, per) in runs.items():
+            files[kind] = os.path.join(tmp, f"{kind}.ckpt")
+            t0 = time.perf_counter()
+            out, counts = _run_cli(generate_mask.main,
+                                   gen + extra + ["--save_file",
+                                                  files[kind]])
+            wall = time.perf_counter() - t0
+            want = _want(counts, **per)
+            print(f"launches generate_mask {kind:10s} {counts} (expected "
+                  f"{want})")
+            check(counts == want, f"generate_mask {kind} launch counts")
+            add(counts)
+            remain = _remain(out) / 100
+            if kind == "sp":
+                st = load_checkpoint(files[kind] + ".structural")
+                heads = st["attn"].sum(dim=1)
+                units = st["mlp"].sum(dim=1)
+                print(f"generate_mask sp: {wall:.2f} s wall, heads kept "
+                      f"per layer {heads.tolist()}, units kept per layer "
+                      f"{units.tolist()}, remaining weight density "
+                      f"{remain:.6f} (identity outside qkv / fc1 / fc2) "
+                      f"[{card}]")
+                check(bool((heads == max(int(SUITE_DENSITY
+                                             * cfg.num_heads), 1)).all())
+                      and bool((units == max(int(SUITE_DENSITY
+                                                 * cfg.mlp_hidden), 1))
+                               .all()),
+                      "SP kept the wrong number of heads / units")
+                continue
+            print(f"generate_mask {kind}: {wall:.2f} s wall, remaining "
+                  f"density {remain:.6f} against --sparsity "
+                  f"{SUITE_DENSITY} [{card}]")
+            check(abs(remain - SUITE_DENSITY) <= 5e-3,
+                  f"generate_mask {kind} missed its density")
+        # the mask baseline_train reads: the 10 classes of its procedural
+        # data, so the .pth's 1000-class head is re-initialised
+        files["bt_mask"] = os.path.join(tmp, "bt_mask.ckpt")
+        _run_cli(generate_mask.main, [
+            "--model_type", SUITE_MODEL, "--pretrained", pth, "--dataset",
+            "cifar10", "--type", "mag", "--sparsity", str(SUITE_DENSITY),
+            "--save_file", files["bt_mask"]])
+
+        # -- 3. the scorers against the plain versions ---------------------
+        _hold_scorers(card, params, cfg, files)
+
+        # -- 4. baseline_train ---------------------------------------------
+        base = ["--model_type", SUITE_MODEL, "--dataset", "procedural",
+                "--train_batch_size", str(BATCH), "--eval_batch_size",
+                str(BATCH), "--synthetic_steps", str(SUITE_STEPS),
+                "--init_weight", pth, "--output_dir", tmp, "--dp", "1"]
+        name = cfg.name
+
+        def ckpt(run, epoch):
+            return os.path.join(tmp, run, f"{name}_baseline_{epoch}.ckpt")
+
+        def train(run, extra, steps, evals):
+            t0 = time.perf_counter()
+            out, counts = _run_cli(baseline_train.main,
+                                   base + extra + ["--name", run])
+            wall = time.perf_counter() - t0
+            want = _want(counts, train=(BASE_TRAIN_STEP, steps),
+                         eval=(BASE_EVAL_BATCH, evals * 8))
+            print(f"launches baseline_train {run:8s} {counts} (expected "
+                  f"{want}); {wall:.2f} s wall")
+            check(counts == want, f"baseline_train {run} launch counts")
+            add(counts)
+            return out
+
+        mask_args = ["--init_mask", files["bt_mask"], "--model_ema", "1"]
+        out = train("full", mask_args + ["--epochs", "2"], 2 * SUITE_STEPS,
+                    2)
+        epochs = re.findall(r"\[Baseline Epoch (\d+)\] ([\d.]+)s "
+                            r"\(([\d.]+) img/s\)", out)
+        accs = re.findall(r"\[Baseline Eval\|Epoch (\d+)\] acc ([\d.]+)%",
+                          out)
+        check(len(epochs) == 2 and len(accs) == 2, f"epoch lines {epochs}")
+        loader = ProceduralLoader(BATCH, num_batches=SUITE_STEPS,
+                                  img_size=cfg.img_size, num_classes=10,
+                                  train=True, seed=42)
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        host_ms = 1e3 * (time.perf_counter() - t0) / SUITE_STEPS
+        for ep, secs, rate in epochs:
+            print(f"baseline_train epoch {ep} as it logs it (DeiT-Small, "
+                  f"batch {BATCH}, {SUITE_STEPS} procedural steps, mask "
+                  f"density {SUITE_DENSITY}, EMA, drop-path 0.1, reprob "
+                  f"0.25, mixup / cutmix): {rate} img/s ({secs} s) [{card}]")
+        print(f"  the baseline step alone (phase 6, one resident batch): "
+              f"{STEP_RATES.get('baseline step', 0.0):.1f} img/s; the "
+              f"procedural loader: {host_ms:.1f} ms a batch of {BATCH} on "
+              f"the host [{card}]")
+
+        ck1 = load_checkpoint(ckpt("full", 1))
+        masked = leaked = 0
+        for k, m in ck1["masks"].items():
+            off = m == 0
+            node = ck1["opt_state"]["0"]
+            for mom in ("mu", "nu"):
+                leaf = node[mom]
+                for part in k.split("."):
+                    leaf = leaf[part]
+                leaked += int((leaf[off] != 0).sum())
+            masked += int(off.sum())
+        print(f"baseline_train epoch-1 checkpoint: {masked} masked "
+              f"coordinates, {leaked} AdamW moments (mu, nu) nonzero there")
+        check(masked > 0 and leaked == 0, "a masked coordinate has a moment")
+
+        train("resumed", mask_args + ["--epochs", "2", "--resume",
+                                      ckpt("full", 0)], SUITE_STEPS, 1)
+        with open(ckpt("full", 1), "rb") as a, \
+                open(ckpt("resumed", 1), "rb") as b:
+            same = a.read() == b.read()
+        print(f"baseline_train resumed from epoch 0: epoch-1 checkpoint "
+              f"({os.path.getsize(ckpt('full', 1)) / 2 ** 20:.1f} MiB) bit "
+              f"for bit the first run's: {same}")
+        check(same, "the resumed baseline run differs")
+
+        t_start, delta_t, times = 2, 4, 2
+        out = train("gmp", ["--gmp", "1", "--sparsity", str(SUITE_DENSITY),
+                            "--t_start", str(t_start), "--delta_t",
+                            str(delta_t), "--pruning_times", str(times),
+                            "--epochs", "1"], SUITE_STEPS, 1)
+        events = re.findall(r"\[GMP\] step (\d+): pruning event (\d+), "
+                            r"remaining ([\d.]+)%", out)
+        check(len(events) == times, f"GMP events {events}")
+        for st, ev, rem in events:
+            want_d = 1.0 - cubic_sparsity(0.0, SUITE_DENSITY, int(st),
+                                          t_start, times, delta_t)
+            print(f"baseline_train --gmp 1: event {ev} at step {st}, "
+                  f"remaining {rem}% (cubic_sparsity: "
+                  f"{want_d * 100:.2f}%)")
+            check(abs(float(rem) / 100 - want_d) <= 1e-4,
+                  "GMP's density does not follow cubic_sparsity")
+
+        out = train("eval", ["--eval", "--resume", ckpt("full", 1)], 0, 1)
+        acc = re.findall(r"Eval accuracy ([\d.]+)%", out)
+        print(f"baseline_train --eval --resume (epoch 1): {acc[0]}%, the "
+              f"run's own epoch-1 eval {accs[1][1]}%")
+        check(acc == [accs[1][1]], "--eval disagrees with the run's eval")
+
+        # -- 5. show_gradient_sparsity -------------------------------------
+        out, counts = _run_cli(show_gradient_sparsity.main, [
+            "--model_type", SUITE_MODEL, "--dataset", "synthetic",
+            "--train_batch_size", str(BATCH), "--num_batches", "4",
+            "--model_path", pth, "--output_dir", tmp, "--top", "5"])
+        want = _want(counts, score=(SCORE_PASS, 4))
+        print(f"launches show_gradient_sparsity {counts} (expected {want})")
+        check(counts == want, "show_gradient_sparsity launch counts")
+        check("overall zero-gradient fraction" in out, "no report")
+        add(counts)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3684,6 +4277,8 @@ def main():
     t2t_stage2_counts = t2t_stage2_phase(card)
     # phase 12: the two-stage pipeline through its CLIs (DeiT-Small)
     pipeline_counts = pipeline_phase(card)
+    # phase 13: the baseline-pruning suite through its CLIs (DeiT-Small)
+    suite_counts = baseline_suite_phase(card)
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
@@ -3691,11 +4286,14 @@ def main():
     # fine-tune and the SE eval (A9), the timed ViT-H/14 window (A2 and A4
     # at dm 1280; A8 only on the composed route, past it) and the resnext
     # window, phase 11's stage-2 windows (A6 at a compact layer's
-    # padded width, A2 below dm), and phase 12's CLI runs and served export
+    # padded width, A2 below dm), phase 12's CLI runs and served export,
+    # and phase 13's (the scorers' passes at batch 1 and 128, the baseline
+    # runs, the gradient report)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
-                   compact_counts, t2t_stage2_counts, pipeline_counts):
+                   compact_counts, t2t_stage2_counts, pipeline_counts,
+                   suite_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

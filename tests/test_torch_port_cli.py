@@ -312,13 +312,13 @@ def test_export_compact_serves_the_masked_dense_logits(tmp_path,
     assert rel <= 2e-2, rel
 
 
-@pytest.mark.parametrize("case", ["npz", "torch", "dp", "mp", "processes",
-                                  "post_torch", "stablehlo"])
+@pytest.mark.parametrize("case", ["dp", "mp", "processes", "post_torch",
+                                  "stablehlo", "baseline_dp",
+                                  "baseline_processes", "hybrid_npz"])
 def test_unported_routes_raise(tmp_path, case):
     base = TINY + ["--device", "cpu", "--output_dir", str(tmp_path)]
+    from uvc_tpu_torch.cli import baseline_train as t_base
     calls = {
-        "npz": (t_joint.main, base + ["--model_path", "w.npz"], "item 6"),
-        "torch": (t_joint.main, base + ["--model_path", "w.pth"], "item 6"),
         "dp": (t_joint.main, base + ["--dp", "2"], "item 7"),
         "mp": (t_joint.main, base + ["--dp", "1", "--mp", "2"], "item 7"),
         "processes": (t_joint.main, base + ["--num_processes", "2"],
@@ -328,10 +328,103 @@ def test_unported_routes_raise(tmp_path, case):
         "stablehlo": (t_export.main, [
             "--checkpoint", "x.ckpt", "--save_file", "y.ckpt",
             "--export_stablehlo", "z.npz"], "item 8"),
+        "baseline_dp": (t_base.main, base + ["--dp", "4", "--mp", "2"],
+                        "item 7"),
+        "baseline_processes": (t_base.main, base + ["--num_processes", "2"],
+                               "item 7"),
+        # the R50 hybrid stem of an upstream .npz (models/resnet.py)
+        "hybrid_npz": (t_joint.main, [
+            "--model_type", "R50-ViT-B_16", "--dataset", "synthetic",
+            "--img_size", "32", "--train_batch_size", "8",
+            "--model_path", "w.npz", "--device", "cpu", "--output_dir",
+            str(tmp_path)], "item 6"),
     }
     main, argv, item = calls[case]
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         main(argv)
+
+
+def _testing_npz(path, cfg):
+    """An upstream-layout ViT ``.npz`` of the testing model, seeded
+    random weights, a 1000-class head."""
+    d, f, p = cfg.embed_dim, cfg.mlp_hidden, cfg.patch_size
+    h, dh = cfg.num_heads, cfg.head_size
+    rng = np.random.default_rng(11)
+
+    def rn(*shape):
+        return (0.2 * rng.standard_normal(shape)).astype(np.float32)
+
+    w = {"embedding/kernel": rn(p, p, 3, d), "embedding/bias": rn(d),
+         "cls": rn(1, 1, d),
+         "Transformer/posembed_input/pos_embedding": rn(1, cfg.seq_len, d),
+         "Transformer/encoder_norm/scale": 1 + rn(d),
+         "Transformer/encoder_norm/bias": rn(d),
+         "head/kernel": rn(d, 1000), "head/bias": rn(1000)}
+    at = "Transformer/encoderblock_{}/MultiHeadDotProductAttention_1"
+    for i in range(cfg.depth):
+        pre = f"Transformer/encoderblock_{i}"
+        for nm in ("query", "key", "value"):
+            w[f"{at.format(i)}/{nm}/kernel"] = rn(d, h, dh)
+            w[f"{at.format(i)}/{nm}/bias"] = rn(h, dh)
+        w[f"{at.format(i)}/out/kernel"] = rn(h, dh, d)
+        w[f"{at.format(i)}/out/bias"] = rn(d)
+        w[f"{pre}/MlpBlock_3/Dense_0/kernel"] = rn(d, f)
+        w[f"{pre}/MlpBlock_3/Dense_0/bias"] = rn(f)
+        w[f"{pre}/MlpBlock_3/Dense_1/kernel"] = rn(f, d)
+        w[f"{pre}/MlpBlock_3/Dense_1/bias"] = rn(d)
+        for ln in ("LayerNorm_0", "LayerNorm_2"):
+            w[f"{pre}/{ln}/scale"] = 1 + rn(d)
+            w[f"{pre}/{ln}/bias"] = rn(d)
+    np.savez(path, **w)
+
+
+@pytest.mark.parametrize("kind", ["pth", "npz"])
+def test_joint_train_starts_from_converted_weights(tmp_path, monkeypatch,
+                                                   kind):
+    """``joint_train --model_path`` a timm ``.pth`` or an upstream
+    ``.npz``: stage 1 starts from (and distils from) the converted
+    weights, JAX's converter's leaf for leaf."""
+    from uvc_tpu.models import convert as jconvert
+    from uvc_tpu_torch.models import convert as tconvert
+    from uvc_tpu_torch.train import stage1
+    from uvc_tpu_torch.utils.tree import leaf_at, tree_leaves_with_path
+    jcfg = jconfigs.get_config("testing").replace(num_classes=1000)
+    tcfg = tconfigs.get_config("testing").replace(num_classes=1000)
+    path = str(tmp_path / f"w.{kind}")
+    if kind == "pth":
+        params = jax.tree.map(np.asarray,
+                              jvit.init_params(jax.random.PRNGKey(5), jcfg))
+        rng = np.random.default_rng(5)
+        params = jax.tree.map(
+            lambda a: (0.2 * rng.standard_normal(a.shape)).astype(
+                np.float32), params)
+        torch.save({"model": tconvert.to_torch_state_dict(
+            jax.tree.map(torch.from_numpy, params), tcfg)}, path)
+        ref = jconvert.load_torch_checkpoint(path, jcfg)
+    else:
+        _testing_npz(path, jcfg)
+        ref = jconvert.load_npz_checkpoint(path, jcfg)
+    seen = {}
+    real = stage1.run_stage1
+
+    def spy(*args, **kw):
+        seen["params"] = kw["params"]
+        seen["teacher"] = kw["teacher_params"]
+        return real(*args, **kw)
+
+    monkeypatch.setattr(stage1, "run_stage1", spy)
+    t_joint.main(TINY + [
+        "--synthetic_steps", "2", "--num_epochs", "1", "--warmup_epochs",
+        "1", "--post_num_epochs", "0", "--warmup_steps", "1",
+        "--enable_patch_gating", "0", "--distillation-type", "soft",
+        "--model_path", path, "--dp", "1", "--device", "cpu",
+        "--output_dir", str(tmp_path), "--name", kind])
+    for tree in (seen["params"], seen["teacher"]):
+        for p, leaf in tree_leaves_with_path(tree):
+            np.testing.assert_array_equal(
+                leaf.numpy(), np.asarray(leaf_at(ref, p)), err_msg=str(p))
+    ck = load_checkpoint(str(tmp_path / kind / "testing_1.ckpt"))
+    assert int(ck["global_step"]) == 2
 
 
 def test_metric_logger_writes_what_jax_writes(tmp_path):

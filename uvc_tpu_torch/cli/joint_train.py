@@ -21,10 +21,6 @@ from uvc_tpu_torch.cli import flags
 from uvc_tpu_torch.configs import get_config
 from uvc_tpu_torch.train.stage1 import MULTI_DEVICE
 
-NOT_PORTED_CONVERT = ("reading {} checkpoints needs models/convert.py, "
-                      "which is not ported yet; see ROADMAP.md queue A "
-                      "item 6")
-
 
 def check_single_device(args) -> None:
     """Raise unless the run is single-device: ``--dp 1 --mp 1``, or one
@@ -83,20 +79,27 @@ def build_loaders(args, num_classes: int, img_size: int):
     return train, test
 
 
-def load_params(args, cfg, generator=None):
-    """The weights of ``--model_path`` (a ``.ckpt`` of either package) or,
-    without it, a model drawn from ``generator`` (seeded from ``--seed``)
-    on ``--device``.  A timm / torch or ``.npz`` checkpoint raises: its
-    converter is not ported, and the run must not start from random
-    weights instead."""
-    from uvc_tpu_torch.models import get_model
+def load_weights(path: str, cfg):
+    """The parameter tree of a weights file, on the CPU: a ``.ckpt`` of
+    either package (its ``params``), an upstream ViT ``.npz``, else a
+    timm / torch ``.pth`` (both through ``models/convert.py``)."""
+    from uvc_tpu_torch.models import convert
     from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    if path.endswith(".ckpt"):
+        ck = load_checkpoint(path)
+        return ck["params"] if "params" in ck else ck
+    if path.endswith(".npz"):
+        return convert.load_npz_checkpoint(path, cfg)
+    return convert.load_torch_checkpoint(path, cfg)
+
+
+def load_params(args, cfg, generator=None):
+    """The weights of ``--model_path`` (``load_weights``) or, without it,
+    a model drawn from ``generator`` (seeded from ``--seed``) on
+    ``--device``."""
+    from uvc_tpu_torch.models import get_model
     if args.pretrained and args.model_path:
-        if args.model_path.endswith(".ckpt"):
-            ck = load_checkpoint(args.model_path)
-            return ck["params"] if "params" in ck else ck
-        kind = "npz" if args.model_path.endswith(".npz") else "torch"
-        raise NotImplementedError(NOT_PORTED_CONVERT.format(kind))
+        return load_weights(args.model_path, cfg)
     generator = generator or torch.Generator().manual_seed(args.seed)
     return get_model(cfg).init_params(
         generator, cfg,

@@ -8,8 +8,8 @@ checkpoint (counterpart of ``uvc_tpu/cli/post_train.py``).
 
 The checkpoint is a ``.ckpt`` of either package, with its masks or with
 the minimax state they are rebuilt from.  A torch stage-1 checkpoint
-raises: reading it needs ``models/convert.py`` (ROADMAP.md queue A item
-6), and its masks are not all ones.
+raises: its masks are its ``*.mask`` buffers, not all ones, and reading
+them is not ported yet (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -17,11 +17,14 @@ from __future__ import annotations
 import argparse
 
 from uvc_tpu_torch.cli import flags
-from uvc_tpu_torch.cli.joint_train import (NOT_PORTED_CONVERT,
-                                           build_loaders,
+from uvc_tpu_torch.cli.joint_train import (build_loaders,
                                            check_single_device,
                                            load_teacher)
 from uvc_tpu_torch.configs import get_config
+
+NOT_PORTED_TORCH_STAGE1 = ("stage 2 from a torch stage-1 checkpoint (its "
+                           "*.mask buffers) is not ported yet; see "
+                           "ROADMAP.md queue A item 6")
 
 
 def stage1_params_and_masks(path: str, cfg):
@@ -30,7 +33,7 @@ def stage1_params_and_masks(path: str, cfg):
     from uvc_tpu_torch.compress.masks import build_masks
     from uvc_tpu_torch.utils.checkpoint import load_checkpoint
     if not path.endswith(".ckpt"):
-        raise NotImplementedError(NOT_PORTED_CONVERT.format("torch"))
+        raise NotImplementedError(NOT_PORTED_TORCH_STAGE1)
     ck = load_checkpoint(path)
     params = ck["params"] if "params" in ck else ck
     if ck.get("masks") is not None:

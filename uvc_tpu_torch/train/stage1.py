@@ -108,20 +108,27 @@ def expectation_and_real_flops(params, cstate, cfg: ViTConfig,
     return frac(1.0), frac(1.0), frac(1.0)
 
 
-def run_validation(eval_fn, params, masks, loader, logger, step: int,
-                   device="cuda") -> float:
-    """Top-1 accuracy of ``eval_fn(params, masks, x, labels)`` (the
-    counts of ``train/step.py::eval_step``) over ``loader``, summed on
-    the device and read once; logged as ``test/accuracy`` and
-    ``test/loss``."""
+def eval_totals(eval_fn, params, masks, loader, device="cuda"):
+    """(correct, loss sum, count) of ``eval_fn(params, masks, x, labels)``
+    (the counts of ``train/step.py::eval_step``) over ``loader``, summed
+    on the device and read once."""
     totals = None
     for x, y in device_prefetch(iter(loader), device=device):
         m = eval_fn(params, masks, normalize_on_device(x), y.long())
         totals = m if totals is None else {k: totals[k] + m[k]
                                            for k in totals}
-    correct = int(totals["correct"]) if totals else 0
-    loss_sum = float(totals["loss_sum"]) if totals else 0.0
-    count = int(totals["count"]) if totals else 0
+    if totals is None:
+        return 0, 0.0, 0
+    return (int(totals["correct"]), float(totals["loss_sum"]),
+            int(totals["count"]))
+
+
+def run_validation(eval_fn, params, masks, loader, logger, step: int,
+                   device="cuda") -> float:
+    """Top-1 accuracy of ``eval_totals`` over ``loader``; logged as
+    ``test/accuracy`` and ``test/loss``."""
+    correct, loss_sum, count = eval_totals(eval_fn, params, masks, loader,
+                                           device)
     acc = correct / max(1, count)
     logger.info(f"Validation @ step {step}: loss "
                 f"{loss_sum / max(1, count):.5f} acc {acc * 100:.3f}%")
