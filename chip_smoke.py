@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 and phase 7's kernel
                                            # rows, then the card line (no
                                            # phases 4-13)
+    python3 chip_smoke.py --backbones-only # phase 3 at R50-ViT-B/16's block
+                                           # shape and phase 14, then the
+                                           # card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -254,6 +257,35 @@ Phases, each of which stops the run with a non-zero exit on failure:
    ``cli/show_gradient_sparsity.py`` over 4 batches of 64 (K1, K2, A2,
    A6 48 each).
 
+14. other backbones -- (a) R50-ViT-B/16 at full width and depth (the
+   (3, 4, 9) ResNetV2 stem at width 1, 12 blocks of 768, 12 heads of 64,
+   F 3072, 224 px, 1000 classes) with seeded weights written as an
+   upstream ``.npz`` (all 16 stem units) and read back through
+   ``load_npz_checkpoint`` equal to what was written: the stage-1 step
+   with phase 5's flagship settings and the same weights as a dense
+   teacher at batch 64 (3 untimed + 10 timed steps, per step K1 24, K2 12,
+   K3 12, A2 12, A4 12; a profiled step), one step at depth 2 and batch 2
+   (the full stem at 224 px) on the card against the CPU plain path; a
+   seeded discovered architecture on the trained weights (3 of 12 heads
+   off each layer, half the units, blocks 3 and 8 gated off) served
+   through ``compact_model`` + ``apply_compact`` at token ratio 0.7 and
+   through ``eval_step`` (5 passes of 4 batches of 64, exact launches),
+   compact vs masked dense; the dense stage-2 step and compact_ft (1 +
+   3 steps each, exact launches; compact_ft's padding and v-masked
+   coordinates exactly 0) and one step of each from one state.  (b)
+   CaiT-S24-224 (24 blocks of 384, 8 heads of 48, 2 class-attention
+   blocks): ``cli/generate_mask.py --type mag`` at density 0.5 on seeded
+   weights, then phase 6's baseline fine-tune under that mask (3 untimed
+   + 10 timed steps, no kernel launched: the talking heads are a
+   composition; AdamW's moments exactly 0 at every masked coordinate; a
+   profiled step; one batch-8 step at depth 2 against the CPU plain path)
+   and the eval step's img/s.  (c) ``cli/post_train.py`` from a
+   reference-layout torch stage-1 ``.pth.tar`` (DeiT-Small with phase 11's
+   architecture, a ``*.mask`` buffer on every weighted module): the masks
+   it reads bit for bit the masks written, 1 epoch of 4 steps with exact
+   launches, AdamW's first moment exactly 0 at every coordinate the masks,
+   the pruned heads and the skipped blocks freeze.
+
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
 shape of the path that launches it most: K1 and K3 at "eval", K2 at
@@ -458,6 +490,9 @@ FWD_SHAPES = {
     "long": (4, 1025, 1280, 16, 5120, 80, ("layer_attention",)),
     # SynFlow's scoring pass on DeiT-Small: one all-ones image
     "synflow": (1, 197, 384, 6, 1536, 64, ("layer_attention_ln", "mlp_ln")),
+    # R50-ViT-B/16's blocks (phase 14): dm 768, 12 heads of 64, F 3072
+    "vit_b": (BATCH, 197, 768, 12, 3072, 64,
+              ("layer_attention_ln", "mlp_ln", "mlp_ln_blend")),
 }
 # the shapes that the parent commit's kernels take as well (head dim 64):
 # ``--digests`` holds the kernels there only, so that the same script can
@@ -468,7 +503,7 @@ PARENT_SHAPES = ("eval", "compact", "dense", "train", "ragged", "se",
                  "t2t_stage2_skip", "synflow")
 
 
-def kernel_phase(eps, digests_only=False, refused_ok=False):
+def kernel_phase(eps, digests_only=False, refused_ok=False, only=None):
     from uvc_tpu_torch.ops.attention import (layer_attention,
                                              layer_attention_ln,
                                              layer_attention_ln_plain,
@@ -479,7 +514,8 @@ def kernel_phase(eps, digests_only=False, refused_ok=False):
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
     for shape, (b, n, dm, heads, f, dh, kernels) in FWD_SHAPES.items():
-        if digests_only and shape not in PARENT_SHAPES:
+        if (digests_only and shape not in PARENT_SHAPES) or (
+                only and shape not in only):
             continue
         t = _inputs(gen, b, n, dm, heads, f, dh)
         x = t["x"]
@@ -962,6 +998,9 @@ BWD_SHAPES = {
     # backward runs A2 and A6
     "synflow": (1, 197, 384, 6, 1536, 64, ("layer_attention_ln_bwd",
                                            "mlp_ln_bwd")),
+    # R50-ViT-B/16's stage 1 (A2, A4), stage 2 (A2, A4) and compact_ft (A6)
+    "vit_b": (BATCH, 197, 768, 12, 3072, 64,
+              ("layer_attention_ln_bwd", "mlp_ln_blend_bwd", "mlp_ln_bwd")),
 }
 
 
@@ -973,7 +1012,8 @@ def _library_backward(run, leaves, do):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
-def backward_kernel_phase(eps, digests_only=False, refused_ok=False):
+def backward_kernel_phase(eps, digests_only=False, refused_ok=False,
+                          only=None):
     from uvc_tpu_torch.ops.attention import (layer_attention_bwd,
                                              layer_attention_bwd_plain,
                                              layer_attention_ln_bwd,
@@ -985,7 +1025,8 @@ def backward_kernel_phase(eps, digests_only=False, refused_ok=False):
     gen = torch.Generator(device="cuda").manual_seed(3)
     results = {}
     for shape, (b, n, dm, heads, f, dh, kernels, *opt) in BWD_SHAPES.items():
-        if digests_only and shape not in PARENT_SHAPES:
+        if (digests_only and shape not in PARENT_SHAPES) or (
+                only and shape not in only):
             continue
         opt = opt[0] if opt else {}
         g = (torch.Generator(device="cuda").manual_seed(opt["seed"])
@@ -1583,14 +1624,17 @@ BASE_DROP_PATH, BASE_REPROB, BASE_DENSITY = 0.1, 0.25, 0.5
 
 
 def baseline_phase(card, per_step, cfg_name="deit_small_patch16_224",
-                   label="DeiT-Small", seed=8, timed=True):
+                   label="DeiT-Small", seed=8, timed=True, init=None,
+                   cpu_depth=None):
     """The baseline fine-tune step on ``cfg_name`` at full width and batch
     64, seeded random weights, under a one-shot global magnitude mask with
-    the recipe above.  ``per_step``: the launches each step must make (0 of
-    every other kernel).  Timed: 3 untimed steps, then 10 timed as one
-    window, peak memory, the masked coordinates' gradients, a profiled
+    the recipe above (``init``: the (params, weight masks) to start from
+    instead).  ``per_step``: the launches each step must make (0 of every
+    other kernel).  Timed: 3 untimed steps, then 10 timed as one window,
+    peak memory, AdamW's moments at the masked coordinates, a profiled
     step; else 2 steps.  Then one batch-8 step on the card against the CPU
-    plain path.  Returns (launch counts, state, masks)."""
+    plain path (at the first ``cpu_depth`` blocks, from a fresh state,
+    where it is given).  Returns (launch counts, state, masks)."""
     from uvc_tpu_torch.baselines.finetune import (build_baseline_step,
                                                   create_baseline_state,
                                                   draw_baseline_noise)
@@ -1606,11 +1650,15 @@ def baseline_phase(card, per_step, cfg_name="deit_small_patch16_224",
 
     cfg = get_config(cfg_name)
     thp = TrainHParams()                   # AdamW, mixup / cutmix, bf16
-    gen = torch.Generator().manual_seed(seed)
-    params = get_model(cfg).init_params(gen, cfg)
-    params["head"]["kernel"] = 0.05 * torch.randn(
-        params["head"]["kernel"].shape, generator=gen).cuda()
-    wmasks = global_threshold_mask(magnitude_scores(params), BASE_DENSITY)
+    if init is None:
+        gen = torch.Generator().manual_seed(seed)
+        params = get_model(cfg).init_params(gen, cfg)
+        params["head"]["kernel"] = 0.05 * torch.randn(
+            params["head"]["kernel"].shape, generator=gen).cuda()
+        wmasks = global_threshold_mask(magnitude_scores(params),
+                                       BASE_DENSITY)
+    else:
+        params, wmasks = init
     density = mask_sparsity(wmasks)
     check(abs(density - BASE_DENSITY) < 1e-3, f"mask density {density}")
     recipe = dict(drop_path_rate=BASE_DROP_PATH, re_prob=BASE_REPROB)
@@ -1671,28 +1719,37 @@ def baseline_phase(card, per_step, cfg_name="deit_small_patch16_224",
               f"({peak / 2**20:.1f} MiB) [{card}]")
 
         # a gradient at a masked coordinate is exactly zero in every step:
-        # AdamW's first moment there has stayed exactly zero
+        # AdamW's moments there have stayed exactly zero
         masked = leaked = 0
         for path, mk in tree_leaves_with_path(wmasks):
             off = mk == 0
             masked += int(off.sum())
-            leaked += int((leaf_at(state.opt_state.mu, path)[off] != 0).sum())
+            for moments in (state.opt_state.mu, state.opt_state.nu):
+                leaked += int((leaf_at(moments, path)[off] != 0).sum())
         print(f"baseline {label} masked coordinates: {masked}, with a nonzero "
-              f"gradient moment: {leaked}")
+              f"first or second gradient moment after "
+              f"{TRAIN_WARM + TRAIN_TIMED} steps: {leaked}")
         check(masked > 0 and leaked == 0,
               "a masked coordinate received a gradient")
         profile_phase(card, {f"baseline fine-tune step ({label})":
                              lambda: run(state, 1)}, top=14)
 
     small = 8
-    noise = draw_baseline_noise(ngen, cfg, thp, small, device="cpu",
+    c_state, c_masks, c_cfg, c_step = state, wmasks, cfg, step
+    if cpu_depth is not None:
+        cut, c_cfg = _cut_depth(state.params, cfg, cpu_depth)
+        c_masks, _ = _cut_depth(wmasks, cfg, cpu_depth)
+        c_state = create_baseline_state(cut, thp)
+        c_step = build_baseline_step(c_cfg, thp, **recipe)
+    noise = draw_baseline_noise(ngen, c_cfg, thp, small, device="cpu",
                                 **recipe)
-    _, gm = step(state, None, wmasks, x[:small], labels[:small],
-                 _noise_to(noise, "cuda"), -1.0)
-    _, cm = step(_state_to(state, "cpu"), None, _tree_to(wmasks, "cpu"),
-                 x[:small].cpu(), labels[:small].cpu(), noise, -1.0)
-    card_vs_cpu(f"baseline {label} step", small, gm, cm,
-                ("loss", "grad_norm"))
+    _, gm = c_step(c_state, None, c_masks, x[:small], labels[:small],
+                   _noise_to(noise, "cuda"), -1.0)
+    _, cm = c_step(_state_to(c_state, "cpu"), None, _tree_to(c_masks, "cpu"),
+                   x[:small].cpu(), labels[:small].cpu(), noise, -1.0)
+    card_vs_cpu(f"baseline {label} step"
+                + (f" (depth {cpu_depth})" if cpu_depth else ""), small, gm,
+                cm, ("loss", "grad_norm"))
     return counts, state, wmasks
 
 # ---------------------------------------------------------------------------
@@ -2931,24 +2988,86 @@ def _dense_layer_stubs(cfg):
             for _ in range(cfg.depth)]
 
 
+def _one_step_each(label, cfg, step, cstep, state, meta, masks, teacher,
+                   thp, x, labels, ngen):
+    """One dense stage-2 step and one compact_ft step from one state with
+    one draw (the compact state the dense one's kept coordinates, moments
+    and count included): loss and grad_norm, and ``scatter_to_dense`` of
+    the compact result against the dense step on the kept coordinates,
+    within TRAIN_REL_TOL; the qkv biases' key thirds within the step's
+    lr."""
+    import dataclasses
+
+    from uvc_tpu_torch.train.compact_ft import (compact_train_tree,
+                                                scatter_to_dense)
+    from uvc_tpu_torch.train.state import AdamWState
+    from uvc_tpu_torch.train.step import draw_stage2_noise
+    from uvc_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    keep = meta.block_keep
+
+    def project(tree):
+        return compact_train_tree(tree, masks, cfg, block_keep=keep)[0]
+
+    opt = state.opt_state
+    c_one = dataclasses.replace(
+        state, params=project(state.params),
+        opt_state=AdamWState(opt.count, project(opt.mu), project(opt.nu)))
+    noise = draw_stage2_noise(ngen, cfg, thp, BATCH, "cuda")
+    d_new, dm_ = step(state, teacher, masks, x, labels, noise)
+    c_new, cm_ = cstep(c_one, teacher, masks, x, labels, noise)
+    for k in ("loss", "grad_norm"):
+        a, b = float(cm_[k]), float(dm_[k])
+        rel = abs(a - b) / abs(b)
+        print(f"{label} compact vs dense stage-2 step (batch {BATCH}): {k} "
+              f"{a:.6f} vs {b:.6f}, rel {rel:.2e} (tol {TRAIN_REL_TOL})")
+        check(rel <= TRAIN_REL_TOL,
+              f"{label}: compact and dense steps disagree on {k}")
+    scattered = scatter_to_dense(c_new.params, meta, d_new.params)
+    # the key third of the qkv bias gets a rounding-noise gradient (a
+    # key's bias adds one constant to a query's logits): it is held to the
+    # step's lr, the most that one AdamW step moves it, the rest relative
+    lr = float(dm_["lr"])
+    worst, key_bias = (0.0, ""), 0.0
+    for (path, a), (_, b) in zip(tree_leaves_with_path(project(scattered)),
+                                 tree_leaves_with_path(
+                                     project(d_new.params))):
+        if path[-2:] == ("qkv", "bias"):
+            third = a.shape[0] // 3
+            key_bias = max(key_bias, (a[third:2 * third]
+                                      - b[third:2 * third]).abs().max().item())
+            a, b = (torch.cat([t[:third], t[2 * third:]]) for t in (a, b))
+        if b.any():
+            worst = max(worst, (rel_err(a, b)[0], ".".join(path)))
+    print(f"{label} scatter_to_dense(compact step) vs the dense step on the "
+          f"kept coordinates: worst leaf rel_fro {worst[0]:.2e} ({worst[1]}) "
+          f"(tol {TRAIN_REL_TOL}); the qkv biases' key thirds max_abs "
+          f"{key_bias:.2e} (tol lr {lr:.3e})")
+    check(worst[0] <= TRAIN_REL_TOL, f"{label}: compact and dense step "
+          "results disagree on the kept coordinates")
+    check(key_bias <= lr, f"{label}: the qkv biases' key thirds moved more "
+          "than lr")
+    mu_c = torch.cat([t.flatten() for t in tree_leaves(c_new.opt_state.mu)])
+    mu_d = torch.cat([t.flatten() for t in tree_leaves(
+        project(d_new.opt_state.mu))])
+    print(f"  the step's first moments, compact vs dense, kept coordinates: "
+          f"rel_fro {rel_err(mu_c, mu_d)[0]:.2e}")
+
+
 def stage2_phase(card):
     """Phase 11 on DeiT-Small: the dense stage-2 step and compact_ft, each
     3 untimed + 10 timed steps with their exact launches, the frozen and
     padded coordinates checked, one step of each from one state, the card
     against the CPU, a profiled step of each.  Returns the launch counts
     of the two timed windows."""
-    import dataclasses
-
     from uvc_tpu_torch.compress.state import MinimaxHParams
     from uvc_tpu_torch.configs import get_config
     from uvc_tpu_torch.infer.compact import compact_flops_fraction
     from uvc_tpu_torch.train.compact_ft import (build_compact_stage2_step,
-                                                compact_train_tree,
-                                                scatter_to_dense)
-    from uvc_tpu_torch.train.state import (AdamWState, TrainHParams,
-                                           create_train_state)
+                                                compact_train_tree)
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
     from uvc_tpu_torch.train.step import build_stage2_step, draw_stage2_noise
-    from uvc_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path
+    from uvc_tpu_torch.utils.tree import tree_leaves
 
     cfg = get_config("deit_small_patch16_224")
     ln, kept = cfg.depth, cfg.depth - len(SKIPPED_BLOCKS)
@@ -3044,54 +3163,8 @@ def stage2_phase(card):
           f"{frac_c / frac_d:.4f} ({frac_c:.4f} / {frac_d:.4f} of the dense "
           f"model without the token drop)")
 
-    # one step of each from one state with one draw: the compact state is
-    # the dense one's kept coordinates, moments and count included
-    keep = meta.block_keep
-
-    def project(tree):
-        return compact_train_tree(tree, masks, cfg, block_keep=keep)[0]
-
-    opt = state.opt_state
-    c_one = dataclasses.replace(
-        state, params=project(state.params),
-        opt_state=AdamWState(opt.count, project(opt.mu), project(opt.nu)))
-    noise = draw_stage2_noise(ngen, cfg, thp, BATCH, "cuda")
-    d_new, dm_ = step(state, teacher, masks, x, labels, noise)
-    c_new, cm_ = cstep(c_one, teacher, masks, x, labels, noise)
-    for k in ("loss", "grad_norm"):
-        a, b = float(cm_[k]), float(dm_[k])
-        rel = abs(a - b) / abs(b)
-        print(f"compact vs dense stage-2 step (batch {BATCH}): {k} {a:.6f} "
-              f"vs {b:.6f}, rel {rel:.2e} (tol {TRAIN_REL_TOL})")
-        check(rel <= TRAIN_REL_TOL, f"compact and dense steps disagree on {k}")
-    scattered = scatter_to_dense(c_new.params, meta, d_new.params)
-    # the key third of the qkv bias gets a rounding-noise gradient (a
-    # key's bias adds one constant to a query's logits): it is held to the
-    # step's lr, the most that one AdamW step moves it, the rest relative
-    lr = float(dm_["lr"])
-    worst, key_bias = (0.0, ""), 0.0
-    for (path, a), (_, b) in zip(tree_leaves_with_path(project(scattered)),
-                                 tree_leaves_with_path(
-                                     project(d_new.params))):
-        if path[-2:] == ("qkv", "bias"):
-            third = a.shape[0] // 3
-            key_bias = max(key_bias, (a[third:2 * third]
-                                      - b[third:2 * third]).abs().max().item())
-            a, b = (torch.cat([t[:third], t[2 * third:]]) for t in (a, b))
-        if b.any():
-            worst = max(worst, (rel_err(a, b)[0], ".".join(path)))
-    print(f"scatter_to_dense(compact step) vs the dense step on the kept "
-          f"coordinates: worst leaf rel_fro {worst[0]:.2e} ({worst[1]}) "
-          f"(tol {TRAIN_REL_TOL}); the qkv biases' key thirds max_abs "
-          f"{key_bias:.2e} (tol lr {lr:.3e})")
-    check(worst[0] <= TRAIN_REL_TOL,
-          "compact and dense step results disagree on the kept coordinates")
-    check(key_bias <= lr, "the qkv biases' key thirds moved more than lr")
-    mu_c = torch.cat([t.flatten() for t in tree_leaves(c_new.opt_state.mu)])
-    mu_d = torch.cat([t.flatten() for t in tree_leaves(
-        project(d_new.opt_state.mu))])
-    print(f"  the step's first moments, compact vs dense, kept coordinates: "
-          f"rel_fro {rel_err(mu_c, mu_d)[0]:.2e}")
+    _one_step_each("DeiT-Small", cfg, step, cstep, state, meta, masks,
+                   teacher, thp, x, labels, ngen)
 
     profile_phase(card, {"stage-2 train step": lambda: run(state, 1),
                          "compact stage-2 train step":
@@ -3817,12 +3890,15 @@ def _scoring_fns(cfg, dtype):
 
 
 def _cut_depth(params, cfg, depth):
-    """The first ``depth`` blocks of a tree and its config."""
+    """The first ``depth`` blocks of a tree (parameters or weight masks,
+    whose None leaves stay None) and its config."""
+    from uvc_tpu_torch.utils.tree import tree_map
+
     out = dict(params)
-    out["blocks"] = {g: {k: v[:depth] for k, v in sub.items()}
-                     for g, sub in params["blocks"].items()}
+    out["blocks"] = tree_map(lambda v: v[:depth], params["blocks"])
     for k in ("block_gating", "attn_gating", "mlp_gating"):
-        out[k] = params[k][:depth]
+        if out.get(k) is not None:
+            out[k] = params[k][:depth]
     return out, cfg.replace(depth=depth)
 
 
@@ -4205,6 +4281,439 @@ def baseline_suite_phase(card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the other backbones, and stage 2 from a torch checkpoint
+# ---------------------------------------------------------------------------
+
+R50_MODEL = "R50-ViT-B_16"
+# card vs CPU: the full stem at 224 px, depth cut to 2, batch 2
+R50_CPU_DEPTH, R50_CPU_BATCH = 2, 2
+# serving and eval: passes of this many request batches of 64
+R50_SERVE_BATCHES = 4
+# stage 2 and compact_ft: untimed + timed steps (img/s), then one step of
+# each from one state
+R50_S2_WARM, R50_S2_TIMED = 1, 3
+# the flagship stage-1 step's launches on a 12-block ViT: the student's
+# and the teacher's K1, the teacher's K2, the gated student's K3, A2, A4
+FLAGSHIP_STEP = PIPE_TRAIN_STEP
+CAIT_MODEL = "cait_S24_224"
+CAIT_CPU_DEPTH = 2
+TORCH_CKPT_STEPS = 4
+
+
+def _zero_launches(counts):
+    return {name: 0 for name in counts}
+
+
+def _stage1_runner(step, cfg, hp, thp, teacher, x, labels, ngen):
+    """``run(state, n, b)``: n stage-1 steps on the first b images, each
+    with a fresh draw from ``ngen``; returns (state, losses, metrics)."""
+    from uvc_tpu_torch.train.step import draw_stage1_noise
+
+    def run(st, n, b=BATCH):
+        losses = []
+        for _ in range(n):
+            noise = draw_stage1_noise(ngen, cfg, hp, thp, b, "cuda")
+            st, m = step(st, teacher, x[:b], labels[:b], noise, TRAIN_TAU)
+            losses.append(m["loss"])
+        return st, losses, m
+    return run
+
+
+def _timed_window(label, run, state, warm, timed, per_step, card, what):
+    """``warm`` untimed steps, then ``timed`` steps as one window with their
+    launches held to ``per_step`` each (0 of every other kernel); prints
+    img/s and peak memory.  Returns (state, counts, img/s)."""
+    t0 = time.perf_counter()
+    state, _, _ = run(state, warm)
+    torch.cuda.synchronize()
+    print(f"{label}: {warm} untimed steps in {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
+    state, losses, m, counts, secs, issued, peak = _count_window(
+        run, state, timed)
+    want = _want(counts, step=(per_step, timed))
+    print(f"launches {label} {counts} (expected {want})")
+    check(counts == want, f"{label} launch counts differ")
+    check(torch.isfinite(losses).all().item(),
+          f"non-finite {label} losses {losses.tolist()}")
+    rate = timed * BATCH / secs
+    print(f"{label} ({what}, batch {BATCH}, bf16): {rate:.1f} img/s "
+          f"({timed} steps in {secs:.4f} s, {1e3 * secs / timed:.2f} "
+          f"ms/step; the host had issued them after {issued:.4f} s) [{card}]")
+    print(f"  losses {[round(v, 4) for v in losses.tolist()]}; last step "
+          f"grad_norm={float(m['grad_norm']):.4f}")
+    print(f"{label} max_memory_allocated={peak} bytes "
+          f"({peak / 2**20:.1f} MiB) [{card}]")
+    return state, counts, rate
+
+
+def _npz_round_trip(params, cfg, tmp):
+    """Write ``params`` as an upstream R50+ViT ``.npz`` and read it back
+    through ``load_npz_checkpoint``: every leaf the file carries equal to
+    what was written.  Returns the loaded tree on the card."""
+    import numpy as np
+
+    from uvc_tpu_torch.models.convert import load_npz_checkpoint, to_npz_dict
+    from uvc_tpu_torch.utils.tree import leaf_at, tree_leaves_with_path
+
+    path = os.path.join(tmp, "r50_vit_b16.npz")
+    t0 = time.perf_counter()
+    np.savez(path, **to_npz_dict(params, cfg))
+    loaded = load_npz_checkpoint(path, cfg)
+    secs = time.perf_counter() - t0
+    carried = [(p, leaf) for p, leaf in tree_leaves_with_path(loaded)
+               if p[0] not in ("block_gating", "attn_gating", "mlp_gating",
+                               "token_scorer")]
+    bad = [".".join(p) for p, leaf in carried
+           if not torch.equal(leaf, leaf_at(params, p).float().cpu())]
+    units = [len(loaded["resnet"][f"block{i}"]) for i in (1, 2, 3)]
+    print(f"R50-ViT-B/16 upstream .npz: {os.path.getsize(path) / 2**20:.1f} "
+          f"MiB written and read back in {secs:.2f} s; stem units {units} "
+          f"({sum(units)}), {len(carried)} leaves, {len(bad)} differ from "
+          f"what was written")
+    check(units == [3, 4, 9], f"the stem's units {units}")
+    check(not bad, f"leaves read back unequal: {bad[:5]}")
+    return _tree_to(loaded, "cuda")
+
+
+def r50_phase(card):
+    """Phase 14 (a): R50-ViT-B/16 at full width and depth through stage 1,
+    eval, compact serving, stage 2 and compact_ft.  Returns the launches
+    of its windows."""
+    import tempfile
+
+    from uvc_tpu_torch.compress.masks import build_masks
+    from uvc_tpu_torch.compress.minimax import init_compression_state
+    from uvc_tpu_torch.compress.resource import build_macs_table
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.infer.compact import apply_compact, compact_model
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.ops import (launch_counts, reset_launch_counts)
+    from uvc_tpu_torch.train.compact_ft import (build_compact_stage2_step,
+                                                compact_train_tree)
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.step import (build_stage1_step,
+                                          build_stage2_step,
+                                          draw_stage1_noise, eval_step)
+    from uvc_tpu_torch.utils.tree import tree_map
+
+    cfg = get_config(R50_MODEL)
+    ln = cfg.depth
+    check((cfg.embed_dim, cfg.num_heads, cfg.mlp_hidden, cfg.seq_len,
+           cfg.resnet_layers) == (768, 12, 3072, 197, (3, 4, 9)),
+          "R50-ViT-B/16's widths")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    grown = _grown_vit(cfg, 70)
+    with tempfile.TemporaryDirectory(prefix="uvc_r50_") as tmp:
+        params = _npz_round_trip(grown, cfg, tmp)
+    del grown
+    # the teacher: the same upstream weights, dense
+    teacher = tree_map(torch.clone, params)
+
+    # -- stage 1 ------------------------------------------------------------
+    hp = MinimaxHParams(enable_patch_gating=2, gating_interval=100)
+    thp = TrainHParams()
+    table = build_macs_table(cfg)
+    step = build_stage1_step(cfg, table, hp, thp, warmup=False)
+    igen = torch.Generator(device="cuda").manual_seed(71)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(72)
+    run = _stage1_runner(step, cfg, hp, thp, teacher, x, labels, ngen)
+    state = create_train_state(params, thp,
+                               init_compression_state(cfg, hp, "cuda"))
+    state, counts, _ = _timed_window(
+        "R50 stage-1 train step", run, state, TRAIN_WARM, TRAIN_TIMED,
+        FLAGSHIP_STEP, card, "R50-ViT-B/16")
+    add(counts)
+    profile_phase(card, {"R50 stage-1 train step": lambda: run(state, 1)},
+                  top=14)
+
+    # the card against the CPU plain path: the full stem at 224 px, the
+    # first blocks, from one state with one set of draws
+    small, cut_cfg = R50_CPU_BATCH, cfg.replace(depth=R50_CPU_DEPTH)
+    cut, _ = _cut_depth(params, cfg, R50_CPU_DEPTH)
+    cut_teacher, _ = _cut_depth(teacher, cfg, R50_CPU_DEPTH)
+    c_state = create_train_state(cut, thp, init_compression_state(
+        cut_cfg, hp, "cuda"))
+    c_step = build_stage1_step(cut_cfg, build_macs_table(cut_cfg), hp, thp,
+                               warmup=False)
+    noise = draw_stage1_noise(ngen, cut_cfg, hp, thp, small, "cpu")
+    _, gm = c_step(c_state, cut_teacher, x[:small], labels[:small],
+                   _noise_to(noise, "cuda"), TRAIN_TAU)
+    t0 = time.perf_counter()
+    _, cm = c_step(_state_to(c_state, "cpu"), _tree_to(cut_teacher, "cpu"),
+                   x[:small].cpu(), labels[:small].cpu(), noise, TRAIN_TAU)
+    print(f"R50 stage-1 step on the CPU plain path (depth {R50_CPU_DEPTH}, "
+          f"batch {small}): {time.perf_counter() - t0:.2f} s")
+    card_vs_cpu(f"R50 stage-1 step (depth {R50_CPU_DEPTH})", small, gm, cm,
+                ("loss", "grad_norm", "resource"))
+
+    # -- a discovered architecture: eval and compact serving ----------------
+    trained = tree_map(lambda t: t.detach().clone(), state.params)
+    gen = torch.Generator().manual_seed(73)
+    s = torch.tensor([[3.0, cfg.mlp_hidden / 2]] * ln)
+    r = torch.randint(0, cfg.head_size // 4 + 1, (ln, cfg.num_heads),
+                      generator=gen).float()
+    masks = build_masks(trained, s.cuda(), r.cuda(), cfg)
+    gating = torch.tensor([[-1.0, 1.0]] * ln)
+    for i in SKIPPED_BLOCKS:
+        gating[i] = torch.tensor([1.0, -1.0])
+    trained["block_gating"] = gating.cuda()
+    kept = ln - len(SKIPPED_BLOCKS)
+    layers, top = compact_model(trained, masks, cfg)
+    check(len(layers) == kept and "resnet" in top
+          and all(b["num_heads"] == 9
+                  and b["fc1"]["kernel"].shape[1] == cfg.mlp_hidden // 2
+                  for b in layers),
+          "R50 compact layers are not 10 of 9 heads / F 1536 with the stem")
+    images = [torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                          generator=igen, device="cuda")
+              for _ in range(R50_SERVE_BATCHES)]
+    ehp = MinimaxHParams(enable_block_gating=True, enable_patch_gating=2,
+                         patch_ratio=TOKEN_RATIO)
+    n_img = R50_SERVE_BATCHES * BATCH
+
+    def serve():
+        return [apply_compact(layers, top, xb, cfg, token_ratio=TOKEN_RATIO)
+                .logits for xb in images]
+
+    def evaluate():
+        tot = 0
+        for xb in images:
+            tot = tot + eval_step(trained, masks, xb, labels, cfg,
+                                  ehp)["correct"]
+        return tot.item()
+
+    with torch.no_grad():
+        serve()
+        evaluate()
+        reset_launch_counts()
+        w_serve, _, logits = passes(serve)
+        serve_counts = launch_counts()
+        reset_launch_counts()
+        w_eval, _, _ = passes(evaluate)
+        eval_counts = launch_counts()
+    runs = N_PASSES * R50_SERVE_BATCHES
+    want_serve = _want(serve_counts, b=({"layer_attention_ln": kept,
+                                         "mlp_ln": kept}, runs))
+    want_eval = _want(eval_counts, b=(PIPE_EVAL_BATCH, runs))
+    print(f"launches R50 compact serving {serve_counts} (expected "
+          f"{want_serve})")
+    print(f"launches R50 eval_step       {eval_counts} (expected "
+          f"{want_eval})")
+    check(serve_counts == want_serve, "R50 serving launch counts differ")
+    check(eval_counts == want_eval, "R50 eval launch counts differ")
+    add(serve_counts)
+    add(eval_counts)
+    for lab, window in (("compact serving (token ratio 0.7)", w_serve),
+                        ("eval_step (masked dense)", w_eval)):
+        print(f"R50-ViT-B/16 {lab}: {N_PASSES * n_img / window:.1f} img/s "
+              f"({N_PASSES} passes of {R50_SERVE_BATCHES} batches of "
+              f"{BATCH} in {window:.4f} s) [{card}]")
+    keep = (trained["block_gating"][:, 1] > trained["block_gating"][:, 0])
+    hard = torch.stack([1.0 - keep.float(), keep.float()], dim=-1)
+    with torch.no_grad():
+        for ratio, mode in ((None, 0), (TOKEN_RATIO, 2)):
+            dense = vit.apply(trained, images[0], cfg, gating_distrib=hard,
+                              masks=masks, patch_gate_mode=mode,
+                              patch_ratio=TOKEN_RATIO, patch_physical=True,
+                              dtype=torch.bfloat16).logits
+            comp = apply_compact(layers, top, images[0], cfg,
+                                 token_ratio=ratio).logits
+            rel, mx = rel_err(comp, dense)
+            check(torch.isfinite(comp).all().item()
+                  and comp.shape == (BATCH, cfg.num_classes),
+                  "R50 compact logits")
+            print(f"R50 compact vs masked dense (token ratio {ratio}): "
+                  f"rel_fro={rel:.2e} max_abs={mx:.2e} "
+                  f"(tol {MODEL_REL_TOL})")
+            check(rel <= MODEL_REL_TOL, "R50 compact and masked dense "
+                  "disagree")
+
+    # -- stage 2 and compact_ft -------------------------------------------
+    s2_hp = MinimaxHParams(enable_patch_gating=2, patch_ratio=TOKEN_RATIO)
+    s2_step = build_stage2_step(cfg, s2_hp, thp)
+    s2_run = _stage2_runner(s2_step, cfg, thp, teacher, masks, x, labels,
+                            ngen)
+    s2_state, counts, _ = _timed_window(
+        "R50 stage-2 train step", s2_run, create_train_state(trained, thp),
+        R50_S2_WARM, R50_S2_TIMED, FLAGSHIP_STEP, card, "R50-ViT-B/16")
+    add(counts)
+    ctree, meta = compact_train_tree(trained, masks, cfg)
+    check(len(meta.plans) == kept, "R50 compact_ft layers")
+    c2_step = build_compact_stage2_step(cfg, s2_hp, thp, meta)
+    c2_run = _stage2_runner(c2_step, cfg, thp, teacher, masks, x, labels,
+                            ngen)
+    c2_state, counts, _ = _timed_window(
+        "R50 compact stage-2 train step", c2_run,
+        create_train_state(ctree, thp), R50_S2_WARM, R50_S2_TIMED,
+        {"layer_attention_ln": ln + kept, "mlp_ln": ln + kept,
+         "layer_attention_ln_bwd": kept, "mlp_ln_bwd": kept}, card,
+        "R50-ViT-B/16")
+    add(counts)
+    n_pad, leaked = _compact_leaks(c2_state, meta)
+    print(f"R50 compact_ft padding and v-masked coordinates: {n_pad}, "
+          f"nonzero: {leaked}")
+    check(leaked == 0, "an R50 compact padding slot or v-masked row moved")
+    _one_step_each("R50", cfg, s2_step, c2_step, s2_state, meta, masks,
+                   teacher, thp, x, labels, ngen)
+    return total
+
+
+def cait_phase(card):
+    """Phase 14 (b): CaiT-S24-224 through the baseline fine-tune under a
+    half-density magnitude mask from ``generate_mask --type mag``, and its
+    eval.  Returns the launches (none: CaiT is a composition)."""
+    import tempfile
+
+    from uvc_tpu_torch.baselines.finetune import build_baseline_eval_step
+    from uvc_tpu_torch.baselines.pruning import masks_from_flat
+    from uvc_tpu_torch.cli import generate_mask
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.models import cait
+    from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uvc_tpu_torch.train.state import TrainHParams
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = get_config(CAIT_MODEL)
+    check((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.cls_attn_layers,
+           cfg.img_size) == (384, 24, 8, 2, 224), "CaiT-S24-224's widths")
+    gen = torch.Generator().manual_seed(80)
+    params = cait.init_params(gen, cfg)
+    params["head"]["kernel"] = 0.05 * torch.randn(
+        params["head"]["kernel"].shape, generator=gen).cuda()
+    with tempfile.TemporaryDirectory(prefix="uvc_cait_") as tmp:
+        weights = os.path.join(tmp, "cait.ckpt")
+        save_checkpoint(weights, {"params": params})
+        mask_file = os.path.join(tmp, "mag.ckpt")
+        t0 = time.perf_counter()
+        out, counts = _run_cli(generate_mask.main, [
+            "--type", "mag", "--model_type", CAIT_MODEL, "--sparsity",
+            str(BASE_DENSITY), "--pretrained", weights, "--save_file",
+            mask_file])
+        print(f"generate_mask --type mag (CaiT-S24-224): "
+              f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+        check(counts == _zero_launches(counts), "generate_mask mag launched")
+        wmasks = masks_from_flat(load_checkpoint(mask_file), params)
+    total = {}
+    counts, state, _ = baseline_phase(card, {}, CAIT_MODEL, "CaiT-S24-224",
+                                      init=(params, wmasks),
+                                      cpu_depth=CAIT_CPU_DEPTH)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    print(f"baseline CaiT-S24-224 kernel launches: {sum(counts.values())} "
+          f"(talking heads and class attention are a composition)")
+
+    thp = TrainHParams()
+    estep = build_baseline_eval_step(cfg, thp)
+    igen = torch.Generator(device="cuda").manual_seed(81)
+    images = [torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                          generator=igen, device="cuda")
+              for _ in range(R50_SERVE_BATCHES)]
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+
+    def evaluate():
+        tot = 0
+        for xb in images:
+            tot = tot + estep(state.params, wmasks, xb, labels)["count"]
+        return tot.item()
+
+    evaluate()
+    reset_launch_counts()
+    window, _, n = passes(evaluate)
+    counts = launch_counts()
+    check(n == R50_SERVE_BATCHES * BATCH, f"CaiT eval count {n}")
+    check(counts == _zero_launches(counts), "CaiT eval launched a kernel")
+    print(f"CaiT-S24-224 baseline eval step: "
+          f"{N_PASSES * R50_SERVE_BATCHES * BATCH / window:.1f} img/s "
+          f"({N_PASSES} passes of {R50_SERVE_BATCHES} batches of {BATCH} in "
+          f"{window:.4f} s) [{card}]")
+    return total
+
+
+def _reference_state_dict(params, masks, cfg):
+    """A reference-layout stage-1 state dict: the timm weights of
+    ``to_torch_state_dict`` and a binary ``mask`` buffer on every weighted
+    module, zero at ``attn.proj``'s pruned columns and ``mlp.fc1`` /
+    ``mlp.fc2``'s pruned units, one elsewhere."""
+    from uvc_tpu_torch.models.convert import to_torch_state_dict
+
+    sd = to_torch_state_dict(params, cfg)
+    for key in [k for k in sd if k.endswith(".weight")]:
+        sd[key[:-len("weight")] + "mask"] = torch.ones_like(sd[key])
+    attn, mlp = masks["attn"].cpu(), masks["mlp"].cpu()
+    for i in range(cfg.depth):
+        sd[f"blocks.{i}.attn.proj.mask"] *= attn[i][None]
+        sd[f"blocks.{i}.mlp.fc2.mask"] *= mlp[i][None]
+        sd[f"blocks.{i}.mlp.fc1.mask"] *= mlp[i][:, None]
+    return sd
+
+
+def torch_ckpt_phase(card):
+    """Phase 14 (c): ``post_train`` from a reference-layout torch stage-1
+    ``.pth.tar`` on DeiT-Small with phase 11's seeded architecture: the
+    masks read bit for bit, every masked, pruned and skipped coordinate's
+    gradient exactly 0, exact launches.  Returns the launches."""
+    import tempfile
+
+    from uvc_tpu_torch.cli import post_train
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = get_config(PIPE_MODEL).replace(num_classes=PIPE_CLASSES)
+    params, _, masks = _stage2_model(cfg, 60, SKIPPED_BLOCKS, S2_KEPT_UNITS)
+    with tempfile.TemporaryDirectory(prefix="uvc_torch_ckpt_") as tmp:
+        path = os.path.join(tmp, "stage1.pth.tar")
+        torch.save({"model": _reference_state_dict(params, masks, cfg),
+                    "epoch": 29}, path)
+        _, read = post_train.stage1_params_and_masks(path, cfg)
+        same = all(torch.equal(read[k], masks[k].cpu()) for k in masks)
+        print(f"post_train's masks from the .pth.tar's *.mask buffers: "
+              f"{'equal' if same else 'UNEQUAL'} bit for bit to the masks "
+              f"written ({int(read['attn'].sum())} of {read['attn'].numel()} "
+              f"context dims, {int(read['mlp'].sum())} of "
+              f"{read['mlp'].numel()} units kept)")
+        check(same, "the masks read are not the masks written")
+        t0 = time.perf_counter()
+        out, counts = _run_cli(post_train.main, [
+            "--model_type", PIPE_MODEL, "--dataset", "procedural",
+            "--img_size", str(cfg.img_size), "--train_batch_size",
+            str(BATCH), "--eval_batch_size", str(BATCH), "--synthetic_steps",
+            str(TORCH_CKPT_STEPS), "--num_epochs", "1", "--dp", "1",
+            "--distillation-type", "soft", "--patch_ratio", str(TOKEN_RATIO),
+            "--checkpoint_dir", path, "--output_dir", tmp, "--name", "s2"])
+        print(f"post_train from the .pth.tar: 1 epoch of "
+              f"{TORCH_CKPT_STEPS} steps in {time.perf_counter() - t0:.2f} s")
+        want = _want(counts, train=(FLAGSHIP_STEP, TORCH_CKPT_STEPS),
+                     eval=(PIPE_EVAL_BATCH, PIPE_EVAL_BATCHES))
+        print(f"launches post_train (.pth.tar) {counts} (expected {want})")
+        check(counts == want, "post_train (.pth.tar) launch counts differ")
+        ck = load_checkpoint(os.path.join(tmp, "s2",
+                                          f"{cfg.name}_post_0.ckpt"))
+    check(int(ck["global_step"]) == TORCH_CKPT_STEPS, "post_train's steps")
+    check(all(torch.equal(ck["masks"][k], masks[k].cpu()) for k in masks),
+          "the stage-2 checkpoint's masks are not the buffers'")
+    mu = _tree_to(ck["opt_state"]["0"]["mu"], "cuda")
+    n_zero, leaked = _frozen_moment_leaks(mu, _tree_to(masks, "cuda"), cfg,
+                                          SKIPPED_BLOCKS)
+    print(f"post_train (.pth.tar): coordinates whose gradient must be "
+          f"exactly 0: {n_zero}, with a nonzero AdamW first moment after "
+          f"{TORCH_CKPT_STEPS} steps: {leaked}")
+    check(n_zero > 0 and leaked == 0,
+          "a masked coordinate of the torch checkpoint received a gradient")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4215,6 +4724,10 @@ def main():
                     "kernel refuses the shape instead of failing: for "
                     "running this script in a checkout whose kernels "
                     "predate the shape")
+    ap.add_argument("--backbones-only", action="store_true",
+                    help="phase 3 at R50-ViT-B/16's block shape ('vit_b') and "
+                    "phase 14 (R50-ViT-B/16, CaiT-S24-224, post_train from a "
+                    "torch checkpoint), then the card line")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -4226,6 +4739,13 @@ def main():
         return 1
     from uvc_tpu_torch.configs import get_config
     from uvc_tpu_torch.ops import _cuda
+
+    # the wall seconds of the run, where each phase begins
+    clock = time.perf_counter()
+
+    def elapsed(phase):
+        print(f"[{phase} starts at {time.perf_counter() - clock:.1f} s]",
+              flush=True)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4240,6 +4760,15 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     eps = get_config("deit_small_patch16_224").layer_norm_eps
+    elapsed("phase 3")
+    if args.backbones_only:
+        kernel_phase(eps, only=("vit_b",))
+        backward_kernel_phase(eps, only=("vit_b",))
+        r50_phase(card)
+        cait_phase(card)
+        torch_ckpt_phase(card)
+        print(card_line())
+        return 0
     res = kernel_phase(eps, args.digests, args.refused_ok)
     if not args.digests:
         forward_breakdowns(eps, card)
@@ -4258,27 +4787,42 @@ def main():
     if args.kernels_only or args.digests:
         print(card_line())
         return 0
+    elapsed("phase 4")
     launches = serving_phase(card)
+    elapsed("phase 5")
     train_counts, off_counts, part_counts = training_phase(card)
     # DeiT-Small's 12 blocks run A7 forward and backward
     base_counts, _, _ = baseline_phase(
         card, dict(layer_attention=12, layer_attention_bwd=12))
+    elapsed("phase 7")
     res.update(performer_kernel_phase())
     t2t_train_counts = t2t_training_phase(card)
     t2t_serve_counts = t2t_serving_phase(card)
+    elapsed("phase 8")
     ablation_counts = ablation_phase(card)
+    elapsed("phase 9")
     vit_h_counts = vit_h_phase(card)
     # phase 10: the resnext structure ablation, 32 heads of 12 (K1, A2)
     resnext_counts = t2t_training_phase(
         card, "t2t_vit_14_resnext", "T2T-ViT-14-resnext", seed=50, warm=1,
         timed=5)
     # phase 11: stage 2 and compact stage 2 (DeiT-Small, T2T-ViT-14)
+    elapsed("phase 11")
     stage2_counts, compact_counts = stage2_phase(card)
     t2t_stage2_counts = t2t_stage2_phase(card)
     # phase 12: the two-stage pipeline through its CLIs (DeiT-Small)
+    elapsed("phase 12")
     pipeline_counts = pipeline_phase(card)
     # phase 13: the baseline-pruning suite through its CLIs (DeiT-Small)
+    elapsed("phase 13")
     suite_counts = baseline_suite_phase(card)
+    # phase 14: R50-ViT-B/16 (stage 1, serving, stage 2), CaiT-S24-224
+    # (the baseline fine-tune) and post_train from a torch checkpoint
+    elapsed("phase 14")
+    r50_counts = r50_phase(card)
+    cait_counts = cait_phase(card)
+    torch_ckpt_counts = torch_ckpt_phase(card)
+    elapsed("the summary")
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
     # steps and the timed baseline window (the paths of A7), the timed
@@ -4288,12 +4832,14 @@ def main():
     # window, phase 11's stage-2 windows (A6 at a compact layer's
     # padded width, A2 below dm), phase 12's CLI runs and served export,
     # and phase 13's (the scorers' passes at batch 1 and 128, the baseline
-    # runs, the gradient report)
+    # runs, the gradient report), and phase 14's (R50-ViT-B/16's windows,
+    # CaiT's, which launch none, and post_train from the .pth.tar)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
                    compact_counts, t2t_stage2_counts, pipeline_counts,
-                   suite_counts):
+                   suite_counts, r50_counts, cait_counts,
+                   torch_ckpt_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -8,7 +8,7 @@ port's CLIs; each package's ``post_train`` reads the other's stage-1
 checkpoint; the compact export serves through ``apply_compact`` with the
 masked-dense eval forward's logits; the routes that are not ported raise
 ``NotImplementedError`` naming their ROADMAP item; and importing the new
-modules loads neither JAX nor msgpack.
+modules (the R50 stem and CaiT among them) loads neither JAX nor msgpack.
 """
 
 import argparse
@@ -312,9 +312,8 @@ def test_export_compact_serves_the_masked_dense_logits(tmp_path,
     assert rel <= 2e-2, rel
 
 
-@pytest.mark.parametrize("case", ["dp", "mp", "processes", "post_torch",
-                                  "stablehlo", "baseline_dp",
-                                  "baseline_processes", "hybrid_npz"])
+@pytest.mark.parametrize("case", ["dp", "mp", "processes", "stablehlo",
+                                  "baseline_dp", "baseline_processes"])
 def test_unported_routes_raise(tmp_path, case):
     base = TINY + ["--device", "cpu", "--output_dir", str(tmp_path)]
     from uvc_tpu_torch.cli import baseline_train as t_base
@@ -323,8 +322,6 @@ def test_unported_routes_raise(tmp_path, case):
         "mp": (t_joint.main, base + ["--dp", "1", "--mp", "2"], "item 7"),
         "processes": (t_joint.main, base + ["--num_processes", "2"],
                       "item 7"),
-        "post_torch": (t_post.main, base + ["--checkpoint_dir", "s1.pth.tar"],
-                       "item 6"),
         "stablehlo": (t_export.main, [
             "--checkpoint", "x.ckpt", "--save_file", "y.ckpt",
             "--export_stablehlo", "z.npz"], "item 8"),
@@ -332,12 +329,6 @@ def test_unported_routes_raise(tmp_path, case):
                         "item 7"),
         "baseline_processes": (t_base.main, base + ["--num_processes", "2"],
                                "item 7"),
-        # the R50 hybrid stem of an upstream .npz (models/resnet.py)
-        "hybrid_npz": (t_joint.main, [
-            "--model_type", "R50-ViT-B_16", "--dataset", "synthetic",
-            "--img_size", "32", "--train_batch_size", "8",
-            "--model_path", "w.npz", "--device", "cpu", "--output_dir",
-            str(tmp_path)], "item 6"),
     }
     main, argv, item = calls[case]
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
@@ -482,6 +473,7 @@ def test_new_modules_import_no_jax_or_msgpack():
         "import uvc_tpu_torch.cli.flags, uvc_tpu_torch.cli.joint_train\n"
         "import uvc_tpu_torch.cli.post_train\n"
         "import uvc_tpu_torch.cli.export_compact\n"
+        "import uvc_tpu_torch.models.resnet, uvc_tpu_torch.models.cait\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes',"
         " 'uvc_tpu', 'PIL', 'yaml'))\n"

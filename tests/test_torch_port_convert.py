@@ -196,7 +196,9 @@ def fake_npz(path, cfg, grid_old, num_classes, hybrid=False):
     def rn(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
-    w = {"embedding/kernel": rn(p, p, 3, d), "embedding/bias": rn(d),
+    w = {"embedding/kernel": (rn(1, 1, 1024, d) if hybrid
+                              else rn(p, p, 3, d)),
+         "embedding/bias": rn(d),
          "cls": rn(1, 1, d),
          "Transformer/posembed_input/pos_embedding":
              rn(1, grid_old * grid_old + 1, d),
@@ -219,7 +221,25 @@ def fake_npz(path, cfg, grid_old, num_classes, hybrid=False):
             w[f"{pre}/{ln}/scale"] = 1 + 0.1 * rn(d)
             w[f"{pre}/{ln}/bias"] = rn(d)
     if hybrid:
+        # the ResNetV2 stem at width 1: HWIO kernels, unit-wise GroupNorms,
+        # the projection in each stage's first unit
         w["conv_root/kernel"] = rn(7, 7, 3, 64)
+        w["gn_root/scale"], w["gn_root/bias"] = 1 + 0.1 * rn(64), rn(64)
+        cin = 64
+        for bi, n_units in enumerate(cfg.resnet_layers):
+            cmid, cout = 64 * 2 ** bi, 256 * 2 ** bi
+            for u in range(n_units):
+                pre = f"block{bi + 1}/unit{u + 1}"
+                for j, (ci, co, k) in enumerate(
+                        ((cin, cmid, 1), (cmid, cmid, 3), (cmid, cout, 1))):
+                    w[f"{pre}/conv{j + 1}/kernel"] = rn(k, k, ci, co)
+                    w[f"{pre}/gn{j + 1}/scale"] = 1 + 0.1 * rn(co)
+                    w[f"{pre}/gn{j + 1}/bias"] = rn(co)
+                if u == 0:
+                    w[f"{pre}/conv_proj/kernel"] = rn(1, 1, cin, cout)
+                    w[f"{pre}/gn_proj/scale"] = 1 + 0.1 * rn(cout)
+                    w[f"{pre}/gn_proj/bias"] = rn(cout)
+                cin = cout
     np.savez(path, **w)
     return path
 
@@ -241,13 +261,27 @@ def test_load_npz_checkpoint_matches_jax(tmp_path, grid_old, num_classes):
 
 
 def test_load_npz_hybrid_raises(tmp_path):
-    jcfg, tcfg = cfgs()
+    """The R50+ViT ``.npz``: the stem's units read as JAX's converter reads
+    them (the stages as lists), the weights serving JAX's logits through
+    the port's forward; a file that lacks a unit of the config's stem
+    raises."""
+    jcfg, tcfg = cfgs(hybrid=True, resnet_layers=(1, 1, 1), img_size=64)
     path = fake_npz(str(tmp_path / "r50.npz"), jcfg, 4, 10, hybrid=True)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        tconvert.load_npz_checkpoint(path, tcfg)
-    hybrid = tconfigs.get_config("R50-ViT-B_16")
-    with pytest.raises(NotImplementedError, match="models/resnet.py"):
-        tconvert.load_npz_checkpoint(str(tmp_path / "absent.npz"), hybrid)
+    ref = jconvert.load_npz_checkpoint(path, jcfg)
+    out = tconvert.load_npz_checkpoint(path, tcfg)
+    assert isinstance(out["resnet"]["block1"], list)
+    assert_trees_equal(out, ref)
+    x = np.random.default_rng(5).standard_normal((2, 64, 64, 3)).astype(
+        np.float32)
+    jl = jax.jit(lambda p, xb: jvit.apply(p, xb, jcfg).logits)(
+        ref, jnp.asarray(x))
+    tl = tvit.apply(out, torch.from_numpy(x), tcfg,
+                    dtype=torch.float32).logits
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                               atol=1e-5)
+    deeper = tcfg.replace(resnet_layers=(1, 2, 1))
+    with pytest.raises(KeyError, match="block2/unit2"):
+        tconvert.load_npz_checkpoint(path, deeper)
 
 
 def t2t_state_dict(cfg, num_classes):

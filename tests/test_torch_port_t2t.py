@@ -109,9 +109,12 @@ def test_get_model_dispatches_the_t2t_family():
     assert get_model(tconfigs.get_config("t2t_vit_t_14")) is tt2t
     for name in ("t2t_vit_14_se", "t2t_vit_dense"):
         assert get_model(tconfigs.get_config(name)) is t2t_ablations
-    for name in ("R50-ViT-B_16", "cait_S24_224"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(tconfigs.get_config(name))
+    # the other backbones: the R50 hybrid is a ViT, CaiT its own module
+    from uvc_tpu_torch.models import cait, vit
+    assert get_model(tconfigs.get_config("R50-ViT-B_16")) is vit
+    for name in tconfigs.CONFIGS:
+        if name.startswith("cait_"):
+            assert get_model(tconfigs.get_config(name)) is cait
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))

@@ -538,8 +538,8 @@ def test_unported_paths_raise():
     # stage 2's SGD surface is ported: the optimizer builds
     assert isinstance(tstate.make_weight_optimizer(
         tstate.TrainHParams(opt="sgd")), tstate.SGD)
-    # a backbone still to port raises where the step is built
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # CaiT has no block gating: the step refuses it where it is built
+    with pytest.raises(ValueError, match="no block gating"):
         build_stage1_step(tconfigs.get_config("cait_S24_224"),
                           tresource.build_macs_table(TCFG), THParams(),
                           tstate.TrainHParams(), warmup=False)

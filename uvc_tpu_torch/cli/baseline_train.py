@@ -87,7 +87,7 @@ def main(argv=None):
     from uvc_tpu_torch.data.augment import make_train_augment
     from uvc_tpu_torch.interop import resolve_device
     from uvc_tpu_torch.train.stage1 import eval_totals
-    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint, params_of
     from uvc_tpu_torch.utils.logging import MetricLogger
     from uvc_tpu_torch.utils.tree import tree_map
 
@@ -134,7 +134,7 @@ def main(argv=None):
 
     if args.eval:
         ck = load_checkpoint(args.resume)
-        eval_params = on_device(ck["params"] if "params" in ck else ck)
+        eval_params = on_device(params_of(ck))
         eval_masks = (masks_from_flat(ck["masks"], eval_params)
                       if ck.get("masks") else None)
         correct, _, count = eval_totals(build_baseline_eval_step(cfg, thp),

@@ -54,12 +54,13 @@ def main(argv=None):
     from uvc_tpu_torch.compress.masks import build_masks
     from uvc_tpu_torch.infer.compact import (compact_flops_fraction,
                                              compact_model)
-    from uvc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from uvc_tpu_torch.utils.checkpoint import (load_checkpoint, params_of,
+                                                save_checkpoint)
 
     cfg = get_config(args.model_type).replace(
         img_size=args.img_size, num_classes=args.num_classes)
     ck = load_checkpoint(args.checkpoint)
-    params = ck["params"] if "params" in ck else ck
+    params = params_of(ck)
     if ck.get("masks"):
         masks = {"attn": ck["masks"]["attn"].float(),
                  "mlp": ck["masks"]["mlp"].float()}

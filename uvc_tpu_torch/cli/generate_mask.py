@@ -68,14 +68,13 @@ def load_scored_params(args, cfg):
     model drawn from ``--seed``."""
     from uvc_tpu_torch.cli.joint_train import load_weights
     from uvc_tpu_torch.models import get_model
-    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint, params_of
     if not args.pretrained:
         gen = torch.Generator().manual_seed(args.seed)
         return get_model(cfg).init_params(gen, cfg, device="cpu"), cfg
     if not args.pretrained.endswith(".ckpt"):
         return load_weights(args.pretrained, cfg), cfg
-    ck = load_checkpoint(args.pretrained)
-    params = ck["params"] if "params" in ck else ck
+    params = params_of(load_checkpoint(args.pretrained))
     # score with the checkpoint's own class count: labels past a narrower
     # head would make every gradient score meaningless
     head_classes = int(params["head"]["kernel"].shape[-1])

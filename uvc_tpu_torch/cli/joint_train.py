@@ -81,13 +81,13 @@ def build_loaders(args, num_classes: int, img_size: int):
 
 def load_weights(path: str, cfg):
     """The parameter tree of a weights file, on the CPU: a ``.ckpt`` of
-    either package (its ``params``), an upstream ViT ``.npz``, else a
-    timm / torch ``.pth`` (both through ``models/convert.py``)."""
+    either package (its ``params``, lists rebuilt), an upstream ViT or
+    R50+ViT ``.npz``, else a timm / torch ``.pth`` (both through
+    ``models/convert.py``)."""
     from uvc_tpu_torch.models import convert
-    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint, params_of
     if path.endswith(".ckpt"):
-        ck = load_checkpoint(path)
-        return ck["params"] if "params" in ck else ck
+        return params_of(load_checkpoint(path))
     if path.endswith(".npz"):
         return convert.load_npz_checkpoint(path, cfg)
     return convert.load_torch_checkpoint(path, cfg)

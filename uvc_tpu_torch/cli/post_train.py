@@ -7,9 +7,11 @@ checkpoint (counterpart of ``uvc_tpu/cli/post_train.py``).
       --dataset imagenet --data_dir /data/imagenet --num_epochs 100
 
 The checkpoint is a ``.ckpt`` of either package, with its masks or with
-the minimax state they are rebuilt from.  A torch stage-1 checkpoint
-raises: its masks are its ``*.mask`` buffers, not all ones, and reading
-them is not ported yet (ROADMAP.md queue A item 6).
+the minimax state they are rebuilt from, or a reference (torch) stage-1
+``.pth`` / ``.pth.tar``: its weights through ``models/convert.py`` and its
+masks from the binary ``*.mask`` buffers its weighted modules carry
+(``masks_from_torch_state_dict``).  Its pruned coordinates hold shrunken
+nonzero weights, so the masks are never taken as all ones.
 """
 
 from __future__ import annotations
@@ -22,20 +24,21 @@ from uvc_tpu_torch.cli.joint_train import (build_loaders,
                                            load_teacher)
 from uvc_tpu_torch.configs import get_config
 
-NOT_PORTED_TORCH_STAGE1 = ("stage 2 from a torch stage-1 checkpoint (its "
-                           "*.mask buffers) is not ported yet; see "
-                           "ROADMAP.md queue A item 6")
-
 
 def stage1_params_and_masks(path: str, cfg):
-    """The params and masks of a stage-1 ``.ckpt``: its ``masks`` where it
-    holds them, else rebuilt from its ``cstate``'s ``s`` and ``r``."""
+    """The params and masks of a stage-1 checkpoint, on the CPU: of a
+    ``.ckpt``, its ``masks`` where it holds them, else rebuilt from its
+    ``cstate``'s ``s`` and ``r``; of a torch ``.pth`` / ``.pth.tar``, the
+    converted weights and the masks of its ``*.mask`` buffers."""
     from uvc_tpu_torch.compress.masks import build_masks
-    from uvc_tpu_torch.utils.checkpoint import load_checkpoint
+    from uvc_tpu_torch.models import convert
+    from uvc_tpu_torch.utils.checkpoint import load_checkpoint, params_of
     if not path.endswith(".ckpt"):
-        raise NotImplementedError(NOT_PORTED_TORCH_STAGE1)
+        sd = convert.read_torch_state_dict(path)
+        return (convert.params_from_state_dict(sd, cfg),
+                convert.masks_from_torch_state_dict(sd, cfg))
     ck = load_checkpoint(path)
-    params = ck["params"] if "params" in ck else ck
+    params = params_of(ck)
     if ck.get("masks") is not None:
         masks = {k: v.float() for k, v in ck["masks"].items()}
     else:

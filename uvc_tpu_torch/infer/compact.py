@@ -27,6 +27,7 @@ from uvc_tpu_torch.ops.attention import layer_attention_ln
 from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
                                       physical_topk_indices, token_scores)
 from uvc_tpu_torch.ops.mlp import mlp_ln
+from uvc_tpu_torch.utils.tree import tree_map
 
 
 # kept MLP units are padded to a multiple of this, as the JAX package pads
@@ -73,9 +74,7 @@ def layer_plans(masks: Dict[str, torch.Tensor], cfg: ViTConfig, *,
 
 
 def _tree_to(tree, dev, dtype=None):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, dev, dtype) for k, v in tree.items()}
-    return tree.detach().to(dev, dtype)
+    return tree_map(lambda t: t.detach().to(dev, dtype), tree)
 
 
 def _check_stack(cfg: ViTConfig) -> None:
@@ -143,8 +142,9 @@ def compact_model(params: dict, masks: Dict[str, torch.Tensor],
             "num_heads": plan["hk"],
         })
 
+    # the R50 hybrid's stem stays f32 and runs in the forward's dtype
     top_keys = ["patch_embed", "cls_token", "pos_embed", "norm", "head",
-                "dist_token", "head_dist", "t2t", "token_scorer"]
+                "dist_token", "head_dist", "resnet", "t2t", "token_scorer"]
     top = {k: _tree_to(params[k], dev, dtype if k in _TOP_CAST else None)
            for k in top_keys if k in params}
     return layers, top

@@ -20,7 +20,9 @@ position embedding of another grid is resized bicubically, as
 ``jax.image.resize`` does it (``F.interpolate(..., antialias=True)``
 uses the same Keys kernel, a = -0.5, widened when shrinking).  Upstream
 ViT ``.npz`` files (already in this layout) load through
-``load_npz_checkpoint``; the R50 hybrid stem is not ported.
+``load_npz_checkpoint``, the R50 hybrid's ResNetV2 stem with them.  The
+structural masks of a torch stage-1 checkpoint are its ``*.mask``
+buffers (``masks_from_torch_state_dict``).
 
 The conversion runs in numpy on the host; every function returns a tree
 of contiguous f32 CPU tensors (``to_torch_state_dict`` a flat dict of
@@ -34,10 +36,6 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-NOT_PORTED_HYBRID = ("the R50 hybrid stem needs models/resnet.py, which "
-                     "is not ported yet; see ROADMAP.md queue A item 6")
-
 
 def _np(t) -> np.ndarray:
     if torch.is_tensor(t):
@@ -231,17 +229,27 @@ def to_torch_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def load_torch_checkpoint(path: str, cfg) -> dict:
-    """A ``.pth`` / ``.pth.tar`` file through ``torch.load`` (on the CPU),
-    converted: its ``model``, else ``state_dict_ema``, else
-    ``state_dict`` entry, or the file itself; T2T-ViT key names go to
-    ``from_t2t_state_dict``."""
+def read_torch_state_dict(path: str) -> Mapping:
+    """The state dict of a ``.pth`` / ``.pth.tar`` file (``torch.load`` on
+    the CPU): its ``model``, else ``state_dict_ema``, else ``state_dict``
+    entry, or the file itself."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict):
         for key in ("model", "state_dict_ema", "state_dict"):
             if key in ckpt:
-                ckpt = ckpt[key]
-                break
+                return ckpt[key]
+    return ckpt
+
+
+def load_torch_checkpoint(path: str, cfg) -> dict:
+    """A ``.pth`` / ``.pth.tar`` file's state dict
+    (``read_torch_state_dict``) converted (``params_from_state_dict``)."""
+    return params_from_state_dict(read_torch_state_dict(path), cfg)
+
+
+def params_from_state_dict(ckpt: Mapping, cfg) -> dict:
+    """The parameter tree of a DeiT / ViT state dict, or of a T2T-ViT one
+    (its key names go to ``from_t2t_state_dict``)."""
     if any(k.startswith(("tokens_to_token.", "module.tokens_to_token."))
            for k in ckpt):
         return from_t2t_state_dict(ckpt, cfg)
@@ -253,13 +261,11 @@ def load_npz_checkpoint(path: str, cfg) -> dict:
     ``[in, out]``, convs HWIO, q / k / v kernels ``[D, H, dh]``): q, k
     and v fused into ``qkv``, the blocks stacked, a position embedding of
     another grid resized bilinearly, a head of another class count
-    zeroed.  The R50 hybrid stem raises (not ported)."""
-    if cfg.hybrid:
-        raise NotImplementedError(NOT_PORTED_HYBRID)
+    zeroed; for the R50 hybrid, the stem's units (``block{i}/unit{u}``,
+    HWIO kernels, ``conv_proj`` / ``gn_proj`` where the file has them) as
+    the lists ``resnet.block{i}``."""
     with np.load(path, allow_pickle=False) as f:
         w = dict(f)
-    if "conv_root/kernel" in w:
-        raise NotImplementedError(NOT_PORTED_HYBRID)
     d, l = cfg.embed_dim, cfg.depth
 
     def arr(k):
@@ -330,7 +336,134 @@ def load_npz_checkpoint(path: str, cfg) -> dict:
         "token_scorer": {"kernel": np.zeros((d, 1), np.float32),
                          "bias": np.zeros((1,), np.float32)},
     }
+    if cfg.hybrid:
+        params["resnet"] = _npz_stem(arr, w, cfg.resnet_layers)
     return _to_torch(params)
+
+
+def to_npz_dict(params: dict, cfg) -> Dict[str, np.ndarray]:
+    """The upstream ``.npz`` layout of a ViT / R50+ViT parameter tree (f32
+    numpy arrays, ``np.savez`` writes them): ``load_npz_checkpoint``'s
+    inverse on the leaves it reads."""
+    d, h, dh = cfg.embed_dim, cfg.num_heads, cfg.head_size
+    b = {g: {k: _np(v) for k, v in sub.items()}
+         for g, sub in params["blocks"].items()}
+    w = {"embedding/kernel": _np(params["patch_embed"]["kernel"]),
+         "embedding/bias": _np(params["patch_embed"]["bias"]),
+         "cls": _np(params["cls_token"]),
+         "Transformer/posembed_input/pos_embedding":
+             _np(params["pos_embed"]),
+         "Transformer/encoder_norm/scale": _np(params["norm"]["scale"]),
+         "Transformer/encoder_norm/bias": _np(params["norm"]["bias"]),
+         "head/kernel": _np(params["head"]["kernel"]),
+         "head/bias": _np(params["head"]["bias"])}
+    at = "MultiHeadDotProductAttention_1"
+    for i in range(cfg.depth):
+        pre = f"Transformer/encoderblock_{i}"
+        for j, nm in enumerate(("query", "key", "value")):
+            cols = slice(j * d, (j + 1) * d)
+            w[f"{pre}/{at}/{nm}/kernel"] = \
+                b["qkv"]["kernel"][i][:, cols].reshape(d, h, dh)
+            w[f"{pre}/{at}/{nm}/bias"] = \
+                b["qkv"]["bias"][i][cols].reshape(h, dh)
+        w[f"{pre}/{at}/out/kernel"] = b["proj"]["kernel"][i].reshape(h, dh, d)
+        w[f"{pre}/{at}/out/bias"] = b["proj"]["bias"][i]
+        for k, nm in (("fc1", "Dense_0"), ("fc2", "Dense_1")):
+            w[f"{pre}/MlpBlock_3/{nm}/kernel"] = b[k]["kernel"][i]
+            w[f"{pre}/MlpBlock_3/{nm}/bias"] = b[k]["bias"][i]
+        for k, nm in (("ln1", "LayerNorm_0"), ("ln2", "LayerNorm_2")):
+            w[f"{pre}/{nm}/scale"] = b[k]["scale"][i]
+            w[f"{pre}/{nm}/bias"] = b[k]["bias"][i]
+    if cfg.hybrid:
+        stem = params["resnet"]
+
+        def put(pre, tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    put(f"{pre}{k}/", v)
+                else:
+                    w[f"{pre}{k}" + ("/kernel" if k.startswith("conv")
+                                     else "")] = _np(v)
+
+        put("", {k: v for k, v in stem.items() if not k.startswith("block")})
+        for bi in range(len(cfg.resnet_layers)):
+            for u, unit in enumerate(stem[f"block{bi + 1}"]):
+                put(f"block{bi + 1}/unit{u + 1}/", unit)
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in w.items()}
+
+
+def _npz_stem(arr, w, block_units) -> dict:
+    """The ResNetV2 stem of an upstream R50+ViT ``.npz``."""
+    def gn(pre):
+        return {"scale": arr(f"{pre}/scale").reshape(-1),
+                "bias": arr(f"{pre}/bias").reshape(-1)}
+
+    stem = {"conv_root": arr("conv_root/kernel"), "gn_root": gn("gn_root")}
+    for bi, n_units in enumerate(block_units):
+        units = []
+        for u in range(n_units):
+            pre = f"block{bi + 1}/unit{u + 1}"
+            unit = {}
+            for i in (1, 2, 3):
+                unit[f"conv{i}"] = arr(f"{pre}/conv{i}/kernel")
+                unit[f"gn{i}"] = gn(f"{pre}/gn{i}")
+            if f"{pre}/conv_proj/kernel" in w:
+                unit["conv_proj"] = arr(f"{pre}/conv_proj/kernel")
+                unit["gn_proj"] = gn(f"{pre}/gn_proj")
+            units.append(unit)
+        stem[f"block{bi + 1}"] = units
+    return stem
+
+
+def masks_from_torch_state_dict(sd: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The structural masks ``{"attn": [L, D], "mlp": [L, F]}`` (f32 CPU
+    tensors) of a reference stage-1 ``state_dict``, read from the binary
+    ``mask`` buffers its weighted modules carry: a context dim is kept
+    where the column of ``blocks.i.attn.proj.mask`` is, a hidden unit where
+    the column of ``blocks.i.mlp.fc2.mask`` is.  Raises ValueError unless
+    the buffers are the layout pruning gives them: 0 / 1 values, every row
+    of a column mask equal, ``blocks.i.mlp.fc1.mask``'s rows the units of
+    fc2's columns, every other ``*.mask`` all ones."""
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    l, d, f = cfg.depth, cfg.embed_dim, cfg.mlp_hidden
+
+    def buffer(key, shape):
+        if key not in sd:
+            raise ValueError(f"the state dict has no {key}")
+        m = _np(sd[key])
+        if m.shape != shape:
+            raise ValueError(f"{key} has shape {m.shape}, expected {shape}")
+        if not np.isin(m, (0.0, 1.0)).all():
+            raise ValueError(f"{key} holds values other than 0 and 1")
+        return m
+
+    def columns(key, shape):
+        m = buffer(key, shape)
+        if not (m == m[:1]).all():
+            raise ValueError(f"{key}: its rows differ (a column mask "
+                             "prunes whole input columns)")
+        return m[0]
+
+    attn, mlp = [], []
+    read = set()
+    for i in range(l):
+        pre = f"blocks.{i}"
+        attn.append(columns(f"{pre}.attn.proj.mask", (d, d)))
+        mlp.append(columns(f"{pre}.mlp.fc2.mask", (d, f)))
+        rows = buffer(f"{pre}.mlp.fc1.mask", (f, d))
+        if not (rows == mlp[-1][:, None]).all():
+            raise ValueError(f"{pre}.mlp.fc1.mask: its rows are not the "
+                             f"units kept by {pre}.mlp.fc2.mask")
+        read.update(f"{pre}.{k}.mask" for k in ("attn.proj", "mlp.fc2",
+                                                  "mlp.fc1"))
+    for key in sorted(k for k in sd if k.endswith(".mask")
+                      and k not in read):
+        if not (_np(sd[key]) == 1.0).all():
+            raise ValueError(f"{key} prunes weights where the structural "
+                             "masks cannot: only attn.proj, mlp.fc1 and "
+                             "mlp.fc2 may hold zeros")
+    return {"attn": torch.from_numpy(np.stack(attn).astype(np.float32)),
+            "mlp": torch.from_numpy(np.stack(mlp).astype(np.float32))}
 
 
 def _t2t_stage(sd: Mapping, prefix: str, performer: bool) -> dict:

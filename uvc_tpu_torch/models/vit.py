@@ -28,6 +28,7 @@ import torch
 
 from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.interop import resolve_device
+from uvc_tpu_torch.models import resnet
 from uvc_tpu_torch.ops.attention import (fused_layer_attention,
                                          fused_layer_attention_ln)
 from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
@@ -71,8 +72,9 @@ def init_params(generator: torch.Generator, cfg: ViTConfig, *,
     ``jax.random``'s: tests carry JAX weights across with
     ``interop.params_from_numpy`` instead."""
     dev = resolve_device(device)
-    if cfg.hybrid or cfg.tokens_type != "none" or cfg.cls_attn_layers:
-        raise NotImplementedError(_NOT_PORTED.format(f"backbone {cfg.name}"))
+    if cfg.tokens_type != "none" or cfg.cls_attn_layers:
+        raise ValueError(f"{cfg.name} is not of the DeiT / ViT family; "
+                         "its module is get_model(cfg)")
     return _to_device(init_tree(generator, cfg, patch_gating=patch_gating),
                       dev)
 
@@ -81,13 +83,15 @@ def init_tree(generator: torch.Generator, cfg: ViTConfig, *,
               patch_gating: bool = False) -> dict:
     """The parameter tree of ``init_params`` on the CPU, for any backbone
     that shares the DeiT block stack (the T2T models replace its patch
-    embedding)."""
+    embedding).  The R50 hybrid's patch embedding is a 1 x 1 kernel
+    ``[1, 1, 1024 * width, D]`` behind the ResNetV2 stem (``resnet``)."""
     d, l, f, p = cfg.embed_dim, cfg.depth, cfg.mlp_hidden, cfg.patch_size
     gen = generator
+    pe_shape = ((1, 1, 64 * cfg.resnet_width * 16, d) if cfg.hybrid
+                else (p, p, cfg.in_chans, d))
     params = {
-        "patch_embed": {
-            "kernel": _trunc_normal(gen, (p, p, cfg.in_chans, d)),
-            "bias": torch.zeros(d)},
+        "patch_embed": {"kernel": _trunc_normal(gen, pe_shape),
+                        "bias": torch.zeros(d)},
         "cls_token": _trunc_normal(gen, (1, 1, d)),
         "pos_embed": _trunc_normal(gen, (1, cfg.seq_len, d)),
         "blocks": {
@@ -112,6 +116,9 @@ def init_tree(generator: torch.Generator, cfg: ViTConfig, *,
                                "bias": torch.zeros(cfg.num_classes)}
     if patch_gating:
         params["patch_gating"] = torch.full((1, cfg.num_patches, 1), 3.0)
+    if cfg.hybrid:
+        params["resnet"] = resnet.init_resnet_stem(gen, cfg.resnet_layers,
+                                                   cfg.resnet_width)
     return params
 
 
@@ -201,10 +208,19 @@ def _mlp_args(blk, mlp_mask_row, dtype, device):
 def patch_embed(params: dict, x: torch.Tensor, cfg: ViTConfig,
                 dtype=torch.float32) -> torch.Tensor:
     """Non-overlapping patchify of NHWC images as reshape + one matmul, in
-    the JAX package's patch order (row-major patches, (p, p, C) inside)."""
-    if cfg.hybrid:
-        raise NotImplementedError(_NOT_PORTED.format("the R50 hybrid stem"))
+    the JAX package's patch order (row-major patches, (p, p, C) inside).
+    The R50 hybrid runs its ResNetV2 stem first (in ``dtype``) and its
+    1 x 1 patch kernel on the stem's ``[B, g * g, C]`` features; the
+    product is a contiguous residual stream, as the kernels take it."""
     b = x.shape[0]
+    if cfg.hybrid:
+        feat = resnet.apply_resnet_stem(params["resnet"], x.to(dtype),
+                                        cfg.resnet_layers)
+        g, c = feat.shape[1], feat.shape[-1]
+        feat = feat.reshape(b, g * g, c)
+        kernel = params["patch_embed"]["kernel"].reshape(c, cfg.embed_dim)
+        return (feat @ kernel.to(dtype)
+                + params["patch_embed"]["bias"].to(dtype))
     p = cfg.patch_size
     g = cfg.img_size // p
     x = x.reshape(b, g, p, g, p, cfg.in_chans)

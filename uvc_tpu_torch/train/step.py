@@ -192,7 +192,14 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
     With ``hp.enable_part_gating`` the attention and MLP part-gating
     distributions are hard-or-soft Gumbel draws (``noise.part_attn`` /
     ``noise.part_mlp``, never the warmup's pinned (0.5, 0.5)); their logits
-    train under AdamW in both phases."""
+    train under AdamW in both phases.
+
+    CaiT raises ValueError: it has no block gating (nor in the JAX
+    package); it trains through the baseline fine-tune."""
+    if cfg.cls_attn_layers > 0:
+        raise ValueError(f"{cfg.name}: CaiT has no block gating, token "
+                         "scorer or structural masks for the stage-1 step; "
+                         "it trains through build_baseline_step")
     if warmup:
         def lr_fn(step):
             return torch.tensor(thp.warmup_lr, dtype=torch.float32)

@@ -444,6 +444,26 @@ def restore_like(target, state: Any):
     return state
 
 
+def lists_from_index_maps(tree: Any) -> Any:
+    """``tree`` with every map whose keys are exactly ``"0"`` ...
+    ``"n-1"`` made the list it was saved from (``to_state_dict`` stores a
+    list as the map of its indices, so a checkpoint read without a target
+    holds maps where the model holds lists: the R50 hybrid's stem units,
+    the T2T ablations' blocks)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: lists_from_index_maps(v) for k, v in tree.items()}
+    if out and set(out) == {str(i) for i in range(len(out))}:
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def params_of(ck: Any) -> Any:
+    """The parameter tree of a checkpoint read without a target: its
+    ``params`` entry (else the whole tree), its lists rebuilt."""
+    return lists_from_index_maps(ck["params"] if "params" in ck else ck)
+
+
 def save_checkpoint(path: str, tree: Any) -> None:
     """Save a tree (msgpack; one portable file, the JAX package's bytes
     for the same tree)."""
