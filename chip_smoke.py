@@ -8,6 +8,8 @@
     python3 chip_smoke.py --backbones-only # phase 3 at R50-ViT-B/16's block
                                            # shape and phase 14, then the
                                            # card line
+    python3 chip_smoke.py --ddp-only       # phase 15 (data parallelism)
+                                           # alone, then the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -285,6 +287,21 @@ Phases, each of which stops the run with a non-zero exit on failure:
    it reads bit for bit the masks written, 1 epoch of 4 steps with exact
    launches, AdamW's first moment exactly 0 at every coordinate the masks,
    the pruned heads and the skipped blocks freeze.
+15. data parallelism -- (a) two ranks on the one card over gloo (NCCL
+   takes one rank a GPU), each ``python -m uvc_tpu_torch.parallel.dryrun``
+   on spec files: DeiT-Small at full width, a global batch of 64 (32 a
+   rank), stage 1 with the flagship settings (1 warmup and 4 UVC steps,
+   mixup off), one stage-1 step with mixup / cutmix (the partners the
+   flipped global batch's, across the ranks), one step each of stage 2,
+   compact_ft (phase 11's architecture) and the baseline fine-tune
+   (drop-path, random erasing, mixup): after every step the ranks' states
+   bit for bit equal, loss / grad_norm / resource within 2e-2 of this
+   process's single-process run on the concatenated batch, each rank's
+   launches exact, the gloo all-reduce's time a step.  (b)
+   ``joint_train`` under NCCL at world size 1, started as torchrun starts
+   a rank: phase 12's run with its checkpoints and exact launches, the
+   all-reduce's host and device time a step, the epoch rates beside phase
+   12's, and the stage-1 step alone with and without the mesh, in turns.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -1349,7 +1366,7 @@ def serving_phase(card):
     return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
 
 
-def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
+def profile_phase(card, runs, top=8, batch=BATCH, watch=None, host_top=0):
     """Device time by kernel for one batch of each path (torch.profiler),
     and the device's busy share of the wall time (the profiler's own host
     overhead is inside the wall time, so the busy share is a lower
@@ -1360,7 +1377,8 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
     summed and printed: of every kernel whose name holds the substring, or
     of every run of consecutive kernels (in launch order) whose names hold
     the tuple's substrings in turn, one kernel's launches told apart from
-    another's that share some of their kernels."""
+    another's that share some of their kernels.  ``host_top``: that many
+    host ops by their own host time, the profiler's overhead inside."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1414,6 +1432,14 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None):
             print(f"  {what}: {t / 1e3:.3f} ms in {count} "
                   f"{'events' if isinstance(part, str) else 'calls'} "
                   f"({100 * t / busy:.1f}% of the device time)")
+        if host_top:
+            ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+            print(f"  host: {sum(a.self_cpu_time_total for a in ops) / 1e3:.2f} "
+                  f"ms of own host time in {sum(a.count for a in ops)} ops; "
+                  f"the most:")
+            for a in ops[:host_top]:
+                print(f"    {a.self_cpu_time_total / 1e3:8.3f} ms  x{a.count:<5d} "
+                      f"{a.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -3554,6 +3580,7 @@ def pipeline_phase(card):
         print(f"joint_train (DeiT-Small, batch {BATCH}, 2 + 1 epochs of "
               f"{PIPE_STEPS} steps, {3 * PIPE_EVAL_BATCHES} eval batches): "
               f"{wall:.2f} s wall in all [{card}]")
+        PIPE_RATES.update({ep: float(rate) for ep, _, rate in epochs})
         for ep, secs, rate in epochs:
             print(f"  stage-1 epoch {ep} as joint_train logs it: {rate} img/s "
                   f"({secs} s for {PIPE_STEPS} steps of {BATCH}"
@@ -4714,6 +4741,307 @@ def torch_ckpt_phase(card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallelism
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_WARM, DDP_UVC = 1, 4
+# each rank's step against the single-process step on the concatenated
+# batch: the same bf16 kernels, the loss and gradient summed as two
+# half-batch means (TRAIN_REL_TOL's reasoning, over a few steps)
+DDP_REL_TOL = 2e-2
+DDP_KEYS = ("loss", "grad_norm", "resource")
+# phase 11's compact step: 12 teacher and 10 student blocks' K1 and K2,
+# the 10 students' A2 and A6
+COMPACT_STEP = {"layer_attention_ln": 22, "mlp_ln": 22,
+                "layer_attention_ln_bwd": 10, "mlp_ln_bwd": 10}
+DDP_ALONE_STEPS = 8
+# phase 12's epoch rates, which phase 15 prints beside its own
+PIPE_RATES = {}
+
+
+def _ddp_specs(tmp):
+    """Phase 15 (a)'s spec files (``parallel/dryrun.py``): DeiT-Small at
+    full width, a global batch of 64 drawn from a seed, and each spec's
+    kernel launches a step."""
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.parallel import dryrun
+
+    cfg = get_config(PIPE_MODEL)
+    flagship = dict(enable_patch_gating=2, gating_interval=100)
+    plain = dict(mixup=0.0, cutmix=0.0)
+    base = dict(model=PIPE_MODEL, tau=TRAIN_TAU, head_std=0.05)
+    params, teacher, masks = _stage2_model(cfg, 60, SKIPPED_BLOCKS,
+                                           S2_KEPT_UNITS)
+    s2_arrays = dict(params=params, teacher=teacher, masks=masks)
+    s2_hp = dict(enable_patch_gating=2, patch_ratio=TOKEN_RATIO)
+    specs = [
+        ("stage1", dict(base, kind="stage1", hp=flagship, thp=plain,
+                        warmup=DDP_WARM, data=[DDP_WARM + DDP_UVC, BATCH, 11],
+                        noise_seed=12, seed=13), {}, FLAGSHIP_STEP),
+        ("stage1 mixup", dict(base, kind="stage1", hp=flagship,
+                              data=[1, BATCH, 14], noise_seed=15, seed=13),
+         {}, FLAGSHIP_STEP),
+        ("stage2", dict(base, kind="stage2", hp=s2_hp, data=[1, BATCH, 16],
+                        noise_seed=17), s2_arrays, PIPE_TRAIN_STEP),
+        ("compact_ft", dict(base, kind="compact_ft", hp=s2_hp,
+                            data=[1, BATCH, 18], noise_seed=19), s2_arrays,
+         COMPACT_STEP),
+        ("baseline", dict(base, kind="baseline", data=[1, BATCH, 20],
+                          noise_seed=21, seed=22,
+                          baseline=dict(drop_path_rate=0.1, re_prob=0.25)),
+         {}, BASE_TRAIN_STEP),
+    ]
+    out = []
+    for name, settings, arrays, per_step in specs:
+        path = os.path.join(tmp, name.replace(" ", "_") + ".npz")
+        dryrun.write_spec(path, settings, **arrays)
+        out.append((name, path, per_step))
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def ddp_ranks_phase(card):
+    """Phase 15 (a): two ranks on the one card over gloo (NCCL takes one
+    rank a GPU), each a ``python -m uvc_tpu_torch.parallel.dryrun`` rank:
+    DeiT-Small stage 1 (1 warmup and 4 UVC steps, mixup off), one stage-1
+    step with mixup (the partners across the ranks), one step each of
+    stage 2, compact_ft and the baseline fine-tune.  After every step the
+    ranks hold the same bytes; each step's metrics are within DDP_REL_TOL
+    of this process's single-process run on the concatenated batch; each
+    rank's launches are exact.  Returns the launches (the ranks' and the
+    references')."""
+    import tempfile
+
+    from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
+                                   reset_launch_counts)
+    from uvc_tpu_torch.parallel import dryrun
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="uvc_ddp_") as tmp:
+        specs = _ddp_specs(tmp)
+        t0 = time.perf_counter()
+        dryrun.launch_ranks(DDP_WORLD, device="cuda", backend="gloo",
+                            tasks=[p for _, p, _ in specs], threads=2,
+                            timeout=900)
+        wall = time.perf_counter() - t0
+        print(f"phase 15 (a): {DDP_WORLD} ranks over gloo on one card, "
+              f"{len(specs)} specs in {wall:.1f} s wall (each rank's CUDA "
+              f"start and kernel load included) [{card}]", flush=True)
+        for name, path, per_step in specs:
+            ranks = dryrun.read_rank_results(path, DDP_WORLD)
+            settings, arrays = dryrun.read_npz(path)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            ref, _ = dryrun.run_spec(settings, arrays, device="cuda")
+            torch.cuda.synchronize()
+            add({**launch_counts(), **backward_launch_counts()})
+            (r0, _), (r1, _) = ranks
+            check(r0["digests"] == r1["digests"],
+                  f"{name}: the ranks' states differ after a step")
+            worst = 0.0
+            for got, want in zip(r0["metrics"], ref["metrics"]):
+                for k in DDP_KEYS:
+                    if k in want:
+                        worst = max(worst, _rel(got[k], want[k]))
+            check(worst <= DDP_REL_TOL,
+                  f"{name}: two ranks vs one process differ by {worst:.2e}")
+            for r, (res, _) in enumerate(ranks):
+                for step, counts in enumerate(res["launches"]):
+                    check(counts == per_step,
+                          f"{name}: rank {r} step {step} launched {counts} "
+                          f"(expected {per_step})")
+                    add(counts)
+            clock = r0["reduce"]
+            n = max(1, clock["calls"])
+            steps = len(r0["step_ms"])
+            step_ms = sorted(r0["step_ms"])[steps // 2]
+            print(f"phase 15 [{name}]: {steps} step(s), ranks bit for bit "
+                  f"equal after each; loss "
+                  f"{r0['metrics'][-1]['loss']:.5f} (one process "
+                  f"{ref['metrics'][-1]['loss']:.5f}), worst of "
+                  f"{'/'.join(k for k in DDP_KEYS if k in ref['metrics'][0])}"
+                  f" {worst:.2e} (tol {DDP_REL_TOL}); launches a step "
+                  f"{per_step} on each rank; rank step {step_ms:.1f} ms "
+                  f"(median; one process {sorted(ref['step_ms'])[steps // 2]:.1f}"
+                  f" ms); gloo all-reduce {clock['host_ms'] / n:.1f} ms a "
+                  f"step on the host, {(clock['device_ms'] or 0) / n:.1f} ms "
+                  f"between its events on the card [{card}]", flush=True)
+    return total
+
+
+def _step_with_and_without_mesh(card, mesh):
+    """Phase 5's stage-1 step (DeiT-Small, batch 64, the flagship
+    settings) built without a mesh and with ``mesh`` (NCCL at world size
+    1): windows of DDP_ALONE_STEPS steps in turns (plain, mesh, mesh,
+    plain), each window from an idle card to its last synchronise, then
+    one profiled step of each."""
+    from uvc_tpu_torch.compress.minimax import init_compression_state
+    from uvc_tpu_torch.compress.resource import build_macs_table
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.parallel import mesh as pmesh
+    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.step import build_stage1_step, draw_stage1_noise
+
+    cfg = get_config(PIPE_MODEL)
+    hp = MinimaxHParams(enable_patch_gating=2, gating_interval=100)
+    thp = TrainHParams()
+    gen = torch.Generator().manual_seed(5)
+    params, teacher = (vit.init_params(gen, cfg) for _ in range(2))
+    for tree in (params, teacher):
+        tree["head"]["kernel"] = 0.05 * torch.randn(
+            tree["head"]["kernel"].shape, generator=gen).cuda()
+    table = build_macs_table(cfg)
+    state = create_train_state(params, thp,
+                               init_compression_state(cfg, hp, "cuda"))
+    igen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(BATCH, cfg.img_size, cfg.img_size, cfg.in_chans,
+                    generator=igen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=igen,
+                           device="cuda")
+    ngen = torch.Generator().manual_seed(7)
+    steps = {"no mesh": build_stage1_step(cfg, table, hp, thp,
+                                          warmup=False),
+             "NCCL mesh (world 1)": build_stage1_step(
+                 cfg, table, hp, thp, warmup=False, mesh=mesh)}
+
+    def window(fn, n):
+        st = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            noise = draw_stage1_noise(ngen, cfg, hp, thp, BATCH, "cuda")
+            st, _ = fn(st, teacher, x, labels, noise, TRAIN_TAU)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    for fn in steps.values():
+        window(fn, 2)
+    times = {k: [] for k in steps}
+    labels_ = list(steps)
+    pmesh.reset_reduce_clock(events=False)
+    for k in (labels_[0], labels_[1], labels_[1], labels_[0]):
+        times[k].append(window(steps[k], DDP_ALONE_STEPS))
+    clock = pmesh.reduce_clock()
+    check(clock["calls"] == 2 * DDP_ALONE_STEPS,
+          "the mesh's steps did not all-reduce once each")
+    # the host's pace moves between windows by more than the mesh costs:
+    # the best window of each side is the one least disturbed
+    plain, with_mesh = (min(times[k]) for k in labels_)
+    phase5 = STEP_RATES.get("stage-1 step")
+    print(f"  stage-1 step alone (DeiT-Small, batch {BATCH}, the flagship "
+          f"settings, windows of {DDP_ALONE_STEPS} steps in turns plain / "
+          f"mesh / mesh / plain): no mesh "
+          f"{' / '.join(f'{t:.2f}' for t in times[labels_[0]])} ms a step "
+          f"(best {BATCH / plain * 1e3:.1f} img/s), NCCL mesh at world 1 "
+          f"{' / '.join(f'{t:.2f}' for t in times[labels_[1]])} ms (best "
+          f"{BATCH / with_mesh * 1e3:.1f} img/s), best against best "
+          f"{100 * (with_mesh / plain - 1):+.2f}%; the all-reduce "
+          f"{clock['host_ms'] / clock['calls']:.3f} ms a step on the host; "
+          f"phase 5's step "
+          f"{'not run' if phase5 is None else f'{phase5:.1f} img/s'} "
+          f"[{card}]")
+    noise = draw_stage1_noise(ngen, cfg, hp, thp, BATCH, "cuda")
+    profile_phase(card, {
+        f"stage-1 step, {k}": (lambda fn=fn: fn(state, teacher, x, labels,
+                                                  noise, TRAIN_TAU))
+        for k, fn in steps.items()},
+        watch={"NCCL kernels": "nccl", "the flatten (torch.cat)":
+               "CatArrayBatchedCopy"}, host_top=12)
+
+
+def ddp_nccl_phase(card):
+    """Phase 15 (b): ``joint_train`` at world size 1 under NCCL, started
+    as torchrun starts a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``): phase 12's run (DeiT-Small,
+    procedural data, 12 steps an epoch, 2 + 1 epochs) with its
+    checkpoints, exact launches and the all-reduce's time a step; then the
+    stage-1 step alone with and without the mesh, in turns, and one
+    profiled step of each.  Returns the launches."""
+    import re
+    import tempfile
+
+    import torch.distributed as dist
+
+    from uvc_tpu_torch.cli import joint_train
+    from uvc_tpu_torch.parallel import dryrun
+    from uvc_tpu_torch.parallel import mesh as pmesh
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dryrun.free_port()))
+    with tempfile.TemporaryDirectory(prefix="uvc_nccl_") as tmp:
+        common = ["--model_type", PIPE_MODEL, "--dataset", "procedural",
+                  "--img_size", "224", "--train_batch_size", str(BATCH),
+                  "--eval_batch_size", str(BATCH), "--synthetic_steps",
+                  str(PIPE_STEPS), "--distillation-type", "soft",
+                  "--output_dir", tmp]
+        os.environ.update(env)
+        try:
+            pmesh.reset_reduce_clock(events=True)
+            t0 = time.perf_counter()
+            out, counts = _run_cli(joint_train.main, common + [
+                "--num_epochs", "2", "--warmup_epochs", "1",
+                "--post_num_epochs", "1", "--name", "run"])
+            wall = time.perf_counter() - t0
+            clock = pmesh.reduce_clock()
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        check(not dist.is_initialized(), "joint_train left its group up")
+        check("Mesh: {'data': 1, 'model': 1}" in out,
+              "joint_train formed no mesh under torchrun's environment")
+        want = _want(counts, train=(PIPE_TRAIN_STEP, 3 * PIPE_STEPS),
+                     eval=(PIPE_EVAL_BATCH, 3 * PIPE_EVAL_BATCHES))
+        print(f"launches joint_train (NCCL, world 1) {counts} "
+              f"(expected {want})")
+        check(counts == want, "joint_train (NCCL) launch counts differ")
+        name = "deit_small_patch16_224"
+        files = [f"{name}_1.ckpt", f"{name}_2.ckpt", f"{name}_post_0.ckpt"]
+        for f in files:
+            check(os.path.exists(os.path.join(tmp, "run", f)),
+                  f"joint_train (NCCL) wrote no {f}")
+        check(clock["calls"] == 3 * PIPE_STEPS,
+              f"{clock['calls']} all-reduces for {3 * PIPE_STEPS} steps")
+    n = clock["calls"]
+    epochs = re.findall(r"\[Epoch (\d+)\] ([\d.]+)s \(([\d.]+) img/s\)",
+                        out)
+    check(len(epochs) == 2, f"epoch lines {epochs}")
+    print(f"joint_train under NCCL at world size 1 (DeiT-Small, batch "
+          f"{BATCH}, 2 + 1 epochs of {PIPE_STEPS} steps): {wall:.2f} s wall, "
+          f"checkpoints {', '.join(files)} [{card}]")
+    for ep, secs, rate in epochs:
+        ref = PIPE_RATES.get(ep)
+        print(f"  stage-1 epoch {ep}: {rate} img/s (phase 12, no mesh: "
+              f"{'not run' if ref is None else f'{ref} img/s'}) [{card}]")
+    print(f"  gradient all-reduce (NCCL, world 1, {n} calls): "
+          f"{clock['host_ms'] / n:.3f} ms a step on the host, "
+          f"{clock['device_ms'] / n:.3f} ms a step on the card between its "
+          f"events (flatten, all_reduce, divide, unflatten) [{card}]")
+
+    # the step alone, with and without the mesh, in turns, then profiled
+    os.environ.update(env, MASTER_PORT=str(dryrun.free_port()))
+    try:
+        pmesh.initialize_multihost()
+        _step_with_and_without_mesh(card, pmesh.make_mesh())
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4728,6 +5056,10 @@ def main():
                     help="phase 3 at R50-ViT-B/16's block shape ('vit_b') and "
                     "phase 14 (R50-ViT-B/16, CaiT-S24-224, post_train from a "
                     "torch checkpoint), then the card line")
+    ap.add_argument("--ddp-only", action="store_true",
+                    help="phase 15 alone (data parallelism: two ranks over "
+                    "gloo on the card, joint_train under NCCL at world size "
+                    "1), then the card line")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -4760,6 +5092,12 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     eps = get_config("deit_small_patch16_224").layer_norm_eps
+    if args.ddp_only:
+        elapsed("phase 15")
+        ddp_ranks_phase(card)
+        ddp_nccl_phase(card)
+        print(card_line())
+        return 0
     elapsed("phase 3")
     if args.backbones_only:
         kernel_phase(eps, only=("vit_b",))
@@ -4822,6 +5160,11 @@ def main():
     r50_counts = r50_phase(card)
     cait_counts = cait_phase(card)
     torch_ckpt_counts = torch_ckpt_phase(card)
+    # phase 15: data parallelism (two ranks over gloo on the card, then
+    # joint_train under NCCL at world size 1)
+    elapsed("phase 15")
+    ddp_counts = ddp_ranks_phase(card)
+    nccl_counts = ddp_nccl_phase(card)
     elapsed("the summary")
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
@@ -4832,14 +5175,16 @@ def main():
     # window, phase 11's stage-2 windows (A6 at a compact layer's
     # padded width, A2 below dm), phase 12's CLI runs and served export,
     # and phase 13's (the scorers' passes at batch 1 and 128, the baseline
-    # runs, the gradient report), and phase 14's (R50-ViT-B/16's windows,
-    # CaiT's, which launch none, and post_train from the .pth.tar)
+    # runs, the gradient report), phase 14's (R50-ViT-B/16's windows,
+    # CaiT's, which launch none, and post_train from the .pth.tar) and
+    # phase 15's (both ranks' steps, the single-process references, the
+    # NCCL joint_train)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
                    compact_counts, t2t_stage2_counts, pipeline_counts,
                    suite_counts, r50_counts, cait_counts,
-                   torch_ckpt_counts):
+                   torch_ckpt_counts, ddp_counts, nccl_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -7,8 +7,9 @@ default; the tiny two-stage runs of ``tests/test_e2e.py`` run through the
 port's CLIs; each package's ``post_train`` reads the other's stage-1
 checkpoint; the compact export serves through ``apply_compact`` with the
 masked-dense eval forward's logits; the routes that are not ported raise
-``NotImplementedError`` naming their ROADMAP item; and importing the new
-modules (the R50 stem and CaiT among them) loads neither JAX nor msgpack.
+``NotImplementedError`` naming their ROADMAP item, and the mesh flags
+JAX's errors; and importing the new modules (the R50 stem, CaiT and the
+data-parallel modules among them) loads neither JAX nor msgpack.
 """
 
 import argparse
@@ -314,25 +315,37 @@ def test_export_compact_serves_the_masked_dense_logits(tmp_path,
 
 @pytest.mark.parametrize("case", ["dp", "mp", "processes", "stablehlo",
                                   "baseline_dp", "baseline_processes"])
-def test_unported_routes_raise(tmp_path, case):
+def test_unported_routes_raise(tmp_path, monkeypatch, case):
+    """Tensor parallelism (``--mp > 1``) and the StableHLO export raise
+    NotImplementedError naming their ROADMAP items; a ``--dp`` other than
+    the world size raises JAX's ValueError, and ``--num_processes 2`` with
+    no coordinator raises at once, before any rendezvous."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     base = TINY + ["--device", "cpu", "--output_dir", str(tmp_path)]
     from uvc_tpu_torch.cli import baseline_train as t_base
+    tp = (NotImplementedError, "queue A item 7b")
+    no_coordinator = (ValueError, "needs --coordinator")
     calls = {
-        "dp": (t_joint.main, base + ["--dp", "2"], "item 7"),
-        "mp": (t_joint.main, base + ["--dp", "1", "--mp", "2"], "item 7"),
-        "processes": (t_joint.main, base + ["--num_processes", "2"],
-                      "item 7"),
+        "dp": (t_joint.main, base + ["--dp", "2"], ValueError,
+               r"dp\(2\) \* mp\(1\) != device count \(1\)"),
+        "mp": (t_joint.main, base + ["--dp", "1", "--mp", "2"]) + tp,
+        "processes": (t_joint.main, base + ["--num_processes", "2"])
+        + no_coordinator,
         "stablehlo": (t_export.main, [
             "--checkpoint", "x.ckpt", "--save_file", "y.ckpt",
-            "--export_stablehlo", "z.npz"], "item 8"),
-        "baseline_dp": (t_base.main, base + ["--dp", "4", "--mp", "2"],
-                        "item 7"),
-        "baseline_processes": (t_base.main, base + ["--num_processes", "2"],
-                               "item 7"),
+            "--export_stablehlo", "z.npz"], NotImplementedError,
+            "queue A item 8"),
+        "baseline_dp": (t_base.main, base + ["--dp", "4", "--mp", "2"])
+        + tp,
+        "baseline_processes": (t_base.main,
+                               base + ["--num_processes", "2"])
+        + no_coordinator,
     }
-    main, argv, item = calls[case]
-    with pytest.raises(NotImplementedError, match=f"queue A {item}"):
+    main, argv, err, match = calls[case]
+    with pytest.raises(err, match=match):
         main(argv)
+    assert not torch.distributed.is_initialized()
 
 
 def _testing_npz(path, cfg):
@@ -460,8 +473,9 @@ def test_step_profiler_writes_a_trace(tmp_path):
 
 
 def test_new_modules_import_no_jax_or_msgpack():
-    """Importing the port's data, checkpoint, logging, profiler, driver and
-    CLI modules loads neither JAX, flax, optax, msgpack, ml_dtypes nor the
+    """Importing the port's data, checkpoint, logging, profiler, driver,
+    CLI and data-parallel modules (the mesh, the dry run, the SLURM
+    launcher) loads neither JAX, flax, optax, msgpack, ml_dtypes nor the
     JAX package."""
     code = (
         "import sys\n"
@@ -474,6 +488,8 @@ def test_new_modules_import_no_jax_or_msgpack():
         "import uvc_tpu_torch.cli.post_train\n"
         "import uvc_tpu_torch.cli.export_compact\n"
         "import uvc_tpu_torch.models.resnet, uvc_tpu_torch.models.cait\n"
+        "import uvc_tpu_torch.parallel.mesh, uvc_tpu_torch.parallel.dryrun\n"
+        "import uvc_tpu_torch.cli.slurm_launch\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes',"
         " 'uvc_tpu', 'PIL', 'yaml'))\n"

@@ -45,6 +45,7 @@ from uvc_tpu_torch.compress.state import MinimaxHParams as THParams
 from uvc_tpu_torch.data import pipeline as tpipe
 from uvc_tpu_torch.data.mixup import MixupDraw
 from uvc_tpu_torch.interop import masks_from_numpy, params_from_numpy
+from uvc_tpu_torch.parallel.mesh import Mesh
 from uvc_tpu_torch.train import stage1 as tstage1
 from uvc_tpu_torch.train import state as tstate
 from uvc_tpu_torch.train import step as tstep
@@ -436,11 +437,39 @@ def test_stage2_resume_repeats_the_uninterrupted_run(tmp_path, compact):
         (tmp_path / "full" / name).read_bytes()
 
 
-def test_drivers_refuse_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+def test_drivers_refuse_a_mesh(monkeypatch):
+    """Tensor parallelism (``mp > 1``) raises, naming its ROADMAP item; a
+    data-parallel ``run_stage2`` scales its lr by the global batch (the
+    loader's batch times the ranks) / 512, as JAX's by ``batch_size *
+    process_count``."""
+    with pytest.raises(NotImplementedError, match="queue A item 7b"):
         run_stage1(TCFG, THParams(), tstate.TrainHParams(), train_loader=[],
-                   test_loader=None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+                   test_loader=None, mp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 7b"):
         run_stage2(TCFG, THParams(), tstate.TrainHParams(), params={},
                    masks={}, train_loader=[], test_loader=None, mp=2,
                    device="cpu")
+
+    class Built(Exception):
+        pass
+
+    def grab(cfg, hp, thp, **kw):
+        raise Built(thp.learning_rate)
+
+    monkeypatch.setattr(tstep, "build_stage2_step", grab)
+    params = _weights()[0]
+    tparams = params_from_numpy(_np(params), device="cpu")
+    tmasks = {"attn": torch.ones(TCFG.depth, TCFG.embed_dim),
+              "mlp": torch.ones(TCFG.depth, TCFG.mlp_hidden)}
+    train, _ = _loaders(tpipe)
+    lr = 1e-3
+    for mesh, world_batch in ((None, None), (Mesh(size=4, rank=0), None),
+                              (Mesh(size=4, rank=0), 64)):
+        with pytest.raises(Built) as err:
+            run_stage2(TCFG, THParams(), tstate.TrainHParams(
+                learning_rate=lr), params=tparams, masks=tmasks,
+                train_loader=train, test_loader=None, mesh=mesh,
+                world_batch=world_batch, save_checkpoints=False,
+                device="cpu")
+        want = world_batch or train.batch_size * (mesh.size if mesh else 1)
+        assert err.value.args[0] == pytest.approx(lr * want / 512.0)

@@ -23,6 +23,14 @@ draws each step's from a generator seeded by ``(seed, global step)``
 (``draw_step_noise``, looked up at call time so that a test can feed the
 JAX package's draws instead), so a resumed run repeats the uninterrupted
 one bit for bit.
+
+Given a ``mesh`` (``parallel/mesh.py``), the step and the loop are one
+rank's part of a data-parallel run, as ``train/step.py`` describes: the
+gradient averaged over the ranks before the clip, the mixup partners from
+the flipped global batch, the global batch's noise sharded by rows, the
+parameters broadcast from rank 0 at the start (so EMA and GMP see the
+same bytes on every rank), the eval totals summed over the ranks and the
+checkpoints written by rank 0.
 """
 
 from __future__ import annotations
@@ -48,13 +56,16 @@ from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.models.vit import sample_drop_path
 from uvc_tpu_torch.ops.gumbel import gumbel_noise
-from uvc_tpu_torch.train.stage1 import MULTI_DEVICE, eval_totals
+from uvc_tpu_torch.parallel.mesh import (TENSOR_PARALLEL, all_reduce_mean,
+                                         flip_partners, replicate)
+from uvc_tpu_torch.train.stage1 import eval_totals
 from uvc_tpu_torch.train.state import (TrainHParams, clip_global_norm,
                                        make_weight_optimizer,
                                        opt_state_from_state_dict,
                                        opt_state_to_state_dict,
                                        zero_frozen_updates)
-from uvc_tpu_torch.train.step import _base_loss, _teacher_logits
+from uvc_tpu_torch.train.step import (_base_loss, _teacher_logits,
+                                      shard_noise)
 from uvc_tpu_torch.utils.checkpoint import (load_checkpoint, restore_like,
                                             save_checkpoint)
 from uvc_tpu_torch.utils.logging import AverageMeter, MetricLogger
@@ -131,14 +142,15 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
                         token_number: float = 0.7,
                         ema_decay: float = 0.0,
                         drop_path_rate: float = 0.0,
-                        re_prob: float = 0.0):
+                        re_prob: float = 0.0, mesh=None):
     """Returns ``step(state, teacher_params, wmasks, x, labels, noise, tau)
     -> (state', metrics)``, ``noise`` a ``BaselineNoise`` drawn with the
     same settings (the erasing count and fill mode live in its draw).
 
     ``teacher_params=None`` (or ``thp.distillation_type`` "none") trains
-    without distillation; ``wmasks=None`` trains dense.  The new state
-    holds new tensors; ``state`` is not modified."""
+    without distillation; ``wmasks=None`` trains dense; ``mesh`` makes it
+    a data-parallel rank's step.  The new state holds new tensors;
+    ``state`` is not modified."""
     tx = make_weight_optimizer(thp)
     lr_fn = thp.lr_schedule()
     dtype = thp.compute_dtype
@@ -172,10 +184,12 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
         if noise.erasing is not None:
             x = random_erasing(x, noise.erasing)
         if mixing:
+            partner = (None if mesh is None
+                       else flip_partners(x, labels, mesh))
             x, targets = mixup_cutmix(x, labels, noise.mixup,
                                       num_classes=thp.num_classes,
                                       smoothing=thp.smoothing,
-                                      mode=thp.mixup_mode)
+                                      mode=thp.mixup_mode, partner=partner)
         else:
             targets = torch.nn.functional.one_hot(
                 labels.long(), thp.num_classes).float()
@@ -192,8 +206,11 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
         grads = tree_unflatten(state.params, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)])
+        loss = loss.detach()
 
         with torch.no_grad():
+            if mesh is not None:
+                grads, loss = all_reduce_mean(grads, mesh, loss)
             grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
             updates, opt_state = tx.update(grads, state.opt_state,
                                            state.params)
@@ -204,7 +221,7 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
                 ema = tree_map(
                     lambda e, p: ema_decay * e + (1.0 - ema_decay) * p,
                     ema, new_params)
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+        metrics = {"loss": loss, "grad_norm": grad_norm,
                    "lr": lr_fn(state.step)}
         return BaselineState(step=state.step + 1, params=new_params,
                              opt_state=opt_state, ema_params=ema), metrics
@@ -248,7 +265,9 @@ def draw_step_noise(seed: int, global_step: int, cfg: ViTConfig,
                     **settings) -> BaselineNoise:
     """The noise of the step taken at ``global_step``: ``draw_baseline_noise``
     from a CPU generator seeded by ``(seed, global_step)`` alone, so that
-    a step draws the same whether or not the run was resumed before it."""
+    a step draws the same whether or not the run was resumed before it.
+    A data-parallel rank draws at the global batch and keeps its rows
+    (``train/step.py::shard_noise``)."""
     key = int(np.random.SeedSequence([int(seed), int(global_step)])
               .generate_state(1)[0])
     return draw_baseline_noise(torch.Generator().manual_seed(key), cfg, thp,
@@ -285,9 +304,12 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
     the optimizer state, the EMA, the flat masks, the step, the epoch, the
     best accuracy and the GMP events; ``resume`` restores all of them.
     Runs on ``device`` (the card unless the caller asks for the CPU);
-    ``params`` / ``teacher_params`` are copied, never changed."""
-    if mesh is not None or mp != 1:
-        raise NotImplementedError(MULTI_DEVICE)
+    ``params`` / ``teacher_params`` are copied, never changed.  ``mesh``
+    (``parallel/mesh.py::make_mesh``) makes the run one rank of a
+    data-parallel run (see the top); ``mp > 1`` raises
+    NotImplementedError."""
+    if mp != 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
     dev = resolve_device(device)
     logger = logger or MetricLogger(output_dir, name)
     state = create_baseline_state(_copy(params, dev), thp, ema_decay)
@@ -322,6 +344,9 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
         if gmp is not None:
             gmp.events = int(ck.get("gmp_events", 0))
         logger.info(f"Resumed from {resume} at epoch {start_epoch}")
+    if mesh is not None:
+        state, teacher_params, wmasks = replicate(
+            (state, teacher_params, wmasks), mesh)
 
     settings = dict(token_selection=token_selection,
                     drop_path_rate=drop_path_rate, re_prob=re_prob,
@@ -330,8 +355,9 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
                                   token_number=token_number,
                                   ema_decay=ema_decay,
                                   drop_path_rate=drop_path_rate,
-                                  re_prob=re_prob)
+                                  re_prob=re_prob, mesh=mesh)
     eval_fn = build_baseline_eval_step(cfg, thp)
+    world = 1 if mesh is None else mesh.size
     t_total = len(train_loader) * thp.num_epochs
     metrics = None
 
@@ -343,12 +369,13 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
         for x, y in device_prefetch(iter(train_loader), device=dev):
             tau = (get_tau(10.0, 0.1, global_step, t_total)
                    if token_selection else -1.0)
-            noise = draw_step_noise(seed, global_step, cfg, thp, x.shape[0],
-                                    device=dev, **settings)
+            noise = shard_noise(draw_step_noise(
+                seed, global_step, cfg, thp, x.shape[0] * world, device=dev,
+                **settings), thp, mesh)
             state, metrics = step_fn(state, teacher_params, wmasks,
                                      normalize_on_device(x), y.long(), noise,
                                      tau)
-            images += x.shape[0]
+            images += x.shape[0] * world
             global_step += 1
             if gmp is not None:
                 new_masks = gmp.maybe_prune(global_step, state.params)
@@ -371,7 +398,7 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
 
         if test_loader is not None:
             correct, loss_sum, count = eval_totals(
-                eval_fn, state.params, wmasks, test_loader, dev)
+                eval_fn, state.params, wmasks, test_loader, dev, mesh)
             acc = correct / max(count, 1)
             logger.info(f"[Baseline Eval|Epoch {epoch}] acc {acc * 100:.3f}% "
                         f"loss {loss_sum / max(count, 1):.5f}")

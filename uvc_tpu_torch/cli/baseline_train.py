@@ -14,7 +14,9 @@
   python -m uvc_tpu_torch.cli.baseline_train --eval --resume ck.ckpt
 
 The flags are the JAX package's plus ``--device``: the run computes on the
-card unless ``--device cpu`` is given.  A multi-device mesh raises.
+card unless ``--device cpu`` is given.  Across GPUs it runs as
+``joint_train`` does (one process per GPU: torchrun, or ``--coordinator``
+/ ``--num_processes`` / ``--process_id``); ``--mp > 1`` raises.
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drop_path", "--drop-path", default=0.1, type=float,
                    help="stochastic depth rate (main.py:56, :261-262)")
     p.add_argument("--dist-eval", default=1, type=int,
-                   help="parity flag (main.py:221-227); one process "
-                        "evaluates every sample once")
+                   help="parity flag (main.py:221-227): each rank "
+                        "evaluates its shard, padded with masked -1 "
+                        "labels, and the totals are summed over the ranks")
     return p
 
 
@@ -77,13 +80,21 @@ def main(argv=None):
     if args.eval and not args.resume:
         p.error("--eval requires --resume <checkpoint>")
 
+    from uvc_tpu_torch.cli.joint_train import setup_mesh, shutdown
+
+    mesh = setup_mesh(args)
+    try:
+        _run(args, mesh)
+    finally:
+        shutdown()
+
+
+def _run(args, mesh):
     from uvc_tpu_torch.baselines.finetune import (build_baseline_eval_step,
                                                   run_baseline)
     from uvc_tpu_torch.baselines.gmp import GMPSchedule
     from uvc_tpu_torch.baselines.pruning import masks_from_flat
-    from uvc_tpu_torch.cli.joint_train import (build_loaders,
-                                               check_single_device,
-                                               load_params)
+    from uvc_tpu_torch.cli.joint_train import build_loaders, load_params
     from uvc_tpu_torch.data.augment import make_train_augment
     from uvc_tpu_torch.interop import resolve_device
     from uvc_tpu_torch.train.stage1 import eval_totals
@@ -91,7 +102,6 @@ def main(argv=None):
     from uvc_tpu_torch.utils.logging import MetricLogger
     from uvc_tpu_torch.utils.tree import tree_map
 
-    check_single_device(args)
     dev = resolve_device(args.device)
     num_classes = flags.num_classes_for(args.dataset)
     if args.img_size is None:
@@ -139,7 +149,7 @@ def main(argv=None):
                       if ck.get("masks") else None)
         correct, _, count = eval_totals(build_baseline_eval_step(cfg, thp),
                                         eval_params, eval_masks, test_loader,
-                                        dev)
+                                        dev, mesh)
         logger.info(f"Eval accuracy {correct / max(count, 1) * 100:.3f}%")
         return
 
@@ -159,8 +169,8 @@ def main(argv=None):
         re_prob=args.reprob, re_count=args.recount,
         re_mode=args.remode,
         seed=args.seed, output_dir=args.output_dir, name=args.name,
-        resume=args.resume, start_epoch=args.start_epoch,
-        logger=logger, device=dev)
+        resume=args.resume, start_epoch=args.start_epoch, mesh=mesh,
+        mp=args.mp, logger=logger, device=dev)
     logger.info(f"Best accuracy: {result.best_acc * 100:.3f}%")
 
 

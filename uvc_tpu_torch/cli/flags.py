@@ -6,10 +6,12 @@ inert flags included (--patch_weight, --patch_l1_weight, --patchlr,
 compile cache (--compilation_cache_dir, UVC_COMPILE_CACHE) is inert
 here: the kernels' build is cached by nvcc's own output directory,
 ``build/uvc_tpu_torch/<source hash>/``.  The mesh and multi-process flags
-(--dp, --mp, --coordinator, --num_processes, --process_id) are accepted;
-a run that asks for more than one device raises (ROADMAP.md queue A item
-7).  One flag is the port's own: --device, ``cuda`` (the default) or
-``cpu``, the counterpart of JAX_PLATFORMS.
+keep their names and defaults, with the port's one process per GPU:
+--num_processes counts ranks (GPUs, not hosts), --coordinator /
+--process_id place this one (or torchrun's environment does), and --dp
+defaults to the world size.  Tensor parallelism (--mp > 1) raises
+(ROADMAP.md queue A item 7b).  One flag is the port's own: --device,
+``cuda`` (the default) or ``cpu``, the counterpart of JAX_PLATFORMS.
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--distillation-alpha", default=0.5, type=float)
     p.add_argument("--distillation-tau", default=1.0, type=float)
     p.add_argument("--smoothing", type=float, default=0.1)
-    # distribution (one device: see ROADMAP.md queue A item 7)
+    # distribution: one process per GPU (parallel/mesh.py)
     p.add_argument("--use_distribute", default=1, type=int)
     p.add_argument("--enable_writer", default=0, type=int)
     # device trace capture (utils/profiler.py, torch.profiler)

@@ -8,6 +8,14 @@
 
 The flags are the JAX package's (``cli/flags.py``) plus ``--device``: the
 run computes on the card unless ``--device cpu`` is given.
+
+Across GPUs, one process per GPU, started by torchrun or by
+``cli/slurm_launch.py`` (or by hand with ``--coordinator host:port
+--num_processes N --process_id r``):
+
+  torchrun --nproc_per_node 8 -m uvc_tpu_torch.cli.joint_train ...
+
+``--train_batch_size`` is the global batch; each rank loads its share.
 """
 
 from __future__ import annotations
@@ -16,29 +24,45 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from uvc_tpu_torch.cli import flags
 from uvc_tpu_torch.configs import get_config
-from uvc_tpu_torch.train.stage1 import MULTI_DEVICE
 
 
-def check_single_device(args) -> None:
-    """Raise unless the run is single-device: ``--dp 1 --mp 1``, or one
-    device visible with no mesh or process group asked for."""
-    if (args.num_processes or 1) > 1 or args.coordinator:
-        raise NotImplementedError(MULTI_DEVICE)
-    if args.dp == 1 and args.mp == 1:
-        return
-    visible = torch.cuda.device_count() if args.device == "cuda" else 1
-    if (args.dp or 1) > 1 or args.mp > 1 or visible > 1:
-        raise NotImplementedError(MULTI_DEVICE)
+def setup_mesh(args):
+    """Join the ranks (``parallel/mesh.py::initialize_multihost`` from
+    ``--coordinator`` / ``--num_processes`` / ``--process_id`` or
+    torchrun's environment) and return the data-parallel mesh: one when
+    the process group is up or ``--dp`` / ``--mp`` ask for one, none
+    under ``--dp 1 --mp 1`` in one process.  ``--mp > 1`` raises
+    NotImplementedError, a ``--dp`` other than the world size
+    ValueError."""
+    from uvc_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    initialize_multihost(args.coordinator, args.num_processes,
+                         args.process_id, device=args.device)
+    up = dist.is_initialized()
+    single = args.dp == 1 and args.mp == 1
+    if not (up or args.dp is not None or args.mp > 1) or \
+            (single and not (up and dist.get_world_size() > 1)):
+        return None
+    mesh = make_mesh(dp=args.dp, mp=args.mp)
+    print(f"Mesh: {mesh.shape} (rank {mesh.rank})")
+    return mesh
+
+
+def shutdown() -> None:
+    """Leave the process group, if one was formed."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def build_loaders(args, num_classes: int, img_size: int):
     from uvc_tpu_torch.data.pipeline import (ArrayLoader, FolderLoader,
                                              ProceduralLoader,
                                              SyntheticLoader, cifar_arrays)
-    pid, pcount = 0, 1           # one process (ROADMAP.md queue A item 7)
+    pid, pcount = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
     per_host_train = args.train_batch_size // pcount
     if args.dataset == "procedural":
         train = ProceduralLoader(per_host_train,
@@ -123,8 +147,14 @@ def main(argv=None):
     flags.add_common_flags(parser)
     flags.add_uvc_flags(parser)
     args = flags.parse_with_config(parser, argv)
-    check_single_device(args)
+    mesh = setup_mesh(args)
+    try:
+        _run(args, mesh)
+    finally:
+        shutdown()
 
+
+def _run(args, mesh):
     num_classes = flags.num_classes_for(args.dataset)
     if args.img_size is None:
         args.img_size = get_config(args.model_type).img_size
@@ -152,7 +182,7 @@ def main(argv=None):
                         teacher_params=teacher, seed=args.seed,
                         output_dir=args.output_dir, name=args.name,
                         log_interval=args.log_interval,
-                        resume=args.resume,
+                        resume=args.resume, mesh=mesh, mp=args.mp,
                         use_orbax=bool(args.use_orbax),
                         steps_per_launch=args.steps_per_launch,
                         logger=logger, profiler=profiler,
@@ -166,7 +196,7 @@ def main(argv=None):
                teacher_params=teacher, train_loader=train_loader,
                test_loader=test_loader, seed=args.seed,
                output_dir=args.output_dir, name=args.name + "_post",
-               eval_every=args.eval_every,
+               eval_every=args.eval_every, mesh=mesh, mp=args.mp,
                world_batch=args.train_batch_size,
                steps_per_launch=args.steps_per_launch, logger=logger,
                device=args.device)

@@ -11,7 +11,10 @@ the minimax state they are rebuilt from, or a reference (torch) stage-1
 ``.pth`` / ``.pth.tar``: its weights through ``models/convert.py`` and its
 masks from the binary ``*.mask`` buffers its weighted modules carry
 (``masks_from_torch_state_dict``).  Its pruned coordinates hold shrunken
-nonzero weights, so the masks are never taken as all ones.
+nonzero weights, so the masks are never taken as all ones.  Across GPUs
+it runs as ``joint_train`` does (torchrun, ``cli/slurm_launch.py
+--stage2``, or ``--coordinator`` / ``--num_processes`` /
+``--process_id``).
 """
 
 from __future__ import annotations
@@ -19,9 +22,8 @@ from __future__ import annotations
 import argparse
 
 from uvc_tpu_torch.cli import flags
-from uvc_tpu_torch.cli.joint_train import (build_loaders,
-                                           check_single_device,
-                                           load_teacher)
+from uvc_tpu_torch.cli.joint_train import (build_loaders, load_teacher,
+                                           setup_mesh, shutdown)
 from uvc_tpu_torch.configs import get_config
 
 
@@ -55,8 +57,14 @@ def main(argv=None):
     parser.add_argument("--checkpoint_dir", required=True,
                         help="stage-1 checkpoint to fine-tune")
     args = flags.parse_with_config(parser, argv)
-    check_single_device(args)
+    mesh = setup_mesh(args)
+    try:
+        _run(args, mesh)
+    finally:
+        shutdown()
 
+
+def _run(args, mesh):
     num_classes = flags.num_classes_for(args.dataset)
     if args.img_size is None:
         args.img_size = get_config(args.model_type).img_size
@@ -77,7 +85,7 @@ def main(argv=None):
                teacher_params=teacher, train_loader=train_loader,
                test_loader=test_loader, seed=args.seed,
                output_dir=args.output_dir, name=args.name,
-               eval_every=args.eval_every,
+               eval_every=args.eval_every, mesh=mesh, mp=args.mp,
                world_batch=args.train_batch_size,
                steps_per_launch=args.steps_per_launch,
                resume=args.resume, use_orbax=bool(args.use_orbax),

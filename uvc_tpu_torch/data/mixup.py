@@ -11,6 +11,11 @@ Modes: ``batch`` draws one decision for the batch, the partner being the
 flipped batch; ``elem`` one per sample; ``pair`` one per sample pair
 (sample i and b-1-i share it).  ``cutmix_minmax`` takes the box sides
 uniformly in [min, max] of H and W instead of from a Beta draw.
+
+Across data-parallel ranks the flip is the global batch's, as inside the
+JAX package's SPMD step: every rank draws the global batch's decisions,
+keeps its rows' (``rows_of_draw``) and takes its partners' images and
+labels from the rank they lie on (``parallel/mesh.py::flip_partners``).
 """
 
 from __future__ import annotations
@@ -105,22 +110,41 @@ def sample_mixup(generator: torch.Generator, h: int, w: int, *,
                      torch.from_numpy(np.stack([d[2] for d in draws])))
 
 
+def rows_of_draw(draw: MixupDraw, mode: str,
+                 rows: torch.Tensor) -> MixupDraw:
+    """The decisions of the batch rows ``rows`` (indices into the batch
+    ``draw`` was drawn for): the ``batch`` mode's one decision as it is,
+    the ``elem`` mode's rows, and in the ``pair`` mode each row's pair's
+    (rows i and b-1-i share one)."""
+    if mode == "batch":
+        return draw
+    if mode == "pair":
+        rows = torch.minimum(rows, draw.lam.shape[0] - 1 - rows)
+    return MixupDraw(*(t[rows.to(t.device)] for t in draw))
+
+
 def mixup_cutmix(x: torch.Tensor, labels: torch.Tensor, draw: MixupDraw, *,
                  num_classes: int, smoothing: float = 0.1,
-                 mode: str = "batch"):
+                 mode: str = "batch", partner=None):
     """Apply ``draw`` to the NHWC batch ``x``; returns (mixed x, soft
-    targets ``[B, classes]``).  The partner of sample i is sample b-1-i."""
+    targets ``[B, classes]``).  The partner of sample i is sample b-1-i,
+    or, given ``partner`` (a data-parallel step's ``(images, labels)`` of
+    the partners, row i's at i), ``partner``'s row i; ``draw`` then holds
+    one decision a row (``rows_of_draw``), in the ``pair`` mode too."""
     b = x.shape[0]
     dev = x.device
     lam, use_blend, box = (t.to(dev) for t in draw)
-    x_flip = x.flip(0)
     t1 = one_hot_smooth(labels, num_classes, smoothing)
-    t2 = t1.flip(0)
+    if partner is None:
+        x_flip, t2 = x.flip(0), t1.flip(0)
+    else:
+        x_flip = partner[0]
+        t2 = one_hot_smooth(partner[1], num_classes, smoothing)
     if mode == "batch":
         x_out = torch.where(box[None, :, :, None], x_flip, x)
         x_out = torch.where(use_blend, lam * x + (1.0 - lam) * x_flip, x_out)
         return x_out.to(x.dtype), lam * t1 + (1.0 - lam) * t2
-    if mode == "pair":
+    if mode == "pair" and partner is None:
         idx = torch.arange(b, device=dev)
         first = torch.minimum(idx, b - 1 - idx)
         lam, use_blend, box = lam[first], use_blend[first], box[first]

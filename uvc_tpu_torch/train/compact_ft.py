@@ -229,11 +229,12 @@ def scatter_to_dense(ctree: dict, meta: CompactMeta,
 
 def build_compact_stage2_step(cfg: ViTConfig, hp: MinimaxHParams,
                               thp: TrainHParams, meta: CompactMeta, *,
-                              micro: bool = False):
+                              micro: bool = False, mesh=None):
     """The compact counterpart of ``build_stage2_step``, with its signature
     ``step(state, teacher_params, masks, x, labels, noise)``, so that a
     stage-2 training loop can swap it in: ``masks`` is accepted and
-    ignored (the slicing enforces them).  Under ``hp.enable_patch_gating
+    ignored (the slicing enforces them); ``mesh`` a data-parallel rank's
+    step, the compact tree replicated.  Under ``hp.enable_patch_gating
     == 2`` the
     student drops tokens at ``hp.patch_ratio`` and the scorer's updates are
     zeroed (frozen architecture, as in the dense step)."""
@@ -246,7 +247,8 @@ def build_compact_stage2_step(cfg: ViTConfig, hp: MinimaxHParams,
                                thp)
 
     frozen = (("top", "token_scorer"),) if ratio is not None else ()
-    return _stage2_step(thp, loss_fn, frozen_updates=frozen, micro=micro)
+    return _stage2_step(thp, loss_fn, frozen_updates=frozen, micro=micro,
+                        mesh=mesh)
 
 
 def compact_param_count(ctree: dict) -> int:

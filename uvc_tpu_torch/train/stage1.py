@@ -19,11 +19,20 @@ for each step and ``draw_report_noise`` for the epoch-end report, so that
 a test can feed the JAX driver's key chain in their place.  The step runs
 eagerly: ``steps_per_launch`` (several steps in one program) has no
 counterpart and is logged as ignored.
+
+With a ``mesh`` (``parallel/mesh.py``) the run is one rank of a
+data-parallel run: every rank resumes from the same file, the state and
+the teacher are broadcast from rank 0 after the resume (as the JAX driver
+places them on its mesh), each step is the rank's part of the global
+batch's (``train/step.py``), the noise is the global batch's sharded by
+rows, the eval totals are summed over the ranks, and rank 0 writes the
+checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Optional
@@ -43,6 +52,7 @@ from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib, gumbel_noise
 from uvc_tpu_torch.ops.stes import ste_ceil
+from uvc_tpu_torch.parallel.mesh import TENSOR_PARALLEL, replicate, sum_across
 from uvc_tpu_torch.train import step as step_mod
 from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
                                        create_train_state,
@@ -56,9 +66,6 @@ from uvc_tpu_torch.utils.checkpoint import (CheckpointManager,
 from uvc_tpu_torch.utils.logging import AverageMeter, MetricLogger
 from uvc_tpu_torch.utils.schedules import get_tau
 from uvc_tpu_torch.utils.tree import tree_map
-
-MULTI_DEVICE = ("multi-device training (a mesh, dp > 1 or mp > 1) is not "
-                "ported yet; see ROADMAP.md queue A item 7")
 
 
 def copy_tree(tree):
@@ -108,27 +115,30 @@ def expectation_and_real_flops(params, cstate, cfg: ViTConfig,
     return frac(1.0), frac(1.0), frac(1.0)
 
 
-def eval_totals(eval_fn, params, masks, loader, device="cuda"):
+def eval_totals(eval_fn, params, masks, loader, device="cuda", mesh=None):
     """(correct, loss sum, count) of ``eval_fn(params, masks, x, labels)``
     (the counts of ``train/step.py::eval_step``) over ``loader``, summed
-    on the device and read once."""
+    on the device and read once; with a ``mesh``, summed over the ranks'
+    shards in one all-reduce (padding rows, labelled -1, count nowhere)."""
     totals = None
     for x, y in device_prefetch(iter(loader), device=device):
         m = eval_fn(params, masks, normalize_on_device(x), y.long())
         totals = m if totals is None else {k: totals[k] + m[k]
                                            for k in totals}
-    if totals is None:
-        return 0, 0.0, 0
-    return (int(totals["correct"]), float(totals["loss_sum"]),
-            int(totals["count"]))
+    values = [0.0] * 3 if totals is None else torch.stack(
+        [totals[k].double() for k in ("correct", "loss_sum", "count")]
+    ).tolist()
+    correct, loss_sum, count = sum_across(values, mesh)
+    return int(correct), float(loss_sum), int(count)
 
 
 def run_validation(eval_fn, params, masks, loader, logger, step: int,
-                   device="cuda") -> float:
-    """Top-1 accuracy of ``eval_totals`` over ``loader``; logged as
-    ``test/accuracy`` and ``test/loss``."""
+                   device="cuda", mesh=None) -> float:
+    """Top-1 accuracy of ``eval_totals`` over ``loader`` (over every
+    rank's shard with a ``mesh``); logged as ``test/accuracy`` and
+    ``test/loss``."""
     correct, loss_sum, count = eval_totals(eval_fn, params, masks, loader,
-                                           device)
+                                           device, mesh)
     acc = correct / max(1, count)
     logger.info(f"Validation @ step {step}: loss "
                 f"{loss_sum / max(1, count):.5f} acc {acc * 100:.3f}%")
@@ -169,9 +179,11 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     ``params=None`` draws a fresh model from the seeded generator.
     ``use_orbax`` keeps the checkpoints in a ``CheckpointManager``
     directory (``<run>/checkpoints``) instead of ``<name>_<epoch>.ckpt``
-    files; ``resume`` takes either."""
-    if mesh is not None or mp != 1:
-        raise NotImplementedError(MULTI_DEVICE)
+    files; ``resume`` takes either.  ``mesh`` (``parallel/mesh.py::
+    make_mesh``) makes the run one rank of a data-parallel run (see the
+    top); ``mp > 1`` raises NotImplementedError."""
+    if mp != 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
     dev = resolve_device(device)
     logger = logger or MetricLogger(output_dir, name)
     table = build_macs_table(cfg)
@@ -212,6 +224,10 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         resumed_step = int(ck.get("global_step", 0))
         gen = torch.Generator().manual_seed(int(ck.get("key_seed", seed)))
         logger.info(f"Resumed stage-1 from {resume} at epoch {start_epoch}")
+    if mesh is not None:
+        # after the resume, as the JAX driver places the restored state
+        state, teacher_params = replicate((state, teacher_params), mesh)
+    world = 1 if mesh is None else mesh.size
     total_param = float(total_maskable_params(state.params))
     logger.info(f"** Initial FLOP size: {table.dense_flops / 2e6:.2f}M MACs "
                 f"(dense {table.dense_flops / 1e6:.2f}M FLOPs)")
@@ -224,7 +240,7 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     if steps_per_launch > 1:
         logger.info("steps_per_launch ignored (the eager step has no "
                     "multi-step program)")
-    build = step_mod.build_stage1_step
+    build = functools.partial(step_mod.build_stage1_step, mesh=mesh)
     warm_step = build(cfg, table, hp, thp, warmup=True)
     uvc_step = build(cfg, table, hp, thp, warmup=False)
     if gas > 1:
@@ -275,8 +291,8 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
                                                     device=dev)):
             if profiler is not None:
                 profiler.step(global_step)
-            noise = step_mod.draw_stage1_noise(gen, cfg, hp, thp,
-                                               x.shape[0], dev)
+            noise = step_mod.shard_noise(step_mod.draw_stage1_noise(
+                gen, cfg, hp, thp, x.shape[0] * world, dev), thp, mesh)
             tau = get_tau(10.0, 0.1, global_step, t_total) \
                 if hp.enable_patch_gating == 2 else -1.0
             xb = normalize_on_device(x)
@@ -307,7 +323,7 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.time() - t0
-        imgs = steps_per_epoch * train_loader.batch_size
+        imgs = steps_per_epoch * train_loader.batch_size * world
         logger.info(f"[Epoch {epoch}] {dt:.1f}s "
                     f"({imgs / max(dt, 1e-9):.1f} img/s) "
                     f"loss {losses.avg:.4f}")
@@ -336,7 +352,7 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
 
         if eval_each_epoch and test_loader is not None:
             acc = run_validation(eval_fn, state.params, masks, test_loader,
-                                 logger, global_step, device=dev)
+                                 logger, global_step, device=dev, mesh=mesh)
             best_acc = max(best_acc, acc)
 
         if save_checkpoints:

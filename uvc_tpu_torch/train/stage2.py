@@ -12,6 +12,12 @@ whose checkpoints and validation stay in the dense layout through
 from ``seed`` for the first epoch and from the previous epoch's
 checkpoint's ``key_seed`` for each later one (and on resume), looked up
 at call time so that a test can feed the JAX driver's key chain instead.
+
+With a ``mesh`` (``parallel/mesh.py``) the run is one rank of a
+data-parallel run, as in ``train/stage1.py``: the global batch is the
+loader's batch times the ranks, the state (dense or compact), teacher and
+masks are broadcast from rank 0, the eval totals are summed over the
+ranks and rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.data.pipeline import device_prefetch, normalize_on_device
 from uvc_tpu_torch.interop import resolve_device
 from uvc_tpu_torch.train import step as step_mod
-from uvc_tpu_torch.train.stage1 import (MULTI_DEVICE, copy_tree,
-                                        eval_fn_for, run_validation)
+from uvc_tpu_torch.parallel.mesh import TENSOR_PARALLEL, replicate
+from uvc_tpu_torch.train.stage1 import (copy_tree, eval_fn_for,
+                                        run_validation)
 from uvc_tpu_torch.train.state import (TrainHParams, create_train_state,
                                        opt_state_from_state_dict,
                                        opt_state_to_state_dict)
@@ -63,9 +70,13 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     units padded to a multiple of 128; the checkpoints hold the dense
     layout (``scatter_to_dense``) and its compact-shaped optimizer state,
     so a compact run resumes with ``compact=True``, re-slicing the
-    restored dense params."""
-    if mesh is not None or mp != 1:
-        raise NotImplementedError(MULTI_DEVICE)
+    restored dense params.  ``mesh`` makes the run one rank of a
+    data-parallel run (see the top); ``world_batch`` defaults to the
+    global batch, the loader's batch times the ranks; ``mp > 1`` raises
+    NotImplementedError."""
+    if mp != 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
+    world = 1 if mesh is None else mesh.size
     dev = resolve_device(device)
     logger = logger or MetricLogger(output_dir, name)
     if teacher_params is None:
@@ -73,10 +84,14 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     teacher_params = tree_map(lambda t: t.to(dev), teacher_params)
     params = tree_map(lambda t: t.to(dev), params)
     masks = tree_map(lambda t: t.to(dev), masks)
+    if mesh is not None:
+        # rank 0's, before the compact tree and the dense template are cut
+        params, teacher_params, masks = replicate(
+            (params, teacher_params, masks), mesh)
 
     # linear lr scaling: lr * global_batch / 512 (post_train.py:297-302)
     if world_batch is None:
-        world_batch = train_loader.batch_size
+        world_batch = train_loader.batch_size * world
     thp = dataclasses.replace(
         thp, learning_rate=thp.learning_rate * world_batch / 512.0)
 
@@ -126,13 +141,16 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         gen = torch.Generator().manual_seed(int(ck.get("key_seed", seed)))
         logger.info(f"Resumed stage-2 from {resume} at epoch {start_epoch} "
                     f"(step {resumed_step}, best {resumed_best:.4f})")
+    if mesh is not None:
+        state = replicate(state, mesh)
     gas = max(1, thp.accum_steps)
     if compact:
         from uvc_tpu_torch.train.compact_ft import build_compact_stage2_step
         _build = functools.partial(build_compact_stage2_step,
-                                   cfg, hp, thp, cmeta)
+                                   cfg, hp, thp, cmeta, mesh=mesh)
     else:
-        _build = functools.partial(step_mod.build_stage2_step, cfg, hp, thp)
+        _build = functools.partial(step_mod.build_stage2_step, cfg, hp, thp,
+                                   mesh=mesh)
     step_fn = _build()
     micro_fn = _build(micro=True) if gas > 1 else None
     if steps_per_launch > 1:
@@ -152,7 +170,8 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     def validate():
         nonlocal best_acc
         acc = run_validation(eval_fn, to_dense(state.params), masks,
-                             test_loader, logger, global_step, device=dev)
+                             test_loader, logger, global_step, device=dev,
+                             mesh=mesh)
         if acc > best_acc:
             best_acc = acc
             if save_checkpoints:
@@ -169,8 +188,8 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
                                                     device=dev)):
             if profiler is not None:
                 profiler.step(global_step)
-            noise = step_mod.draw_stage2_noise(gen, cfg, thp, x.shape[0],
-                                               dev)
+            noise = step_mod.shard_noise(step_mod.draw_stage2_noise(
+                gen, cfg, thp, x.shape[0] * world, dev), thp, mesh)
             xb = normalize_on_device(x)
             y = y.long()
             if gas > 1 and (bi + 1) % gas != 0:
@@ -214,7 +233,8 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
 
     if test_loader is not None:
         acc = run_validation(eval_fn, to_dense(state.params), masks,
-                             test_loader, logger, global_step, device=dev)
+                             test_loader, logger, global_step, device=dev,
+                             mesh=mesh)
         best_acc = max(best_acc, acc)
     if profiler is not None:
         profiler.close()

@@ -29,6 +29,17 @@ its hard decision (the student's blend kernel K3 / A4 with a one-hot
 distribution), the physical top-k token drop by the frozen scorer, soft
 distillation, clip and AdamW or SGD.  Its only draw is the mixup
 (``draw_stage2_noise``).
+
+Given a ``mesh`` (``parallel/mesh.py``), a step is one rank's part of
+the JAX package's SPMD step over the global batch: it averages the
+gradient tree and the loss over the ranks (``all_reduce_mean``) before
+the clip and the architecture update, so every rank takes the same update
+and holds the same bytes; the mixup partners come from the flipped global
+batch (``flip_partners``); and the noise is the global batch's, of which
+the rank keeps its rows (``shard_noise``).  Every loss term is a mean
+over the samples, so the ranks' mean gradient is the global batch's.  A
+micro-step does not reduce: the full step reduces the folded gradient
+once.
 """
 
 from __future__ import annotations
@@ -41,13 +52,16 @@ from uvc_tpu_torch.compress.minimax import arch_update
 from uvc_tpu_torch.compress.resource import MacsTable
 from uvc_tpu_torch.compress.state import MinimaxHParams
 from uvc_tpu_torch.configs import ViTConfig
-from uvc_tpu_torch.data.mixup import MixupDraw, mixup_cutmix, sample_mixup
+from uvc_tpu_torch.data.mixup import (MixupDraw, mixup_cutmix, rows_of_draw,
+                                      sample_mixup)
 from uvc_tpu_torch.distill.losses import (distillation_loss,
                                           label_smoothing_cross_entropy,
                                           soft_target_cross_entropy)
 from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib, gumbel_noise
+from uvc_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean,
+                                         flip_partners, shard_batch)
 from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
                                        clip_global_norm,
                                        make_weight_optimizer,
@@ -87,7 +101,8 @@ def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
                       device="cuda") -> Stage1Noise:
     """Draw one step's noise from ``generator`` (on its device, usually
     the CPU) and move it to ``device`` (the card unless the caller asks
-    for the CPU)."""
+    for the CPU).  A data-parallel rank draws at the global batch and
+    keeps its rows with ``shard_noise``."""
     device = resolve_device(device)
     mix = _draw_mixup(generator, cfg, thp, batch, device)
     gating = hp.enable_block_gating and hp.use_gumbel
@@ -123,6 +138,33 @@ def draw_stage2_noise(generator: torch.Generator, cfg: ViTConfig,
                                          resolve_device(device)))
 
 
+# the axis of the batch's rows in the per-row draws of a step's noise
+_ROW_AXIS = {"token": 0, "drop_path": 2, "erasing": 1}
+
+
+def shard_noise(noise, thp: TrainHParams, mesh: Optional[Mesh]):
+    """This rank's part of a global batch's noise (a ``Stage1Noise``,
+    ``Stage2Noise`` or the baseline's ``BaselineNoise``): every rank draws
+    the global batch's noise from the same generator and keeps its rows
+    of the per-row draws (the token noise, drop-path, random erasing, the
+    ``elem`` / ``pair`` mixup decisions); the ``[L, 2]`` draws and the
+    ``batch`` mode's one decision are every rank's.  The noise as it is
+    without a mesh."""
+    if mesh is None:
+        return noise
+    fields = {}
+    for name, value in noise._asdict().items():
+        if value is None:
+            continue
+        if name in _ROW_AXIS:
+            fields[name] = shard_batch(value, mesh, axis=_ROW_AXIS[name])
+        elif name == "mixup":
+            rows = shard_batch(torch.arange(value.lam.shape[0]), mesh) \
+                if thp.mixup_mode != "batch" else None
+            fields[name] = rows_of_draw(value, thp.mixup_mode, rows)
+    return noise._replace(**fields)
+
+
 def _base_loss(logits, targets, labels, thp: TrainHParams):
     """SoftTargetCE with mixup, else label-smoothing CE, else plain CE."""
     if thp.mixup > 0 or thp.cutmix > 0:
@@ -141,12 +183,16 @@ def _teacher_logits(teacher_params, x, cfg: ViTConfig, dtype):
     return model.eval_logits(out, cfg)
 
 
-def _mixed(x, labels, mixup: Optional[MixupDraw], thp: TrainHParams):
-    """The step's images and soft targets: mixup / cutmix when on, else
-    the one-hot labels."""
+def _mixed(x, labels, mixup: Optional[MixupDraw], thp: TrainHParams,
+           mesh: Optional[Mesh] = None):
+    """The step's images and soft targets: mixup / cutmix when on (with a
+    mesh, against the flipped global batch's rows), else the one-hot
+    labels."""
     if thp.mixup > 0 or thp.cutmix > 0:
+        partner = None if mesh is None else flip_partners(x, labels, mesh)
         return mixup_cutmix(x, labels, mixup, num_classes=thp.num_classes,
-                            smoothing=thp.smoothing, mode=thp.mixup_mode)
+                            smoothing=thp.smoothing, mode=thp.mixup_mode,
+                            partner=partner)
     return x, torch.nn.functional.one_hot(labels.long(),
                                           thp.num_classes).float()
 
@@ -176,7 +222,7 @@ def _value_and_grad(loss_fn, tree):
 
 def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
                       thp: TrainHParams, *, warmup: bool,
-                      micro: bool = False):
+                      micro: bool = False, mesh: Optional[Mesh] = None):
     """Returns ``step(state, teacher_params, x, labels, noise, tau) ->
     (state', metrics)``, ``noise`` a ``Stage1Noise``.
 
@@ -188,6 +234,7 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
     ``state.grad_accum``; the full step folds the buffer into its own
     gradient, applies clip + AdamW + the architecture update and clears
     it.  The new state holds new tensors; ``state`` is not modified.
+    ``mesh``: this rank's part of a data-parallel step (see the top).
 
     With ``hp.enable_part_gating`` the attention and MLP part-gating
     distributions are hard-or-soft Gumbel draws (``noise.part_attn`` /
@@ -238,7 +285,7 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
 
     def step(state: TrainState, teacher_params, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage1Noise, tau):
-        x, targets = _mixed(x, labels, noise.mixup, thp)
+        x, targets = _mixed(x, labels, noise.mixup, thp, mesh)
         loss, grads = _value_and_grad(
             lambda params: loss_fn(params, state.cstate, teacher_params, x,
                                    targets, labels, noise, tau),
@@ -252,6 +299,10 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
             if accum > 1:
                 grads = tree_map(lambda a, g: a + g / accum,
                                  state.grad_accum, grads)
+            if mesh is not None:
+                # the global batch's gradient, before the clip (its norm)
+                # and the architecture update (the gating gradient)
+                grads, loss = all_reduce_mean(grads, mesh, loss)
             if warmup:
                 grads = dict(grads, block_gating=torch.zeros_like(
                     grads["block_gating"]))
@@ -303,20 +354,21 @@ def _zero_at(tree: dict, path) -> dict:
 
 
 def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
-                 frozen_updates=(), micro: bool = False):
+                 frozen_updates=(), micro: bool = False,
+                 mesh: Optional[Mesh] = None):
     """The stage-2 update around ``loss_fn(params, teacher_params, masks,
     x, targets, labels)``: mixup, the loss and its gradient, the
-    accumulation, the gradients at ``frozen_grads`` zeroed before the
-    clip, clip, the weight optimizer, the updates at ``frozen_updates``
-    (and of ``prm_w``) zeroed.  Shared by the dense step and the compact
-    one (``train/compact_ft.py``)."""
+    accumulation, the all-reduce over ``mesh``'s ranks, the gradients at
+    ``frozen_grads`` zeroed before the clip, clip, the weight optimizer,
+    the updates at ``frozen_updates`` (and of ``prm_w``) zeroed.  Shared
+    by the dense step and the compact one (``train/compact_ft.py``)."""
     tx = make_weight_optimizer(thp)
     lr_fn = thp.lr_schedule()
     accum = thp.accum_steps
 
     def step(state: TrainState, teacher_params, masks, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage2Noise):
-        x, targets = _mixed(x, labels, noise.mixup, thp)
+        x, targets = _mixed(x, labels, noise.mixup, thp, mesh)
         loss, grads = _value_and_grad(
             lambda params: loss_fn(params, teacher_params, masks, x, targets,
                                    labels), state.params)
@@ -328,6 +380,8 @@ def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
             if accum > 1:
                 grads = tree_map(lambda a, g: a + g / accum,
                                  state.grad_accum, grads)
+            if mesh is not None:
+                grads, loss = all_reduce_mean(grads, mesh, loss)
             grads = _zero_subtrees(grads, frozen_grads)
             grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
             updates, opt_state = tx.update(grads, state.opt_state,
@@ -349,7 +403,7 @@ def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
 
 
 def build_stage2_step(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams,
-                      *, micro: bool = False):
+                      *, micro: bool = False, mesh: Optional[Mesh] = None):
     """Returns the mask-frozen distillation fine-tune step ``step(state,
     teacher_params, masks, x, labels, noise) -> (state', metrics)``,
     ``noise`` a ``Stage2Noise``; metrics ``loss``, ``grad_norm``, ``lr``.
@@ -364,8 +418,9 @@ def build_stage2_step(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams,
     ``block_gating`` gradient is zeroed before the clip, and its update
     (and, under token selection, the ``token_scorer`` updates) after the
     optimizer, as is ``prm_w``'s.  ``micro=True`` is the
-    gradient-accumulation micro-step, as in ``build_stage1_step``.  The
-    new state holds new tensors; ``state`` is not modified."""
+    gradient-accumulation micro-step and ``mesh`` a data-parallel rank's
+    step, as in ``build_stage1_step``.  The new state holds new tensors;
+    ``state`` is not modified."""
     model = get_model(cfg)
     mode = 2 if hp.enable_patch_gating == 2 else 0
 
@@ -383,7 +438,7 @@ def build_stage2_step(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams,
     frozen = (("block_gating",),) + ((("token_scorer",),) if mode == 2
                                      else ())
     return _stage2_step(thp, loss_fn, frozen_grads=(("block_gating",),),
-                        frozen_updates=frozen, micro=micro)
+                        frozen_updates=frozen, micro=micro, mesh=mesh)
 
 
 @torch.no_grad()

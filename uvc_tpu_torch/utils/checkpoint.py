@@ -30,6 +30,11 @@ scalars.
 ``CheckpointManager`` takes the place of the JAX package's
 ``OrbaxManager``: the latest ``max_to_keep`` checkpoints of a run, as
 ``<step>.ckpt`` files in one directory.
+
+Across data-parallel ranks (``parallel/mesh.py``) every rank holds the
+same state, so only rank 0 writes a checkpoint and the others wait at a
+barrier until the file is there (the JAX package writes from every
+process).
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+
+from uvc_tpu_torch.parallel.mesh import barrier, is_writer
 
 # flax's limit on one array leaf; larger arrays are stored in chunks
 MAX_CHUNK_SIZE = 2 ** 30
@@ -464,14 +471,21 @@ def params_of(ck: Any) -> Any:
     return lists_from_index_maps(ck["params"] if "params" in ck else ck)
 
 
-def save_checkpoint(path: str, tree: Any) -> None:
-    """Save a tree (msgpack; one portable file, the JAX package's bytes
-    for the same tree)."""
+def _write_checkpoint(path: str, tree: Any) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     parts: List[bytes] = []
     _pack(_chunk_leaves(_as_saved(tree)), parts)
     with open(path, "wb") as f:
         f.writelines(parts)
+
+
+def save_checkpoint(path: str, tree: Any) -> None:
+    """Save a tree (msgpack; one portable file, the JAX package's bytes
+    for the same tree): written by rank 0 alone, every rank returning
+    once it is written."""
+    if is_writer():
+        _write_checkpoint(path, tree)
+    barrier()
 
 
 def load_checkpoint(path: str, target: Optional[Any] = None) -> Any:
@@ -499,11 +513,15 @@ class CheckpointManager:
                       if re.fullmatch(r"\d+\.ckpt", f))
 
     def save(self, step: int, tree: Any) -> None:
-        tmp = self._path(step) + ".tmp"
-        save_checkpoint(tmp, tree)
-        os.replace(tmp, self._path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        """Write ``<step>.ckpt`` and drop the oldest past ``max_to_keep``:
+        rank 0 alone, every rank returning once it is done."""
+        if is_writer():
+            tmp = self._path(step) + ".tmp"
+            _write_checkpoint(tmp, tree)
+            os.replace(tmp, self._path(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        barrier()
 
     def restore(self, step: Optional[int] = None, target: Any = None) -> Any:
         step = self.latest_step() if step is None else step
