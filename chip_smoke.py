@@ -10,6 +10,10 @@
                                            # card line
     python3 chip_smoke.py --ddp-only       # phase 15 (data parallelism)
                                            # alone, then the card line
+    python3 chip_smoke.py --export-only    # phase 16 (the serving export)
+                                           # alone, then the card line
+    python3 chip_smoke.py --tp-only        # phase 17 (tensor parallelism)
+                                           # alone, then the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -59,7 +63,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    A7's forward's three (qkv GEMM, core, projection GEMM) at "dense" and
    "h80", from a profile, with the GEMMs' rates and the host time of one
    call, each of the model's blocks (32, 12) with its own weights, and K1
-   and K2 interleaved block by block as a forward pass issues them; with
+   and K2 interleaved block by block as a forward pass issues them (K1's
+   and K2's through their dispatcher operators, beside the operators' CUDA
+   implementations called directly: what the operator adds); with
    ``--kernels-only``, A2's sixteen and A7's backward's
    fourteen launches one by one at each of their shapes the same way, and
    A6's and A4's twelve at "train" and "vit_h", with their GEMMs' rates
@@ -302,6 +308,31 @@ Phases, each of which stops the run with a non-zero exit on failure:
    a rank: phase 12's run with its checkpoints and exact launches, the
    all-reduce's host and device time a step, the epoch rates beside phase
    12's, and the stage-1 step alone with and without the mesh, in turns.
+16. serving export -- phase 4's DeiT-Small and phase 7's T2T-ViT-14
+   compact models (bf16) exported through ``torch.export`` at batches 8
+   and 64 (``infer/export.py::export_serving``; K1, K2 and the performer
+   forward are the operators ``uvc_tpu_torch.layer_attention_ln``,
+   ``mlp_ln`` and ``performer``), saved, then loaded and served in a
+   fresh interpreter that imports ``uvc_tpu_torch.infer.export`` alone
+   (no ``models``, ``infer.compact``, ``train`` or JAX module): its logits
+   against ``apply_compact``'s at the same batch, bit for bit or within
+   2e-2, a batch of 5 padded to 8, its launches a batch equal to
+   ``apply_compact``'s (DeiT-Small K1 10 and K2 10; T2T-ViT-14
+   ``performer`` 2, K1 12, K2 12); the export seconds, the artifact's MiB,
+   and the artifact's img/s beside ``apply_compact``'s over the same
+   windows, in turns.  Phase 12's ``export_compact`` also writes the
+   artifact (``--export_stablehlo``) and serves its batches through it.
+17. tensor parallelism -- four ranks on the one card over gloo at 2 dp x
+   2 mp (``make_mesh``: rank r at (r // 2, r % 2)), each holding its
+   shard of the blocks' qkv / proj / fc1 / fc2 leaves: phase 15's
+   DeiT-Small specs (global batch 64) of stage 1 (1 warmup and 4 UVC
+   steps), dense stage 2 and the baseline fine-tune with EMA; after every
+   step the four ranks' gathered states bit for bit equal, the metrics and
+   the whole params within 2e-2 of this process's single-process run,
+   each rank's tensor-parallel leaves half their bytes, each rank's
+   launches exactly one process's at batch 32 (a stage-1 step: K1 24, K2
+   12, K3 12, A2 12, A4 12), the all-gather's and the all-reduce's ms a
+   step; compact stage 2 at mp 2 raising ``ValueError``.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -718,8 +749,12 @@ def _fwd_calls(name, t, eps, stream):
     weights that each block owns, a maker of wrapper calls and one of calls
     of the library's entry point alone on fixed scratch, each taking the
     block's weights, and the operations of the kernel's GEMMs in launch
-    order)."""
+    order, and, for K1 and K2, whose wrappers go through a dispatcher
+    operator, a maker of calls of the operator's CUDA implementation
+    alone: the wrapper as it was before the operator)."""
     from uvc_tpu_torch.ops import _cuda
+    from uvc_tpu_torch.ops import attention as tatt
+    from uvc_tpu_torch.ops import mlp as tmlp
     from uvc_tpu_torch.ops.attention import layer_attention, layer_attention_ln
     from uvc_tpu_torch.ops.mlp import mlp_ln, mlp_ln_blend
 
@@ -754,7 +789,13 @@ def _fwd_calls(name, t, eps, stream):
                           w["w2"], w["b2"], t["fmask"], *scratch), rows, dm,
                     f, float(eps), stream)
             return lambda: c_fn(*args)
-        return keys, call, entry, (2 * rows * dm * f, 2 * rows * f * dm)
+
+        def impl(w):
+            return lambda: tmlp._mlp_ln_cuda(
+                x, t["g"], t["b"], w["w1"], w["b1"], w["w2"], w["b2"],
+                t["fmask"], float(eps))
+        return (keys, call, entry, (2 * rows * dm * f, 2 * rows * f * dm),
+                None if blend else impl)
 
     lib = _cuda.library("attention")
     keys = ("wqkv", "bqkv", "wproj", "bproj")
@@ -773,7 +814,12 @@ def _fwd_calls(name, t, eps, stream):
                           w["wproj"], w["bproj"], t["amask"], *scratch),
                     b, n, dm, da, heads, float(scale), float(eps), stream)
             return lambda: lib.uvc_layer_attention_ln(*args)
-        return keys, call, entry, flops
+
+        def impl(w):
+            return lambda: tatt._layer_attention_ln_cuda(
+                x, t["g"], t["b"], w["wqkv"], w["bqkv"], w["wproj"],
+                w["bproj"], t["amask"], heads, float(scale), float(eps))
+        return keys, call, entry, flops, impl
 
     scratch = empty(3 * da, da)
 
@@ -787,7 +833,7 @@ def _fwd_calls(name, t, eps, stream):
                       t["amask"], *scratch), b, n, dm, da, heads,
                 float(scale), stream)
         return lambda: lib.uvc_layer_attention(*args)
-    return keys, call, entry, flops
+    return keys, call, entry, flops, None
 
 
 def _print_host(what, shape, calls, host, card):
@@ -811,7 +857,11 @@ def forward_breakdowns(eps, card, calls=10):
     library composition, launch by launch beside it.  The host time is
     taken of the wrapper (checks, allocation, the library call) and of the
     library's entry point alone on fixed scratch (the tensor maps and the
-    launches), whose runs spread far less."""
+    launches), whose runs spread far less; for K1 and K2 also of the
+    operator's CUDA implementation called directly ("no operator": the
+    wrapper without the dispatcher's route through
+    ``uvc_tpu_torch.layer_attention_ln`` / ``mlp_ln``), so that the row
+    shows what the operator adds to a call."""
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(3)
     made = {}
@@ -819,7 +869,11 @@ def forward_breakdowns(eps, card, calls=10):
         for shape, blocks in shapes.items():
             b, n, dm, heads, f, dh, _ = FWD_SHAPES[shape]
             t = _inputs(gen, b, n, dm, heads, f, dh)
-            keys, call, entry, flops = _fwd_calls(name, t, eps, stream)
+            keys, call, entry, flops, impl = _fwd_calls(name, t, eps,
+                                                        stream)
+            ways = (("wrapper", call),) + (
+                (("no operator", impl),) if impl else ()) + (
+                ("entry", entry),)
             launch_breakdown(label, shape, call(t), card, launches, flops,
                              calls)
             if name == "layer_attention":
@@ -831,24 +885,24 @@ def forward_breakdowns(eps, card, calls=10):
             for what, ws in ((f"{blocks} blocks' own weights", own),
                              ("one block's weights", [t] * blocks)):
                 host = {}
-                for way, make in (("wrapper", call), ("entry", entry)):
+                for way, make in ways:
                     cs = [make(w) for w in ws]
                     warm = [c() for c in cs]
-                    check(way == "wrapper" or not any(warm),
+                    check(way != "entry" or not any(warm),
                           f"{label} [{shape}]: the entry point returned "
                           f"{warm}")
                     host[way] = _host_us(cs * 2)
                 _print_host(f"{label} ({what})", shape, 2 * blocks, host,
                             card)
-            made[name, shape] = (call, entry, own)
+            made[name, shape] = (dict(ways), own)
     # K1 and K2 block by block, as a forward pass issues them, each on its
     # library's cache of tensor maps
     for shape, blocks in FWD_BREAKDOWNS["mlp_ln"][2].items():
         k1, k2 = made["layer_attention_ln", shape], made["mlp_ln", shape]
         host = {}
-        for i, way in enumerate(("wrapper", "entry")):
-            cs = [c for w1, w2 in zip(k1[2], k2[2])
-                  for c in (k1[i](w1), k2[i](w2))]
+        for way in ("wrapper", "no operator", "entry"):
+            cs = [c for w1, w2 in zip(k1[1], k2[1])
+                  for c in (k1[0][way](w1), k2[0][way](w2))]
             for c in cs:
                 c()
             host[way] = _host_us(cs * 2)
@@ -1225,24 +1279,22 @@ def passes(fn):
                     for a, b in zip(marks, marks[1:])], first
 
 
-def serving_phase(card):
+def _served_model(name, seed, skipped):
+    """The seeded discovered architecture that phase 4 (DeiT-Small, seed
+    0) and phase 7 (T2T-ViT-14, seed 15) serve and phase 16 exports:
+    seeded random weights with a random head (the zero-initialised one
+    gives all-zero logits), 3 of the heads and half the MLP units kept in
+    every block with random within-head dims pruned, the blocks
+    ``skipped`` gated off.  Returns (cfg, params, masks, layers, top), the
+    compact model in bf16 on the card."""
     from uvc_tpu_torch.compress.masks import build_masks
-    from uvc_tpu_torch.compress.state import MinimaxHParams
     from uvc_tpu_torch.configs import get_config
-    from uvc_tpu_torch.infer.compact import (apply_compact,
-                                             compact_flops_fraction,
-                                             compact_model)
-    from uvc_tpu_torch.models import vit
-    from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
-    from uvc_tpu_torch.train.step import eval_step
+    from uvc_tpu_torch.infer.compact import compact_model
+    from uvc_tpu_torch.models import get_model
 
-    cfg = get_config("deit_small_patch16_224")
-    check(cfg.seq_len - cfg.num_patches + int(TOKEN_RATIO * cfg.num_patches)
-          == N_KEPT,
-          "the kernel phase's token count is not the serving paths'")
-    gen = torch.Generator().manual_seed(0)
-    params = vit.init_params(gen, cfg)
-    # the head is zero-initialised; randomise it so logits are not all 0
+    cfg = get_config(name)
+    gen = torch.Generator().manual_seed(seed)
+    params = get_model(cfg).init_params(gen, cfg)
     params["head"]["kernel"] = 0.05 * torch.randn(
         params["head"]["kernel"].shape, generator=gen).cuda()
     ln = cfg.depth
@@ -1250,10 +1302,27 @@ def serving_phase(card):
     r = torch.randint(0, cfg.head_size // 4 + 1, (ln, cfg.num_heads),
                       generator=gen).float()
     masks = build_masks(params, s.cuda(), r.cuda(), cfg)
-    for i in SKIPPED_BLOCKS:
+    for i in skipped:
         params["block_gating"][i] = torch.tensor([1.0, -1.0])
-    kept = ln - len(SKIPPED_BLOCKS)
     layers, top = compact_model(params, masks, cfg)
+    return cfg, params, masks, layers, top
+
+
+def serving_phase(card):
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.infer.compact import (apply_compact,
+                                             compact_flops_fraction)
+    from uvc_tpu_torch.models import vit
+    from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from uvc_tpu_torch.train.step import eval_step
+
+    cfg, params, masks, layers, top = _served_model(
+        "deit_small_patch16_224", 0, SKIPPED_BLOCKS)
+    check(cfg.seq_len - cfg.num_patches + int(TOKEN_RATIO * cfg.num_patches)
+          == N_KEPT,
+          "the kernel phase's token count is not the serving paths'")
+    ln = cfg.depth
+    kept = ln - len(SKIPPED_BLOCKS)
     check(len(layers) == kept, f"compact model has {len(layers)} layers")
     for blk in layers:
         check(blk["num_heads"] == 3 and blk["fc1"]["kernel"].shape[1] == 768,
@@ -2189,28 +2258,17 @@ def t2t_training_phase(card, name="t2t_vit_14", label="T2T-ViT-14", seed=12,
 
 
 def t2t_serving_phase(card):
-    from uvc_tpu_torch.compress.masks import build_masks
     from uvc_tpu_torch.compress.state import MinimaxHParams
-    from uvc_tpu_torch.configs import get_config
     from uvc_tpu_torch.infer.compact import (apply_compact,
-                                             compact_flops_fraction,
-                                             compact_model)
+                                             compact_flops_fraction)
     from uvc_tpu_torch.models import t2t_vit
     from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
     from uvc_tpu_torch.train.step import eval_step
 
-    cfg = get_config("t2t_vit_14")
+    cfg, params, masks, layers, top = _served_model(
+        "t2t_vit_14", 15, T2T_SKIPPED_BLOCKS)
     ln = cfg.depth
-    gen = torch.Generator().manual_seed(15)
-    params = _t2t_model(gen, cfg)
-    s = torch.tensor([[3.0, cfg.mlp_hidden / 2]] * ln)
-    r = torch.randint(0, cfg.head_size // 4 + 1, (ln, cfg.num_heads),
-                      generator=gen).float()
-    masks = build_masks(params, s.cuda(), r.cuda(), cfg)
-    for i in T2T_SKIPPED_BLOCKS:
-        params["block_gating"][i] = torch.tensor([1.0, -1.0])
     kept = ln - len(T2T_SKIPPED_BLOCKS)
-    layers, top = compact_model(params, masks, cfg)
     check(len(layers) == kept, f"compact T2T has {len(layers)} layers")
     for blk in layers:
         check(blk["num_heads"] == 3 and blk["fc1"]["kernel"].shape[1] == 640,
@@ -3501,7 +3559,8 @@ def pipeline_phase(card):
     """Phase 12: the two-stage pipeline through the CLIs on DeiT-Small at
     full width and depth: ``joint_train`` (stage 1 + the inline stage 2,
     a profiled window), a resume, ``post_train --compact_train`` and
-    ``export_compact`` served through ``apply_compact``.  Returns the
+    ``export_compact --export_stablehlo`` served through ``apply_compact``
+    and through the ``torch.export`` artifact it writes.  Returns the
     launches of the CLI runs and of the serving."""
     import re
     import tempfile
@@ -3515,6 +3574,7 @@ def pipeline_phase(card):
                                              device_prefetch,
                                              normalize_on_device)
     from uvc_tpu_torch.infer.compact import apply_compact
+    from uvc_tpu_torch.infer.export import load_serving
     from uvc_tpu_torch.models import vit
     from uvc_tpu_torch.ops import (launch_counts, reset_launch_counts)
     from uvc_tpu_torch.train.step import eval_step
@@ -3681,11 +3741,18 @@ def pipeline_phase(card):
         # -- 4. export and serve -------------------------------------------
         post_ck = os.path.join(tmp, "compact", f"{name}_post_0.ckpt")
         export_file = os.path.join(tmp, "compact_serving.ckpt")
-        out, _ = _run_cli(export_compact.main, [
+        artifact = os.path.join(tmp, "compact_serving.npz")
+        t0 = time.perf_counter()
+        out, export_counts = _run_cli(export_compact.main, [
             "--model_type", PIPE_MODEL, "--checkpoint", post_ck,
             "--save_file", export_file, "--token_ratio",
             str(PIPE_TOKEN_RATIO), "--num_classes", str(PIPE_CLASSES),
-            "--img_size", str(cfg.img_size)])
+            "--img_size", str(cfg.img_size), "--export_stablehlo", artifact,
+            "--serve_batches", str(BATCH)])
+        export_s = time.perf_counter() - t0
+        # tracing runs the operators' fake implementations: no launch
+        check(not any(export_counts.values()),
+              f"export_compact launched {export_counts}")
         ex = load_checkpoint(export_file)
         check(ex["model_type"] == PIPE_MODEL
               and float(ex["token_ratio"]) == PIPE_TOKEN_RATIO,
@@ -3705,8 +3772,12 @@ def pipeline_phase(card):
         ev = ProceduralLoader(BATCH, num_batches=PIPE_EVAL_BATCHES,
                               img_size=cfg.img_size,
                               num_classes=PIPE_CLASSES, train=False, seed=42)
+        model = load_serving(artifact)
+        check(model.batch_sizes == [BATCH],
+              f"the artifact's batch sizes {model.batch_sizes}")
         served, ref_logits, labels, correct, count = [], [], [], 0, 0
-        serve_counts = {}
+        from_artifact = []
+        serve_counts, artifact_counts = {}, {}
         with torch.no_grad():
             for x, y in device_prefetch(iter(ev)):
                 xb, y = normalize_on_device(x), y.long()
@@ -3717,6 +3788,10 @@ def pipeline_phase(card):
                     token_ratio=PIPE_TOKEN_RATIO).logits.float())
                 for k, v in launch_counts().items():
                     serve_counts[k] = serve_counts.get(k, 0) + v
+                reset_launch_counts()
+                from_artifact.append(model(xb).float())
+                for k, v in launch_counts().items():
+                    artifact_counts[k] = artifact_counts.get(k, 0) + v
                 # eval_step's forward (hard gating, masks, the physical
                 # deterministic top-k at the export's ratio), its logits
                 out_d = vit.apply(dense, xb, cfg, gating_distrib=gating,
@@ -3735,8 +3810,24 @@ def pipeline_phase(card):
         print(f"launches served export   {serve_counts} (expected "
               f"{want_serve})")
         check(serve_counts == want_serve, "served export launch counts")
-        for k, v in serve_counts.items():
-            total[k] = total.get(k, 0) + v
+        print(f"launches served artifact {artifact_counts} (expected "
+              f"{want_serve})")
+        check(artifact_counts == want_serve, "the artifact's launch counts")
+        for counts in (serve_counts, artifact_counts):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        a_all = torch.cat(from_artifact)
+        same = torch.equal(a_all, torch.cat(served))
+        rel_a, mx_a = rel_err(a_all, torch.cat(served))
+        print(f"export_compact --export_stablehlo (batch {BATCH}, "
+              f"{os.path.getsize(artifact) / 2 ** 20:.1f} MiB, the CLI "
+              f"{export_s:.1f} s with the .ckpt): the artifact served "
+              f"{PIPE_EVAL_BATCHES} batches "
+              + ("bit for bit apply_compact's" if same else
+                 f"against apply_compact: rel_fro={rel_a:.2e} "
+                 f"max_abs={mx_a:.2e} (tol {MODEL_REL_TOL})"))
+        check(same or rel_a <= MODEL_REL_TOL,
+              "the artifact and apply_compact disagree")
         s_all, r_all = torch.cat(served), torch.cat(ref_logits)
         check(torch.isfinite(s_all).all().item()
               and s_all.shape == (PIPE_EVAL_BATCHES * BATCH, PIPE_CLASSES),
@@ -4761,10 +4852,12 @@ DDP_ALONE_STEPS = 8
 PIPE_RATES = {}
 
 
-def _ddp_specs(tmp):
+def _ddp_specs(tmp, only=None, ema_decay=0.0, states=False):
     """Phase 15 (a)'s spec files (``parallel/dryrun.py``): DeiT-Small at
     full width, a global batch of 64 drawn from a seed, and each spec's
-    kernel launches a step."""
+    kernel launches a step; ``only`` keeps the specs named, ``ema_decay``
+    turns the baseline's EMA on and ``states`` records the whole params
+    after every step (phase 17)."""
     from uvc_tpu_torch.configs import get_config
     from uvc_tpu_torch.parallel import dryrun
 
@@ -4790,11 +4883,16 @@ def _ddp_specs(tmp):
          COMPACT_STEP),
         ("baseline", dict(base, kind="baseline", data=[1, BATCH, 20],
                           noise_seed=21, seed=22,
-                          baseline=dict(drop_path_rate=0.1, re_prob=0.25)),
+                          baseline=dict(drop_path_rate=0.1, re_prob=0.25,
+                                        ema_decay=ema_decay)),
          {}, BASE_TRAIN_STEP),
     ]
     out = []
     for name, settings, arrays, per_step in specs:
+        if only is not None and name not in only:
+            continue
+        if states:
+            settings = dict(settings, step_states=True)
         path = os.path.join(tmp, name.replace(" ", "_") + ".npz")
         dryrun.write_spec(path, settings, **arrays)
         out.append((name, path, per_step))
@@ -5042,6 +5140,426 @@ def ddp_nccl_phase(card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving export (infer/export.py)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+EXPORT_BATCHES = (8, 64)
+EXPORT_PARTIAL = 5
+# a fresh interpreter that imports the export's load side alone: argv is
+# the artifact, the inputs (.npz by batch key) and the logits' file; it
+# serves each batch once to warm and once counted, and prints its
+# launches and what it imported beside the export
+_LOAD_SIDE = """
+import json, sys
+import numpy as np, torch
+from uvc_tpu_torch.infer.export import load_serving
+from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
+art, inputs, out = sys.argv[1:4]
+model = load_serving(art)
+res = {"batch_sizes": model.batch_sizes, "launches": {}}
+logits = {}
+with np.load(inputs) as z:
+    for key in z.files:
+        x = torch.from_numpy(z[key]).cuda()
+        model(x)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        y = model(x)
+        torch.cuda.synchronize()
+        res["launches"][key] = {k: v for k, v in launch_counts().items()
+                                if v}
+        logits[key] = y.float().cpu().numpy()
+np.savez(out, **logits)
+res["imported"] = sorted(
+    n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "uvc_tpu")
+    or n.startswith(("uvc_tpu_torch.models", "uvc_tpu_torch.infer.compact",
+                     "uvc_tpu_torch.train")))
+print(json.dumps(res))
+"""
+
+
+def export_phase(card):
+    """Phase 16: phase 4's DeiT-Small and phase 7's T2T-ViT-14 compact
+    models (bf16) exported at batches 8 and 64 (``export_serving``), saved,
+    then loaded and served in a fresh interpreter that imports
+    ``uvc_tpu_torch.infer.export`` alone (no model code, no JAX imported):
+    its logits against ``apply_compact``'s at the same batch (bit for bit,
+    else within MODEL_REL_TOL), a batch of 5 padded to 8, its launches a
+    batch equal to ``apply_compact``'s; then the artifact's img/s beside
+    ``apply_compact``'s over the same windows, in turns.  Returns the
+    launches of the windows and references in this process."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from uvc_tpu_torch.infer.compact import apply_compact
+    from uvc_tpu_torch.infer.export import (ServingModel, export_serving,
+                                            save_serving)
+    from uvc_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    models = (("DeiT-Small", "deit_small_patch16_224", 0, SKIPPED_BLOCKS,
+               TOKEN_RATIO, 0),
+              ("T2T-ViT-14", "t2t_vit_14", 15, T2T_SKIPPED_BLOCKS, None, 2))
+    with tempfile.TemporaryDirectory(prefix="uvc_export_") as tmp:
+        for label, name, seed, skipped, ratio, stems in models:
+            cfg, _, _, layers, top = _served_model(name, seed, skipped)
+            kept = cfg.depth - len(skipped)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arts = export_serving(layers, top, cfg,
+                                  batch_sizes=EXPORT_BATCHES,
+                                  token_ratio=ratio)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"{name}.npz")
+            save_serving(path, arts)
+            mib = os.path.getsize(path) / 2 ** 20
+            igen = torch.Generator(device="cuda").manual_seed(seed + 100)
+            x = torch.randn(max(EXPORT_BATCHES), cfg.img_size, cfg.img_size,
+                            cfg.in_chans, generator=igen, device="cuda")
+            inputs = {f"b{b}": x[:b] for b in (*EXPORT_BATCHES,
+                                                 EXPORT_PARTIAL)}
+            in_path = os.path.join(tmp, f"{name}_x.npz")
+            np.savez(in_path, **{k: v.cpu().numpy()
+                                 for k, v in inputs.items()})
+            # apply_compact at the program's batch: a partial batch padded
+            # with zero images to the smallest exported batch, as the
+            # artifact pads it
+            refs, ref_counts = {}, {}
+            with torch.no_grad():
+                for key, xb in inputs.items():
+                    fit = min(b for b in EXPORT_BATCHES if b >= len(xb))
+                    xp = torch.cat([xb, xb.new_zeros(
+                        (fit - len(xb),) + tuple(xb.shape[1:]))])
+                    apply_compact(layers, top, xp, cfg, token_ratio=ratio)
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    y = apply_compact(layers, top, xp, cfg,
+                                      token_ratio=ratio).logits
+                    torch.cuda.synchronize()
+                    ref_counts[key] = {k: v for k, v in
+                                       launch_counts().items() if v}
+                    add(ref_counts[key])
+                    refs[key] = y[:len(xb)].float().cpu()
+            want = {"layer_attention_ln": kept, "mlp_ln": kept}
+            if stems:
+                want["performer"] = stems
+            for key, counts in ref_counts.items():
+                check(counts == want, f"{label} apply_compact [{key}] "
+                      f"launched {counts} (expected {want})")
+            out_path = os.path.join(tmp, f"{name}_y.npz")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _LOAD_SIDE, path, in_path, out_path],
+                cwd=REPO, capture_output=True, text=True, timeout=900,
+                env=dict(os.environ, PYTHONPATH=REPO))
+            load_s = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"{label}: the load side failed:\n{proc.stderr[-4000:]}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            check(res["imported"] == [],
+                  f"{label}: the load side imported {res['imported']}")
+            check(res["batch_sizes"] == list(EXPORT_BATCHES),
+                  f"{label}: the artifact's batches {res['batch_sizes']}")
+            served = dict(np.load(out_path))
+            parts = []
+            for key in inputs:
+                check(res["launches"][key] == ref_counts[key],
+                      f"{label} [{key}]: the artifact launched "
+                      f"{res['launches'][key]}, apply_compact "
+                      f"{ref_counts[key]}")
+                got = torch.from_numpy(served[key])
+                check(got.shape == refs[key].shape
+                      and torch.isfinite(got).all().item(),
+                      f"{label} [{key}]: served logits {tuple(got.shape)}")
+                if torch.equal(got, refs[key]):
+                    parts.append(f"{key} bit for bit")
+                else:
+                    rel, mx = rel_err(got, refs[key])
+                    parts.append(f"{key} rel_fro={rel:.2e} max_abs={mx:.2e}")
+                    check(rel <= MODEL_REL_TOL,
+                          f"{label} [{key}]: the artifact and apply_compact "
+                          f"disagree")
+            print(f"phase 16 [{label}, {kept} kept blocks, token ratio "
+                  f"{ratio}]: export {export_s:.2f} s for batches "
+                  f"{EXPORT_BATCHES}, artifact {mib:.1f} MiB; loaded and "
+                  f"served in a fresh interpreter ({load_s:.1f} s, kernels' "
+                  f"load included) that imported no model code; against "
+                  f"apply_compact: {', '.join(parts)} (b{EXPORT_PARTIAL} "
+                  f"padded to b{min(EXPORT_BATCHES)}); launches a batch "
+                  f"{ref_counts['b64']} both ways [{card}]", flush=True)
+
+            # the artifact and apply_compact over the same windows, in turns
+            model = ServingModel(arts)
+            images = [torch.randn(BATCH, cfg.img_size, cfg.img_size,
+                                  cfg.in_chans, generator=igen,
+                                  device="cuda") for _ in range(N_BATCHES)]
+
+            def artifact():
+                return [model(xb) for xb in images]
+
+            def eager():
+                with torch.no_grad():
+                    return [apply_compact(layers, top, xb, cfg,
+                                          token_ratio=ratio).logits
+                            for xb in images]
+
+            artifact()
+            eager()
+            windows = {"artifact": [], "apply_compact": []}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            for way, fn in (("artifact", artifact), ("apply_compact", eager),
+                            ("apply_compact", eager),
+                            ("artifact", artifact)):
+                windows[way].append(passes(fn)[0])
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            runs = 4 * N_PASSES * N_BATCHES
+            check(counts == {k: v * runs for k, v in want.items()},
+                  f"{label}: the windows launched {counts}")
+            add(counts)
+            n_img = N_PASSES * N_BATCHES * BATCH
+            rates = {k: [n_img / w for w in v] for k, v in windows.items()}
+            print(f"phase 16 [{label}] serving {N_PASSES} passes of "
+                  f"{N_BATCHES} batches of {BATCH}, in turns (artifact, "
+                  f"apply_compact, apply_compact, artifact): " + "; ".join(
+                      f"{k} {' / '.join(f'{r:.1f}' for r in v)} img/s "
+                      f"(best {max(v):.1f})" for k, v in rates.items())
+                  + f" [{card}]", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism (the model axis of parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+TP_WORLD, TP_MP = 4, 2
+TP_SPECS = ("stage1", "stage2", "baseline")
+TP_EMA = 0.99
+# AdamW's largest step of a leaf's coordinate, a step: the learning rate
+# (TrainHParams' default, every spec's), so that a leaf whose gradient is
+# rounding noise (the qkv biases' key thirds, the token scorer's bias)
+# moves at most this much further on one path than on the other
+TP_NOISE_LR = 1e-4
+
+
+def _noise_leaf(key):
+    return key.endswith("token_scorer/bias") or key.endswith("qkv/bias")
+
+
+def _tp_state_gaps(got, want, steps):
+    """The gaps of a whole params tree (``got``, from the ranks) from the
+    one-process run's (``want``) after ``steps`` steps: by leaf, (relative
+    Frobenius gap, max abs gap, coordinates further apart than TP_NOISE_LR
+    x ``steps``, coordinates), with the rounding-noise leaves (the qkv
+    biases' key thirds, the token scorer's bias) split off and held to
+    TP_NOISE_LR x ``steps`` absolute.  Returns (the gaps by leaf, the worst
+    noise gap)."""
+    import numpy as np
+
+    gaps, noise = {}, 0.0
+    for key, w in want.items():
+        g = torch.from_numpy(np.asarray(got[key], np.float64))
+        w = torch.from_numpy(np.asarray(w, np.float64))
+        if _noise_leaf(key):
+            if key.endswith("qkv/bias"):
+                third = w.shape[-1] // 3
+                mid = slice(third, 2 * third)
+                noise = max(noise, float((g[..., mid] - w[..., mid]).abs()
+                                         .max()))
+                g, w = (torch.cat([a[..., :third], a[..., 2 * third:]], -1)
+                        for a in (g, w))
+            else:
+                noise = max(noise, float((g - w).abs().max()))
+                continue
+        d = (g - w).abs()
+        gaps[key] = (float(d.norm() / max(float(w.norm()), 1e-12)),
+                     float(d.max()), int((d > TP_NOISE_LR * steps).sum()),
+                     d.numel())
+    check(noise <= TP_NOISE_LR * steps, f"a noise leaf moved {noise:.2e}")
+    return gaps, noise
+
+
+def tp_phase(card):
+    """Phase 17: four ranks on the one card over gloo at 2 dp x 2 mp, each
+    a ``python -m uvc_tpu_torch.parallel.dryrun`` rank holding its shard of
+    the blocks' qkv / proj / fc1 / fc2 leaves: DeiT-Small at full width, a
+    global batch of 64 (32 a data shard), stage 1 (1 warmup and 4 UVC
+    steps), dense stage 2 and the baseline fine-tune with EMA, one step
+    each.  Held: after every step the four ranks' whole (gathered) states
+    bit for bit equal; each step's metrics and the whole params after it
+    within DDP_REL_TOL of this process's single-process run on the global
+    batch (the noise leaves within TP_NOISE_LR a step); each rank's
+    tensor-parallel leaves half their whole bytes; each rank's launches a
+    step exactly one process's at batch 32; compact stage 2 at mp 2
+    raising JAX's ValueError; and the same specs run by two ranks at 2 dp
+    x 1 mp (the same data split, no model axis) bit for bit the four
+    ranks' states after every step.  A leaf of the whole params past
+    DDP_REL_TOL passes only if every coordinate is within TP_NOISE_LR a
+    step of one process's: a zero-initialised bias, whose value is
+    AdamW's normalised steps alone, flips a step's sign where its
+    gradient is bf16 rounding noise of the data split.  Recorded: the
+    steps' all-gather and all-reduce ms.  Returns the launches."""
+    import tempfile
+
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.configs import get_config
+    from uvc_tpu_torch.ops import (backward_launch_counts, launch_counts,
+                                   reset_launch_counts)
+    from uvc_tpu_torch.parallel import dryrun
+    from uvc_tpu_torch.parallel import mesh as pmesh
+    from uvc_tpu_torch.train.stage2 import run_stage2
+    from uvc_tpu_torch.train.state import TrainHParams
+
+    try:
+        run_stage2(get_config(PIPE_MODEL), MinimaxHParams(), TrainHParams(),
+                   params={}, masks={}, train_loader=[], test_loader=None,
+                   mesh=pmesh.Mesh(size=TP_WORLD, rank=0, mp=TP_MP),
+                   mp=TP_MP, compact=True, device="cuda")
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and "data-parallel meshes only" in refused,
+          f"compact stage 2 at mp {TP_MP} did not raise ({refused})")
+    print(f"phase 17: compact stage 2 at mp {TP_MP} raises ValueError: "
+          f"{refused}")
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    import shutil
+
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="uvc_tp_") as tmp:
+        specs = _ddp_specs(tmp, only=TP_SPECS, ema_decay=TP_EMA,
+                           states=True)
+        t0 = time.perf_counter()
+        dryrun.launch_ranks(TP_WORLD, device="cuda", backend="gloo",
+                            tasks=[p for _, p, _ in specs], threads=2,
+                            timeout=900, mp=TP_MP)
+        wall = time.perf_counter() - t0
+        print(f"phase 17: {TP_WORLD} ranks at {TP_WORLD // TP_MP} dp x "
+              f"{TP_MP} mp over gloo on one card, {len(specs)} specs in "
+              f"{wall:.1f} s wall (each rank's CUDA start and kernel load "
+              f"included) [{card}]", flush=True)
+        # the same specs at the same data split without the model axis
+        dp_paths = []
+        for _, path, _ in specs:
+            dp_paths.append(path.replace(".npz", "_dp.npz"))
+            shutil.copy(path, dp_paths[-1])
+        dryrun.launch_ranks(TP_WORLD // TP_MP, device="cuda",
+                            backend="gloo", tasks=dp_paths, threads=2,
+                            timeout=900)
+        for (name, path, per_step), dp_path in zip(specs, dp_paths):
+            ranks = dryrun.read_rank_results(path, TP_WORLD)
+            dp_ranks = dryrun.read_rank_results(dp_path,
+                                                TP_WORLD // TP_MP)
+            settings, arrays = dryrun.read_npz(path)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            ref, ref_arrays = dryrun.run_spec(settings, arrays,
+                                              device="cuda")
+            torch.cuda.synchronize()
+            add({**launch_counts(), **backward_launch_counts()})
+            results = [res for res, _ in ranks]
+            for r, res in enumerate(results[1:], 1):
+                check(res["digests"] == results[0]["digests"],
+                      f"{name}: rank {r}'s whole state differs from rank "
+                      f"0's after a step")
+            same_as_dp = all(res["digests"] == results[0]["digests"]
+                             for res, _ in dp_ranks)
+            worst = 0.0
+            for got, want in zip(results[0]["metrics"], ref["metrics"]):
+                for k in DDP_KEYS:
+                    if k in want:
+                        worst = max(worst, _rel(got[k], want[k]))
+            check(worst <= DDP_REL_TOL,
+                  f"{name}: 2 dp x 2 mp vs one process differ by "
+                  f"{worst:.2e}")
+            noise_gap, worst_leaves = 0.0, []
+            steps = len(ref["metrics"])
+            for i in range(steps):
+                head = f"step{i}/params/"
+                want = {k[len(head):]: v for k, v in ref_arrays.items()
+                        if k.startswith(head)}
+                got = {k[len(head):]: v for k, v in ranks[0][1].items()
+                       if k.startswith(head)}
+                check(want and sorted(got) == sorted(want),
+                      f"{name}: step {i}'s whole params missing")
+                gaps, ngap = _tp_state_gaps(got, want, i + 1)
+                noise_gap = max(noise_gap, ngap)
+                worst_leaves += [(g, i, k) for k, g in gaps.items()]
+            worst_leaves.sort(key=lambda t: -t[0][0])
+            state_gap = worst_leaves[0][0][0]
+            # a leaf past the gate must be one that started at zero and
+            # moved by AdamW's normalised steps alone (a bias), each of its
+            # coordinates within those steps of one process's
+            beyond = [(k, i, g) for g, i, k in worst_leaves
+                      if g[0] > DDP_REL_TOL and g[2] > 0]
+            print(f"phase 17 [{name}]: whole params against one process, "
+                  f"the worst leaves (relative Frobenius, max abs, "
+                  f"coordinates apart by more than {TP_NOISE_LR:g} a step "
+                  f"of all): " + "; ".join(
+                      f"{k} after step {i + 1} {g[0]:.2e} {g[1]:.2e} "
+                      f"{g[2]}/{g[3]}" for g, i, k in worst_leaves[:4]),
+                  flush=True)
+            if beyond:
+                failures.append(f"{name}: the whole params after a step "
+                                f"differ: {beyond[:3]}")
+            for r, res in enumerate(results):
+                local, whole = res["tp_bytes"]
+                check(whole > 0 and 2 * local == whole,
+                      f"{name}: rank {r} holds {local} of {whole} bytes of "
+                      f"the tensor-parallel leaves")
+                for step, counts in enumerate(res["launches"]):
+                    check(counts == per_step,
+                          f"{name}: rank {r} step {step} launched {counts} "
+                          f"(expected {per_step})")
+                    add(counts)
+            r0 = results[0]
+            gather, reduce_ = r0["gather"], r0["reduce"]
+            step_ms = sorted(r0["step_ms"])[steps // 2]
+            print(f"phase 17 [{name}]: {steps} step(s), the 4 ranks' whole "
+                  f"states bit for bit equal after each and "
+                  f"{'bit for bit' if same_as_dp else 'NOT bit for bit'} "
+                  f"the 2 dp x 1 mp run's at the same data split; loss "
+                  f"{r0['metrics'][-1]['loss']:.5f} (one process "
+                  f"{ref['metrics'][-1]['loss']:.5f}), worst of "
+                  f"{'/'.join(k for k in DDP_KEYS if k in ref['metrics'][0])}"
+                  f" {worst:.2e}, whole params {state_gap:.2e} (tol "
+                  f"{DDP_REL_TOL}, or every coordinate within "
+                  f"{TP_NOISE_LR:g} a step; noise leaves {noise_gap:.2e}); "
+                  f"tensor-parallel leaves "
+                  f"{r0['tp_bytes'][0]} of {r0['tp_bytes'][1]} bytes a rank; "
+                  f"launches a step {per_step} on each rank; rank step "
+                  f"{step_ms:.1f} ms (median; one process "
+                  f"{sorted(ref['step_ms'])[steps // 2]:.1f} ms); all-gather "
+                  f"{gather['calls'] / steps:.0f} calls "
+                  f"{gather['host_ms'] / steps:.1f} ms a step on the host, "
+                  f"{(gather['device_ms'] or 0) / steps:.1f} ms between its "
+                  f"events on the card; all-reduce "
+                  f"{reduce_['host_ms'] / steps:.1f} ms host, "
+                  f"{(reduce_['device_ms'] or 0) / steps:.1f} ms card a step "
+                  f"[{card}]", flush=True)
+            if not same_as_dp:
+                failures.append(f"{name}: the tensor-parallel run differs "
+                                f"from the data-parallel one")
+    check(not failures, "; ".join(failures))
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5060,6 +5578,14 @@ def main():
                     help="phase 15 alone (data parallelism: two ranks over "
                     "gloo on the card, joint_train under NCCL at world size "
                     "1), then the card line")
+    ap.add_argument("--export-only", action="store_true",
+                    help="phase 16 alone (the serving export: DeiT-Small "
+                    "and T2T-ViT-14 served from torch.export artifacts in a "
+                    "fresh interpreter), then the card line")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="phase 17 alone (tensor parallelism: four ranks "
+                    "at 2 dp x 2 mp over gloo on the card), then the card "
+                    "line")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -5096,6 +5622,16 @@ def main():
         elapsed("phase 15")
         ddp_ranks_phase(card)
         ddp_nccl_phase(card)
+        print(card_line())
+        return 0
+    if args.export_only:
+        elapsed("phase 16")
+        export_phase(card)
+        print(card_line())
+        return 0
+    if args.tp_only:
+        elapsed("phase 17")
+        tp_phase(card)
         print(card_line())
         return 0
     elapsed("phase 3")
@@ -5165,6 +5701,12 @@ def main():
     elapsed("phase 15")
     ddp_counts = ddp_ranks_phase(card)
     nccl_counts = ddp_nccl_phase(card)
+    # phase 16: the serving export (DeiT-Small, T2T-ViT-14)
+    elapsed("phase 16")
+    export_counts = export_phase(card)
+    # phase 17: tensor parallelism (four ranks at 2 dp x 2 mp over gloo)
+    elapsed("phase 17")
+    tp_counts = tp_phase(card)
     elapsed("the summary")
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
@@ -5178,13 +5720,16 @@ def main():
     # runs, the gradient report), phase 14's (R50-ViT-B/16's windows,
     # CaiT's, which launch none, and post_train from the .pth.tar) and
     # phase 15's (both ranks' steps, the single-process references, the
-    # NCCL joint_train)
+    # NCCL joint_train), phase 16's (the artifacts' and apply_compact's
+    # serving windows and references in this process) and phase 17's (the
+    # four ranks' steps and the single-process references)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
                    compact_counts, t2t_stage2_counts, pipeline_counts,
                    suite_counts, r50_counts, cait_counts,
-                   torch_ckpt_counts, ddp_counts, nccl_counts):
+                   torch_ckpt_counts, ddp_counts, nccl_counts,
+                   export_counts, tp_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -277,6 +277,10 @@ def test_wrappers_send_long_sequences_to_the_kernels(monkeypatch):
         raise RuntimeError("no CUDA kernels here")
 
     monkeypatch.setattr(_cuda, "library", no_library)
+    # fake CUDA operands are meta tensors to the dispatcher: hand them to
+    # the operator's CUDA implementation directly
+    monkeypatch.setattr(tatt, "layer_attention_ln_op",
+                        tatt._layer_attention_ln_cuda)
     tops.reset_launch_counts()
     q = _fake(1, 2, 700, 80)
     with pytest.raises(RuntimeError, match="no CUDA kernels"):
@@ -303,6 +307,8 @@ def test_k1_with_its_gradient_checks_the_backward_limit(monkeypatch, n):
     before it."""
     monkeypatch.setattr(_cuda, "library", lambda name: (_ for _ in ()).throw(
         RuntimeError("no CUDA kernels here")))
+    monkeypatch.setattr(tatt, "layer_attention_ln_op",
+                        tatt._layer_attention_ln_cuda)
     named = _sublayer_named(1, n, 160, 2, 80)
     with torch.enable_grad(), pytest.raises(RuntimeError,
                                             match="no CUDA kernels"):

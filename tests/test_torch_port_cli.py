@@ -316,32 +316,51 @@ def test_export_compact_serves_the_masked_dense_logits(tmp_path,
 @pytest.mark.parametrize("case", ["dp", "mp", "processes", "stablehlo",
                                   "baseline_dp", "baseline_processes"])
 def test_unported_routes_raise(tmp_path, monkeypatch, case):
-    """Tensor parallelism (``--mp > 1``) and the StableHLO export raise
-    NotImplementedError naming their ROADMAP items; a ``--dp`` other than
-    the world size raises JAX's ValueError, and ``--num_processes 2`` with
-    no coordinator raises at once, before any rendezvous."""
+    """The routes that were refused before the model axis and the export
+    were ported: a ``--dp x --mp`` mesh other than the world (one process
+    here) raises JAX's ValueError, with the model axis too, and
+    ``--num_processes 2`` with no coordinator raises at once, before any
+    rendezvous; ``--export_stablehlo`` now writes the ``torch.export``
+    artifact, which serves the exported compact model's logits bit for
+    bit at each of ``--serve_batches``."""
     for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
     base = TINY + ["--device", "cpu", "--output_dir", str(tmp_path)]
     from uvc_tpu_torch.cli import baseline_train as t_base
-    tp = (NotImplementedError, "queue A item 7b")
     no_coordinator = (ValueError, "needs --coordinator")
     calls = {
         "dp": (t_joint.main, base + ["--dp", "2"], ValueError,
                r"dp\(2\) \* mp\(1\) != device count \(1\)"),
-        "mp": (t_joint.main, base + ["--dp", "1", "--mp", "2"]) + tp,
+        "mp": (t_joint.main, base + ["--dp", "1", "--mp", "2"], ValueError,
+               r"dp\(1\) \* mp\(2\) != device count \(1\)"),
         "processes": (t_joint.main, base + ["--num_processes", "2"])
         + no_coordinator,
-        "stablehlo": (t_export.main, [
-            "--checkpoint", "x.ckpt", "--save_file", "y.ckpt",
-            "--export_stablehlo", "z.npz"], NotImplementedError,
-            "queue A item 8"),
-        "baseline_dp": (t_base.main, base + ["--dp", "4", "--mp", "2"])
-        + tp,
+        "baseline_dp": (t_base.main, base + ["--dp", "4", "--mp", "2"],
+                        ValueError,
+                        r"dp\(4\) \* mp\(2\) != device count \(1\)"),
         "baseline_processes": (t_base.main,
                                base + ["--num_processes", "2"])
         + no_coordinator,
     }
+    if case == "stablehlo":
+        from uvc_tpu_torch.infer.compact import apply_compact
+        from uvc_tpu_torch.infer.export import load_serving
+        ckpt, out = tmp_path / "s1.ckpt", tmp_path / "compact.ckpt"
+        art = tmp_path / "serve.npz"
+        _jax_stage1_ckpt(ckpt)
+        t_export.main(["--model_type", "testing", "--checkpoint", str(ckpt),
+                       "--save_file", str(out), "--img_size", "32",
+                       "--device", "cpu", "--export_stablehlo", str(art),
+                       "--serve_batches", "2,4"])
+        model = load_serving(str(art))
+        assert model.batch_sizes == [2, 4]
+        layers, top, _ = _serve_export(out)
+        cfg = tconfigs.get_config("testing").replace(num_classes=1000)
+        x = torch.randn(3, 32, 32, 3,
+                        generator=torch.Generator().manual_seed(2))
+        want = apply_compact(layers, top, x.to(torch.bfloat16), cfg).logits
+        assert torch.equal(model(x), want)
+        return
     main, argv, err, match = calls[case]
     with pytest.raises(err, match=match):
         main(argv)
@@ -474,9 +493,9 @@ def test_step_profiler_writes_a_trace(tmp_path):
 
 def test_new_modules_import_no_jax_or_msgpack():
     """Importing the port's data, checkpoint, logging, profiler, driver,
-    CLI and data-parallel modules (the mesh, the dry run, the SLURM
-    launcher) loads neither JAX, flax, optax, msgpack, ml_dtypes nor the
-    JAX package."""
+    CLI, serving-export and parallel modules (the mesh, the dry run, the
+    SLURM launcher) loads neither JAX, flax, optax, msgpack, ml_dtypes nor
+    the JAX package."""
     code = (
         "import sys\n"
         "import uvc_tpu_torch.data.pipeline, uvc_tpu_torch.data.augment\n"
@@ -488,7 +507,8 @@ def test_new_modules_import_no_jax_or_msgpack():
         "import uvc_tpu_torch.cli.post_train\n"
         "import uvc_tpu_torch.cli.export_compact\n"
         "import uvc_tpu_torch.models.resnet, uvc_tpu_torch.models.cait\n"
-        "import uvc_tpu_torch.parallel.mesh, uvc_tpu_torch.parallel.dryrun\n"
+        "import uvc_tpu_torch.parallel, uvc_tpu_torch.parallel.mesh\n"
+        "import uvc_tpu_torch.parallel.dryrun, uvc_tpu_torch.infer.export\n"
         "import uvc_tpu_torch.cli.slurm_launch\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes',"

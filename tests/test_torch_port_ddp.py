@@ -656,15 +656,19 @@ def test_initialize_multihost_refuses_at_once(monkeypatch):
 
 def test_make_mesh_checks_as_jax():
     """One process: a mesh of one rank; dp * mp other than the world size
-    raises JAX's ValueError, mp > 1 NotImplementedError naming the
-    tensor-parallel item."""
+    raises JAX's ValueError, with a model axis too (``dp`` defaulting to
+    the world size over ``mp``, 0 here)."""
     m = pmesh.make_mesh()
     assert (m.size, m.rank, m.shape) == (1, 0, {"data": 1, "model": 1})
     with pytest.raises(ValueError,
                        match=r"dp\(2\) \* mp\(1\) != device count \(1\)"):
         pmesh.make_mesh(dp=2)
-    with pytest.raises(NotImplementedError, match="queue A item 7b"):
+    with pytest.raises(ValueError,
+                       match=r"dp\(1\) \* mp\(2\) != device count \(1\)"):
         pmesh.make_mesh(dp=1, mp=2)
+    with pytest.raises(ValueError,
+                       match=r"dp\(0\) \* mp\(2\) != device count \(1\)"):
+        pmesh.make_mesh(mp=2)
 
 
 def test_shard_batch_rows_and_message():

@@ -437,17 +437,26 @@ def test_stage2_resume_repeats_the_uninterrupted_run(tmp_path, compact):
         (tmp_path / "full" / name).read_bytes()
 
 
-def test_drivers_refuse_a_mesh(monkeypatch):
-    """Tensor parallelism (``mp > 1``) raises, naming its ROADMAP item; a
+def test_drivers_refuse_a_mesh(monkeypatch, tmp_path):
+    """Stage 1 takes ``mp > 1`` (without a mesh ``mp`` is not read, as in
+    the JAX drivers), a mesh whose model axis is not ``mp`` raises, and
+    compact stage 2 on a mesh with a model axis raises JAX's ValueError; a
     data-parallel ``run_stage2`` scales its lr by the global batch (the
-    loader's batch times the ranks) / 512, as JAX's by ``batch_size *
-    process_count``."""
-    with pytest.raises(NotImplementedError, match="queue A item 7b"):
+    loader's batch times the data-parallel ranks) / 512, as JAX's by
+    ``batch_size * process_count``."""
+    res = run_stage1(TCFG, THParams(), tstate.TrainHParams(num_epochs=0),
+                     train_loader=[], test_loader=None, mp=2,
+                     save_checkpoints=False, output_dir=str(tmp_path),
+                     device="cpu")
+    assert res.state.step == 0 and set(res.masks) == {"attn", "mlp"}
+    with pytest.raises(ValueError, match=r"mp\(1\) is not the mesh's"):
         run_stage1(TCFG, THParams(), tstate.TrainHParams(), train_loader=[],
-                   test_loader=None, mp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7b"):
+                   test_loader=None, mesh=Mesh(size=2, rank=0, mp=2),
+                   device="cpu")
+    with pytest.raises(ValueError, match="data-parallel meshes only"):
         run_stage2(TCFG, THParams(), tstate.TrainHParams(), params={},
-                   masks={}, train_loader=[], test_loader=None, mp=2,
+                   masks={}, train_loader=[], test_loader=None,
+                   mesh=Mesh(size=4, rank=0, mp=2), mp=2, compact=True,
                    device="cpu")
 
     class Built(Exception):

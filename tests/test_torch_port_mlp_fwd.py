@@ -169,6 +169,9 @@ def test_k2_wrapper_sends_vit_h_widths_to_its_library(monkeypatch):
         raise RuntimeError("no CUDA kernels here")
 
     monkeypatch.setattr(_cuda, "library", no_library)
+    # fake CUDA operands are meta tensors to the dispatcher: hand them to
+    # the operator's CUDA implementation directly
+    monkeypatch.setattr(tmlp, "mlp_ln_op", tmlp._mlp_ln_cuda)
     tops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="no CUDA kernels"):
         tmlp.mlp_ln(*_fake_mlp(32, 257, DM, F_HIDDEN).values(), eps=EPS)

@@ -292,13 +292,25 @@ def test_resume_without_saved_ema_warm_starts_from_the_weights(tmp_path):
 
 
 def test_run_baseline_mesh_raises(tmp_path):
-    thp = tstate.TrainHParams(compute_dtype=torch.float32, **THP)
+    """A mesh whose model axis is not ``mp`` raises; ``mp > 1`` without a
+    mesh is not read, as in the JAX driver, and the run is the one-process
+    run bit for bit."""
+    from uvc_tpu_torch.parallel.mesh import Mesh
+    thp = tstate.TrainHParams(compute_dtype=torch.float32,
+                              **dict(THP, num_epochs=1))
     train, test = loaders(tpipe)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    params = params_from_numpy(np_tree(jax_params(0)), device="cpu")
+    with pytest.raises(ValueError, match=r"mp\(2\) is not the mesh's"):
         tfinetune.run_baseline(
-            TCFG, thp, train_loader=train, test_loader=test,
-            params=params_from_numpy(np_tree(jax_params(0)), device="cpu"),
-            mp=2, output_dir=str(tmp_path), device="cpu")
+            TCFG, thp, train_loader=train, test_loader=test, params=params,
+            mesh=Mesh(size=1, rank=0), mp=2, output_dir=str(tmp_path),
+            device="cpu")
+    runs = [tfinetune.run_baseline(
+        TCFG, thp, train_loader=train, test_loader=None, params=params,
+        mp=mp, save_checkpoints=False, output_dir=str(tmp_path),
+        device="cpu") for mp in (1, 2)]
+    for path_, leaf in tree_leaves_with_path(runs[1].state.params):
+        assert torch.equal(leaf, leaf_at(runs[0].state.params, path_)), path_
 
 
 def test_draw_step_noise_is_keyed_by_seed_and_step():

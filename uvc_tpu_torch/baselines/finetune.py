@@ -26,11 +26,15 @@ one bit for bit.
 
 Given a ``mesh`` (``parallel/mesh.py``), the step and the loop are one
 rank's part of a data-parallel run, as ``train/step.py`` describes: the
-gradient averaged over the ranks before the clip, the mixup partners from
-the flipped global batch, the global batch's noise sharded by rows, the
-parameters broadcast from rank 0 at the start (so EMA and GMP see the
-same bytes on every rank), the eval totals summed over the ranks and the
-checkpoints written by rank 0.
+gradient averaged over the data group before the clip, the mixup partners
+from the flipped global batch, the global batch's noise sharded by rows,
+the parameters broadcast from rank 0 at the start (so EMA and GMP see the
+same bytes on every rank), the eval totals summed over the data group and
+the checkpoints written by rank 0.  With a model axis (``mp > 1``) a rank
+holds its shard of the tensor-parallel leaves of the params, the AdamW
+moments, the EMA params and the teacher; the step gathers the whole
+weights for the forward and backward and updates its shard, the weight
+masks stay whole, and eval, GMP and the checkpoints gather the weights.
 """
 
 from __future__ import annotations
@@ -56,16 +60,18 @@ from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.models.vit import sample_drop_path
 from uvc_tpu_torch.ops.gumbel import gumbel_noise
-from uvc_tpu_torch.parallel.mesh import (TENSOR_PARALLEL, all_reduce_mean,
-                                         flip_partners, replicate)
+from uvc_tpu_torch.parallel.mesh import (all_reduce_mean, check_model_axis,
+                                         flip_partners, gather_params,
+                                         replicate, shard_params)
 from uvc_tpu_torch.train.stage1 import eval_totals
 from uvc_tpu_torch.train.state import (TrainHParams, clip_global_norm,
-                                       make_weight_optimizer,
+                                       gather_state, make_weight_optimizer,
                                        opt_state_from_state_dict,
                                        opt_state_to_state_dict,
+                                       shard_state,
                                        zero_frozen_updates)
 from uvc_tpu_torch.train.step import (_base_loss, _teacher_logits,
-                                      shard_noise)
+                                      model_axis, shard_noise)
 from uvc_tpu_torch.utils.checkpoint import (load_checkpoint, restore_like,
                                             save_checkpoint)
 from uvc_tpu_torch.utils.logging import AverageMeter, MetricLogger
@@ -157,6 +163,7 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
     use_distill = thp.distillation_type not in (None, "none")
     mixing = thp.mixup > 0 or thp.cutmix > 0
     model = get_model(cfg)
+    mp = model_axis(mesh)
 
     def loss_fn(params, teacher_params, wmasks, x, targets, labels, noise,
                 tau):
@@ -194,16 +201,17 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
             targets = torch.nn.functional.one_hot(
                 labels.long(), thp.num_classes).float()
 
-        leaves = [p.detach().requires_grad_() for p in
-                  tree_leaves(state.params)]
-        params = tree_unflatten(state.params, leaves)
+        whole = gather_params(state.params, mesh)
+        teacher = gather_params(teacher_params, mesh)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(whole)]
+        params = tree_unflatten(whole, leaves)
         with torch.enable_grad():
-            loss = loss_fn(params, teacher_params, wmasks, x, targets,
-                           labels, noise, tau)
+            loss = loss_fn(params, teacher, wmasks, x, targets, labels,
+                           noise, tau)
             # leaves the forward does not read (the gating logits, ...)
             # get zero gradients, as under jax.grad
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(state.params, [
+        grads = tree_unflatten(whole, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)])
         loss = loss.detach()
@@ -212,8 +220,8 @@ def build_baseline_step(cfg: ViTConfig, thp: TrainHParams, *,
             if mesh is not None:
                 grads, loss = all_reduce_mean(grads, mesh, loss)
             grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
+            updates, opt_state = tx.update(shard_params(grads, mesh, mp),
+                                           state.opt_state, state.params)
             updates = zero_frozen_updates(updates)
             new_params = tree_map(lambda p, u: p + u, state.params, updates)
             ema = state.ema_params
@@ -306,10 +314,9 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
     Runs on ``device`` (the card unless the caller asks for the CPU);
     ``params`` / ``teacher_params`` are copied, never changed.  ``mesh``
     (``parallel/mesh.py::make_mesh``) makes the run one rank of a
-    data-parallel run (see the top); ``mp > 1`` raises
-    NotImplementedError."""
-    if mp != 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
+    data-parallel run, and with ``mp > 1`` (the mesh's model axis) of a
+    tensor-parallel one (see the top)."""
+    check_model_axis(mesh, mp)
     dev = resolve_device(device)
     logger = logger or MetricLogger(output_dir, name)
     state = create_baseline_state(_copy(params, dev), thp, ema_decay)
@@ -345,8 +352,12 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
             gmp.events = int(ck.get("gmp_events", 0))
         logger.info(f"Resumed from {resume} at epoch {start_epoch}")
     if mesh is not None:
+        # after the resume, as the JAX driver places the restored state;
+        # the weight masks stay whole
         state, teacher_params, wmasks = replicate(
             (state, teacher_params, wmasks), mesh)
+        state = shard_state(state, mesh, mp)
+        teacher_params = shard_params(teacher_params, mesh, mp)
 
     settings = dict(token_selection=token_selection,
                     drop_path_rate=drop_path_rate, re_prob=re_prob,
@@ -357,7 +368,7 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
                                   drop_path_rate=drop_path_rate,
                                   re_prob=re_prob, mesh=mesh)
     eval_fn = build_baseline_eval_step(cfg, thp)
-    world = 1 if mesh is None else mesh.size
+    world = 1 if mesh is None else mesh.dp
     t_total = len(train_loader) * thp.num_epochs
     metrics = None
 
@@ -377,14 +388,12 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
                                      tau)
             images += x.shape[0] * world
             global_step += 1
-            if gmp is not None:
-                new_masks = gmp.maybe_prune(global_step, state.params)
-                if new_masks is not None:
-                    wmasks = new_masks
-                    logger.info(
-                        f"[GMP] step {global_step}: pruning event "
-                        f"{gmp.events}, remaining "
-                        f"{mask_sparsity(wmasks) * 100:.2f}%")
+            if gmp is not None and gmp.should_prune(global_step):
+                wmasks = gmp.maybe_prune(global_step,
+                                         gather_params(state.params, mesh))
+                logger.info(f"[GMP] step {global_step}: pruning event "
+                            f"{gmp.events}, remaining "
+                            f"{mask_sparsity(wmasks) * 100:.2f}%")
             if global_step % 50 == 0:
                 losses.update(float(metrics["loss"]))
         if losses.count == 0 and metrics is not None:
@@ -396,9 +405,11 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
                     f"({images / max(dt, 1e-9):.1f} img/s) "
                     f"loss {losses.avg:.4f}")
 
+        # the whole tree: eval and the checkpoint need the whole weights
+        whole = gather_state(state, mesh)
         if test_loader is not None:
             correct, loss_sum, count = eval_totals(
-                eval_fn, state.params, wmasks, test_loader, dev, mesh)
+                eval_fn, whole.params, wmasks, test_loader, dev, mesh)
             acc = correct / max(count, 1)
             logger.info(f"[Baseline Eval|Epoch {epoch}] acc {acc * 100:.3f}% "
                         f"loss {loss_sum / max(count, 1):.5f}")
@@ -407,12 +418,13 @@ def run_baseline(cfg: ViTConfig, thp: TrainHParams, *, train_loader,
         if save_checkpoints:
             save_checkpoint(
                 f"{logger.dir}/{cfg.name}_baseline_{epoch}.ckpt",
-                {"params": state.params,
-                 "opt_state": opt_state_to_state_dict(state.opt_state),
-                 "ema_params": state.ema_params or {},
+                {"params": whole.params,
+                 "opt_state": opt_state_to_state_dict(whole.opt_state),
+                 "ema_params": whole.ema_params or {},
                  "masks": masks_to_flat(wmasks) if wmasks is not None
                  else {},
                  "step": state.step, "epoch": epoch, "best_acc": best_acc,
                  "gmp_events": gmp.events if gmp is not None else 0})
 
+    state = gather_state(state, mesh)
     return BaselineResult(state=state, masks=wmasks, best_acc=best_acc)

@@ -16,7 +16,8 @@
 The flags are the JAX package's plus ``--device``: the run computes on the
 card unless ``--device cpu`` is given.  Across GPUs it runs as
 ``joint_train`` does (one process per GPU: torchrun, or ``--coordinator``
-/ ``--num_processes`` / ``--process_id``); ``--mp > 1`` raises.
+/ ``--num_processes`` / ``--process_id``), ``--mp`` the tensor-parallel
+size.
 """
 
 from __future__ import annotations
@@ -111,7 +112,7 @@ def _run(args, mesh):
     args.num_epochs = args.epochs
 
     train_loader, test_loader = build_loaders(args, num_classes,
-                                              args.img_size)
+                                              args.img_size, mesh)
     if args.repeated_aug and hasattr(train_loader, "repeated_aug"):
         train_loader.repeated_aug = True
     aug = make_train_augment(args.aa, args.color_jitter,

@@ -10,9 +10,11 @@ Slices the pruned heads and MLP units out and drops the skipped blocks
 (``infer/compact.py::compact_model``), reports the compact model's share
 of the dense FLOPs, and saves ``{"layers", "top", "model_type",
 "img_size", "num_classes", "token_ratio", "flops_fraction"}`` as a
-``.ckpt``, which ``apply_compact`` serves.  ``--export_stablehlo`` (an
-ahead-of-time TPU artifact) raises: ``infer/export.py`` is not ported
-(ROADMAP.md queue A item 8).
+``.ckpt``, which ``apply_compact`` serves.  ``--export_stablehlo PATH``
+(the JAX package's flag name) also writes the serving artifact,
+``torch.export`` programs at the ``--serve_batches`` sizes
+(``infer/export.py``), which ``infer.export.load_serving`` serves with no
+model code.
 """
 
 from __future__ import annotations
@@ -22,9 +24,6 @@ import argparse
 import torch
 
 from uvc_tpu_torch.configs import get_config
-
-NOT_PORTED_EXPORT = ("--export_stablehlo needs infer/export.py, which is "
-                     "not ported yet; see ROADMAP.md queue A item 8")
 
 
 def main(argv=None):
@@ -41,15 +40,15 @@ def main(argv=None):
                         "(use the discovered --patch_ratio); default "
                         "keeps the full sequence")
     p.add_argument("--export_stablehlo", default=None,
-                   help="not ported (ROADMAP.md queue A item 8)")
+                   help="also write an ahead-of-time serving artifact "
+                        "(.npz of torch.export programs, one per batch "
+                        "size) that runs with uvc_tpu_torch.ops alone, no "
+                        "model code; see uvc_tpu_torch/infer/export.py")
     p.add_argument("--serve_batches", default="8",
-                   help="comma-separated batch sizes to export (with "
-                        "--export_stablehlo)")
+                   help="comma-separated batch sizes to export")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the compact layers are built")
     args = p.parse_args(argv)
-    if args.export_stablehlo:
-        raise NotImplementedError(NOT_PORTED_EXPORT)
 
     from uvc_tpu_torch.compress.masks import build_masks
     from uvc_tpu_torch.infer.compact import (compact_flops_fraction,
@@ -80,6 +79,16 @@ def main(argv=None):
                         else float(args.token_ratio)),
         "flops_fraction": float(frac)})
     print(f"saved to {args.save_file}")
+
+    if args.export_stablehlo:
+        from uvc_tpu_torch.infer.export import export_serving, save_serving
+        batches = [int(s) for s in args.serve_batches.split(",") if s]
+        arts = export_serving(
+            layers, top, cfg, batch_sizes=batches,
+            token_ratio=args.token_ratio)
+        save_serving(args.export_stablehlo, arts)
+        print(f"torch.export serving artifact (batches {batches}) "
+              f"saved to {args.export_stablehlo}")
 
 
 if __name__ == "__main__":

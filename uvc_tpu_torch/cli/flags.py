@@ -8,9 +8,9 @@ here: the kernels' build is cached by nvcc's own output directory,
 ``build/uvc_tpu_torch/<source hash>/``.  The mesh and multi-process flags
 keep their names and defaults, with the port's one process per GPU:
 --num_processes counts ranks (GPUs, not hosts), --coordinator /
---process_id place this one (or torchrun's environment does), and --dp
-defaults to the world size.  Tensor parallelism (--mp > 1) raises
-(ROADMAP.md queue A item 7b).  One flag is the port's own: --device,
+--process_id place this one (or torchrun's environment does), --mp is
+the tensor-parallel size and --dp defaults to the world size over it.
+One flag is the port's own: --device,
 ``cuda`` (the default) or ``cpu``, the counterpart of JAX_PLATFORMS.
 """
 

@@ -15,7 +15,10 @@ Across GPUs, one process per GPU, started by torchrun or by
 
   torchrun --nproc_per_node 8 -m uvc_tpu_torch.cli.joint_train ...
 
-``--train_batch_size`` is the global batch; each rank loads its share.
+``--train_batch_size`` is the global batch; each data-parallel shard
+loads its share.  ``--mp M`` splits the world of ``dp x M`` ranks into
+model groups of M that share a batch shard and split the blocks' weights
+(``parallel/mesh.py``); ``--dp`` defaults to the world size over M.
 """
 
 from __future__ import annotations
@@ -33,11 +36,10 @@ from uvc_tpu_torch.configs import get_config
 def setup_mesh(args):
     """Join the ranks (``parallel/mesh.py::initialize_multihost`` from
     ``--coordinator`` / ``--num_processes`` / ``--process_id`` or
-    torchrun's environment) and return the data-parallel mesh: one when
-    the process group is up or ``--dp`` / ``--mp`` ask for one, none
-    under ``--dp 1 --mp 1`` in one process.  ``--mp > 1`` raises
-    NotImplementedError, a ``--dp`` other than the world size
-    ValueError."""
+    torchrun's environment) and return the ``--dp x --mp`` mesh: one
+    when the process group is up or ``--dp`` / ``--mp`` ask for one, none
+    under ``--dp 1 --mp 1`` in one process.  ``--dp * --mp`` other than
+    the world size raises ValueError."""
     from uvc_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
     initialize_multihost(args.coordinator, args.num_processes,
                          args.process_id, device=args.device)
@@ -57,12 +59,19 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def build_loaders(args, num_classes: int, img_size: int):
+def build_loaders(args, num_classes: int, img_size: int, mesh=None):
+    """The train and test loaders of ``--dataset``, each rank loading the
+    shard of its data index (the ranks of a model group load the same
+    rows)."""
     from uvc_tpu_torch.data.pipeline import (ArrayLoader, FolderLoader,
                                              ProceduralLoader,
                                              SyntheticLoader, cifar_arrays)
-    pid, pcount = ((dist.get_rank(), dist.get_world_size())
-                   if dist.is_initialized() else (0, 1))
+    if mesh is not None:
+        pid, pcount = mesh.data_index, mesh.dp
+    elif dist.is_initialized():
+        pid, pcount = dist.get_rank(), dist.get_world_size()
+    else:
+        pid, pcount = 0, 1
     per_host_train = args.train_batch_size // pcount
     if args.dataset == "procedural":
         train = ProceduralLoader(per_host_train,
@@ -163,7 +172,7 @@ def _run(args, mesh):
         distilled=bool(args.enable_deit))
 
     train_loader, test_loader = build_loaders(args, num_classes,
-                                              args.img_size)
+                                              args.img_size, mesh)
     hp = flags.to_hparams(args)
     thp = flags.to_train_hparams(args, len(train_loader), num_classes)
 

@@ -75,7 +75,7 @@ def _run(args, mesh):
     params, masks = stage1_params_and_masks(args.checkpoint_dir, cfg)
 
     train_loader, test_loader = build_loaders(args, num_classes,
-                                              args.img_size)
+                                              args.img_size, mesh)
     thp = flags.to_train_hparams(args, len(train_loader), num_classes)
     teacher = load_teacher(args, cfg, params)
 

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from uvc_tpu_torch.ops import _cuda
+from uvc_tpu_torch.ops import _cuda, _library
 
 # the LayerNorm backward keeps a row in registers (LNB_MAX_DM in
 # csrc/ln_bwd.cuh: ViT-H/14's 1280); wider models take the composed
@@ -207,7 +207,7 @@ def _check_attention(x, named, num_heads, max_dm=None):
     return b, n, dm, da
 
 
-def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
+def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
                              num_heads, scale, eps):
     bf16 = torch.bfloat16
     named = dict(x=x, g1=g1, b1=b1, wqkv=wqkv, bqkv=bqkv, wproj=wproj,
@@ -240,20 +240,37 @@ def layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
     ``[da, dm]`` stored (in, out); mask: ``[da]`` structural keep mask over
     the ctx columns.  On CUDA: bf16 activations and weights, even head
     dims up to 80, any N (its backward too).
-    ``layer_attention_ln.launches`` counts kernel launches."""
-    if x.device.type == "cpu":
-        return layer_attention_ln_plain(
-            x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads=num_heads,
-            scale=scale, eps=eps)
-    if x.device.type != "cuda":
+    ``layer_attention_ln.launches`` counts kernel launches.  Both
+    devices go through the operator ``uvc_tpu_torch.layer_attention_ln``
+    (the kernel on CUDA, the plain version on the CPU)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"layer_attention_ln runs on cpu or cuda, "
                          f"not {x.device}")
-    return _layer_attention_ln_cuda(
+    return layer_attention_ln_op(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                                 int(num_heads), float(scale), float(eps))
+
+
+layer_attention_ln.launches = 0
+
+
+def _layer_attention_ln_cpu(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                            num_heads, scale, eps):
+    return layer_attention_ln_plain(
         x, g1, b1, wqkv, bqkv, wproj, bproj, mask, num_heads=num_heads,
         scale=scale, eps=eps)
 
 
-layer_attention_ln.launches = 0
+def _layer_attention_ln_fake(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
+                             num_heads, scale, eps):
+    return torch.empty_like(x)
+
+
+layer_attention_ln_op = _library.define(
+    "layer_attention_ln(Tensor x, Tensor g1, Tensor b1, Tensor wqkv, "
+    "Tensor bqkv, Tensor wproj, Tensor bproj, Tensor mask, int num_heads, "
+    "float scale, float eps) -> Tensor",
+    cpu=_layer_attention_ln_cpu, cuda=_layer_attention_ln_cuda,
+    fake=_layer_attention_ln_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from uvc_tpu_torch.ops import _cuda
+from uvc_tpu_torch.ops import _cuda, _library
 from uvc_tpu_torch.ops.attention import (_MAX_DM_BWD, _check_cuda,
                                          _ln_bwd_floats, _ln_rows,
                                          _sm_count, _weight_grad_splits)
@@ -114,16 +114,34 @@ def mlp_ln(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, *, eps: float):
 
     x: ``[B, N, dm]``; g2/b2 ``[dm]`` f32; wfc1 ``[dm, F]``, wfc2 ``[F, dm]``
     stored (in, out); mask ``[F]``.  On CUDA: bf16 activations and weights.
-    ``mlp_ln.launches`` counts kernel launches."""
-    if x.device.type == "cpu":
-        return mlp_ln_plain(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps=eps)
-    if x.device.type != "cuda":
+    ``mlp_ln.launches`` counts kernel launches.  Both devices go through
+    the operator ``uvc_tpu_torch.mlp_ln`` (the kernel on CUDA, the plain
+    version on the CPU)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mlp_ln runs on cpu or cuda, not {x.device}")
+    return mlp_ln_op(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, float(eps))
+
+
+def _mlp_ln_cuda(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
     out, err = _mlp_cuda(x, None, None, g2, b2, wfc1, bfc1, wfc2, bfc2, mask,
                          eps)
     _cuda.check(err, "mlp_ln")
     mlp_ln.launches += 1
     return out
+
+
+def _mlp_ln_cpu(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
+    return mlp_ln_plain(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps=eps)
+
+
+def _mlp_ln_fake(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
+    return torch.empty_like(x)
+
+
+mlp_ln_op = _library.define(
+    "mlp_ln(Tensor x, Tensor g2, Tensor b2, Tensor wfc1, Tensor bfc1, "
+    "Tensor wfc2, Tensor bfc2, Tensor mask, float eps) -> Tensor",
+    cpu=_mlp_ln_cpu, cuda=_mlp_ln_cuda, fake=_mlp_ln_fake)
 
 
 def mlp_ln_blend(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, *,

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uvc_tpu_torch.ops import _cuda
+from uvc_tpu_torch.ops import _cuda, _library
 from uvc_tpu_torch.ops.attention import (_check_cuda, _ln_rows, _sm_count,
                                          _weight_grad_splits)
 
@@ -368,12 +368,17 @@ def performer(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
     ``[dim, 3 emb]`` stored (in, out); w ``[m, emb]`` f32 random features;
     g2 / b2 ``[emb]`` f32.  On CUDA: bf16 activations and weights, emb 64,
     m 32, dim a multiple of 8 up to 1024.  ``performer.launches`` counts
-    kernel launches."""
-    if x.device.type == "cpu":
-        return performer_plain(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj,
-                               g2, b2, wfc1, bfc1, wfc2, bfc2, fcount=fcount)
-    if x.device.type != "cuda":
+    kernel launches.  Both devices go through the operator
+    ``uvc_tpu_torch.performer`` (the kernel on CUDA, the plain version on
+    the CPU)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"performer runs on cpu or cuda, not {x.device}")
+    return performer_op(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2,
+                        b2, wfc1, bfc1, wfc2, bfc2, float(fcount))
+
+
+def _performer_cuda(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2,
+                    wfc1, bfc1, wfc2, bfc2, fcount):
     ops = (x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1, bfc1,
            wfc2, bfc2)
     b, n, dim = _check_performer(x, dict(zip(OPERANDS[1:], ops[1:])))
@@ -393,6 +398,29 @@ def performer(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
     _cuda.check(err, "performer")
     performer.launches += 1
     return out, kptv, kpsum
+
+
+def _performer_cpu(*operands):
+    out, kptv, kpsum = performer_plain(*operands[:-1], fcount=operands[-1])
+    # the operator's outputs are fresh, contiguous tensors on either device
+    return out.contiguous(), kptv.contiguous(), kpsum.contiguous()
+
+
+def _performer_fake(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2,
+                    wfc1, bfc1, wfc2, bfc2, fcount):
+    b, n, _ = x.shape
+    emb, m = wkqv.shape[1] // 3, w.shape[0]
+    f32 = torch.float32
+    return (x.new_empty((b, n, emb)), x.new_empty((b, emb, m), dtype=f32),
+            x.new_empty((b, 1, m), dtype=f32))
+
+
+performer_op = _library.define(
+    "performer(Tensor x, Tensor g1, Tensor b1, Tensor wkqv, Tensor bkqv, "
+    "Tensor w, Tensor fmask, Tensor wproj, Tensor bproj, Tensor g2, "
+    "Tensor b2, Tensor wfc1, Tensor bfc1, Tensor wfc2, Tensor bfc2, "
+    "float fcount) -> (Tensor, Tensor, Tensor)",
+    cpu=_performer_cpu, cuda=_performer_cuda, fake=_performer_fake)
 
 
 def performer_bwd(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,

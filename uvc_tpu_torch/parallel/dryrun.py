@@ -1,24 +1,27 @@
-"""The data-parallel dry run and its rank worker (the port's counterpart
+"""The multi-process dry run and its rank worker (the port's counterpart
 of the JAX package's ``entry`` and ``dryrun_multichip`` in
-``__graft_entry__.py``, data parallelism only).
+``__graft_entry__.py``).
 
-    python -m uvc_tpu_torch.parallel.dryrun --ranks 2 --device cpu
+    python -m uvc_tpu_torch.parallel.dryrun --ranks 8 --device cpu
 
-spawns two ranks of this module, joined at a localhost port, each of
-which runs one step of stage 1, stage 2 and compact_ft at tiny shapes
+spawns eight ranks of this module, joined at a localhost port, on a mesh
+of 4 dp x 2 mp by the JAX dry run's rule (``mp`` 2 where the count is
+even and at least 4, else 1), each of which runs one step of stage 1,
+stage 2 and compact_ft (its compact tree replicated) at tiny shapes
 (``dryrun_multiprocess``).  A rank is
 
     python -m uvc_tpu_torch.parallel.dryrun --rank R --world N \\
-        --init 127.0.0.1:PORT --device cpu [--task SPEC.npz ...]
+        --init 127.0.0.1:PORT --device cpu [--mp M] [--task SPEC.npz ...]
 
 and with ``--task`` it runs the steps each spec file describes
 (``run_spec``: stage 1, stage 2, compact_ft or the baseline fine-tune,
 from given or seeded weights, on given global batches, with given or
 drawn noise) and writes what each step gave to ``SPEC.npz.rank<R>.npz``:
-its metrics, a digest of the whole state after it, its kernel launches,
-and the state at the end.
+its metrics, a digest of the whole (gathered) state after it, its kernel
+launches, and the whole state at the end.
 ``run_spec`` with no mesh is the single-process run of the same spec on
-the whole global batch, the reference a data-parallel run is held to.
+the whole global batch, the reference a data- or tensor-parallel run is
+held to.
 ``launch_ranks`` starts the ranks for a Python caller (the tests and the
 chip smoke run), which may ask for the gloo backend on the card: NCCL
 takes one rank a GPU.
@@ -169,13 +172,18 @@ def _launches() -> dict:
 
 
 def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
-             mesh: Optional[pmesh.Mesh] = None, device="cuda") -> tuple:
+             mesh: Optional[pmesh.Mesh] = None, device="cuda",
+             mp: int = 1) -> tuple:
     """Run the steps of a spec on ``device``: with a ``mesh``, as one rank
-    of a data-parallel run (its rows of each global batch and noise),
-    else on the whole global batch.  Returns ``(results, state arrays)``:
-    per step the metrics, a digest of the state after it, its time and,
-    on the card, its kernel launches; the all-reduce's clock; the eval
-    totals; and, with ``return_state``, the state at the end.
+    of a data-parallel run (the rows of its data index of each global
+    batch and noise) and, with ``mp > 1`` (the mesh's model axis), of a
+    tensor-parallel one (its shard of the state and the teacher), else on
+    the whole global batch.  Returns ``(results, state arrays)``: per
+    step the metrics, a digest of the whole state after it, its time and,
+    on the card, its kernel launches; the all-reduce's clock and the
+    steps' all-gathers' (not the digests'); under ``mp > 1`` the bytes this rank holds of
+    the tensor-parallel leaves of the params and their whole bytes; the
+    eval totals; and, with ``return_state``, the whole state at the end.
 
     The settings: ``kind`` (stage1, stage2, compact_ft, baseline),
     ``model`` and ``cfg`` (its overrides), ``hp``, ``thp`` (its
@@ -186,8 +194,9 @@ def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
     (each step's noise drawn as the drivers draw it, where the arrays hold
     no ``noise/<step>``), ``tau``, ``warmup`` (stage 1's first warmup
     steps), ``baseline`` (the baseline step's settings), ``eval_batch``
-    (with the arrays ``eval_x`` / ``eval_labels``) and
-    ``return_state``."""
+    (with the arrays ``eval_x`` / ``eval_labels``), ``return_state`` and
+    ``step_states`` (the whole params after every step, as
+    ``step<i>/params``, from rank 0 only)."""
     from uvc_tpu_torch.baselines import finetune
     from uvc_tpu_torch.compress.minimax import init_compression_state
     from uvc_tpu_torch.compress.resource import build_macs_table
@@ -201,8 +210,10 @@ def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
     from uvc_tpu_torch.train.compact_ft import (build_compact_stage2_step,
                                                 compact_train_tree)
     from uvc_tpu_torch.train.stage1 import eval_fn_for, eval_totals
-    from uvc_tpu_torch.train.state import TrainHParams, create_train_state
+    from uvc_tpu_torch.train.state import (TrainHParams, create_train_state,
+                                           gather_state, shard_state)
 
+    pmesh.check_model_axis(mesh, mp)
     dev = resolve_device(device)
     kind = settings["kind"]
     cfg = get_config(settings["model"]).replace(**settings.get("cfg", {}))
@@ -233,7 +244,7 @@ def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
     if mesh is not None:
         params, teacher, masks, wmasks = pmesh.replicate(
             (params, teacher, masks, wmasks), mesh)
-    world = 1 if mesh is None else mesh.size
+    world = 1 if mesh is None else mesh.dp
     if "data" in settings:
         # [steps, global batch] images and labels drawn from a seed
         steps_, batch_, seed_ = settings["data"]
@@ -304,8 +315,12 @@ def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
                 **{k: base[k] for k in draw_keys if k in base})
     else:
         raise ValueError(f"unknown spec kind {kind!r}")
+    state = shard_state(state, mesh, mp)
+    teacher = pmesh.shard_params(teacher, mesh, mp)
 
     on_card = dev.type == "cuda"
+    tensors: Dict[str, np.ndarray] = {}
+    gathered: List[dict] = []
     pmesh.reset_reduce_clock(events=on_card)
     out: Dict[str, Any] = {"metrics": [], "digests": [], "launches": [],
                            "step_ms": []}
@@ -323,17 +338,33 @@ def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
         if on_card:
             torch.cuda.synchronize()
             reset_launch_counts()
+        before = pmesh.gather_clock()
         t0 = time.perf_counter()
         state, m = take(state, i, x, y, noise, micro)
         if on_card:
             torch.cuda.synchronize()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        # the step's own all-gathers (the digest below gathers too)
+        after = pmesh.gather_clock()
+        gathered.append({k: (after[k] or 0) - (before[k] or 0)
+                         for k in after})
         if on_card:
             out["launches"].append(_launches())
         out["metrics"].append({k: float(v) for k, v in m.items()})
-        out["digests"].append(_digest(state))
+        now = gather_state(state, mesh)
+        out["digests"].append(_digest(now))
+        if settings.get("step_states") and (mesh is None or mesh.rank == 0):
+            _flatten(now.params, f"step{i}/params", tensors)
     out["reduce"] = pmesh.reduce_clock()
-    tensors: Dict[str, np.ndarray] = {}
+    out["gather"] = {k: sum(g[k] for g in gathered)
+                     for k in ("calls", "host_ms", "device_ms")}
+    local = pmesh.tensor_parallel_leaves(state.params, mp)
+    state = gather_state(state, mesh)
+    if mp > 1:
+        out["tp_bytes"] = [
+            sum(t.untyped_storage().nbytes() for t in local),
+            sum(t.numel() * t.element_size() for t in
+                pmesh.tensor_parallel_leaves(state.params, mp))]
     if settings.get("return_state"):
         _flatten(state.params, "params", tensors)
         _flatten(pmesh.tree_tensors(state.opt_state), "opt", tensors)
@@ -348,7 +379,7 @@ def run_spec(settings: dict, arrays: Dict[str, np.ndarray],
         loader = ArrayLoader(arrays["eval_x"], arrays["eval_labels"],
                              settings["eval_batch"], train=False,
                              img_size=cfg.img_size,
-                             pid=0 if mesh is None else mesh.rank,
+                             pid=0 if mesh is None else mesh.data_index,
                              pcount=world)
         ev_params = params if kind == "compact_ft" else state.params
         if kind == "baseline":
@@ -422,18 +453,19 @@ def start_ranks(world: int, argv: Sequence[str], *,
 
 def launch_ranks(world: int, *, device="cuda", backend: Optional[str] = None,
                  tasks: Sequence[str] = (), threads: int = 2,
-                 timeout: float = 600.0, wait: bool = True):
+                 timeout: float = 600.0, wait: bool = True, mp: int = 1):
     """Run ``world`` ranks of this module joined at a free localhost port
-    and return their outputs (``wait=False``: the started ``Ranks``).
-    ``tasks``: spec files, run in order, each rank writing
-    ``<spec>.rank<r>.npz`` (``read_rank_results``); none: the tiny dry
-    run."""
+    on a ``world / mp x mp`` mesh and return their outputs (``wait=False``:
+    the started ``Ranks``).  ``tasks``: spec files, run in order, each rank
+    writing ``<spec>.rank<r>.npz`` (``read_rank_results``); none: the tiny
+    dry run."""
     port = free_port()
 
     def argv(r):
         cmd = ["--rank", str(r), "--world", str(world),
                "--init", f"127.0.0.1:{port}", "--device", str(device),
-               "--threads", str(threads), "--timeout", str(int(timeout))]
+               "--threads", str(threads), "--timeout", str(int(timeout)),
+               "--mp", str(mp)]
         if backend:
             cmd += ["--backend", backend]
         for task in tasks:
@@ -481,35 +513,46 @@ def _dryrun_specs(world: int) -> list:
              dict(params=params, masks=masks, x=x, labels=y))]
 
 
-def _dryrun_rank(mesh: pmesh.Mesh, world: int, device) -> None:
+def dryrun_model_axis(n: int) -> int:
+    """The JAX dry run's model axis for ``n`` devices: 2 where ``n`` is
+    even and at least 4, else 1."""
+    return 2 if n % 2 == 0 and n >= 4 else 1
+
+
+def _dryrun_rank(mesh: pmesh.Mesh, device) -> None:
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        for settings, trees in _dryrun_specs(world):
+        for settings, trees in _dryrun_specs(mesh.size):
             path = os.path.join(tmp, settings["kind"] + ".npz")
             write_spec(path, settings, **trees)
-            res, _ = run_spec(*read_npz(path), mesh=mesh, device=device)
+            res, _ = run_spec(*read_npz(path), mesh=mesh, device=device,
+                              mp=mesh.mp)
             m = res["metrics"][0]
             if not np.isfinite(m["loss"]):
                 raise RuntimeError(f"{settings['kind']}: loss {m['loss']}")
             if mesh.rank == 0:
                 extra = (f" resource={m['resource']:.4f}"
                          if "resource" in m else "")
-                print(f"dryrun_multiprocess({world}) {settings['kind']} ok: "
-                      f"mesh=({world} dp x 1 mp) loss={m['loss']:.4f}"
-                      f"{extra}", flush=True)
+                print(f"dryrun_multiprocess({mesh.size}) {settings['kind']} "
+                      f"ok: mesh=({mesh.dp} dp x {mesh.mp} mp) "
+                      f"loss={m['loss']:.4f}{extra}", flush=True)
 
 
 def dryrun_multiprocess(n: int, device="cuda",
                         backend: Optional[str] = None,
                         timeout: float = 600.0) -> None:
-    """Spawn ``n`` ranks, each running one step of stage 1 (the minimax
-    update included), stage 2 and compact_ft at tiny shapes on its share
-    of the global batch; print their lines and
-    ``dryrun_multiprocess(n) ok: ...``.  Raises if a rank fails."""
-    outs = launch_ranks(n, device=device, backend=backend, timeout=timeout)
+    """Spawn ``n`` ranks on a mesh of ``n / mp x mp`` (``mp`` by the JAX
+    dry run's rule, ``dryrun_model_axis``), each running one step of
+    stage 1 (the minimax update included), stage 2 and compact_ft at tiny
+    shapes on its share of the global batch and its shard of the weights;
+    print their lines and ``dryrun_multiprocess(n) ok: ...``.  Raises if
+    a rank fails."""
+    mp = dryrun_model_axis(n)
+    outs = launch_ranks(n, device=device, backend=backend, timeout=timeout,
+                        mp=mp)
     print(outs[0], end="")
     print(f"dryrun_multiprocess({n}) ok: stage1+stage2+compact_ft on "
-          f"({n} dp x 1 mp)", flush=True)
+          f"({n // mp} dp x {mp} mp)", flush=True)
 
 
 def _rank_main(args) -> int:
@@ -519,15 +562,15 @@ def _rank_main(args) -> int:
         timeout=datetime.timedelta(seconds=args.timeout),
         device=args.device)
     try:
-        mesh = pmesh.make_mesh()
+        mesh = pmesh.make_mesh(mp=args.mp)
         for task in args.task:
             settings, arrays = read_npz(task)
             res, tensors = run_spec(settings, arrays, mesh=mesh,
-                                    device=args.device)
+                                    device=args.device, mp=args.mp)
             tensors["__settings__"] = np.array(json.dumps(res))
             np.savez(f"{task}.rank{args.rank}.npz", **tensors)
         if not args.task:
-            _dryrun_rank(mesh, args.world, args.device)
+            _dryrun_rank(mesh, args.device)
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -543,6 +586,8 @@ def main(argv=None) -> int:
     ap.add_argument("--init", default=None, help="host:port of rank 0")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
+    ap.add_argument("--mp", type=int, default=1,
+                    help="a rank's tensor-parallel size")
     ap.add_argument("--threads", type=int, default=2)
     ap.add_argument("--timeout", type=int, default=600)
     ap.add_argument("--task", action="append", default=[],

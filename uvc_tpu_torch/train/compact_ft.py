@@ -234,10 +234,11 @@ def build_compact_stage2_step(cfg: ViTConfig, hp: MinimaxHParams,
     ``step(state, teacher_params, masks, x, labels, noise)``, so that a
     stage-2 training loop can swap it in: ``masks`` is accepted and
     ignored (the slicing enforces them); ``mesh`` a data-parallel rank's
-    step, the compact tree replicated.  Under ``hp.enable_patch_gating
-    == 2`` the
-    student drops tokens at ``hp.patch_ratio`` and the scorer's updates are
-    zeroed (frozen architecture, as in the dense step)."""
+    step, the compact tree replicated (it has no ``'blocks'`` leaf to
+    shard; on a mesh with a model axis the dense teacher is gathered).
+    Under ``hp.enable_patch_gating == 2`` the student drops tokens at
+    ``hp.patch_ratio`` and the scorer's updates are zeroed (frozen
+    architecture, as in the dense step)."""
     ratio = hp.patch_ratio if hp.enable_patch_gating == 2 else None
 
     def loss_fn(ctree, teacher_params, masks, x, targets, labels):

@@ -25,8 +25,12 @@ data-parallel run: every rank resumes from the same file, the state and
 the teacher are broadcast from rank 0 after the resume (as the JAX driver
 places them on its mesh), each step is the rank's part of the global
 batch's (``train/step.py``), the noise is the global batch's sharded by
-rows, the eval totals are summed over the ranks, and rank 0 writes the
-checkpoints.
+rows, the eval totals are summed over the data group, and rank 0 writes
+the checkpoints.  With a model axis (``mp > 1``) each rank then keeps its
+shard of the tensor-parallel leaves of the state and the teacher
+(``shard_params``); the epoch's masks, report, eval and checkpoint read
+the gathered weights, so rank 0 writes the file a data-parallel run
+writes, and the result holds the whole state.
 """
 
 from __future__ import annotations
@@ -52,14 +56,17 @@ from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib, gumbel_noise
 from uvc_tpu_torch.ops.stes import ste_ceil
-from uvc_tpu_torch.parallel.mesh import TENSOR_PARALLEL, replicate, sum_across
+from uvc_tpu_torch.parallel.mesh import (check_model_axis, gather_params,
+                                         replicate, shard_params, sum_across)
 from uvc_tpu_torch.train import step as step_mod
 from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
                                        create_train_state,
                                        cstate_from_state_dict,
                                        cstate_to_state_dict,
+                                       gather_state,
                                        opt_state_from_state_dict,
-                                       opt_state_to_state_dict)
+                                       opt_state_to_state_dict,
+                                       shard_state)
 from uvc_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             load_checkpoint, restore_like,
                                             save_checkpoint)
@@ -180,10 +187,10 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     ``use_orbax`` keeps the checkpoints in a ``CheckpointManager``
     directory (``<run>/checkpoints``) instead of ``<name>_<epoch>.ckpt``
     files; ``resume`` takes either.  ``mesh`` (``parallel/mesh.py::
-    make_mesh``) makes the run one rank of a data-parallel run (see the
-    top); ``mp > 1`` raises NotImplementedError."""
-    if mp != 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
+    make_mesh``) makes the run one rank of a data-parallel run, and with
+    ``mp > 1`` (the mesh's model axis) of a tensor-parallel one (see the
+    top)."""
+    check_model_axis(mesh, mp)
     dev = resolve_device(device)
     logger = logger or MetricLogger(output_dir, name)
     table = build_macs_table(cfg)
@@ -224,11 +231,13 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         resumed_step = int(ck.get("global_step", 0))
         gen = torch.Generator().manual_seed(int(ck.get("key_seed", seed)))
         logger.info(f"Resumed stage-1 from {resume} at epoch {start_epoch}")
+    total_param = float(total_maskable_params(state.params))
     if mesh is not None:
         # after the resume, as the JAX driver places the restored state
         state, teacher_params = replicate((state, teacher_params), mesh)
-    world = 1 if mesh is None else mesh.size
-    total_param = float(total_maskable_params(state.params))
+        state = shard_state(state, mesh, mp)
+        teacher_params = shard_params(teacher_params, mesh, mp)
+    world = 1 if mesh is None else mesh.dp
     logger.info(f"** Initial FLOP size: {table.dense_flops / 2e6:.2f}M MACs "
                 f"(dense {table.dense_flops / 1e6:.2f}M FLOPs)")
 
@@ -257,8 +266,9 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     losses = AverageMeter()
     # built from the (possibly restored) cstate up front, so resuming from
     # a checkpoint whose epoch >= num_epochs still returns real masks
-    masks = build_masks(state.params, ste_ceil(state.cstate.s),
-                        ste_ceil(state.cstate.r), cfg)
+    masks = build_masks(gather_params(state.params, mesh),
+                        ste_ceil(state.cstate.s), ste_ceil(state.cstate.r),
+                        cfg)
     metrics = None
 
     for epoch in range(start_epoch, thp.num_epochs + 1):
@@ -269,9 +279,10 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         train_loader.set_epoch(epoch)
 
         # masks rebuild + sparsity report at epoch start
-        masks = build_masks(state.params, ste_ceil(state.cstate.s),
+        whole = gather_params(state.params, mesh)
+        masks = build_masks(whole, ste_ceil(state.cstate.s),
                             ste_ceil(state.cstate.r), cfg)
-        remained = float(count_remaining_params(state.params, masks, cfg))
+        remained = float(count_remaining_params(whole, masks, cfg))
         logger.info("=" * 60)
         logger.info(f"Start [Epoch {epoch}] at Stage {stage}")
         logger.info(f"[Initial Sparsity|Epoch {epoch}] Parameter size: "
@@ -329,11 +340,13 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
                     f"loss {losses.avg:.4f}")
         losses.reset()
 
-        masks = build_masks(state.params, ste_ceil(state.cstate.s),
+        # the whole state: the masks, the report, eval and the checkpoint
+        whole = gather_state(state, mesh)
+        masks = build_masks(whole.params, ste_ceil(state.cstate.s),
                             ste_ceil(state.cstate.r), cfg)
-        remained = float(count_remaining_params(state.params, masks, cfg))
+        remained = float(count_remaining_params(whole.params, masks, cfg))
         exp_f, real_f, argmax_f = expectation_and_real_flops(
-            state.params, state.cstate, cfg, hp, table,
+            whole.params, state.cstate, cfg, hp, table,
             draw_report_noise(gen, cfg, hp, dev))
         logger.info(f"[Validation Sparsity|Step {global_step}|Epoch {epoch}]")
         logger.info(f"Parameter size: {remained / 1e6:.2f}M / "
@@ -351,16 +364,16 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         })
 
         if eval_each_epoch and test_loader is not None:
-            acc = run_validation(eval_fn, state.params, masks, test_loader,
+            acc = run_validation(eval_fn, whole.params, masks, test_loader,
                                  logger, global_step, device=dev, mesh=mesh)
             best_acc = max(best_acc, acc)
 
         if save_checkpoints:
             # the full resumable state: AdamW moments, the minimax
             # optimizers' traces, the gating accumulator
-            tree = {"params": state.params,
+            tree = {"params": whole.params,
                     "cstate": cstate_to_state_dict(state.cstate),
-                    "opt_state": opt_state_to_state_dict(state.opt_state),
+                    "opt_state": opt_state_to_state_dict(whole.opt_state),
                     "masks": masks, "epoch": epoch, "step": global_step,
                     "global_step": global_step, "key_seed": seed + epoch}
             if ck_mgr is not None:
@@ -375,4 +388,5 @@ def run_stage1(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
 
     if profiler is not None:
         profiler.close()
+    state = gather_state(state, mesh)
     return Stage1Result(state=state, masks=masks, best_acc=best_acc)

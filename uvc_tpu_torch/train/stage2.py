@@ -15,9 +15,13 @@ at call time so that a test can feed the JAX driver's key chain instead.
 
 With a ``mesh`` (``parallel/mesh.py``) the run is one rank of a
 data-parallel run, as in ``train/stage1.py``: the global batch is the
-loader's batch times the ranks, the state (dense or compact), teacher and
-masks are broadcast from rank 0, the eval totals are summed over the
-ranks and rank 0 writes the checkpoints.
+loader's batch times the data-parallel ranks, the state (dense or
+compact), teacher and masks are broadcast from rank 0, the eval totals
+are summed over the data group and rank 0 writes the checkpoints.  With a
+model axis (``mp > 1``) the dense run keeps each rank's shard of the
+tensor-parallel leaves of the state and the teacher, and gathers the
+weights for eval, the checkpoints and the result; the compact run takes
+data-parallel meshes only and raises ValueError, as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -35,12 +39,15 @@ from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.data.pipeline import device_prefetch, normalize_on_device
 from uvc_tpu_torch.interop import resolve_device
 from uvc_tpu_torch.train import step as step_mod
-from uvc_tpu_torch.parallel.mesh import TENSOR_PARALLEL, replicate
+from uvc_tpu_torch.parallel.mesh import (check_model_axis, gather_params,
+                                         replicate, shard_params)
 from uvc_tpu_torch.train.stage1 import (copy_tree, eval_fn_for,
                                         run_validation)
 from uvc_tpu_torch.train.state import (TrainHParams, create_train_state,
+                                       gather_state,
                                        opt_state_from_state_dict,
-                                       opt_state_to_state_dict)
+                                       opt_state_to_state_dict,
+                                       shard_state)
 from uvc_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             load_checkpoint, restore_like,
                                             save_checkpoint)
@@ -71,12 +78,14 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
     layout (``scatter_to_dense``) and its compact-shaped optimizer state,
     so a compact run resumes with ``compact=True``, re-slicing the
     restored dense params.  ``mesh`` makes the run one rank of a
-    data-parallel run (see the top); ``world_batch`` defaults to the
-    global batch, the loader's batch times the ranks; ``mp > 1`` raises
-    NotImplementedError."""
-    if mp != 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
-    world = 1 if mesh is None else mesh.size
+    data-parallel run, and with ``mp > 1`` (the mesh's model axis) of a
+    tensor-parallel one (see the top); ``world_batch`` defaults to the
+    global batch, the loader's batch times the data-parallel ranks."""
+    check_model_axis(mesh, mp)
+    if compact and mesh is not None and mp > 1:
+        raise ValueError("compact stage-2 supports data-parallel "
+                         "meshes only (mp == 1)")
+    world = 1 if mesh is None else mesh.dp
     dev = resolve_device(device)
     logger = logger or MetricLogger(output_dir, name)
     if teacher_params is None:
@@ -143,6 +152,8 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
                     f"(step {resumed_step}, best {resumed_best:.4f})")
     if mesh is not None:
         state = replicate(state, mesh)
+        state = shard_state(state, mesh, mp)
+        teacher_params = shard_params(teacher_params, mesh, mp)
     gas = max(1, thp.accum_steps)
     if compact:
         from uvc_tpu_torch.train.compact_ft import build_compact_stage2_step
@@ -169,15 +180,15 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
 
     def validate():
         nonlocal best_acc
-        acc = run_validation(eval_fn, to_dense(state.params), masks,
-                             test_loader, logger, global_step, device=dev,
-                             mesh=mesh)
+        dense = to_dense(gather_params(state.params, mesh))
+        acc = run_validation(eval_fn, dense, masks, test_loader, logger,
+                             global_step, device=dev, mesh=mesh)
         if acc > best_acc:
             best_acc = acc
             if save_checkpoints:
                 save_checkpoint(
                     f"{logger.dir}/{cfg.name}_best.ckpt",
-                    {"params": to_dense(state.params), "masks": masks,
+                    {"params": dense, "masks": masks,
                      "step": global_step, "acc": acc})
 
     logger.info("***** [Stage 2] Post Training *****")
@@ -217,9 +228,10 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
 
         if save_checkpoints:
             # resumable per-epoch state, symmetric with stage 1
-            tree = {"params": to_dense(state.params),
+            whole = gather_state(state, mesh)
+            tree = {"params": to_dense(whole.params),
                     "compact": compact,
-                    "opt_state": opt_state_to_state_dict(state.opt_state),
+                    "opt_state": opt_state_to_state_dict(whole.opt_state),
                     "masks": masks, "epoch": epoch,
                     "global_step": global_step, "best_acc": best_acc,
                     "key_seed": seed + 10_000 + epoch}
@@ -232,10 +244,12 @@ def run_stage2(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams, *,
         gen = torch.Generator().manual_seed(seed + 10_000 + epoch)
 
     if test_loader is not None:
-        acc = run_validation(eval_fn, to_dense(state.params), masks,
-                             test_loader, logger, global_step, device=dev,
-                             mesh=mesh)
+        acc = run_validation(eval_fn,
+                             to_dense(gather_params(state.params, mesh)),
+                             masks, test_loader, logger, global_step,
+                             device=dev, mesh=mesh)
         best_acc = max(best_acc, acc)
     if profiler is not None:
         profiler.close()
+    state = gather_state(state, mesh)
     return Stage2Result(state=state, best_acc=best_acc)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from uvc_tpu_torch.compress.state import CompressionState, OptState
+from uvc_tpu_torch.parallel.mesh import gather_params, shard_params
 from uvc_tpu_torch.utils.schedules import (timm_epoch_schedule,
                                            warmup_cosine_schedule,
                                            warmup_linear_schedule)
@@ -225,6 +226,35 @@ def create_train_state(params, thp: TrainHParams,
     return TrainState(step=0, params=params,
                       opt_state=make_weight_optimizer(thp).init(params),
                       cstate=cstate, grad_accum=grad_accum)
+
+
+def map_param_trees(fn: Callable, state):
+    """``state`` (a ``TrainState``, or the baseline fine-tune's state) with
+    ``fn`` applied to each of its parameter-shaped trees: the params, the
+    optimizer's moments (AdamW's ``mu`` / ``nu``, SGD's ``trace``), the
+    gradient-accumulation buffer and the EMA params, where present.  The
+    tensor-parallel drivers shard and gather a state with it."""
+    opt = state.opt_state
+    changes = {"params": fn(state.params),
+               "opt_state": (AdamWState(opt.count, fn(opt.mu), fn(opt.nu))
+                             if isinstance(opt, AdamWState)
+                             else SGDState(opt.count, fn(opt.trace)))}
+    for name in ("grad_accum", "ema_params"):
+        if getattr(state, name, None) is not None:
+            changes[name] = fn(getattr(state, name))
+    return dataclasses.replace(state, **changes)
+
+
+def shard_state(state, mesh, mp: int):
+    """This rank's shard of every parameter-shaped tree of ``state``
+    (``parallel/mesh.py::shard_params``)."""
+    return map_param_trees(lambda t: shard_params(t, mesh, mp), state)
+
+
+def gather_state(state, mesh):
+    """``shard_state``'s inverse: the whole trees gathered over the model
+    group (``parallel/mesh.py::gather_params``)."""
+    return map_param_trees(lambda t: gather_params(t, mesh), state)
 
 
 # ---------------------------------------------------------------------------

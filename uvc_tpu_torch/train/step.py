@@ -32,14 +32,25 @@ distillation, clip and AdamW or SGD.  Its only draw is the mixup
 
 Given a ``mesh`` (``parallel/mesh.py``), a step is one rank's part of
 the JAX package's SPMD step over the global batch: it averages the
-gradient tree and the loss over the ranks (``all_reduce_mean``) before
-the clip and the architecture update, so every rank takes the same update
-and holds the same bytes; the mixup partners come from the flipped global
-batch (``flip_partners``); and the noise is the global batch's, of which
-the rank keeps its rows (``shard_noise``).  Every loss term is a mean
-over the samples, so the ranks' mean gradient is the global batch's.  A
-micro-step does not reduce: the full step reduces the folded gradient
-once.
+gradient tree and the loss over the data group (``all_reduce_mean``)
+before the clip and the architecture update, so every rank takes the same
+update and holds the same bytes; the mixup partners come from the flipped
+global batch (``flip_partners``); and the noise is the global batch's, of
+which the rank keeps the rows of its data index (``shard_noise``).  Every
+loss term is a mean over the samples, so the data shards' mean gradient
+is the global batch's.  A micro-step does not reduce: the full step
+reduces the folded gradient once.
+
+With a model axis (``mesh.mp > 1``) the state holds this rank's shard of
+each tensor-parallel leaf (``shard_params``): the step gathers the whole
+student and teacher weights (``gather_params``) and runs the forward and
+backward kernels on them whole, so a rank launches what one process
+launches at its data shard's batch; it reduces and clips the whole
+gradient, updates its shard of the weights and of the optimizer state,
+and runs the architecture update (prox and group scores) on the whole
+weights before it keeps its shard again.  This is the function the JAX
+package's step computes under ``mp > 1``: XLA runs each TPU kernel whole
+on every device of a model group.
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from uvc_tpu_torch.interop import host_to_device, resolve_device
 from uvc_tpu_torch.models import get_model
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib, gumbel_noise
 from uvc_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean,
-                                         flip_partners, shard_batch)
+                                         flip_partners, gather_params,
+                                         shard_batch, shard_params)
 from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
                                        clip_global_norm,
                                        make_weight_optimizer,
@@ -207,6 +219,11 @@ def _distilled_loss(out, x, targets, labels, teacher_params,
         alpha=thp.distillation_alpha, tau=thp.distillation_tau)
 
 
+def model_axis(mesh: Optional[Mesh]) -> int:
+    """The mesh's tensor-parallel size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.mp
+
+
 def _value_and_grad(loss_fn, tree):
     """(loss, gradient tree) of ``loss_fn(tree)``; leaves the loss does not
     read (part-gating logits, ...) get zero gradients, as under
@@ -283,22 +300,27 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
         return _distilled_loss(out, x, targets, labels, teacher_params, cfg,
                                thp)
 
+    mp = model_axis(mesh)
+
     def step(state: TrainState, teacher_params, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage1Noise, tau):
         x, targets = _mixed(x, labels, noise.mixup, thp, mesh)
+        teacher = gather_params(teacher_params, mesh)
         loss, grads = _value_and_grad(
-            lambda params: loss_fn(params, state.cstate, teacher_params, x,
+            lambda params: loss_fn(params, state.cstate, teacher, x,
                                    targets, labels, noise, tau),
-            state.params)
+            gather_params(state.params, mesh))
 
         with torch.no_grad():
             if micro:
                 new_accum = tree_map(lambda a, g: a + g / accum,
-                                     state.grad_accum, grads)
+                                     state.grad_accum,
+                                     shard_params(grads, mesh, mp))
                 return state.replace(grad_accum=new_accum), {"loss": loss}
             if accum > 1:
                 grads = tree_map(lambda a, g: a + g / accum,
-                                 state.grad_accum, grads)
+                                 gather_params(state.grad_accum, mesh),
+                                 grads)
             if mesh is not None:
                 # the global batch's gradient, before the clip (its norm)
                 # and the architecture update (the gating gradient)
@@ -307,14 +329,16 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
                 grads = dict(grads, block_gating=torch.zeros_like(
                     grads["block_gating"]))
             grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
+            # this rank's shard of the clipped gradient updates its shard
+            updates, opt_state = tx.update(shard_params(grads, mesh, mp),
+                                           state.opt_state, state.params)
             updates = zero_frozen_updates(updates)
             if warmup:
                 # decoupled weight decay would still move the frozen logits
                 updates = dict(updates, block_gating=torch.zeros_like(
                     updates["block_gating"]))
-            new_params = tree_map(lambda p, u: p + u, state.params, updates)
+            new_params = gather_params(
+                tree_map(lambda p, u: p + u, state.params, updates), mesh)
         lr = lr_fn(state.step)
         new_params, cstate, arch_metrics = arch_update(
             new_params, state.cstate, noise=(noise.res1, noise.res2),
@@ -328,6 +352,7 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
         grad_accum = state.grad_accum
         if accum > 1:
             grad_accum = tree_map(torch.zeros_like, state.grad_accum)
+        new_params = shard_params(new_params, mesh, mp)
         return TrainState(step=state.step + 1, params=new_params,
                           opt_state=opt_state, cstate=cstate,
                           grad_accum=grad_accum), metrics
@@ -365,27 +390,31 @@ def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
     tx = make_weight_optimizer(thp)
     lr_fn = thp.lr_schedule()
     accum = thp.accum_steps
+    mp = model_axis(mesh)
 
     def step(state: TrainState, teacher_params, masks, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage2Noise):
         x, targets = _mixed(x, labels, noise.mixup, thp, mesh)
+        teacher = gather_params(teacher_params, mesh)
         loss, grads = _value_and_grad(
-            lambda params: loss_fn(params, teacher_params, masks, x, targets,
-                                   labels), state.params)
+            lambda params: loss_fn(params, teacher, masks, x, targets,
+                                   labels), gather_params(state.params, mesh))
         with torch.no_grad():
             if micro:
                 new_accum = tree_map(lambda a, g: a + g / accum,
-                                     state.grad_accum, grads)
+                                     state.grad_accum,
+                                     shard_params(grads, mesh, mp))
                 return state.replace(grad_accum=new_accum), {"loss": loss}
             if accum > 1:
                 grads = tree_map(lambda a, g: a + g / accum,
-                                 state.grad_accum, grads)
+                                 gather_params(state.grad_accum, mesh),
+                                 grads)
             if mesh is not None:
                 grads, loss = all_reduce_mean(grads, mesh, loss)
             grads = _zero_subtrees(grads, frozen_grads)
             grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
+            updates, opt_state = tx.update(shard_params(grads, mesh, mp),
+                                           state.opt_state, state.params)
             # weight decay would otherwise still move the frozen leaves
             updates = _zero_subtrees(zero_frozen_updates(updates),
                                      frozen_updates)
