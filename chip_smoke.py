@@ -55,7 +55,10 @@ Phases, each of which stops the run with a non-zero exit on failure:
    each output also within 1/64 of its largest value, and each also
    under ``--digests``; K1, K2, A2 and A6 at "synflow" (B=1, N=197,
    dm=384, 6 heads, F=1536: phase 13's SynFlow scoring pass on one
-   all-ones image);
+   all-ones image); DeiT-Tiny at 64 px, phase 18's shapes at batch 128:
+   K1, K2, K3, A2 and A4 at "tiny" (N=18, dm=192, 3 heads, F=768), K1,
+   K3, A2 and A4 at "tiny_slim" (N=13, after the token ratio 0.7), K1
+   and K2 at "tiny_compact" (N=13, 2 heads, F=384: a compacted layer);
    every forward kernel's two launches bit for bit; K1's four launches
    (LayerNorm, qkv GEMM, attention core, projection GEMM) and K2's and
    K3's three (LayerNorm, fc1 GEMM, fc2 GEMM) one by one at "vit_h" and
@@ -333,6 +336,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
    launches exactly one process's at batch 32 (a stage-1 step: K1 24, K2
    12, K3 12, A2 12, A4 12), the all-gather's and the all-reduce's ms a
    step; compact stage 2 at mp 2 raising ``ValueError``.
+18. evidence harnesses -- ``uvc_tpu_torch/scripts/e2e_accuracy.py`` and
+   ``scripts/trajectory_fidelity.py`` through their ``run`` functions in
+   this process, on DeiT-Tiny (distilled) at 64 px at full width and depth
+   (12 blocks of 192, 3 heads of 64, F 768), at a cut horizon: e2e at
+   batch 128, 8 batches an epoch, a 1-epoch dense pretrain extended once
+   while below its target, stage 1 of 2 epochs (1 warmup) with token
+   selection, stage 2 of 1 epoch, compaction and slimmed serving over 2
+   eval batches; fidelity at its ``UVC_FID_SMOKE`` sizes (2 batches of 8
+   an epoch), both scenarios.  Held: each training step's launches exact
+   (a distilling step K1 24, K2 12, K3 12, A2 12, A4 12; a pretrain step,
+   which runs no teacher, K1 12, K3 12, A2 12, A4 12); every logged
+   metric finite; each FLOPs series one entry an epoch; the compact
+   model's full-token logits within 2e-2 of the masked-dense forward at
+   the same frozen decision; z, y, p, s >= 0 at the end (gates T5, B5);
+   each record written with the JAX harness's keys.  Printed, not gated:
+   each gate at the cut horizon, each stage's wall seconds, each kind of
+   step's median host ms, the two loaders' host ms a batch at 128, and
+   the e2e stage 1 run again on the CPU plain path in f32 from the same
+   weights, batches and draws against the card's (FLOPs reports, minimax
+   state, params).
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -541,6 +564,17 @@ FWD_SHAPES = {
     # R50-ViT-B/16's blocks (phase 14): dm 768, 12 heads of 64, F 3072
     "vit_b": (BATCH, 197, 768, 12, 3072, 64,
               ("layer_attention_ln", "mlp_ln", "mlp_ln_blend")),
+    # DeiT-Tiny at 64 px (phase 18's harnesses), batch 128: N 18 (16
+    # patches, cls and dist), dm 192, 3 heads of 64, F 768 (K1 and K3 in
+    # the student, K1 and K2 in the teacher); N 13 after the token ratio
+    # 0.7 (stage 2's student, the masked-dense eval); a compacted layer,
+    # 2 heads (da 128) and fk 384, as the slimmed serving runs it
+    "tiny": (128, 18, 192, 3, 768, 64,
+             ("layer_attention_ln", "mlp_ln", "mlp_ln_blend")),
+    "tiny_slim": (128, 13, 192, 3, 768, 64,
+                  ("layer_attention_ln", "mlp_ln_blend")),
+    "tiny_compact": (128, 13, 192, 2, 384, 64,
+                     ("layer_attention_ln", "mlp_ln")),
 }
 # the shapes that the parent commit's kernels take as well (head dim 64):
 # ``--digests`` holds the kernels there only, so that the same script can
@@ -1072,6 +1106,12 @@ BWD_SHAPES = {
     # R50-ViT-B/16's stage 1 (A2, A4), stage 2 (A2, A4) and compact_ft (A6)
     "vit_b": (BATCH, 197, 768, 12, 3072, 64,
               ("layer_attention_ln_bwd", "mlp_ln_blend_bwd", "mlp_ln_bwd")),
+    # DeiT-Tiny at 64 px (phase 18), batch 128: stage 1 at N 18, stage 2's
+    # physical token drop at N 13
+    "tiny": (128, 18, 192, 3, 768, 64,
+             ("layer_attention_ln_bwd", "mlp_ln_blend_bwd")),
+    "tiny_slim": (128, 13, 192, 3, 768, 64,
+                  ("layer_attention_ln_bwd", "mlp_ln_blend_bwd")),
 }
 
 
@@ -5560,6 +5600,311 @@ def tp_phase(card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the evidence harnesses
+# ---------------------------------------------------------------------------
+
+# the cut horizon of the e2e harness (its widths, depth, batch, task and
+# recipe untouched): 8 batches an epoch, a 1-epoch pretrain extended once
+# (2 epochs) while below its target, stage 1 of 2 epochs (1 warmup),
+# stage 2 of 1 epoch, 2 eval batches
+ACC_E2E_SIZES = dict(STEPS=8, PRETRAIN_EPOCHS=1, DENSE_EPOCHS_MAX=3,
+                     EPOCHS=2, WARMUP=1, STAGE2_EPOCHS=1, EVAL_BATCHES=2)
+# each step's launches on DeiT-Tiny's 12 blocks: a distilling step (stage
+# 1, stage 2) as phase 12's; the pretrain (no distillation) runs no
+# teacher, so the student's K1 and K3 and its A2 and A4
+ACC_STEP = {"pretrain": {"layer_attention_ln": 12, "mlp_ln_blend": 12,
+                         "layer_attention_ln_bwd": 12,
+                         "mlp_ln_blend_bwd": 12},
+            "stage1": PIPE_TRAIN_STEP, "stage2": PIPE_TRAIN_STEP}
+
+
+class _Sizes:
+    """Module constants set for a block and restored after it."""
+
+    def __init__(self, module, sizes):
+        self.module, self.sizes = module, sizes
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.module, k) for k in self.sizes}
+        for k, v in self.sizes.items():
+            setattr(self.module, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+class _StepLaunches:
+    """Within the block, every step that ``train/step.py``'s builders
+    return (looked up by the drivers at call time) records its own
+    launches and host seconds: ``steps`` holds (kind, counts, seconds) a
+    step, the kind "pretrain" (stage 1 without distillation), "stage1" or
+    "stage2"."""
+
+    def __enter__(self):
+        from uvc_tpu_torch.train import step as step_mod
+
+        self.mod, self.steps = step_mod, []
+        self.saved = (step_mod.build_stage1_step, step_mod.build_stage2_step)
+        b1, b2 = self.saved
+
+        def stage1(cfg, table, hp, thp, **kw):
+            kind = ("pretrain" if thp.distillation_type in (None, "none")
+                    else "stage1")
+            return self._counted(kind, b1(cfg, table, hp, thp, **kw))
+
+        def stage2(cfg, hp, thp, **kw):
+            return self._counted("stage2", b2(cfg, hp, thp, **kw))
+        step_mod.build_stage1_step, step_mod.build_stage2_step = (stage1,
+                                                                  stage2)
+        return self
+
+    def _counted(self, kind, fn):
+        def step(*args):
+            before = _all_counts()
+            t = time.perf_counter()
+            out = fn(*args)
+            secs = time.perf_counter() - t
+            after = _all_counts()
+            self.steps.append((kind, {k: after[k] - before[k]
+                                      for k in after}, secs))
+            return out
+        return step
+
+    def __exit__(self, *exc):
+        (self.mod.build_stage1_step,
+         self.mod.build_stage2_step) = self.saved
+
+
+def _all_counts():
+    from uvc_tpu_torch.ops import (backward_launch_counts, composed_counts,
+                                   launch_counts)
+    return {**launch_counts(), **backward_launch_counts(),
+            **composed_counts()}
+
+
+def _check_steps(label, steps, want_kinds):
+    """Every recorded step's launches exactly ACC_STEP's for its kind;
+    prints each kind's median host ms a step (the step's call alone, the
+    loader not included; the card is not waited for)."""
+    kinds = {}
+    for i, (kind, counts, secs) in enumerate(steps):
+        want = _want(counts, step=(ACC_STEP[kind], 1))
+        check(counts == want, f"{label} step {i} ({kind}) launches {counts} "
+              f"(expected {want})")
+        kinds.setdefault(kind, []).append(secs)
+    check(set(kinds) == set(want_kinds),
+          f"{label}: steps of kinds {sorted(kinds)}, expected {want_kinds}")
+    print(f"{label}: launches exact in each of {len(steps)} steps "
+          f"({', '.join(f'{k} {len(v)}' for k, v in kinds.items())}; per "
+          f"step {', '.join(f'{k}: {ACC_STEP[k]}' for k in kinds)}); "
+          f"median host ms a step's call: " + ", ".join(
+              f"{k} {1e3 * sorted(v)[len(v) // 2]:.1f}"
+              for k, v in kinds.items()), flush=True)
+
+
+def _loader_ms(loader, n):
+    """Host ms a batch of ``loader`` after its first."""
+    it = iter(loader)
+    next(it)
+    t = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return 1e3 * (time.perf_counter() - t) / n
+
+
+def _metrics_finite(label, out):
+    """Every number in every ``metrics.jsonl`` under ``out`` finite;
+    returns the count."""
+    import math
+
+    n = 0
+    for root, _, files in os.walk(out):
+        if "metrics.jsonl" not in files:
+            continue
+        with open(os.path.join(root, "metrics.jsonl")) as fh:
+            for line in fh:
+                for k, v in json.loads(line).items():
+                    if isinstance(v, float):
+                        check(math.isfinite(v), f"{label}: {root} {k} = {v}")
+                        n += 1
+    check(n > 0, f"{label}: no metrics written")
+    return n
+
+
+def _record_keys(label, path, keys):
+    with open(path) as fh:
+        got = json.load(fh)
+    check(set(got) == set(keys), f"{label}: the record's keys "
+          f"{sorted(got)} are not {sorted(keys)}")
+    return got
+
+
+def card_vs_cpu_stage1(e2e, fid, art, card):
+    """The e2e harness's stage 1 at the cut horizon again, on the CPU plain
+    path in f32 from the same pretrained weights with the same batches and
+    draws (the drivers draw from a CPU generator whatever the device):
+    each epoch's FLOPs report and the minimax state against the card's run
+    (bf16 through the kernels).  Printed, not gated: how far the card's
+    trajectory is from the plain computation's over the first gating
+    update."""
+    import tempfile
+
+    from uvc_tpu_torch.compress.state import MinimaxHParams
+    from uvc_tpu_torch.train.stage1 import run_stage1
+    from uvc_tpu_torch.train.state import TrainHParams
+    from uvc_tpu_torch.utils.logging import MetricLogger
+    from uvc_tpu_torch.utils.tree import tree_leaves_with_path
+
+    with _Sizes(e2e, ACC_E2E_SIZES), \
+            tempfile.TemporaryDirectory(prefix="uvc_acc_cpu_") as out:
+        hp_kw, thp_kw = e2e.recipe()["stage1"]
+        dense = _tree_to(art["dense"], "cpu")
+        t0 = time.perf_counter()
+        cpu = run_stage1(
+            art["cfg"], MinimaxHParams(**hp_kw),
+            TrainHParams(**thp_kw, compute_dtype=torch.float32),
+            train_loader=art["train"], test_loader=art["test"],
+            params=dense, teacher_params=dense, seed=0, output_dir=out,
+            name="stage1", eval_each_epoch=True, save_checkpoints=False,
+            logger=MetricLogger(out, "stage1"), device="cpu")
+        secs = time.perf_counter() - t0
+        ser = fid._read_series(out, "stage1")
+    card_cs, cpu_cs = art["stage1"].state.cstate, cpu.state.cstate
+    gaps = {f: rel_err(getattr(card_cs, f).cpu(), getattr(cpu_cs, f))[1]
+            for f in ("s", "r", "y", "p", "z", "gating_accum")}
+    params, _ = rel_err(*(torch.cat([
+        v.detach().float().cpu().flatten()
+        for _, v in tree_leaves_with_path(state.params)])
+        for state in (art["stage1"].state, cpu.state)))
+    print(f"e2e stage 1 at the cut horizon, card (bf16) vs CPU plain path "
+          f"(f32, {secs:.1f} s) from the same weights and draws: Real "
+          f"{[round(v, 4) for v in art['real_flops']]} vs "
+          f"{[round(v, 4) for v in ser['real']]}; minimax state max abs "
+          f"gap " + ", ".join(f"{f} {v:.3e}" for f, v in gaps.items())
+          + f"; all params rel_fro {params:.3e}; accuracy "
+          f"{art['stage1'].best_acc:.4f} vs {cpu.best_acc:.4f} (not gated) "
+          f"[{card}]", flush=True)
+
+
+def accuracy_phase(card):
+    """Phase 18: both evidence harnesses through their entry points in this
+    process, on DeiT-Tiny (distilled) at 64 px at full width and depth (12
+    blocks of 192, 3 heads of 64, F 768), at a cut horizon:
+    ``uvc_tpu_torch/scripts/e2e_accuracy.py`` at ACC_E2E_SIZES (batch 128:
+    dense pretrain with its extension, stage 1 with token selection, stage
+    2, compaction and slimmed serving) and
+    ``scripts/trajectory_fidelity.py`` at its UVC_FID_SMOKE sizes (2
+    batches of 8 an epoch, both scenarios).  Held: each training step's
+    launches exact (ACC_STEP); every logged metric finite; each FLOPs
+    series one entry an epoch; the compact model's full-token logits within
+    MODEL_REL_TOL of the masked-dense forward at the same frozen decision
+    (the oracle of gate A4); z, y, p, s >= 0 at the end (T5, B5); each
+    record written with the JAX harness's keys.  Printed: each gate's
+    value at the cut horizon, each stage's wall seconds, the steps' and
+    loaders' host ms, and ``card_vs_cpu_stage1``.  Returns the phase's
+    launches."""
+    import math
+    import tempfile
+
+    from uvc_tpu_torch.data.pipeline import (ProceduralLoader,
+                                             normalize_on_device)
+    from uvc_tpu_torch.ops import reset_launch_counts
+    from uvc_tpu_torch.scripts import e2e_accuracy as e2e
+    from uvc_tpu_torch.scripts import trajectory_fidelity as fid
+
+    with tempfile.TemporaryDirectory(prefix="uvc_acc_") as tmp:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        e2e_out = os.path.join(tmp, "e2e")
+        with _Sizes(e2e, ACC_E2E_SIZES), _StepLaunches() as e2e_steps:
+            record, art = e2e.run(0, e2e_out, "cuda")
+            e2e.write_record(record, os.path.join(tmp, "e2e.json"))
+            # each series one entry an epoch
+            check(len(art["real_flops"]) == e2e.EPOCHS,
+                  f"e2e stage-1 series {art['real_flops']}")
+        fid_out = os.path.join(tmp, "fid")
+        with _Sizes(fid, fid.SMOKE), _StepLaunches() as fid_steps:
+            frecord, fsecs = fid.run(fid_out, device="cuda")
+            fid.write_record(frecord, os.path.join(tmp, "fid.json"))
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        secs = time.perf_counter() - t0
+        n_e2e = _metrics_finite("e2e", e2e_out)
+        n_fid = _metrics_finite("fidelity", fid_out)
+        _check_steps("e2e", e2e_steps.steps, ("pretrain", "stage1",
+                                              "stage2"))
+        _check_steps("fidelity", fid_steps.steps, ("pretrain",
+                                                   "stage1"))
+        fid_epochs = (fid.EPOCHS, fid.EPOCHS_BELOW)
+        tiny, below = frecord["tiny"], frecord["below"]
+        for name, series, n in (
+                ("tiny real", tiny["real_flops_series"], fid_epochs[0]),
+                ("tiny exp", tiny["exp_flops_series"], fid_epochs[0]),
+                ("tiny argmax", tiny["argmax_flops_series"],
+                 fid_epochs[0]),
+                ("below real", below["real_flops_series"],
+                 fid_epochs[1]),
+                ("below argmax", below["argmax_flops_series"],
+                 fid_epochs[1]),
+                ("below z", below["z_series"], fid_epochs[1])):
+            check(len(series) == n, f"fidelity {name} series has "
+                  f"{len(series)} entries, {n} epochs ran")
+        for key in ("T5 dual/primal invariants",
+                    "B5 dual/primal invariants"):
+            check(frecord["gates"][key], f"fidelity: {key} fails")
+        # the oracle of A4: compact full-token logits against the
+        # masked-dense forward at the same frozen decision
+        x = normalize_on_device(torch.from_numpy(
+            next(iter(art["test"]))[0]).cuda())
+        compact = e2e.serving_logits(art["layers"], art["top"],
+                                     art["cfg"], x, dtype=art["dtype"])
+        masked = e2e.masked_dense_logits(
+            art["params"], art["masks"], art["cfg"], x,
+            gating_distrib=art["gating_distrib"], dtype=art["dtype"])
+        rel, mx = rel_err(compact, masked)
+        check(torch.isfinite(compact).all().item()
+              and rel <= MODEL_REL_TOL,
+              f"e2e compact vs masked dense logits rel_fro {rel:.3e} "
+              f"(tol {MODEL_REL_TOL})")
+        got = _record_keys("e2e", os.path.join(tmp, "e2e.json"),
+                           e2e.RECORD_KEYS)
+        check(got["backend"] == "cuda" and got["device"] == card,
+              f"e2e record names {got['backend']} {got['device']}")
+        _record_keys("fidelity", os.path.join(tmp, "fid.json"),
+                     fid.RECORD_KEYS)
+    card_vs_cpu_stage1(e2e, fid, art, card)
+    numbers = ("dense_acc", "stage1_acc", "stage2_acc", "compact_acc",
+               "slim_acc", "masked_dense_full_acc", "masked_dense_slim_acc",
+               "real_flops_final", "compact_flops_fraction")
+    check(all(math.isfinite(record[k]) for k in numbers),
+          f"e2e record {[record[k] for k in numbers]}")
+    print(f"e2e (DeiT-Tiny 64 px, {record['blocks_kept']}/12 blocks kept "
+          f"after stage 2, {art['cfg'].num_patches} patches): compact vs "
+          f"masked dense logits rel_fro={rel:.2e} max_abs={mx:.2e} (tol "
+          f"{MODEL_REL_TOL}); {n_e2e} + {n_fid} metrics finite", flush=True)
+    print("e2e at the cut horizon (not gated): " + ", ".join(
+        f"{k} {record[k]}" for k in numbers + ("dense_epochs",)))
+    for name, passed in {**record["gates"], **frecord["gates"]}.items():
+        print(f"  {name}: {'PASS' if passed else 'FAIL'} at the cut "
+              f"horizon (not gated)")
+    e2e.print_stage_times(art, card)
+    # the records' loaders at their full batch, on the host
+    proc = _loader_ms(ProceduralLoader(
+        e2e.BATCH, num_batches=9, img_size=e2e.IMG,
+        num_classes=e2e.CLASSES, train=True, seed=0, **e2e.HARD), 8)
+    tex = _loader_ms(fid.TextureLoader(fid.BATCH, 9, seed=0), 8)
+    print(f"host loaders at batch {e2e.BATCH}: ProceduralLoader (e2e, "
+          f"lowpass) {proc:.1f} ms a batch, TextureLoader (fidelity) "
+          f"{tex:.1f} ms a batch")
+    print("fidelity stages: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in fsecs.items()) + f" [{card}]")
+    print(f"phase 18: {secs:.1f} s; launches {counts}", flush=True)
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5586,6 +5931,9 @@ def main():
                     help="phase 17 alone (tensor parallelism: four ranks "
                     "at 2 dp x 2 mp over gloo on the card), then the card "
                     "line")
+    ap.add_argument("--accuracy-only", action="store_true",
+                    help="phase 18 alone (the evidence harnesses at a cut "
+                    "horizon on DeiT-Tiny), then the card line")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -5632,6 +5980,11 @@ def main():
     if args.tp_only:
         elapsed("phase 17")
         tp_phase(card)
+        print(card_line())
+        return 0
+    if args.accuracy_only:
+        elapsed("phase 18")
+        accuracy_phase(card)
         print(card_line())
         return 0
     elapsed("phase 3")
@@ -5707,6 +6060,9 @@ def main():
     # phase 17: tensor parallelism (four ranks at 2 dp x 2 mp over gloo)
     elapsed("phase 17")
     tp_counts = tp_phase(card)
+    # phase 18: the evidence harnesses (DeiT-Tiny at 64 px)
+    elapsed("phase 18")
+    accuracy_counts = accuracy_phase(card)
     elapsed("the summary")
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
@@ -5721,15 +6077,16 @@ def main():
     # CaiT's, which launch none, and post_train from the .pth.tar) and
     # phase 15's (both ranks' steps, the single-process references, the
     # NCCL joint_train), phase 16's (the artifacts' and apply_compact's
-    # serving windows and references in this process) and phase 17's (the
-    # four ranks' steps and the single-process references)
+    # serving windows and references in this process), phase 17's (the
+    # four ranks' steps and the single-process references) and phase 18's
+    # (the harnesses' trainings, evaluations and serving)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
                    compact_counts, t2t_stage2_counts, pipeline_counts,
                    suite_counts, r50_counts, cait_counts,
                    torch_ckpt_counts, ddp_counts, nccl_counts,
-                   export_counts, tp_counts):
+                   export_counts, tp_counts, accuracy_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -494,8 +494,8 @@ def test_step_profiler_writes_a_trace(tmp_path):
 def test_new_modules_import_no_jax_or_msgpack():
     """Importing the port's data, checkpoint, logging, profiler, driver,
     CLI, serving-export and parallel modules (the mesh, the dry run, the
-    SLURM launcher) loads neither JAX, flax, optax, msgpack, ml_dtypes nor
-    the JAX package."""
+    SLURM launcher), the evidence harnesses and the examples loads neither
+    JAX, flax, optax, msgpack, ml_dtypes nor the JAX package."""
     code = (
         "import sys\n"
         "import uvc_tpu_torch.data.pipeline, uvc_tpu_torch.data.augment\n"
@@ -510,6 +510,10 @@ def test_new_modules_import_no_jax_or_msgpack():
         "import uvc_tpu_torch.parallel, uvc_tpu_torch.parallel.mesh\n"
         "import uvc_tpu_torch.parallel.dryrun, uvc_tpu_torch.infer.export\n"
         "import uvc_tpu_torch.cli.slurm_launch\n"
+        "import uvc_tpu_torch.scripts.e2e_accuracy\n"
+        "import uvc_tpu_torch.scripts.trajectory_fidelity\n"
+        "import uvc_tpu_torch.examples.learning_demo\n"
+        "import uvc_tpu_torch.examples.serving_demo\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes',"
         " 'uvc_tpu', 'PIL', 'yaml'))\n"

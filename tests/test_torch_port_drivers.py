@@ -274,6 +274,74 @@ def test_run_stage1_matches_jax(tmp_path, jax_draws):
         assert set(ck["cstate"]) == set(jck["cstate"])
 
 
+E2E_SIZES = dict(STEPS=10, PRETRAIN_EPOCHS=1, EPOCHS=3, WARMUP=1,
+                 CLASSES=7)
+
+
+def test_run_stage1_matches_jax_at_the_e2e_recipe(tmp_path, jax_draws,
+                                                 monkeypatch):
+    """The e2e harness's dense pretrain (no distillation: the port runs no
+    teacher) and then its stage-1 recipe from the pretrained weights, the
+    teacher those weights (gating every 10 steps, the 5-entry zlr
+    staircase, token selection at 0.7, soft distillation), cut to 1 and 3
+    epochs (1 warmup) of 10 steps: the final params, minimax state, masks
+    and logged reports of each run against JAX's driver with JAX's draws
+    (the harness's recipe is JAX's: test_torch_port_evidence.py)."""
+    from uvc_tpu_torch.scripts import e2e_accuracy as te2e
+
+    for k, v in E2E_SIZES.items():
+        monkeypatch.setattr(te2e, k, v)
+    recipe = te2e.recipe()
+    loaders = dict(img_size=32, num_classes=7, seed=SEED,
+                   **te2e.HARD)
+    jpre, _ = _weights()
+    jparams = tparams = None
+    for stage, seed in (("pretrain", SEED), ("stage1", SEED + 1)):
+        hp_kw, thp_kw = recipe[stage]
+        jthp = jstate.TrainHParams(compute_dtype=jnp.float32, **thp_kw)
+        tthp = tstate.TrainHParams(compute_dtype=torch.float32, **thp_kw)
+        jstart = jpre if jparams is None else jparams
+        tstart = (params_from_numpy(_np(jpre), device="cpu")
+                  if tparams is None else tparams)
+        jres = j_run_stage1(
+            JCFG, JHParams(**hp_kw), jthp,
+            train_loader=jpipe.ProceduralLoader(
+                BATCH, num_batches=10, train=True, **loaders),
+            test_loader=jpipe.ProceduralLoader(
+                BATCH, num_batches=2, train=False, **loaders),
+            params=jstart, teacher_params=jstart, seed=seed,
+            output_dir=str(tmp_path), name=f"jax_{stage}",
+            save_checkpoints=False)
+        jax_draws(jax.random.split(jax.random.PRNGKey(seed))[0], jthp)
+        tres = run_stage1(
+            TCFG, THParams(**hp_kw), tthp,
+            train_loader=tpipe.ProceduralLoader(
+                BATCH, num_batches=10, train=True, **loaders),
+            test_loader=tpipe.ProceduralLoader(
+                BATCH, num_batches=2, train=False, **loaders),
+            params=tstart, teacher_params=tstart, seed=seed,
+            output_dir=str(tmp_path), name=f"port_{stage}",
+            save_checkpoints=False, device="cpu")
+        steps = jthp.num_epochs * 10
+        assert tres.state.step == int(jres.state.step) == steps
+        compare_params(tres.state.params, jres.state.params,
+                       bound=thp_kw["learning_rate"] * steps)
+        tc, jc = tres.state.cstate, jres.state.cstate
+        for f in ("s", "r", "y", "p", "z", "eps", "zlr", "gating_accum"):
+            np.testing.assert_allclose(np_(getattr(tc, f)),
+                                       np.asarray(getattr(jc, f)),
+                                       rtol=TOL, atol=TOL, err_msg=f)
+        for k in ("attn", "mlp"):
+            np.testing.assert_array_equal(np_(tres.masks[k]),
+                                          np.asarray(jres.masks[k]))
+        assert tres.best_acc == jres.best_acc
+        _compare_metrics(tmp_path / f"port_{stage}" / "metrics.jsonl",
+                         tmp_path / f"jax_{stage}" / "metrics.jsonl")
+        jparams, tparams = jres.state.params, tres.state.params
+    # the UVC epochs moved the architecture
+    assert np.any(np.asarray(jc.s) > 0) and float(np.asarray(jc.z)) > 0
+
+
 def _stage2_setup():
     params, teacher = _weights(1)
     s = jnp.array([[1.0, 32.0], [0.0, 32.0], [0.0, 32.0]])

@@ -211,8 +211,12 @@ def _mixed(x, labels, mixup: Optional[MixupDraw], thp: TrainHParams,
 
 def _distilled_loss(out, x, targets, labels, teacher_params,
                     cfg: ViTConfig, thp: TrainHParams):
-    """The base loss plus distillation against the dense teacher."""
+    """The base loss plus distillation against the dense teacher (without
+    distillation the teacher's forward, whose value the loss would not
+    read, is not run)."""
     base = _base_loss(out.logits, targets, labels, thp)
+    if thp.distillation_type in (None, "none"):
+        return base
     t_logits = _teacher_logits(teacher_params, x, cfg, thp.compute_dtype)
     return distillation_loss(
         base, out.logits_kd, t_logits, kind=thp.distillation_type,
