@@ -2,10 +2,12 @@
 
 Each ``.cu`` source becomes a shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use and loaded with
-``ctypes``.  The libraries go to ``build/uvc_tpu_torch/<digest>/`` beside
-the package, keyed on a hash of every source and the compiler flags, so an
-edited source rebuilds and an unchanged one loads at once.  All sources
-compile in parallel, one ``nvcc`` each.
+``ctypes``.  The libraries go to ``build/uvc_tpu_torch/<digest>/`` of the
+checkout that holds the package (an installed package, with no
+``pyproject.toml`` beside it, builds into ``uvc_tpu_torch/build/<digest>/``
+of the user's cache directory), keyed on a hash of every source and the
+compiler flags, so an edited source rebuilds and an unchanged one loads at
+once.  All sources compile in parallel, one ``nvcc`` each.
 
 Importing this module builds nothing and needs no CUDA: the wrappers in
 ``ops/attention.py``, ``ops/mlp.py`` and ``ops/performer.py`` ask for a
@@ -24,7 +26,22 @@ from pathlib import Path
 from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "uvc_tpu_torch"
+
+
+def build_root(package_dir: Path) -> Path:
+    """Where the libraries of the package at ``package_dir`` are built:
+    ``build/uvc_tpu_torch`` of its checkout, else (an installed package,
+    whose directory may not be writable) ``uvc_tpu_torch/build`` of the
+    user's cache directory (``$XDG_CACHE_HOME``, else ``~/.cache``)."""
+    root = package_dir.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "uvc_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or \
+        os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "uvc_tpu_torch" / "build"
+
+
+_BUILD_ROOT = build_root(_CSRC.parent)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
