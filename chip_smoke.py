@@ -14,6 +14,8 @@
                                            # alone, then the card line
     python3 chip_smoke.py --tp-only        # phase 17 (tensor parallelism)
                                            # alone, then the card line
+    python3 chip_smoke.py --images-only    # phase 19 (real images without
+                                           # PIL) alone, then the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -356,6 +358,32 @@ Phases, each of which stops the run with a non-zero exit on failure:
    the e2e stage 1 run again on the CPU plain path in f32 from the same
    weights, batches and draws against the card's (FLOPs reports, minimax
    state, params).
+19. real images -- the input path on real image files, each part in a
+   child process whose first line makes PIL unimportable: (a)
+   ``tests/image_check.py`` recomputes every record of
+   ``tests/fixtures/images/digests.json`` (each fixture's decode, the PIL
+   path's and the native path's train and eval crops at 224 px, both
+   filters, and RandAugment's 15 ops at 5 levels, colour jitter and the
+   whole policy on one crop) and holds it to the digest of PIL and the JAX
+   package, bit for bit (a crop that differs is printed with the box this
+   host drew beside the recorded one); (b) ``cli/joint_train.py --dataset
+   imagenet`` on a folder of fixture symlinks in 4 class folders (768
+   train files, all six photo-sized JPEGs ``imagenet_*.jpg``, 500x375 to
+   333x500 as ImageNet's, so that the times are a real file's; 128 val
+   files, every fixture: each JPEG kind, PNG, BMP, which the native path
+   hands to the PIL path's decoder) on DeiT-Small at 224 px, batch 64, one
+   stage-1 epoch of 12 steps and its validation, four runs in turns on
+   the native path and with ``native_loader.available`` off (native, PIL,
+   PIL, native), launches exact (per
+   step K1 24, K2 12, K3 12, A2 12, A4 12; per eval batch K1 12, K3 12),
+   the epoch's img/s, the folder loader's host ms a batch, the eval
+   accuracy finite; (c) ``cli/baseline_train.py`` on the folder with
+   ``--aa rand-m9-mstd0.5-inc1 --train-interpolation bicubic``, 12 steps
+   (A7 12 forward and 12 backward a step), img/s and RandAugment's host
+   ms a batch; (d) ``--dataset cifar10 --img_size 224`` on CIFAR-layout
+   pickles written here, 4 steps, launches exact; (e)
+   ``uvc_tpu_torch/scripts/data_bench.py`` at 2 batches of 256 on the
+   photo-sized JPEGs.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -5905,6 +5933,291 @@ def accuracy_phase(card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the real-image input path, with PIL unimportable
+# ---------------------------------------------------------------------------
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+IMG_FIXTURES = os.path.join(REPO_ROOT, "tests", "fixtures", "images")
+# joint_train and baseline_train: 12 steps of 64 at 224 px over the
+# photo-sized JPEG fixtures (symlinks) in 4 class folders, 2 eval batches
+# of 64 a validation (every fixture); the CIFAR-layout run: 4 steps,
+# resized 32 -> 224
+IMG_STEPS, IMG_VAL, IMG_CLASSES = 12, 2 * BATCH, 4
+IMG_CIFAR_STEPS = 4
+# the first line of every phase-19 child: any import of PIL then fails
+NO_PIL = 'import sys; sys.modules["PIL"] = None\n'
+
+
+def _image_folder(root, n_train, n_val):
+    """``n_train`` symlinks to the photo-sized JPEG fixtures in ``train/``
+    and ``n_val`` to every fixture (JPEG of each kind, PNG, BMP) in
+    ``val/``, 4 classes.  Returns the train sources."""
+    files = sorted(f for f in os.listdir(IMG_FIXTURES) if f != "digests.json")
+    photos = [f for f in files if f.startswith("imagenet_")]
+    for split, n, srcs in (("train", n_train, photos), ("val", n_val, files)):
+        for i in range(n):
+            d = os.path.join(root, split, f"class_{i % IMG_CLASSES}")
+            os.makedirs(d, exist_ok=True)
+            src = srcs[i % len(srcs)]
+            os.symlink(os.path.join(IMG_FIXTURES, src),
+                       os.path.join(d, f"{i:05d}_{src}"))
+    return photos
+
+
+def _cifar_pickles(root, n_train, n_test, seed=0):
+    """CIFAR-10's python-pickle layout (``cifar-10-batches-py``) of random
+    images: five train batches and the test batch."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    per = -(-n_train // 5)
+    for name, n in [(f"data_batch_{i}", per) for i in range(1, 6)] + \
+            [("test_batch", n_test)]:
+        with open(os.path.join(base, name), "wb") as fh:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, n).tolist()}, fh)
+
+
+def _epoch_lines(out, pattern, label):
+    import re
+    found = re.findall(pattern, out)
+    check(found, f"{label}: no epoch line")
+    return found
+
+
+def _accuracies(out, pattern, label):
+    import math
+    import re
+    accs = [float(a) for a in re.findall(pattern, out)]
+    check(accs and all(math.isfinite(a) for a in accs),
+          f"{label}: eval accuracies {accs}")
+    return accs
+
+
+def images_part(part, tmp):
+    """One part of phase 19, in a child process whose first line made PIL
+    unimportable; prints ``PHASE19 <json>`` with its launches."""
+    import numpy as np
+
+    from uvc_tpu_torch.data import native_loader
+    from uvc_tpu_torch.data.pipeline import ArrayLoader, FolderLoader
+
+    check(sys.modules.get("PIL", 0) is None, "PIL is importable here")
+    card = card_line()
+    folder = os.path.join(tmp, "folder")
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    common = ["--model_type", PIPE_MODEL, "--img_size", "224",
+              "--train_batch_size", str(BATCH), "--eval_batch_size",
+              str(BATCH), "--num_workers", "16", "--dp", "1",
+              "--output_dir", os.path.join(tmp, "runs")]
+    if part == "check":
+        sys.path.insert(0, os.path.join(REPO_ROOT, "tests"))
+        import image_check
+        t0 = time.perf_counter()
+        rep = image_check.check()
+        for m in rep["mismatches"]:
+            print(f"  MISMATCH {json.dumps(m)}")
+        for kind, n in rep["per_kind"].items():
+            print(f"  {kind:12s} {n['records']:4d} records, "
+                  f"{n['mismatches']} differ from PIL / the JAX package")
+        print(f"image fixtures: {rep['records']} records recomputed without "
+              f"PIL in {time.perf_counter() - t0:.1f} s on the card's host "
+              f"[{card}]", flush=True)
+        check(not rep["mismatches"], f"{len(rep['mismatches'])} image "
+              f"records differ from their digests")
+    elif part == "joint":
+        from uvc_tpu_torch.cli import joint_train
+        real = native_loader.available
+        rates = {}
+        # in turns, so that the first run's start-up in this process (CUDA
+        # and the libraries' first calls) falls on each path once
+        for i, path in enumerate(("native", "pil", "pil", "native")):
+            native_loader.available = real if path == "native" else \
+                (lambda: False)
+            t0 = time.perf_counter()
+            out, counts = _run_cli(joint_train.main, common + [
+                "--dataset", "imagenet", "--data_dir", folder,
+                "--distillation-type", "soft", "--num_epochs", "1",
+                "--warmup_epochs", "1", "--post_num_epochs", "0",
+                "--name", f"joint_{i}_{path}"])
+            wall = time.perf_counter() - t0
+            # stage 1's validation after its epoch, stage 2's final one
+            want = _want(counts, train=(PIPE_TRAIN_STEP, IMG_STEPS),
+                         eval=(PIPE_EVAL_BATCH, 2 * IMG_VAL // BATCH))
+            print(f"launches joint_train (run {i}, {path} path) {counts} "
+                  f"(expected {want}); {wall:.1f} s wall")
+            check(counts == want, f"joint_train on images ({path}) "
+                  "launch counts")
+            add(counts)
+            (ep, secs, rate), = _epoch_lines(
+                out, r"\[Epoch (\d+)\] ([\d.]+)s \(([\d.]+) img/s\)",
+                "joint_train")
+            accs = _accuracies(out, r"Validation @ step \d+: loss "
+                               r"[\d.naninf]+ acc ([\d.naninf]+)%",
+                               "joint_train")
+            ms = _loader_ms(FolderLoader(
+                os.path.join(folder, "train"), BATCH, train=True,
+                img_size=224, num_workers=16), 4)
+            rates.setdefault(path, []).append(float(rate))
+            print(f"joint_train --dataset imagenet, run {i}, {path} path "
+                  f"(DeiT-Small, 224 px, batch {BATCH}, {IMG_STEPS} steps, "
+                  f"{IMG_CLASSES} class folders of fixture symlinks): "
+                  f"stage-1 epoch {rate} img/s ({secs} s) on the photo-sized "
+                  f"JPEGs; the folder loader's host ms a batch {ms:.1f}; "
+                  f"eval accuracy "
+                  f"{accs} % [{card}]", flush=True)
+        native_loader.available = real
+        print("joint_train epochs in turns (run 0 holds the process's "
+              "start-up): " + ", ".join(
+                  f"{p} {v} img/s" for p, v in rates.items())
+              + f" [{card}]", flush=True)
+    elif part == "baseline":
+        from uvc_tpu_torch.cli import baseline_train
+        from uvc_tpu_torch.data.augment import make_train_augment
+        t0 = time.perf_counter()
+        out, counts = _run_cli(baseline_train.main, common + [
+            "--dataset", "imagenet", "--data_dir", folder, "--epochs", "1",
+            "--aa", "rand-m9-mstd0.5-inc1", "--train-interpolation",
+            "bicubic", "--name", "baseline"])
+        wall = time.perf_counter() - t0
+        want = _want(counts, train=(BASE_TRAIN_STEP, IMG_STEPS),
+                     eval=(BASE_EVAL_BATCH, IMG_VAL // BATCH))
+        print(f"launches baseline_train (RandAugment) {counts} (expected "
+              f"{want}); {wall:.1f} s wall")
+        check(counts == want, "baseline_train on images launch counts")
+        add(counts)
+        (ep, secs, rate), = _epoch_lines(
+            out, r"\[Baseline Epoch (\d+)\] ([\d.]+)s \(([\d.]+) img/s\)",
+            "baseline_train")
+        accs = _accuracies(out, r"\[Baseline Eval\|Epoch \d+\] acc "
+                           r"([\d.naninf]+)%", "baseline_train")
+        aug = make_train_augment("rand-m9-mstd0.5-inc1", 0.0, "bicubic")
+        loader = FolderLoader(os.path.join(folder, "train"), BATCH,
+                              train=True, img_size=224, num_workers=16,
+                              interpolation="bicubic")
+        plain = _loader_ms(loader, 4)
+        loader.aug = aug
+        with_aug = _loader_ms(loader, 4)
+        crops, _ = next(iter(loader))
+        t1 = time.perf_counter()
+        for i, img in enumerate(crops):
+            aug(img, np.random.default_rng(i))
+        one = 1e3 * (time.perf_counter() - t1)
+        print(f"baseline_train --aa rand-m9-mstd0.5-inc1 "
+              f"--train-interpolation bicubic (DeiT-Small, batch {BATCH}, "
+              f"{IMG_STEPS} steps): epoch {rate} img/s ({secs} s); eval "
+              f"accuracy {accs} %; the loader's host ms a batch "
+              f"{with_aug:.1f} with RandAugment, {plain:.1f} without; "
+              f"RandAugment alone {one:.1f} ms for {BATCH} crops on one "
+              f"thread [{card}]", flush=True)
+    elif part == "cifar":
+        from uvc_tpu_torch.cli import joint_train
+        t0 = time.perf_counter()
+        out, counts = _run_cli(joint_train.main, common + [
+            "--dataset", "cifar10", "--data_dir", os.path.join(tmp, "cifar"),
+            "--distillation-type", "soft", "--num_epochs", "1",
+            "--warmup_epochs", "1", "--post_num_epochs", "0",
+            "--name", "cifar"])
+        wall = time.perf_counter() - t0
+        want = _want(counts, train=(PIPE_TRAIN_STEP, IMG_CIFAR_STEPS),
+                     eval=(PIPE_EVAL_BATCH, 2 * IMG_VAL // BATCH))
+        print(f"launches joint_train --dataset cifar10 {counts} (expected "
+              f"{want}); {wall:.1f} s wall")
+        check(counts == want, "joint_train on CIFAR launch counts")
+        add(counts)
+        (ep, secs, rate), = _epoch_lines(
+            out, r"\[Epoch (\d+)\] ([\d.]+)s \(([\d.]+) img/s\)",
+            "joint_train cifar")
+        accs = _accuracies(out, r"Validation @ step \d+: loss "
+                           r"[\d.naninf]+ acc ([\d.naninf]+)%", "cifar")
+        from uvc_tpu_torch.data.pipeline import cifar_arrays
+        x, y = cifar_arrays(os.path.join(tmp, "cifar"), "cifar10")
+        ms = _loader_ms(ArrayLoader(x, y, BATCH, train=True, img_size=224),
+                        2)
+        print(f"joint_train --dataset cifar10 --img_size 224 (CIFAR's "
+              f"pickles, 32 -> 224 px through Pillow's bilinear resample, "
+              f"{IMG_CIFAR_STEPS} steps of {BATCH}): epoch {rate} img/s; the "
+              f"array loader's host ms a batch {ms:.1f}; eval accuracy "
+              f"{accs} % [{card}]", flush=True)
+    elif part == "bench":
+        from uvc_tpu_torch.scripts import data_bench
+        rep = data_bench.main(["--batches", "2", "--repeats", "1",
+                               "--fixtures", IMG_FIXTURES])
+        print(f"data_bench (batch {rep['batch']}, {rep['workers']} workers, "
+              f"{rep['cores']} cores, {rep['interpolation']}): img/s train "
+              f"{rep['train']}, train_randaug {rep['train_randaug']}, eval "
+              f"{rep['eval']} [{card}]", flush=True)
+    else:
+        raise ValueError(part)
+    print("PHASE19 " + json.dumps({"counts": counts_all}), flush=True)
+
+
+def images_phase(card):
+    """Phase 19: the real-image input path on the card's machine, each part
+    in a child process that first makes PIL unimportable
+    (``sys.modules["PIL"] = None``): (a) the committed fixtures' decodes,
+    the PIL-path and native-path crops and RandAugment's ops held to the
+    digests of PIL and the JAX package; (b) ``joint_train --dataset
+    imagenet`` on a folder of fixture symlinks (4 classes; train the
+    photo-sized JPEGs, val every fixture) at 224 px,
+    batch 64, one stage-1 epoch of 12 steps and its validation, in turns
+    on the native path and on the PIL path (native, PIL, PIL, native),
+    launches exact; (c) ``baseline_train``
+    with RandAugment (12 steps, A7 12 forward and 12 backward a step); (d)
+    ``--dataset cifar10 --img_size 224`` on CIFAR-layout pickles written
+    here (4 steps); (e) ``scripts/data_bench.py`` once, at 2 batches of
+    256 on the photo-sized JPEGs.  Returns the launches."""
+    import tempfile
+
+    t_all = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="uvc_images_") as tmp:
+        photos = _image_folder(os.path.join(tmp, "folder"),
+                               IMG_STEPS * BATCH, IMG_VAL)
+        sizes = [os.path.getsize(os.path.join(IMG_FIXTURES, f))
+                 for f in photos]
+        print(f"phase 19 train folder: {IMG_STEPS * BATCH} symlinks to "
+              f"{len(photos)} photo-sized JPEGs ({', '.join(photos)}; "
+              f"{sum(sizes) / len(sizes) / 1e3:.1f} KB a file on average)",
+              flush=True)
+        _cifar_pickles(os.path.join(tmp, "cifar"), IMG_CIFAR_STEPS * BATCH,
+                       IMG_VAL)
+        for part in ("check", "joint", "baseline", "cifar", "bench"):
+            t0 = time.perf_counter()
+            code = NO_PIL + (f"import chip_smoke\n"
+                             f"chip_smoke.images_part({part!r}, {tmp!r})\n")
+            proc = subprocess.run([sys.executable, "-c", code],
+                                  cwd=REPO_ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  timeout=600)
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                if not line.startswith("PHASE19 "):
+                    print(f"  | {line}")
+            check(proc.returncode == 0, f"phase 19 ({part}) failed with "
+                  f"exit {proc.returncode}")
+            res = json.loads([x for x in lines
+                              if x.startswith("PHASE19 ")][-1][8:])
+            for k, v in res["counts"].items():
+                total[k] = total.get(k, 0) + v
+            print(f"phase 19 ({part}): {time.perf_counter() - t0:.1f} s in "
+                  f"a process without PIL", flush=True)
+    print(f"phase 19: {time.perf_counter() - t_all:.1f} s; launches "
+          f"{total} [{card}]", flush=True)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5934,6 +6247,11 @@ def main():
     ap.add_argument("--accuracy-only", action="store_true",
                     help="phase 18 alone (the evidence harnesses at a cut "
                     "horizon on DeiT-Tiny), then the card line")
+    ap.add_argument("--images-only", action="store_true",
+                    help="phase 19 alone (the real-image input path without "
+                    "PIL: the fixtures' digests, joint_train and "
+                    "baseline_train on an image folder, CIFAR at 224 px, "
+                    "data_bench), then the card line")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -5958,6 +6276,11 @@ def main():
     print(f"device: {kind} x{torch.cuda.device_count()} [{card}] "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    from uvc_tpu_torch.data import imagelib
+    t0 = time.perf_counter()
+    lib = imagelib.build()
+    print(f"build: the host image library (c++) {time.perf_counter() - t0:.1f}"
+          f" s -> {lib}")
     secs = _cuda.build()
     print(f"build: {secs:.1f} s -> {_cuda.build_dir()}")
     for name, log in _cuda.build_logs().items():
@@ -5985,6 +6308,11 @@ def main():
     if args.accuracy_only:
         elapsed("phase 18")
         accuracy_phase(card)
+        print(card_line())
+        return 0
+    if args.images_only:
+        elapsed("phase 19")
+        images_phase(card)
         print(card_line())
         return 0
     elapsed("phase 3")
@@ -6063,6 +6391,9 @@ def main():
     # phase 18: the evidence harnesses (DeiT-Tiny at 64 px)
     elapsed("phase 18")
     accuracy_counts = accuracy_phase(card)
+    # phase 19: the real-image input path without PIL (DeiT-Small)
+    elapsed("phase 19")
+    image_counts = images_phase(card)
     elapsed("the summary")
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
@@ -6078,15 +6409,17 @@ def main():
     # phase 15's (both ranks' steps, the single-process references, the
     # NCCL joint_train), phase 16's (the artifacts' and apply_compact's
     # serving windows and references in this process), phase 17's (the
-    # four ranks' steps and the single-process references) and phase 18's
-    # (the harnesses' trainings, evaluations and serving)
+    # four ranks' steps and the single-process references), phase 18's
+    # (the harnesses' trainings, evaluations and serving) and phase 19's
+    # (joint_train, baseline_train and the CIFAR run on real images)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
                    compact_counts, t2t_stage2_counts, pipeline_counts,
                    suite_counts, r50_counts, cait_counts,
                    torch_ckpt_counts, ddp_counts, nccl_counts,
-                   export_counts, tp_counts, accuracy_counts):
+                   export_counts, tp_counts, accuracy_counts,
+                   image_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

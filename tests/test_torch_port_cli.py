@@ -494,12 +494,17 @@ def test_step_profiler_writes_a_trace(tmp_path):
 def test_new_modules_import_no_jax_or_msgpack():
     """Importing the port's data, checkpoint, logging, profiler, driver,
     CLI, serving-export and parallel modules (the mesh, the dry run, the
-    SLURM launcher), the evidence harnesses and the examples loads neither
-    JAX, flax, optax, msgpack, ml_dtypes nor the JAX package."""
+    SLURM launcher), the image library, ``data_bench`` and the test-side
+    ``image_check`` that the card runs, the evidence harnesses and the
+    examples loads neither JAX, flax, optax, msgpack, ml_dtypes, PIL, yaml
+    nor the JAX package."""
     code = (
         "import sys\n"
         "import uvc_tpu_torch.data.pipeline, uvc_tpu_torch.data.augment\n"
         "import uvc_tpu_torch.data.native_loader\n"
+        "import uvc_tpu_torch.data.imagelib\n"
+        "sys.path.insert(0, 'tests'); import image_check\n"
+        "import uvc_tpu_torch.scripts.data_bench\n"
         "import uvc_tpu_torch.utils.checkpoint, uvc_tpu_torch.utils.logging\n"
         "import uvc_tpu_torch.utils.profiler\n"
         "import uvc_tpu_torch.train.stage1, uvc_tpu_torch.train.stage2\n"

@@ -135,6 +135,7 @@ def test_ra_sampler_indices_match(n, epoch, rank, replicas):
 
 @pytest.mark.parametrize("op", jaug._RAND_OPS)
 def test_randaugment_ops_match(op):
+    """The port's op on the uint8 array against JAX's on the PIL image."""
     from PIL import Image
     rng = np.random.default_rng(6)
     arr = rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)
@@ -143,9 +144,9 @@ def test_randaugment_ops_match(op):
             res = jaug._resample(interp)
             a = jaug._apply_op(Image.fromarray(arr), op, level,
                                np.random.default_rng(1), res)
-            b = taug._apply_op(Image.fromarray(arr), op, level,
-                               np.random.default_rng(1), res)
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            b = taug._apply_op(arr, op, level, np.random.default_rng(1), res)
+            assert isinstance(b, np.ndarray) and b.dtype == np.uint8
+            np.testing.assert_array_equal(np.asarray(a), b)
 
 
 @pytest.mark.parametrize("spec,jitter", [

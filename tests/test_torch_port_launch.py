@@ -272,6 +272,12 @@ def test_wheel_ships_the_sources_recipes_and_entry_points(tmp_path):
     for f in sorted((REPO / "uvc_tpu_torch" / "csrc").iterdir()):
         if f.suffix in (".cu", ".cuh"):
             assert f"uvc_tpu_torch/csrc/{f.name}" in names, f.name
+    image_srcs = sorted((REPO / "uvc_tpu_torch" / "csrc" / "image").glob(
+        "*.[ch]*"))
+    assert {f.suffix for f in image_srcs} == {".cpp", ".h"}
+    for f in image_srcs:
+        assert f"uvc_tpu_torch/csrc/image/{f.name}" in names, f.name
+    assert "uvc_tpu_torch/data/imagelib.py" in names
     for recipe in RECIPES + ["h100_chain.sh"]:
         assert f"uvc_tpu_torch/scripts/{recipe}" in names, recipe
     assert "uvc_tpu_torch/ops/_cuda.py" in names

@@ -58,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-interpolation", default="bicubic",
                    choices=["bilinear", "bicubic", "nearest"],
                    help="train crop resize filter; bilinear and bicubic "
-                        "run on the C++ fast path, nearest selects PIL")
+                        "run on the native path, nearest selects the PIL "
+                        "path")
     p.add_argument("--reprob", default=0.25, type=float,
                    help="random erasing probability (on-device, in-step)")
     p.add_argument("--remode", default="pixel", type=str,

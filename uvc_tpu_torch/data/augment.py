@@ -1,12 +1,17 @@
 """DeiT training-recipe augmentation (counterpart of
 ``uvc_tpu/data/augment.py``).
 
-The host side is the JAX package's, copied: ``RandAugment`` (timm's
-``rand-m9-mstd0.5-inc1`` policy of 15 increasing transforms on PIL
-images, applied per image in the loader's worker pool after the crop
-and flip), ``color_jitter_image`` (used only when RandAugment is off)
-and ``make_train_augment``, with timm's magnitude mappings
-(``_LEVEL_DENOM = 10``); PIL is imported where they run.
+The host side is the JAX package's: ``RandAugment`` (timm's
+``rand-m9-mstd0.5-inc1`` policy of 15 increasing transforms, applied per
+image in the loader's worker pool after the crop and flip),
+``color_jitter_image`` (used only when RandAugment is off) and
+``make_train_augment``, with timm's magnitude mappings
+(``_LEVEL_DENOM = 10``).  Their control flow and numpy draws are the JAX
+package's, unchanged; the images are uint8 ``[H, W, 3]`` arrays, and the
+pixel work of each op is Pillow's, done by the port's image library
+(``data/imagelib.py``, ``csrc/image/pil_ops.cpp``) with no PIL: the look-up
+tables of the integer ops and the affine matrices are built here as
+Pillow's Python builds them.
 
 Random erasing runs on the device (timm's ``RandomErasing``).  As with
 mixup, the draw is split from its application: ``sample_erasing``
@@ -27,20 +32,15 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from uvc_tpu_torch.data import imagelib
 from uvc_tpu_torch.interop import resolve_device
 
 _LEVEL_DENOM = 10.0
 _FILL = (124, 116, 104)  # timm default img_mean fill
 
 
-def _enhance(img, kind: str, factor: float):
-    from PIL import ImageEnhance
-    return {
-        "color": ImageEnhance.Color,
-        "contrast": ImageEnhance.Contrast,
-        "brightness": ImageEnhance.Brightness,
-        "sharpness": ImageEnhance.Sharpness,
-    }[kind](img).enhance(factor)
+def _enhance(img: np.ndarray, kind: str, factor: float) -> np.ndarray:
+    return imagelib.enhance(img, kind, factor)
 
 
 def _resample(interpolation: str):
@@ -50,51 +50,120 @@ def _resample(interpolation: str):
 
 
 def _shear(img, ax: str, v: float, resample: int):
-    from PIL import Image
     mat = (1, v, 0, 0, 1, 0) if ax == "x" else (1, 0, 0, v, 1, 0)
-    return img.transform(img.size, Image.AFFINE, mat,
-                         resample=resample, fillcolor=_FILL)
+    return imagelib.affine(img, mat, resample, _FILL)
 
 
 def _translate(img, ax: str, frac: float, resample: int):
-    from PIL import Image
-    px = frac * (img.size[0] if ax == "x" else img.size[1])
+    px = frac * (img.shape[1] if ax == "x" else img.shape[0])
     mat = (1, 0, px, 0, 1, 0) if ax == "x" else (1, 0, 0, 0, 1, px)
-    return img.transform(img.size, Image.AFFINE, mat,
-                         resample=resample, fillcolor=_FILL)
+    return imagelib.affine(img, mat, resample, _FILL)
+
+
+def _rotate(img, angle: float, resample: int):
+    """``Image.rotate(angle, resample, fillcolor=_FILL)``: its fast paths,
+    then the inverse matrix about the centre with entries rounded to 15
+    places, as Pillow builds it."""
+    angle = angle % 360.0
+    h, w = img.shape[:2]
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return np.ascontiguousarray(img[::-1, ::-1])
+    if angle in (90, 270) and w == h:
+        return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else -1))
+    center = (w / 2, h / 2)
+    angle = -math.radians(angle)
+    matrix = [round(math.cos(angle), 15), round(math.sin(angle), 15), 0.0,
+              round(-math.sin(angle), 15), round(math.cos(angle), 15), 0.0]
+
+    def transform(x, y, matrix):
+        (a, b, c, d, e, f) = matrix
+        return a * x + b * y + c, d * x + e * y + f
+
+    matrix[2], matrix[5] = transform(-center[0], -center[1], matrix)
+    matrix[2] += center[0]
+    matrix[5] += center[1]
+    return imagelib.affine(img, matrix, resample, _FILL)
+
+
+def _autocontrast(img):
+    """``ImageOps.autocontrast`` (cutoff 0): per band, the LUT that maps
+    the lowest and highest values present to 0 and 255."""
+    histogram = imagelib.histogram(img)
+    lut = []
+    for layer in range(0, len(histogram), 256):
+        h = histogram[layer:layer + 256]
+        for lo in range(256):
+            if h[lo]:
+                break
+        for hi in range(255, -1, -1):
+            if h[hi]:
+                break
+        if hi <= lo:
+            lut.extend(list(range(256)))
+        else:
+            scale = 255.0 / (hi - lo)
+            offset = -lo * scale
+            for ix in range(256):
+                ix = int(ix * scale + offset)
+                lut.append(min(max(ix, 0), 255))
+    return imagelib.point(img, lut)
+
+
+def _equalize(img):
+    """``ImageOps.equalize``: per band, the cumulative histogram's LUT."""
+    h = imagelib.histogram(img)
+    lut = []
+    for b in range(0, len(h), 256):
+        histo = [_f for _f in h[b:b + 256] if _f]
+        if len(histo) <= 1:
+            lut.extend(list(range(256)))
+        else:
+            step = (sum(histo) - histo[-1]) // 255
+            if not step:
+                lut.extend(list(range(256)))
+            else:
+                n = step // 2
+                for i in range(256):
+                    lut.append(n // step)
+                    n = n + h[i + b]
+    return imagelib.point(img, lut)
 
 
 def _neg(rng, v):
     return -v if rng.random() < 0.5 else v
 
 
-def _apply_op(img, name: str, level: float, rng: np.random.Generator,
-              resample: int = 2):
-    """One RandAugment op at the given (already noise-jittered) level.
+def _apply_op(img: np.ndarray, name: str, level: float,
+              rng: np.random.Generator, resample: int = 2) -> np.ndarray:
+    """One RandAugment op on a uint8 ``[H, W, 3]`` array at the given
+    (already noise-jittered) level, each as PIL computes it.
     Increasing-transform argument mappings: timm auto_augment.py
     ``_RAND_INCREASING_TRANSFORMS`` + ``*_increasing_level_to_arg``."""
-    from PIL import ImageOps
     frac = level / _LEVEL_DENOM
     if name == "AutoContrast":
-        return ImageOps.autocontrast(img)
+        return _autocontrast(img)
     if name == "Equalize":
-        return ImageOps.equalize(img)
+        return _equalize(img)
     if name == "Invert":
-        return ImageOps.invert(img)
+        return imagelib.point(img, [255 - i for i in range(256)])
     if name == "Rotate":
-        return img.rotate(_neg(rng, frac * 30.0), resample=resample,
-                          fillcolor=_FILL)
+        return _rotate(img, _neg(rng, frac * 30.0), resample)
     if name == "Posterize":
         bits = 4 - int(frac * 4)
-        return ImageOps.posterize(img, bits) if bits < 8 else img
+        mask = ~(2 ** (8 - bits) - 1)
+        return imagelib.point(img, [i & mask for i in range(256)]) \
+            if bits < 8 else img
     if name == "Solarize":
-        return ImageOps.solarize(img, int(256 - frac * 256))
+        threshold = int(256 - frac * 256)
+        return imagelib.point(img, [i if i < threshold else 255 - i
+                                    for i in range(256)])
     if name == "SolarizeAdd":
         add = int(frac * 110)
         arr = np.asarray(img).astype(np.int32)
         lut = arr + np.where(arr < 128, add, 0)
-        from PIL import Image
-        return Image.fromarray(np.clip(lut, 0, 255).astype(np.uint8))
+        return np.clip(lut, 0, 255).astype(np.uint8)
     if name in ("Color", "Contrast", "Brightness", "Sharpness"):
         return _enhance(img, name.lower(), 1.0 + _neg(rng, frac * 0.9))
     if name == "ShearX":
@@ -190,11 +259,9 @@ def make_train_augment(aa: Optional[str] = None,
         return None
 
     def fn(arr: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-        from PIL import Image
-        img = Image.fromarray(arr)
-        img = ra(img, rng) if ra is not None \
-            else color_jitter_image(img, rng, color_jitter)
-        return np.asarray(img, np.uint8)
+        arr = np.ascontiguousarray(arr, np.uint8)
+        return ra(arr, rng) if ra is not None \
+            else color_jitter_image(arr, rng, color_jitter)
 
     return fn
 

@@ -7,8 +7,11 @@ package's loaders yield for the same arguments (train: RandomResizedCrop +
 horizontal flip and the optional RandAugment / jitter; eval: resize +
 center crop; per-host sharding of the epoch-seeded permutation; eval
 shards padded with label -1).  The decode runs in a thread pool with a
-bounded prefetch queue, through the native C++ pipeline
-(``native/uvc_loader.cpp``) where it is built.
+bounded prefetch queue.  No PIL is used: the PIL path's decode, crops and
+resizes, the native path (the JAX package's ``native/uvc_loader.cpp``
+re-implemented, ``data/native_loader.py``) and CIFAR's resize run in the
+port's own image library (``data/imagelib.py``), each giving the bits of
+its JAX counterpart.
 
 Two functions are the card's own: ``device_prefetch`` moves batches to
 the device through pinned host buffers on a side CUDA stream, keeping
@@ -29,6 +32,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from uvc_tpu_torch.data import imagelib
 from uvc_tpu_torch.interop import resolve_device
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -153,20 +157,26 @@ def scan_image_folder(root: str) -> Tuple[List[str], np.ndarray, List[str]]:
 
 
 # ---------------------------------------------------------------------------
-# transforms (PIL)
+# transforms (the PIL path's, on the port's image library)
 # ---------------------------------------------------------------------------
+#
+# Each transform is a crop plan for ``imagelib.load_crop``: (crop box x0,
+# y0, w, h; resize to w, h; centre crop x0, y0, size; flip; filter).  The
+# plans are drawn here with numpy as the JAX package draws them around its
+# PIL calls, and the library does the pixel work as PIL does it.
 
 
-def _interp(name: str):
-    from PIL import Image
-    return {"bilinear": Image.BILINEAR, "bicubic": Image.BICUBIC,
-            "nearest": Image.NEAREST}[name]
+def _interp(name: str) -> int:
+    return {"bilinear": imagelib.BILINEAR, "bicubic": imagelib.BICUBIC,
+            "nearest": imagelib.NEAREST}[name]
 
 
-def _random_resized_crop(img, rng: np.random.Generator, size: int,
-                         scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3),
-                         interpolation: str = "bilinear"):
-    w, h = img.size
+def _random_resized_crop(wh: Tuple[int, int], rng: np.random.Generator,
+                         size: int, scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3),
+                         interpolation: str = "bilinear") -> List[int]:
+    """The plan of torchvision's RandomResizedCrop for an image of size
+    ``wh``: ``img.crop(box).resize((size, size))``."""
+    w, h = wh
     area = w * h
     for _ in range(10):
         target = area * rng.uniform(*scale)
@@ -177,39 +187,35 @@ def _random_resized_crop(img, rng: np.random.Generator, size: int,
         if 0 < cw <= w and 0 < ch <= h:
             x0 = rng.integers(0, w - cw + 1)
             y0 = rng.integers(0, h - ch + 1)
-            img = img.crop((x0, y0, x0 + cw, y0 + ch))
-            return img.resize((size, size), _interp(interpolation))
+            return [int(x0), int(y0), cw, ch, size, size, 0, 0, size, 0,
+                    _interp(interpolation)]
     # fallback: center crop
-    return _center_crop(img, size, size)
+    return _center_crop(wh, size, size)
 
 
-def _center_crop(img, size: int, resize_to: Optional[int] = None,
-                 interpolation: str = "bilinear"):
+def _center_crop(wh: Tuple[int, int], size: int,
+                 resize_to: Optional[int] = None,
+                 interpolation: str = "bilinear") -> List[int]:
+    """The plan of a resize of the shorter side to ``resize_to`` (none
+    without it) and a ``size`` x ``size`` centre crop."""
+    w, h = wh
+    rw, rh = w, h
     if resize_to:
-        w, h = img.size
         if w < h:
-            img = img.resize((resize_to, int(h * resize_to / w)),
-                             _interp(interpolation))
+            rw, rh = resize_to, int(h * resize_to / w)
         else:
-            img = img.resize((int(w * resize_to / h), resize_to),
-                             _interp(interpolation))
-    w, h = img.size
-    x0 = (w - size) // 2
-    y0 = (h - size) // 2
-    return img.crop((x0, y0, x0 + size, y0 + size))
+            rw, rh = int(w * resize_to / h), resize_to
+    return [0, 0, w, h, rw, rh, (rw - size) // 2, (rh - size) // 2, size, 0,
+            _interp(interpolation)]
 
 
 def load_train_image(path: str, rng: np.random.Generator,
                      size: int = 224,
                      interpolation: str = "bilinear") -> np.ndarray:
-    from PIL import Image
-    with Image.open(path) as img:
-        img = img.convert("RGB")
-        img = _random_resized_crop(img, rng, size,
-                                   interpolation=interpolation)
-        if rng.random() < 0.5:
-            img = img.transpose(Image.FLIP_LEFT_RIGHT)
-        return np.asarray(img, np.uint8)
+    plan = _random_resized_crop(imagelib.image_size(path), rng, size,
+                                interpolation=interpolation)
+    plan[9] = int(rng.random() < 0.5)   # FLIP_LEFT_RIGHT
+    return imagelib.load_crop(path, plan)
 
 
 def eval_resize_for(size: int) -> int:
@@ -222,14 +228,11 @@ def eval_resize_for(size: int) -> int:
 def load_eval_image(path: str, size: int = 224,
                     resize_to: int = None,
                     interpolation: str = "bilinear") -> np.ndarray:
-    from PIL import Image
     if resize_to is None:
         resize_to = eval_resize_for(size)
-    with Image.open(path) as img:
-        img = img.convert("RGB")
-        img = _center_crop(img, size, resize_to,
-                           interpolation=interpolation)
-        return np.asarray(img, np.uint8)
+    return imagelib.load_crop(path, _center_crop(
+        imagelib.image_size(path), size, resize_to,
+        interpolation=interpolation))
 
 
 # ---------------------------------------------------------------------------
@@ -347,9 +350,9 @@ class FolderLoader:
         # after crop+flip (timm transform order: RandAugment / color jitter,
         # see uvc_tpu/data/augment.py)
         self.aug = aug
-        # the C++ fast path implements PIL-matched bilinear AND bicubic
-        # (the DeiT recipe trains bicubic); other interpolations (nearest)
-        # select the PIL path
+        # the native path implements bilinear AND bicubic (the DeiT recipe
+        # trains bicubic); other interpolations (nearest) select the PIL
+        # path
         self.interpolation = interpolation
         self.epoch = 0
 
@@ -399,66 +402,68 @@ class FolderLoader:
         stop = threading.Event()
 
         def produce():
-            from concurrent.futures import ThreadPoolExecutor
-            from uvc_tpu_torch.data import native_loader
-            use_native = (native_loader.available()
-                          and self.interpolation in ("bilinear", "bicubic"))
-            base_rng = np.random.default_rng(
-                (self.seed + self.epoch) * 1000 + self.pid)
-            with ThreadPoolExecutor(self.num_workers) as pool:
-                for b in range(nb):
-                    if stop.is_set():
-                        return
-                    sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                    if not self.train and len(sel) < self.batch_size:
-                        # pad the final eval batch to the static batch shape
-                        sel = np.concatenate(
-                            [sel, np.full(self.batch_size - len(sel), -1,
-                                          np.int64)])
-                    pad = sel < 0
-                    sel = np.where(pad, 0, sel)
-                    seeds = base_rng.integers(0, 2**31, len(sel))
-                    if use_native:
-                        # first-party C++ decode/transform pipeline
-                        # (native/uvc_loader.cpp); per-image fallback for
-                        # files libjpeg rejects
-                        x = native_loader.load_batch(
-                            [self.paths[i] for i in sel], self.img_size,
-                            train=self.train,
-                            seeds=seeds.astype(np.uint64),
-                            interpolation=self.interpolation,
-                            num_threads=self.num_workers)
-                        if x is None:
-                            use_native = False
-                    if not use_native:
-                        def one(args):
-                            i, s = args
-                            if self.train:
-                                return load_train_image(
-                                    self.paths[i],
-                                    np.random.default_rng(int(s)),
-                                    self.img_size,
+            try:
+                from concurrent.futures import ThreadPoolExecutor
+                from uvc_tpu_torch.data import native_loader
+                use_native = (native_loader.available() and
+                              self.interpolation in ("bilinear", "bicubic"))
+                base_rng = np.random.default_rng(
+                    (self.seed + self.epoch) * 1000 + self.pid)
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in range(nb):
+                        if stop.is_set():
+                            return
+                        bs = self.batch_size
+                        sel = idx[b * bs:(b + 1) * bs]
+                        if not self.train and len(sel) < bs:
+                            # pad the final eval batch to the static shape
+                            sel = np.concatenate(
+                                [sel, np.full(self.batch_size - len(sel), -1,
+                                              np.int64)])
+                        pad = sel < 0
+                        sel = np.where(pad, 0, sel)
+                        seeds = base_rng.integers(0, 2**31, len(sel))
+                        if use_native:
+                            # the native path; the files it does not take go
+                            # through the PIL path one by one
+                            x = native_loader.load_batch(
+                                [self.paths[i] for i in sel], self.img_size,
+                                train=self.train,
+                                seeds=seeds.astype(np.uint64),
+                                interpolation=self.interpolation,
+                                num_threads=self.num_workers)
+                        else:
+                            def one(args):
+                                i, s = args
+                                if self.train:
+                                    return load_train_image(
+                                        self.paths[i],
+                                        np.random.default_rng(int(s)),
+                                        self.img_size,
+                                        interpolation=self.interpolation)
+                                return load_eval_image(
+                                    self.paths[i], self.img_size,
                                     interpolation=self.interpolation)
-                            return load_eval_image(
-                                self.paths[i], self.img_size,
-                                interpolation=self.interpolation)
 
-                        x = np.stack(list(pool.map(one, zip(sel, seeds))))
-                    if self.train and self.aug is not None:
-                        # RandAugment / jitter on the cropped image, one
-                        # rng stream per image derived from its crop seed
-                        def aug_one(args):
-                            img, s = args
-                            return self.aug(
-                                img, np.random.default_rng(int(s) + 17))
+                            x = np.stack(list(pool.map(one, zip(sel, seeds))))
+                        if self.train and self.aug is not None:
+                            # RandAugment / jitter on the cropped image, one
+                            # rng stream per image derived from its crop seed
+                            def aug_one(args):
+                                img, s = args
+                                return self.aug(
+                                    img, np.random.default_rng(int(s) + 17))
 
-                        x = np.stack(list(pool.map(aug_one,
-                                                   zip(x, seeds))))
-                    y = self.labels[sel].astype(np.int32)
-                    if pad.any():
-                        x[pad] = 0
-                        y[pad] = -1   # sentinel, masked in eval reductions
-                    out_q.put((x, y))
+                            x = np.stack(list(pool.map(aug_one,
+                                                       zip(x, seeds))))
+                        y = self.labels[sel].astype(np.int32)
+                        if pad.any():
+                            x[pad] = 0
+                            y[pad] = -1   # sentinel, masked in eval reductions
+                        out_q.put((x, y))
+            except BaseException as e:  # noqa: BLE001 - the consumer raises it
+                out_q.put(e)
+                return
             out_q.put(None)
 
         t = threading.Thread(target=produce, daemon=True)
@@ -468,6 +473,8 @@ class FolderLoader:
                 item = out_q.get()
                 if item is None:
                     return
+                if isinstance(item, BaseException):
+                    raise item      # a file that cannot be read, say
                 yield item
         finally:
             stop.set()
@@ -676,7 +683,6 @@ class ArrayLoader:
         return -(-shard // self.batch_size)
 
     def __iter__(self):
-        from PIL import Image
         n = len(self.x)
         if self.train:
             rng = np.random.default_rng(self.seed + self.epoch)
@@ -698,10 +704,9 @@ class ArrayLoader:
                 pad = sel < 0
                 sel = np.where(pad, 0, sel)
             if self.img_size != self.x.shape[1]:
-                imgs = [np.asarray(
-                    Image.fromarray(self.x[i]).resize(
-                        (self.img_size, self.img_size), Image.BILINEAR),
-                    np.uint8) for i in sel]
+                imgs = [imagelib.resize(self.x[i], self.img_size,
+                                        self.img_size, imagelib.BILINEAR)
+                        for i in sel]
                 xb = np.stack(imgs)
             else:
                 xb = self.x[sel]
