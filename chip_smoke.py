@@ -16,6 +16,10 @@
                                            # alone, then the card line
     python3 chip_smoke.py --images-only    # phase 19 (real images without
                                            # PIL) alone, then the card line
+    python3 chip_smoke.py --config-only    # phase 20 (--config and
+                                           # --enable_writer 1 without yaml
+                                           # or tensorboard) alone, then
+                                           # the card line
     python3 chip_smoke.py --digests        # phase 3's digests at the shapes
                                            # the parent's kernels take (A8's
                                            # at "se" and "ragged"), and
@@ -384,6 +388,21 @@ Phases, each of which stops the run with a non-zero exit on failure:
    pickles written here, 4 steps, launches exact; (e)
    ``uvc_tpu_torch/scripts/data_bench.py`` at 2 batches of 256 on the
    photo-sized JPEGs.
+20. config and event files -- ``--config`` and ``--enable_writer 1`` on
+   the card's machine, in a child process whose first lines make yaml,
+   tensorboard (``torch.utils.tensorboard`` with it) and protobuf
+   unimportable: ``cli/joint_train.py -c args.yaml --enable_writer 1``, a
+   timm-style file written here (a block sequence, null, a bool, a quoted
+   numeric string, ``1.0e-04`` and ``1e-4``) on DeiT-Small at 224 px,
+   batch 64 (the command line's, over the file's 32), procedural data, one
+   warmup and one stage-1 epoch of 12 steps and their validations (per
+   step K1 24, K2 12, K3 12, A2 12, A4 12; per eval batch K1 12, K3 12);
+   the file's values read back from the run's printed parameters; the
+   event file read by ``tests/event_check.py`` (both CRCs of every record)
+   and every float scalar of ``metrics.jsonl`` found there in order, at
+   its step, equal to its float32; each epoch's img/s beside phase 12's;
+   then ``cli/baseline_train.py -c ... --enable_writer 1`` for 4 steps (A7
+   12 forward and 12 backward a step), its event file the header alone.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, one JSON object of per-kernel numbers (each kernel at the
@@ -6218,6 +6237,207 @@ def images_phase(card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 20: --config and --enable_writer 1 without yaml or tensorboard
+# ---------------------------------------------------------------------------
+
+# the first lines of the phase-20 child: yaml, tensorboard and protobuf
+# then cannot be imported
+NO_CONFIG_DEPS = (
+    'import sys\n'
+    'for _m in ("yaml", "tensorboard", "torch.utils.tensorboard",\n'
+    '           "google.protobuf"):\n'
+    '    sys.modules[_m] = None\n')
+CONFIG_BASE_STEPS = 4
+# timm's args.yaml for joint_train, as text: a block sequence, null, a
+# bool, a quoted numeric string (budget has no type: it stays a string,
+# as from the command line), 1.0e-04 (a float) and 1e-4 (a string that
+# the flag's type makes a float); the command line's --train_batch_size
+# beats the file's
+CONFIG_JOINT = f"""\
+# args.yaml, as timm writes it (yaml.safe_dump(vars(args),
+# default_flow_style=False)), cut to the flags this run sets
+model_type: {PIPE_MODEL}
+dataset: procedural
+img_size: 224
+train_batch_size: 32
+eval_batch_size: {BATCH}
+synthetic_steps: {PIPE_STEPS}
+num_epochs: 2
+warmup_epochs: 1
+post_num_epochs: 0
+distillation_type: soft
+teacher_path: null
+model_path: null
+fp16: false
+budget: '0.5'
+learning_rate: 1.0e-04
+ylr: 1e-4
+cutmix_minmax:
+- 0.2
+- 0.8
+log_interval: 4
+dp: 1
+name: config_run
+"""
+CONFIG_JOINT_SEEN = (
+    f"model_type='{PIPE_MODEL}'", "dataset='procedural'",
+    f"train_batch_size={BATCH}", f"synthetic_steps={PIPE_STEPS}",
+    "num_epochs=2", "post_num_epochs=0", "distillation_type='soft'",
+    "teacher_path=None", "fp16=False", "budget='0.5'",
+    "learning_rate=0.0001", "ylr=0.0001", "cutmix_minmax=[0.2, 0.8]",
+    "log_interval=4", "enable_writer=1", "name='config_run'")
+CONFIG_BASELINE = f"""\
+model_type: {PIPE_MODEL}
+dataset: procedural
+train_batch_size: {BATCH}
+eval_batch_size: {BATCH}
+synthetic_steps: {CONFIG_BASE_STEPS}
+epochs: 1
+dp: 1
+name: config_baseline
+"""
+
+
+def config_part(tmp):
+    """Phase 20, in a child process whose first lines made yaml,
+    tensorboard and protobuf unimportable; prints ``PHASE20 <json>`` with
+    its launches and rates."""
+    import re
+
+    from uvc_tpu_torch.cli import baseline_train, joint_train
+
+    for m in ("yaml", "tensorboard", "torch.utils.tensorboard",
+              "google.protobuf"):
+        try:
+            __import__(m)
+        except ImportError:
+            continue
+        check(False, f"{m} is importable here")
+    sys.path.insert(0, os.path.join(REPO_ROOT, "tests"))
+    import event_check
+
+    card = card_line()
+    runs = os.path.join(tmp, "runs")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def event_file(name):
+        d = os.path.join(runs, name, "tb")
+        files = os.listdir(d) if os.path.isdir(d) else []
+        check(len(files) == 1, f"{name}: event files {files}")
+        return os.path.join(d, files[0])
+
+    # -- joint_train -c args.yaml --enable_writer 1 ------------------------
+    cfg = os.path.join(tmp, "args.yaml")
+    with open(cfg, "w") as f:
+        f.write(CONFIG_JOINT)
+    t0 = time.perf_counter()
+    out, counts = _run_cli(joint_train.main, [
+        "-c", cfg, "--train_batch_size", str(BATCH), "--enable_writer", "1",
+        "--output_dir", runs])
+    wall = time.perf_counter() - t0
+    # 2 stage-1 epochs (1 warmup) and their validations, stage 2's final
+    want = _want(counts, train=(PIPE_TRAIN_STEP, 2 * PIPE_STEPS),
+                 eval=(PIPE_EVAL_BATCH, 3 * PIPE_EVAL_BATCHES))
+    print(f"launches joint_train -c args.yaml {counts} (expected {want}); "
+          f"{wall:.1f} s wall")
+    check(counts == want, "joint_train -c launch counts")
+    add(counts)
+    found = re.search(r"Training parameters Namespace\((.*)\)", out)
+    check(found is not None, "joint_train printed no parameters")
+    missing = [s for s in CONFIG_JOINT_SEEN if s not in found.group(1)]
+    check(not missing, f"the config's values did not take effect: {missing}")
+    print(f"the config's values took effect ({len(CONFIG_JOINT_SEEN)} read "
+          f"back, --train_batch_size {BATCH} from the command line over the "
+          "file's 32)")
+    epochs = re.findall(r"\[Epoch (\d+)\] ([\d.]+)s \(([\d.]+) img/s\)",
+                        out)
+    check(len(epochs) == 2, f"epoch lines {epochs}")
+    path = event_file("config_run")
+    try:
+        n = event_check.match_jsonl(
+            path, os.path.join(runs, "config_run", "metrics.jsonl"))
+    except ValueError as e:
+        check(False, f"joint_train's event file: {e}")
+    n_rec = len(event_check.read_events(path))
+    print(f"event file {os.path.basename(path)}: {n_rec} records, both CRCs "
+          f"of each held; {n} float scalars of metrics.jsonl in order at "
+          f"their steps, equal to their float32 [{card}]")
+    rates = {ep: float(rate) for ep, _, rate in epochs}
+    for ep, secs, rate in epochs:
+        print(f"  joint_train -c epoch {ep}: {rate} img/s ({secs} s for "
+              f"{PIPE_STEPS} steps of {BATCH}"
+              f"{'; holds the process start-up' if ep == '1' else ''}) "
+              f"[{card}]")
+
+    # -- baseline_train -c ... --enable_writer 1 ---------------------------
+    cfg = os.path.join(tmp, "baseline.yaml")
+    with open(cfg, "w") as f:
+        f.write(CONFIG_BASELINE)
+    t0 = time.perf_counter()
+    out, counts = _run_cli(baseline_train.main, [
+        "-c", cfg, "--enable_writer", "1", "--output_dir", runs])
+    wall = time.perf_counter() - t0
+    want = _want(counts, train=(BASE_TRAIN_STEP, CONFIG_BASE_STEPS),
+                 eval=(BASE_EVAL_BATCH, PIPE_EVAL_BATCHES))
+    print(f"launches baseline_train -c {counts} (expected {want}); "
+          f"{wall:.1f} s wall")
+    check(counts == want, "baseline_train -c launch counts")
+    add(counts)
+    events = event_check.read_events(event_file("config_baseline"))
+    check(len(events) == 1 and events[0].get("file_version")
+          == "brain.Event:2", f"baseline_train's event file: {events}")
+    print("baseline_train's event file: the header record alone (the "
+          "baseline driver logs no scalars), its CRCs held")
+    print("PHASE20 " + json.dumps({"counts": total, "rates": rates,
+                                   "scalars": n}), flush=True)
+
+
+def config_phase(card):
+    """Phase 20: ``--config`` and ``--enable_writer 1`` on the card's
+    machine, in a child process that first makes yaml, tensorboard and
+    protobuf unimportable: ``joint_train -c args.yaml --enable_writer 1``
+    (a timm-style file; DeiT-Small at 224 px, batch 64, procedural data,
+    one warmup and one stage-1 epoch of 12 steps, the validations;
+    launches exact; the file's values read back from the printed
+    parameters, the command line beating the file; every float scalar of
+    metrics.jsonl read back from the event file, both CRCs of every
+    record held), then ``baseline_train -c ... --enable_writer 1`` (4
+    steps, A7 12 + 12 a step; its event file the header alone).  Returns
+    the launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="uvc_config_") as tmp:
+        code = NO_CONFIG_DEPS + (f"import chip_smoke\n"
+                                 f"chip_smoke.config_part({tmp!r})\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=600)
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            if not line.startswith("PHASE20 "):
+                print(f"  | {line}")
+        check(proc.returncode == 0, f"phase 20 failed with exit "
+              f"{proc.returncode}")
+        res = json.loads([x for x in lines if x.startswith("PHASE20 ")][-1]
+                         [8:])
+    secs = time.perf_counter() - t0
+    phase12 = ", ".join(f"epoch {ep} {r}" for ep, r in sorted(
+        PIPE_RATES.items())) or "not run"
+    print(f"phase 20: {secs:.1f} s in a process without yaml, tensorboard "
+          f"or protobuf; joint_train -c img/s " + ", ".join(
+              f"epoch {ep} {r}" for ep, r in sorted(res["rates"].items()))
+          + f" beside phase 12's {phase12}; {res['scalars']} scalars read "
+          f"back; launches {res['counts']} [{card}]", flush=True)
+    return res["counts"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6252,6 +6472,10 @@ def main():
                     "PIL: the fixtures' digests, joint_train and "
                     "baseline_train on an image folder, CIFAR at 224 px, "
                     "data_bench), then the card line")
+    ap.add_argument("--config-only", action="store_true",
+                    help="phase 20 alone (--config and --enable_writer 1 "
+                    "through joint_train and baseline_train in a process "
+                    "without yaml or tensorboard), then the card line")
     ap.add_argument("--digests", action="store_true",
                     help="phase 3 at the shapes the parent commit's kernels "
                     "take and phase 7's performer kernels, digests only (no "
@@ -6313,6 +6537,11 @@ def main():
     if args.images_only:
         elapsed("phase 19")
         images_phase(card)
+        print(card_line())
+        return 0
+    if args.config_only:
+        elapsed("phase 20")
+        config_phase(card)
         print(card_line())
         return 0
     elapsed("phase 3")
@@ -6394,6 +6623,9 @@ def main():
     # phase 19: the real-image input path without PIL (DeiT-Small)
     elapsed("phase 19")
     image_counts = images_phase(card)
+    # phase 20: --config and --enable_writer 1 without yaml or tensorboard
+    elapsed("phase 20")
+    config_counts = config_phase(card)
     elapsed("the summary")
     # launches on the main paths: serving and eval, the timed stage-1
     # window, the gating-off steps (the only path of A6), the part-gated
@@ -6410,8 +6642,9 @@ def main():
     # NCCL joint_train), phase 16's (the artifacts' and apply_compact's
     # serving windows and references in this process), phase 17's (the
     # four ranks' steps and the single-process references), phase 18's
-    # (the harnesses' trainings, evaluations and serving) and phase 19's
-    # (joint_train, baseline_train and the CIFAR run on real images)
+    # (the harnesses' trainings, evaluations and serving), phase 19's
+    # (joint_train, baseline_train and the CIFAR run on real images) and
+    # phase 20's (joint_train and baseline_train from config files)
     for counts in (train_counts, off_counts, part_counts, base_counts,
                    t2t_train_counts, t2t_serve_counts, ablation_counts,
                    vit_h_counts, resnext_counts, stage2_counts,
@@ -6419,7 +6652,7 @@ def main():
                    suite_counts, r50_counts, cait_counts,
                    torch_ckpt_counts, ddp_counts, nccl_counts,
                    export_counts, tp_counts, accuracy_counts,
-                   image_counts):
+                   image_counts, config_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -9,7 +9,8 @@ checkpoint; the compact export serves through ``apply_compact`` with the
 masked-dense eval forward's logits; the routes that are not ported raise
 ``NotImplementedError`` naming their ROADMAP item, and the mesh flags
 JAX's errors; and importing the new modules (the R50 stem, CaiT and the
-data-parallel modules among them) loads neither JAX nor msgpack.
+data-parallel modules among them) loads neither JAX nor msgpack, and the
+YAML reader and event writer load neither yaml, tensorboard nor protobuf.
 """
 
 import argparse
@@ -139,7 +140,6 @@ def test_parsed_values_match(cli):
 
 
 def test_config_file_overrides_defaults(tmp_path):
-    pytest.importorskip("yaml")
     cfg = tmp_path / "c.yaml"
     cfg.write_text("budget: 0.3\nnum_epochs: 7\n")
     p = argparse.ArgumentParser()
@@ -495,9 +495,10 @@ def test_new_modules_import_no_jax_or_msgpack():
     """Importing the port's data, checkpoint, logging, profiler, driver,
     CLI, serving-export and parallel modules (the mesh, the dry run, the
     SLURM launcher), the image library, ``data_bench`` and the test-side
-    ``image_check`` that the card runs, the evidence harnesses and the
-    examples loads neither JAX, flax, optax, msgpack, ml_dtypes, PIL, yaml
-    nor the JAX package."""
+    ``image_check`` and ``event_check`` that the card runs, the evidence
+    harnesses, the examples, the YAML reader and the event writer loads
+    neither JAX, flax, optax, msgpack, ml_dtypes, PIL, yaml, tensorboard,
+    protobuf nor the JAX package."""
     code = (
         "import sys\n"
         "import uvc_tpu_torch.data.pipeline, uvc_tpu_torch.data.augment\n"
@@ -519,9 +520,14 @@ def test_new_modules_import_no_jax_or_msgpack():
         "import uvc_tpu_torch.scripts.trajectory_fidelity\n"
         "import uvc_tpu_torch.examples.learning_demo\n"
         "import uvc_tpu_torch.examples.serving_demo\n"
+        "import uvc_tpu_torch.utils.yaml_config\n"
+        "import uvc_tpu_torch.utils.tb_events\n"
+        "import uvc_tpu_torch.cli.baseline_train\n"
+        "import event_check\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes',"
-        " 'uvc_tpu', 'PIL', 'yaml'))\n"
+        " 'uvc_tpu', 'PIL', 'yaml', 'tensorboard') or n.startswith("
+        "('google.protobuf', 'torch.utils.tensorboard')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -142,38 +142,41 @@ def _run(args, mesh):
 
     logger = MetricLogger(args.output_dir, args.name,
                           enable_tensorboard=bool(args.enable_writer))
-    logger.info(f"Baseline training parameters {args}")
+    try:
+        logger.info(f"Baseline training parameters {args}")
 
-    if args.eval:
-        ck = load_checkpoint(args.resume)
-        eval_params = on_device(params_of(ck))
-        eval_masks = (masks_from_flat(ck["masks"], eval_params)
-                      if ck.get("masks") else None)
-        correct, _, count = eval_totals(build_baseline_eval_step(cfg, thp),
-                                        eval_params, eval_masks, test_loader,
-                                        dev, mesh)
-        logger.info(f"Eval accuracy {correct / max(count, 1) * 100:.3f}%")
-        return
+        if args.eval:
+            ck = load_checkpoint(args.resume)
+            eval_params = on_device(params_of(ck))
+            eval_masks = (masks_from_flat(ck["masks"], eval_params)
+                          if ck.get("masks") else None)
+            correct, _, count = eval_totals(
+                build_baseline_eval_step(cfg, thp), eval_params, eval_masks,
+                test_loader, dev, mesh)
+            logger.info(f"Eval accuracy {correct / max(count, 1) * 100:.3f}%")
+            return
 
-    gmp = None
-    if args.gmp:
-        gmp = GMPSchedule(sparsity=args.sparsity, t_start=args.t_start,
-                          delta_t=args.delta_t,
-                          pruning_times=args.pruning_times)
+        gmp = None
+        if args.gmp:
+            gmp = GMPSchedule(sparsity=args.sparsity, t_start=args.t_start,
+                              delta_t=args.delta_t,
+                              pruning_times=args.pruning_times)
 
-    result = run_baseline(
-        cfg, thp, train_loader=train_loader, test_loader=test_loader,
-        params=params, wmasks=wmasks, teacher_params=teacher, gmp=gmp,
-        token_selection=bool(args.token_selection),
-        token_number=args.token_number,
-        ema_decay=args.model_ema_decay if args.model_ema else 0.0,
-        drop_path_rate=args.drop_path,
-        re_prob=args.reprob, re_count=args.recount,
-        re_mode=args.remode,
-        seed=args.seed, output_dir=args.output_dir, name=args.name,
-        resume=args.resume, start_epoch=args.start_epoch, mesh=mesh,
-        mp=args.mp, logger=logger, device=dev)
-    logger.info(f"Best accuracy: {result.best_acc * 100:.3f}%")
+        result = run_baseline(
+            cfg, thp, train_loader=train_loader, test_loader=test_loader,
+            params=params, wmasks=wmasks, teacher_params=teacher, gmp=gmp,
+            token_selection=bool(args.token_selection),
+            token_number=args.token_number,
+            ema_decay=args.model_ema_decay if args.model_ema else 0.0,
+            drop_path_rate=args.drop_path,
+            re_prob=args.reprob, re_count=args.recount,
+            re_mode=args.remode,
+            seed=args.seed, output_dir=args.output_dir, name=args.name,
+            resume=args.resume, start_epoch=args.start_epoch, mesh=mesh,
+            mp=args.mp, logger=logger, device=dev)
+        logger.info(f"Best accuracy: {result.best_acc * 100:.3f}%")
+    finally:
+        logger.close()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ import torch
 from uvc_tpu_torch.compress.state import MinimaxHParams
 from uvc_tpu_torch.configs import CONFIGS
 from uvc_tpu_torch.train.state import TrainHParams
+from uvc_tpu_torch.utils import yaml_config
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -294,14 +295,15 @@ def num_classes_for(dataset: str) -> int:
 
 def parse_with_config(parser: argparse.ArgumentParser, argv=None):
     """Two-phase parse: --config YAML values become new defaults, CLI flags
-    still win (the timm/T2TViT pattern, T2TViT/main.py:38-58)."""
+    still win (the timm/T2TViT pattern, T2TViT/main.py:38-58).  The file
+    is read by ``utils/yaml_config.py``, which returns what
+    ``yaml.safe_load`` returns on the YAML a config file uses and raises
+    ``ValueError`` (file:line:col) on the rest."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("-c", "--config", default=None, type=str)
     known, _ = pre.parse_known_args(argv)
     if known.config:
-        import yaml
-        with open(known.config) as f:
-            overrides = yaml.safe_load(f) or {}
+        overrides = yaml_config.load(known.config) or {}
         valid = {a.dest for a in parser._actions}
         unknown = sorted(set(overrides) - valid)
         if unknown:

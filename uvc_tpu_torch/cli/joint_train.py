@@ -184,31 +184,35 @@ def _run(args, mesh):
     from uvc_tpu_torch.utils.logging import MetricLogger
     logger = MetricLogger(args.output_dir, args.name,
                           enable_tensorboard=bool(args.enable_writer))
-    logger.info(f"Training parameters {args}")
-    profiler = prof.from_args(args, logger)
-    result = run_stage1(cfg, hp, thp, train_loader=train_loader,
-                        test_loader=test_loader, params=params,
-                        teacher_params=teacher, seed=args.seed,
-                        output_dir=args.output_dir, name=args.name,
-                        log_interval=args.log_interval,
-                        resume=args.resume, mesh=mesh, mp=args.mp,
-                        use_orbax=bool(args.use_orbax),
-                        steps_per_launch=args.steps_per_launch,
-                        logger=logger, profiler=profiler,
-                        device=args.device)
+    try:
+        logger.info(f"Training parameters {args}")
+        profiler = prof.from_args(args, logger)
+        result = run_stage1(cfg, hp, thp, train_loader=train_loader,
+                            test_loader=test_loader, params=params,
+                            teacher_params=teacher, seed=args.seed,
+                            output_dir=args.output_dir, name=args.name,
+                            log_interval=args.log_interval,
+                            resume=args.resume, mesh=mesh, mp=args.mp,
+                            use_orbax=bool(args.use_orbax),
+                            steps_per_launch=args.steps_per_launch,
+                            logger=logger, profiler=profiler,
+                            device=args.device)
 
-    # inline stage 2 (reference: joint_train.py:1032-1033)
-    from uvc_tpu_torch.train.stage2 import run_stage2
-    thp2 = flags.to_train_hparams(args, len(train_loader), num_classes,
-                                  stage2=True)
-    run_stage2(cfg, hp, thp2, params=result.state.params, masks=result.masks,
-               teacher_params=teacher, train_loader=train_loader,
-               test_loader=test_loader, seed=args.seed,
-               output_dir=args.output_dir, name=args.name + "_post",
-               eval_every=args.eval_every, mesh=mesh, mp=args.mp,
-               world_batch=args.train_batch_size,
-               steps_per_launch=args.steps_per_launch, logger=logger,
-               device=args.device)
+        # inline stage 2 (reference: joint_train.py:1032-1033)
+        from uvc_tpu_torch.train.stage2 import run_stage2
+        thp2 = flags.to_train_hparams(args, len(train_loader), num_classes,
+                                      stage2=True)
+        run_stage2(cfg, hp, thp2, params=result.state.params,
+                   masks=result.masks, teacher_params=teacher,
+                   train_loader=train_loader, test_loader=test_loader,
+                   seed=args.seed,
+                   output_dir=args.output_dir, name=args.name + "_post",
+                   eval_every=args.eval_every, mesh=mesh, mp=args.mp,
+                   world_batch=args.train_batch_size,
+                   steps_per_launch=args.steps_per_launch, logger=logger,
+                   device=args.device)
+    finally:
+        logger.close()
 
 
 if __name__ == "__main__":

@@ -25,6 +25,8 @@ import re
 import sys
 from typing import Dict, List, Optional
 
+from uvc_tpu_torch.utils import yaml_config
+
 DEFAULT_PORT = 12321
 
 
@@ -126,13 +128,11 @@ def _probe_run_dir(argv: List[str]) -> tuple:
     known, _ = probe.parse_known_args(argv)
     if known.config:
         try:
-            import yaml
-            with open(known.config) as f:
-                overrides = yaml.safe_load(f) or {}
-        except Exception:
-            # best-effort probe only (missing pyyaml, malformed YAML,
-            # unreadable file): the trainer surfaces real config errors
-            # itself — the launcher must never die here
+            overrides = yaml_config.load(known.config) or {}
+        except (OSError, ValueError):
+            # best-effort probe only (an unreadable file, YAML the reader
+            # refuses): the trainer surfaces real config errors itself —
+            # the launcher must never die here
             overrides = {}
         if not _has_flag(argv, "--output_dir") and "output_dir" in overrides:
             known.output_dir = overrides["output_dir"]

@@ -2,9 +2,11 @@
 ``uvc_tpu/utils/logging.py``).
 
 An append-only JSONL metrics stream (``metrics.jsonl``), the same
-``s_`` / ``r_`` / ``gating_`` series files, and the log lines on stdout,
-written only from the main process: rank 0 of the process group, or the
-one process when there is no group.
+``s_`` / ``r_`` / ``gating_`` series files, the log lines on stdout and,
+with ``enable_tensorboard``, the same float scalars as a TensorBoard event
+file in ``<dir>/tb`` (``utils/tb_events.py``), written only from the main
+process: rank 0 of the process group, or the one process when there is no
+group.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from uvc_tpu_torch.utils.tb_events import EventFileWriter
 
 
 class AverageMeter:
@@ -63,12 +67,10 @@ class MetricLogger:
             os.makedirs(self.dir, exist_ok=True)
             self.metrics_path = os.path.join(self.dir, "metrics.jsonl")
             if enable_tensorboard:
-                # reference --enable_writer (joint_train.py:456-463)
-                try:
-                    from torch.utils.tensorboard import SummaryWriter
-                    self._tb = SummaryWriter(os.path.join(self.dir, "tb"))
-                except Exception:
-                    self._tb = None
+                # reference --enable_writer (joint_train.py:456-463): the
+                # event file of utils/tb_events.py; a directory it cannot
+                # write to raises
+                self._tb = EventFileWriter(os.path.join(self.dir, "tb"))
         self._series: Dict[str, str] = {}
 
     def log_scalars(self, step: int, scalars: Dict[str, Any]) -> None:
@@ -86,6 +88,7 @@ class MetricLogger:
             for k, v in rec.items():
                 if k != "step" and isinstance(v, float):
                     self._tb.add_scalar(k, v, int(step))
+            self._tb.flush()
 
     def log_series(self, kind: str, step: int, value) -> None:
         """Append one {step: tensor} record to the s_/r_/gating_ series
@@ -107,3 +110,8 @@ class MetricLogger:
     def info(self, msg: str) -> None:
         if is_main_process():
             print(msg, flush=True)
+
+    def close(self) -> None:
+        """Closes the event file, if one is open."""
+        if self._tb is not None:
+            self._tb.close()
