@@ -5968,12 +5968,14 @@ IMG_CIFAR_STEPS = 4
 NO_PIL = 'import sys; sys.modules["PIL"] = None\n'
 
 
-def _image_folder(root, n_train, n_val):
-    """``n_train`` symlinks to the photo-sized JPEG fixtures in ``train/``
-    and ``n_val`` to every fixture (JPEG of each kind, PNG, BMP) in
-    ``val/``, 4 classes.  Returns the train sources."""
+def _image_folder(root, n_train, n_val, photo_prefix="imagenet_"):
+    """``n_train`` symlinks to the photo-sized fixtures whose names start
+    with ``photo_prefix`` (the JPEGs, or ``webp_photo_`` for the lossy
+    WebPs) in ``train/`` and ``n_val`` to every fixture (JPEG of each
+    kind, PNG, BMP, WebP) in ``val/``, 4 classes.  Returns the train
+    sources."""
     files = sorted(f for f in os.listdir(IMG_FIXTURES) if f != "digests.json")
-    photos = [f for f in files if f.startswith("imagenet_")]
+    photos = [f for f in files if f.startswith(photo_prefix)]
     for split, n, srcs in (("train", n_train, photos), ("val", n_val, files)):
         for i in range(n):
             d = os.path.join(root, split, f"class_{i % IMG_CLASSES}")
@@ -6058,15 +6060,19 @@ def images_part(part, tmp):
     elif part == "joint":
         from uvc_tpu_torch.cli import joint_train
         real = native_loader.available
-        rates = {}
+        rates, loader_ms = {}, {}
         # in turns, so that the first run's start-up in this process (CUDA
-        # and the libraries' first calls) falls on each path once
-        for i, path in enumerate(("native", "pil", "pil", "native")):
-            native_loader.available = real if path == "native" else \
+        # and the libraries' first calls) falls on each JPEG path once; the
+        # WebP folder's run in the middle, warm, on the default loader (its
+        # native path hands every WebP to the PIL path)
+        for i, path in enumerate(("native", "pil", "webp", "pil", "native")):
+            native_loader.available = real if path != "pil" else \
                 (lambda: False)
+            data_dir = os.path.join(tmp, "folder_webp") if path == "webp" \
+                else folder
             t0 = time.perf_counter()
             out, counts = _run_cli(joint_train.main, common + [
-                "--dataset", "imagenet", "--data_dir", folder,
+                "--dataset", "imagenet", "--data_dir", data_dir,
                 "--distillation-type", "soft", "--num_epochs", "1",
                 "--warmup_epochs", "1", "--post_num_epochs", "0",
                 "--name", f"joint_{i}_{path}"])
@@ -6086,14 +6092,18 @@ def images_part(part, tmp):
                                r"[\d.naninf]+ acc ([\d.naninf]+)%",
                                "joint_train")
             ms = _loader_ms(FolderLoader(
-                os.path.join(folder, "train"), BATCH, train=True,
+                os.path.join(data_dir, "train"), BATCH, train=True,
                 img_size=224, num_workers=16), 4)
             rates.setdefault(path, []).append(float(rate))
-            print(f"joint_train --dataset imagenet, run {i}, {path} path "
+            loader_ms.setdefault(path, []).append(round(ms, 1))
+            what = ("lossy WebPs (the same photos at quality 80)"
+                    if path == "webp" else "JPEGs")
+            print(f"joint_train --dataset imagenet, run {i}, "
+                  f"{'WebP folder' if path == 'webp' else path + ' path'} "
                   f"(DeiT-Small, 224 px, batch {BATCH}, {IMG_STEPS} steps, "
                   f"{IMG_CLASSES} class folders of fixture symlinks): "
                   f"stage-1 epoch {rate} img/s ({secs} s) on the photo-sized "
-                  f"JPEGs; the folder loader's host ms a batch {ms:.1f}; "
+                  f"{what}; the folder loader's host ms a batch {ms:.1f}; "
                   f"eval accuracy "
                   f"{accs} % [{card}]", flush=True)
         native_loader.available = real
@@ -6101,6 +6111,12 @@ def images_part(part, tmp):
               "start-up): " + ", ".join(
                   f"{p} {v} img/s" for p, v in rates.items())
               + f" [{card}]", flush=True)
+        print(f"WebP folder against the JPEG folder, the same run: epoch "
+              f"{rates['webp'][0]} img/s against the JPEG PIL path's "
+              f"{rates['pil']} and native path's {rates['native']}; the "
+              f"folder loader's host ms a batch {loader_ms['webp'][0]} "
+              f"against {loader_ms['pil']} and {loader_ms['native']} "
+              f"[{card}]", flush=True)
     elif part == "baseline":
         from uvc_tpu_torch.cli import baseline_train
         from uvc_tpu_torch.data.augment import make_train_augment
@@ -6187,11 +6203,13 @@ def images_phase(card):
     in a child process that first makes PIL unimportable
     (``sys.modules["PIL"] = None``): (a) the committed fixtures' decodes,
     the PIL-path and native-path crops and RandAugment's ops held to the
-    digests of PIL and the JAX package; (b) ``joint_train --dataset
+    digests of PIL and the JAX package (WebP, 16-bit and Adam7 PNG and
+    palette, 16-bit and RLE BMP among them); (b) ``joint_train --dataset
     imagenet`` on a folder of fixture symlinks (4 classes; train the
     photo-sized JPEGs, val every fixture) at 224 px,
     batch 64, one stage-1 epoch of 12 steps and its validation, in turns
-    on the native path and on the PIL path (native, PIL, PIL, native),
+    on the native path and on the PIL path (native, PIL, WebP, PIL,
+    native), the third run on a folder of the photo-sized lossy WebPs,
     launches exact; (c) ``baseline_train``
     with RandAugment (12 steps, A7 12 forward and 12 backward a step); (d)
     ``--dataset cifar10 --img_size 224`` on CIFAR-layout pickles written
@@ -6202,14 +6220,18 @@ def images_phase(card):
     t_all = time.perf_counter()
     total = {}
     with tempfile.TemporaryDirectory(prefix="uvc_images_") as tmp:
-        photos = _image_folder(os.path.join(tmp, "folder"),
-                               IMG_STEPS * BATCH, IMG_VAL)
-        sizes = [os.path.getsize(os.path.join(IMG_FIXTURES, f))
-                 for f in photos]
-        print(f"phase 19 train folder: {IMG_STEPS * BATCH} symlinks to "
-              f"{len(photos)} photo-sized JPEGs ({', '.join(photos)}; "
-              f"{sum(sizes) / len(sizes) / 1e3:.1f} KB a file on average)",
-              flush=True)
+        for sub, prefix, what in (("folder", "imagenet_", "JPEGs"),
+                                  ("folder_webp", "webp_photo_",
+                                   "lossy WebPs")):
+            photos = _image_folder(os.path.join(tmp, sub),
+                                   IMG_STEPS * BATCH, IMG_VAL, prefix)
+            sizes = [os.path.getsize(os.path.join(IMG_FIXTURES, f))
+                     for f in photos]
+            print(f"phase 19 train folder {sub}: {IMG_STEPS * BATCH} "
+                  f"symlinks to {len(photos)} photo-sized {what} "
+                  f"({', '.join(photos)}; "
+                  f"{sum(sizes) / len(sizes) / 1e3:.1f} KB a file on "
+                  "average)", flush=True)
         _cifar_pickles(os.path.join(tmp, "cifar"), IMG_CIFAR_STEPS * BATCH,
                        IMG_VAL)
         for part in ("check", "joint", "baseline", "cifar", "bench"):

@@ -1,6 +1,6 @@
 """Hold the port's image path to the digests of PIL and the JAX package.
 
-``tests/fixtures/images/`` holds small JPEG, PNG and BMP files and
+``tests/fixtures/images/`` holds small JPEG, PNG, BMP and WebP files and
 ``digests.json``, the sha256 of what PIL and the JAX package make of them
 (written by ``tests/make_image_fixtures.py``): each file's decode, the
 PIL path's and the native path's train and eval crops at recorded seeds
@@ -24,7 +24,9 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -87,18 +89,24 @@ def compute(rec: dict, fixtures: Path) -> np.ndarray:
     raise ValueError(f"unknown record kind {kind!r}")
 
 
+def _digest_of(rec: dict, fixtures: Path) -> str:
+    try:
+        return digest(compute(rec, fixtures))
+    except Exception as e:  # noqa: BLE001 - reported as a mismatch
+        return f"raised {type(e).__name__}: {e}"
+
+
 def check(fixtures: Path = FIXTURES) -> dict:
-    """Recompute every record of ``digests.json``; returns the counts per
+    """Recompute every record of ``digests.json``, on a thread a core (at
+    most 8: the library's calls release the GIL); returns the counts per
     kind and the mismatches."""
     records = json.loads((fixtures / "digests.json").read_text())["records"]
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        got_all = list(pool.map(lambda r: _digest_of(r, fixtures), records))
     counts, bad = {}, []
-    for rec in records:
+    for rec, got in zip(records, got_all):
         n = counts.setdefault(rec["kind"], [0, 0])
         n[0] += 1
-        try:
-            got = digest(compute(rec, fixtures))
-        except Exception as e:  # noqa: BLE001 - reported as a mismatch
-            got = f"raised {type(e).__name__}: {e}"
         if got == rec["sha256"]:
             continue
         n[1] += 1

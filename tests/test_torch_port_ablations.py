@@ -18,6 +18,7 @@ baseline trajectories as ``test_torch_port_baseline.py`` holds them: 1e-5
 on the metrics, 1e-4 relative Frobenius per weight leaf.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

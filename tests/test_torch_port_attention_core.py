@@ -13,6 +13,7 @@ the identity and the functions are JAX's CPU route,
 sits: 1e-5 relative.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

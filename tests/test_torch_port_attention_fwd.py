@@ -20,6 +20,7 @@ and take any N, K1 with the gradient recorded too (A2, K1's backward,
 streams its core as well).
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import math
 
 import jax.numpy as jnp

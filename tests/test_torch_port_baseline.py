@@ -13,6 +13,7 @@ scorer's bias (gradients zero up to rounding) to the learning rate times
 the steps.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

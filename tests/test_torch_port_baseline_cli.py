@@ -9,6 +9,7 @@ score lies within 1e-5 (of the largest) of the cut, SynFlow's at the
 requested density (its 100 rounds are held to JAX round by round in
 ``tests/test_torch_port_scorers.py``).  The labels a narrower head cannot
 express are filtered out as JAX filters them.  A ``baseline_train`` run
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 from a ``.pth`` and a mask file resumes and evaluates, and JAX's
 ``--eval`` reads its checkpoint.  ``gradient_sparsity_stats`` and
 ``format_report`` give JAX's numbers and text.  The new modules import

@@ -11,6 +11,7 @@ block-gating blend (K3's route), with part gating (the separate branches)
 and with masks on the eval route.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import dataclasses
 
 import numpy as np

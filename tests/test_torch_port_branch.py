@@ -33,6 +33,7 @@ the port as ``drop_path``; the stage-1 step's part-gating noise comes from
 its ``k_part1`` / ``k_part2`` keys.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -27,6 +27,7 @@ package on the CPU.
   routes stay held at dm 1280 above by direct calls.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import math
 
 import jax

@@ -23,6 +23,7 @@ the port: its talking heads mix the logits across heads around the
 softmax, so it is a composition, as in the JAX package.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ and with SGD) are built as the JAX drivers build them, from JAX train
 states whose moments are filled with seeded values.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import msgpack

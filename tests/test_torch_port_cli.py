@@ -13,6 +13,7 @@ data-parallel modules among them) loads neither JAX nor msgpack, and the
 YAML reader and event writer load neither yaml, tensorboard nor protobuf.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import argparse
 import json
 import os

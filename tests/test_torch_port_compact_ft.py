@@ -20,6 +20,7 @@ gradient is zero in exact arithmetic; see ``test_torch_port_train.py``).
 The padding slots and the v-masked rows' moments are held to exact zero.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

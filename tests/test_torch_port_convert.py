@@ -10,6 +10,7 @@ The converted weights then give JAX's logits through the port's forward
 (f32, 1e-5).
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

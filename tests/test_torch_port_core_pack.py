@@ -14,6 +14,7 @@ Then the wrappers' scratch on operands that report a CUDA device, handed
 to a library that records the call.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import contextlib
 import types
 

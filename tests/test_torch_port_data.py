@@ -11,6 +11,8 @@ builds.  ``normalize_on_device`` agrees with JAX's to 1e-6 and
 ``device_prefetch`` on the CPU passes the batches through in order.
 """
 
+import torch_port_env
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import pickle
 
 import jax
@@ -187,7 +189,7 @@ def image_tree(tmp_path_factory):
 @pytest.mark.parametrize("mode", ["train", "train_randaug", "train_jitter",
                                   "eval"])
 def test_folder_loader_matches(image_tree, monkeypatch, native, mode):
-    if native and not jnative.available():
+    if native and not torch_port_env.jax_native_available():
         pytest.skip("the native loader library does not build here")
     if not native:
         monkeypatch.setattr(jnative, "available", lambda: False)

@@ -24,6 +24,7 @@ over keys ignores a shift shared by all keys) and the token scorer's bias
 learning rate times the steps taken.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import functools
 
 import jax

@@ -22,6 +22,7 @@ within 1e-5; the masks and the accuracy equal; the logged losses and
 FLOPs fractions within 1e-4.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import json
 
 import jax

@@ -12,6 +12,7 @@ records (``E2EACC_r05*.json``, ``FIDELITY_r05.json``), which must come out
 as the records' own ``gates``, and false on a perturbed input.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import ast
 import importlib.util
 import json

@@ -13,6 +13,7 @@ in ``ops/_library.py``): ``uvc_tpu_torch.layer_attention_ln`` and
 ``mlp_ln`` once per kept block and ``performer`` twice for the T2T stem.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import io
 import os
 import subprocess

@@ -19,6 +19,7 @@ pretrain first: the scenarios start from its JAX dense model, which it
 leaves in the directory as the harness's pretrain cache).
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import os
 import subprocess
 import sys

@@ -23,6 +23,7 @@ The autograd wrappers give ``torch.autograd``'s gradients through the
 plain forwards, and on the CPU no kernel launches.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

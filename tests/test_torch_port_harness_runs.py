@@ -7,6 +7,8 @@ its record with the JAX harness's keys, and none falls back to the CPU
 when the card is asked for and absent.
 """
 
+import torch_port_env
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import json
 import os
 import subprocess
@@ -58,7 +60,8 @@ def test_e2e_runs_at_plumbing_size(monkeypatch, tmp_path):
 def test_fidelity_runs_under_its_smoke_switch(tmp_path):
     out = tmp_path / "fid.json"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env.update(UVC_FID_SMOKE="1", OMP_NUM_THREADS="4")
+    env.update(UVC_FID_SMOKE="1",
+               OMP_NUM_THREADS=str(torch_port_env.THREADS))
     res = subprocess.run(
         [sys.executable, "-m", "uvc_tpu_torch.scripts.trajectory_fidelity",
          "--device", "cpu", "--out", str(out)],

@@ -5,14 +5,16 @@ JPEG over sizes 1x1 to 500x375, samplings 4:4:4 / 4:2:2 / 4:2:0,
 qualities 50 / 75 / 95, baseline, progressive and optimised, grayscale,
 CMYK and restart markers, plus a hypothesis property over random sizes,
 qualities and samplings; PNG in modes RGB, RGBA, L, LA, P (8-, 4- and
-2-bit) and 1; BMP at 24 and 32 bits.  Each decode must equal
-``np.asarray(Image.open(f).convert("RGB"))`` exactly, and ``image_size``
-must equal ``Image.open(f).size``.  Files the library does not take (a
-corrupt JPEG, WebP, 16-bit or interlaced PNG, no image at all) raise
-``ValueError`` naming the file, and mutated fixtures decode or raise but
-never crash.
+2-bit) and 1; BMP at 24 and 32 bits (WebP, PNG at 16 bits and Adam7 and
+the other BMPs in ``test_torch_port_image_formats.py``).  Each decode
+must equal ``np.asarray(Image.open(f).convert("RGB"))`` exactly, and
+``image_size`` must equal ``Image.open(f).size``.  Files that PIL refuses
+too (a corrupt JPEG or WebP, a WebP without an image or of more pixels
+than PIL opens, a 2-bit BMP, no image at all) raise ``ValueError`` naming the file, and mutated fixtures
+decode or raise but never crash.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import itertools
 import os
 import subprocess
@@ -133,10 +135,49 @@ def _bad_files(tmp_path):
     good = tmp_path / "good.jpg"
     Image.fromarray(_photo(64, 48, 1)).save(good, quality=90)
     data = good.read_bytes()
+    Image.fromarray(_photo(16, 16, 2)).save(tmp_path / "w.webp")
+    webp = (tmp_path / "w.webp").read_bytes()
     files = {"truncated.jpg": data[: len(data) // 2],
-             "garbage.jpg": b"not an image at all"}
+             "garbage.jpg": b"not an image at all",
+             "truncated.webp": webp[: len(webp) - 9],
+             # a VP8X header and no image chunk
+             "empty.webp": b"RIFF\x16\0\0\0WEBPVP8X\x0a\0\0\0" + bytes(4)
+             + b"\x0f\0\0\x0f\0\0",
+             # 2 bits a pixel, which PIL's BMP reader refuses
+             "two_bit.bmp": bytes(_bmp_2bit()),
+             # 16383 x 16383: more pixels than PIL opens
+             "bomb.webp": webp[:26] + b"\xff\x3f\xff\x3f" + webp[30:]}
     for name, b in files.items():
         (tmp_path / name).write_bytes(b)
+    return {"truncated.jpg": "truncated", "garbage.jpg": "not a JPEG",
+            "truncated.webp": "truncated", "empty.webp": "without an image",
+            "two_bit.bmp": "2 bits per pixel",
+            "bomb.webp": "more pixels than PIL opens"}
+
+
+def _bmp_2bit():
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import make_image_fixtures as mk
+    return mk.bmp_bytes(8, 2, 2, bytes(8), palette=[(0, 0, 0)] * 4)
+
+
+def test_undecodable_files_raise_naming_the_file(tmp_path):
+    for name, why in _bad_files(tmp_path).items():
+        path = str(tmp_path / name)
+        with pytest.raises(Exception):        # PIL refuses it too
+            with Image.open(path) as im:
+                im.convert("RGB")
+        with pytest.raises(ValueError, match=why) as info:
+            imagelib.decode_rgb(path)
+        assert path in str(info.value)
+        if name in ("garbage.jpg", "empty.webp", "two_bit.bmp", "bomb.webp"):
+            with pytest.raises(ValueError, match=why):
+                imagelib.image_size(path)
+
+
+def test_formats_once_refused_decode_as_pil(tmp_path):
+    """WebP, 16-bit and interlaced PNG, which the library refused before
+    its decoders for them, decode as PIL decodes them."""
     Image.fromarray(_photo(16, 16, 2)).save(tmp_path / "w.webp")
     Image.fromarray(np.arange(256, dtype=np.uint16).reshape(16, 16) * 200
                     ).save(tmp_path / "g16.png")
@@ -145,19 +186,19 @@ def _bad_files(tmp_path):
     raw[28] = 1                                   # IHDR interlace method
     raw[29:33] = zlib.crc32(bytes(raw[12:29])).to_bytes(4, "big")
     (tmp_path / "adam7.png").write_bytes(bytes(raw))
-    return {"truncated.jpg": "truncated", "garbage.jpg": "not a JPEG",
-            "w.webp": "WebP", "g16.png": "16-bit", "adam7.png": "interlaced"}
-
-
-def test_undecodable_files_raise_naming_the_file(tmp_path):
-    for name, why in _bad_files(tmp_path).items():
-        path = str(tmp_path / name)
-        with pytest.raises(ValueError, match=why) as info:
-            imagelib.decode_rgb(path)
-        assert path in str(info.value)
-        if name in ("w.webp", "garbage.jpg"):
-            with pytest.raises(ValueError, match=why):
-                imagelib.image_size(path)
+    for name in ("w.webp", "g16.png"):
+        assert_decodes_as_pil(tmp_path / name)
+    # the scanlines were not written for Adam7: PIL and the port read
+    # them as its seven passes all the same, or both refuse them
+    try:
+        with Image.open(tmp_path / "adam7.png") as im:
+            ref = np.asarray(im.convert("RGB"))
+    except (OSError, ValueError):
+        with pytest.raises(ValueError):
+            imagelib.decode_rgb(str(tmp_path / "adam7.png"))
+    else:
+        np.testing.assert_array_equal(
+            imagelib.decode_rgb(str(tmp_path / "adam7.png")), ref)
 
 
 _FUZZ = """

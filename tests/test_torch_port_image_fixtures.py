@@ -14,6 +14,8 @@ with PIL made unimportable, and the library's build.
   a library that does not compile raises with the compiler's output.
 """
 
+import torch_port_env
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import json
 import os
 import pickle
@@ -41,20 +43,20 @@ FIXTURES = make_image_fixtures.FIXTURES
 def test_fixtures_cover_the_matrix_and_stay_small():
     names = sorted(p.name for p in FIXTURES.iterdir() if p.name !=
                    "digests.json")
-    assert names == sorted([*make_image_fixtures.FILES,
-                            *make_image_fixtures.LIBJPEG_FILES])
+    assert names == sorted(make_image_fixtures.file_names())
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1.5e6
 
 
 def test_committed_digests_are_pil_and_jax_today():
     pytest.importorskip("PIL.Image")
+    torch_port_env.jax_native_available()
     committed = json.loads((FIXTURES / "digests.json").read_text())
     assert committed["records"] == make_image_fixtures.reference_records()
 
 
 def test_port_gives_every_committed_digest():
     report = image_check.check()
-    assert report["records"] == 660
+    assert report["records"] == 1318
     assert report["mismatches"] == []
 
 

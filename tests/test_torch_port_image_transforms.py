@@ -15,6 +15,8 @@ bit.
   ``uvc_tpu.data.augment`` on PIL images.  Every op is held bit for bit.
 """
 
+import torch_port_env
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import numpy as np
 import pytest
 
@@ -113,7 +115,7 @@ def test_pil_path_crops_match_jax(image_files, interp):
 
 @pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
 def test_native_path_crops_match_jax(image_files, interp):
-    if not jnative.available():
+    if not torch_port_env.jax_native_available():
         pytest.skip("the JAX package's native loader does not build here")
     for start in (0, 1000, 2 ** 31 - 50):
         seeds = np.arange(len(image_files), dtype=np.uint64) * 13 + start

@@ -16,6 +16,7 @@ The wheel is built offline from a copy of ``pyproject.toml``, ``README.md``
 and the two packages in a temporary directory.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import argparse
 import json
 import os

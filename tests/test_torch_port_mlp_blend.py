@@ -16,6 +16,7 @@ identity -> 1e-5.  Then the epilogue's one rounding after the blend, and
 the wrapper's route on operands that report a CUDA device.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax.numpy as jnp
 import numpy as np
 import pytest

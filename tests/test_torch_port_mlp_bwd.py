@@ -28,6 +28,7 @@ the JAX package, on the CPU.
   past it, as ``composed_counts`` shows.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ the epilogue's rounding order itself, and the wrapper's route and checks
 on operands that report a CUDA device.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax.numpy as jnp
 import numpy as np
 import pytest

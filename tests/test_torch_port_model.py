@@ -10,6 +10,7 @@ bf16 flips of single elements from the summation order and the JAX
 kernels' polynomial erf, carried through the blocks).
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import dataclasses
 
 import jax

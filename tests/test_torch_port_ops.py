@@ -16,6 +16,7 @@ On the CPU the wrappers take the plain version, and their launch counters
 stay at 0.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ Tolerances:
   1e-5.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -30,6 +30,7 @@ the CPU, against the plain versions and the Pallas kernels.
   every partial the kernels write.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ substitute), and a 1-epoch ``post_train`` from the file is the run from
 the equivalent ``.ckpt``.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

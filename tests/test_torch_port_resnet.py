@@ -12,6 +12,7 @@ as its sixteen units at random weights move by a third between bf16 and
 f32 in either package (bf16 roundings through the residual stream).
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ uninterrupted run bit for bit; each package resumes the other's
 checkpoint.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import dataclasses
 
 import jax

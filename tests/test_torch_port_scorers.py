@@ -15,6 +15,7 @@ prune different coordinates, and every later round scores the network
 that is left, so two whole runs' kept sets overlap rather than agree.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ to 2e-4 (the same arithmetic in another summation order), and the eval
 step's integer counts must be equal.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import os
 import subprocess
 import sys

@@ -4,6 +4,7 @@ the same coordinator, ranks and requeue resume from the same step
 environment and run directory, over the common nodelist shapes; and the
 port's copy enters the port's CLIs."""
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import os
 
 import pytest

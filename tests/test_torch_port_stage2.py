@@ -19,6 +19,7 @@ an absolute bound of the learning rate times the steps taken, as in
 ``test_torch_port_train.py``.  The optimizers alone agree to 1e-6.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ backward wrappers' scratch (the streamed core's statistics, every row of
 every 64-row tile; the split-K partials) and their split counts.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import math
 
 import jax.numpy as jnp

@@ -21,6 +21,7 @@ absolute 1e-7.  The trajectory and the eval step as in
 times the steps.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ a ``tb`` directory that cannot be made raises where JAX's logger drops
 the writer silently.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import math
 import os
 import re

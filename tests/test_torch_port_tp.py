@@ -16,6 +16,7 @@ hold the same whole state (a digest of the gathered state), and between
 steps each holds half the bytes of the tensor-parallel leaves.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import shutil
 
 import numpy as np

@@ -19,6 +19,7 @@ packages move it by different fractions of the learning rate.  It is
 held to an absolute bound of the learning rate times the steps taken.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import dataclasses
 
 import jax

@@ -30,6 +30,7 @@ heads of 12).
   allocation) against ``jax.eval_shape`` of the JAX init.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ namespaces on each file both parsers take, and both call
 ``parser.error`` on an unknown key.
 """
 
+from torch_port_env import capped_threads  # noqa: F401  (autouse)
 import argparse
 import math
 import os

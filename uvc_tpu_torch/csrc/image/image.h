@@ -22,6 +22,15 @@ struct ImageError : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
+// PIL refuses an image of more pixels than this (twice
+// Image.MAX_IMAGE_PIXELS: a decompression bomb), and so do the BMP and WebP
+// decoders here, before they allocate.
+constexpr uint64_t kMaxPixels = 2 * uint64_t(89478485);
+inline void check_pixels(uint64_t w, uint64_t h, const char* what) {
+  if (w * h > kMaxPixels)
+    throw ImageError(std::string(what) + " of more pixels than PIL opens");
+}
+
 // An 8-bit RGB image, rows packed.
 struct Image {
   int w = 0, h = 0;
@@ -39,15 +48,23 @@ void jpeg_info(const uint8_t* data, size_t n, int* w, int* h);
 Image jpeg_decode(const uint8_t* data, size_t n, bool cmyk_to_rgb);
 
 // --- png.cpp ----------------------------------------------------------------
-// Undo the scanline filters of a non-interlaced PNG whose zlib stream has
-// been inflated into `raw`, and convert to RGB as PIL's convert("RGB"):
-// colour types 0/2/3/4/6 at bit depths 1-8 (palette `plte`, n_plte
-// entries).
+// Undo the scanline filters of a PNG whose zlib stream has been inflated
+// into `raw` (the seven Adam7 passes when `interlace`), and convert to RGB
+// as PIL's convert("RGB"): colour types 0/2/3/4/6 at bit depths 1-16
+// (palette `plte`, n_plte entries; 16-bit samples by their high byte, but
+// 16-bit gray, PIL's mode I;16, clipped to 255).
 void png_unfilter_rgb(uint8_t* raw, size_t raw_len, int w, int h, int depth,
-                      int color_type, const uint8_t* plte, int n_plte,
-                      uint8_t* out);
+                      int color_type, int interlace, const uint8_t* plte,
+                      int n_plte, uint8_t* out);
 void bmp_info(const uint8_t* data, size_t n, int* w, int* h);
 Image bmp_decode(const uint8_t* data, size_t n);
+
+// --- webp_vp8l.cpp (the container), webp_vp8.cpp ---------------------------
+// The canvas size, as PIL's WebP plugin reports it.
+void webp_info(const uint8_t* data, size_t n, int* w, int* h);
+// The first frame on its canvas as libwebp's WebPAnimDecoder gives it to
+// PIL, without its alpha, as PIL's convert("RGB").
+Image webp_decode(const uint8_t* data, size_t n);
 
 // --- pil_resample.cpp -------------------------------------------------------
 enum Interp { NEAREST = 0, BILINEAR = 2, BICUBIC = 3 };  // PIL's codes

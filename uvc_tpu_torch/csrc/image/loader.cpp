@@ -42,7 +42,7 @@ std::vector<uint8_t> read_file(const char* path) {
   return data;
 }
 
-enum Format { kJpeg = 1, kPng = 2, kBmp = 3 };
+enum Format { kJpeg = 1, kPng = 2, kBmp = 3, kWebp = 4 };
 
 int sniff(const std::vector<uint8_t>& d) {
   const size_t n = d.size();
@@ -50,10 +50,17 @@ int sniff(const std::vector<uint8_t>& d) {
   if (n >= 8 && std::memcmp(d.data(), "\x89PNG\r\n\x1a\n", 8) == 0)
     return kPng;
   if (n >= 2 && d[0] == 'B' && d[1] == 'M') return kBmp;
-  if (n >= 12 && std::memcmp(d.data(), "RIFF", 4) == 0 &&
+  if (n >= 16 && std::memcmp(d.data(), "RIFF", 4) == 0 &&
       std::memcmp(d.data() + 8, "WEBP", 4) == 0)
-    throw ImageError("WebP is not supported");
-  throw ImageError("not a JPEG, PNG or BMP file");
+    return kWebp;
+  throw ImageError("not a JPEG, PNG, BMP or WebP file");
+}
+
+// A JPEG, BMP or WebP file to RGB (a PNG goes through data/imagelib.py).
+Image decode_file(const std::vector<uint8_t>& d, int fmt) {
+  if (fmt == kJpeg) return jpeg_decode(d.data(), d.size(), true);
+  if (fmt == kBmp) return bmp_decode(d.data(), d.size());
+  return webp_decode(d.data(), d.size());
 }
 
 void set_err(char* err, int errlen, const char* msg) {
@@ -335,7 +342,7 @@ using namespace uvcimg;
 
 extern "C" {
 
-// Size and format (1 JPEG, 2 PNG, 3 BMP) from the header alone.
+// Size and format (1 JPEG, 2 PNG, 3 BMP, 4 WebP) from the header alone.
 int uvc_image_info(const char* path, int* w, int* h, int* fmt, char* err,
                    int errlen) {
   return guarded(err, errlen, [&] {
@@ -345,6 +352,8 @@ int uvc_image_info(const char* path, int* w, int* h, int* fmt, char* err,
       jpeg_info(d.data(), d.size(), w, h);
     } else if (*fmt == kBmp) {
       bmp_info(d.data(), d.size(), w, h);
+    } else if (*fmt == kWebp) {
+      webp_info(d.data(), d.size(), w, h);
     } else {
       if (d.size() < 24 || std::memcmp(d.data() + 12, "IHDR", 4) != 0)
         throw ImageError("PNG without its IHDR chunk");
@@ -358,7 +367,7 @@ int uvc_image_info(const char* path, int* w, int* h, int* fmt, char* err,
   });
 }
 
-// Decode a JPEG or BMP file to RGB into a buffer the caller frees with
+// Decode a JPEG, BMP or WebP file to RGB into a buffer the caller frees with
 // uvc_image_free; a PNG returns status 2 (decoded through Python's zlib).
 int uvc_decode_rgb(const char* path, uint8_t** out, int* w, int* h,
                    char* err, int errlen) {
@@ -371,8 +380,7 @@ int uvc_decode_rgb(const char* path, uint8_t** out, int* w, int* h,
       png = 1;
       return;
     }
-    Image img = fmt == kJpeg ? jpeg_decode(d.data(), d.size(), true)
-                             : bmp_decode(d.data(), d.size());
+    Image img = decode_file(d, fmt);
     *w = img.w;
     *h = img.h;
     *out = static_cast<uint8_t*>(std::malloc(img.px.size()));
@@ -384,7 +392,7 @@ int uvc_decode_rgb(const char* path, uint8_t** out, int* w, int* h,
 
 void uvc_image_free(uint8_t* p) { std::free(p); }
 
-// The PIL path's crop plan (pil_resample.cpp) on a file (JPEG, BMP; a PNG
+// The PIL path's crop plan (pil_resample.cpp) on a file (JPEG, BMP, WebP; a PNG
 // returns status 2) or on an RGB array.
 int uvc_load_pil_crop(const char* path, const int* plan, uint8_t* out,
                       char* err, int errlen) {
@@ -396,8 +404,7 @@ int uvc_load_pil_crop(const char* path, const int* plan, uint8_t* out,
       png = 1;
       return;
     }
-    const Image img = fmt == kJpeg ? jpeg_decode(d.data(), d.size(), true)
-                                   : bmp_decode(d.data(), d.size());
+    const Image img = decode_file(d, fmt);
     pil_crop(img, plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
              plan[6], plan[7], plan[8], plan[9] != 0, plan[10], out);
   });
@@ -424,11 +431,11 @@ int uvc_pil_resize(const uint8_t* src, int w, int h, int out_w, int out_h,
 }
 
 int uvc_png_unfilter(uint8_t* raw, size_t raw_len, int w, int h, int depth,
-                     int color_type, const uint8_t* plte, int n_plte,
-                     uint8_t* out, char* err, int errlen) {
+                     int color_type, int interlace, const uint8_t* plte,
+                     int n_plte, uint8_t* out, char* err, int errlen) {
   return guarded(err, errlen, [&] {
-    png_unfilter_rgb(raw, raw_len, w, h, depth, color_type, plte, n_plte,
-                     out);
+    png_unfilter_rgb(raw, raw_len, w, h, depth, color_type, interlace, plte,
+                     n_plte, out);
   });
 }
 

@@ -16,14 +16,22 @@ What it decodes and how (the C++ files say more):
   baseline and progressive, 8-bit, 1 / 3 / 4 components;
 * PNG: the chunk walk and the IDAT inflate here, with the standard
   library's ``zlib``, then the scanline filters in ``png.cpp``; colour
-  types 0 / 2 / 3 / 4 / 6 at bit depths 1-8, not interlaced;
-* BMP: uncompressed 24 and 32 bits.
+  types 0 / 2 / 3 / 4 / 6 at bit depths 1-16, plain or Adam7-interlaced
+  (16-bit samples as PIL's modes give them: the high byte, 16-bit gray
+  clipped to 255);
+* BMP (``bmp.cpp``): the OS/2 and Windows headers; 1-, 4- and 8-bit
+  palettes, 16 bits (5-5-5, 5-6-5 bit fields), 24 and 32 bits (the
+  bit-field layouts PIL takes), RLE8 and RLE4 as PIL's reader reads them;
+* WebP (``webp_vp8.cpp``, ``webp_vp8l.cpp``): lossy (VP8, RFC 6386) with
+  libwebp's fancy upsampling and YUV->RGB, lossless (VP8L, RFC 9649), and
+  an animation's first frame on its canvas, as PIL's WebP plugin
+  (libwebp's ``WebPAnimDecoder``) gives them; the ALPH chunk is checked
+  as libwebp checks it, and dropped, as ``convert("RGB")`` drops it.
 
-Anything else (WebP, 16-bit or interlaced PNG, arithmetic-coded, 12-bit,
-lossless or hierarchical JPEG, palette or compressed BMP) and any file
-whose data is cut short raises ``ValueError`` naming the file.  Every
-image comes out as PIL's ``convert("RGB")`` gives it: a uint8
-``[H, W, 3]`` array.
+Anything else (arithmetic-coded, 12-bit, lossless or hierarchical JPEG,
+a 2-bit BMP, a gray-palette BMP below 8 bits) and any file whose data is
+cut short raises ``ValueError`` naming the file.  Every image comes out
+as PIL's ``convert("RGB")`` gives it: a uint8 ``[H, W, 3]`` array.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ _SIGNATURES = {
     "uvc_load_pil_crop": ([ctypes.c_char_p, _P, _P] + _ERR, _I),
     "uvc_pil_crop": ([_P, _I, _I, _P, _P] + _ERR, _I),
     "uvc_pil_resize": ([_P, _I, _I, _I, _I, _I, _P] + _ERR, _I),
-    "uvc_png_unfilter": ([_P, _S, _I, _I, _I, _I, _P, _I, _P] + _ERR, _I),
+    "uvc_png_unfilter": ([_P, _S, _I, _I, _I, _I, _I, _P, _I, _P] + _ERR,
+                         _I),
     "uvc_rgb_histogram": ([_P, _S, _P], None),
     "uvc_rgb_lut": ([_P, _S, _P, _P], None),
     "uvc_enhance": ([_P, _I, _I, _I, _F, _P] + _ERR, _I),
@@ -192,12 +201,18 @@ def _decode_png(path: str) -> np.ndarray:
     if ihdr is None:
         raise ValueError(f"{path}: PNG without its IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported")
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit PNG is not supported")
+    if interlace > 1:
+        raise ValueError(f"{path}: PNG interlace method {interlace}")
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype, 0)
-    need = h * (1 + (w * channels * depth + 7) // 8)
+    # the rows of each Adam7 pass, or of the one plain pass
+    passes = ([(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+               (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)] if interlace
+              else [(0, 0, 1, 1)])
+    need = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            need += ph * (1 + (pw * channels * depth + 7) // 8)
     inflate = zlib.decompressobj()
     raw = bytearray(inflate.decompress(b"".join(idat), need))
     if w < 1 or h < 1 or len(raw) < need:
@@ -206,8 +221,8 @@ def _decode_png(path: str) -> np.ndarray:
     pal = np.frombuffer(plte, np.uint8).copy()
     out = np.empty((h, w, 3), np.uint8)
     _call(library().uvc_png_unfilter, _ptr(raw_np), raw_np.size, w, h, depth,
-          ctype, _ptr(pal) if pal.size else None, pal.size // 3, _ptr(out),
-          what=path)
+          ctype, interlace, _ptr(pal) if pal.size else None, pal.size // 3,
+          _ptr(out), what=path)
     return out
 
 
