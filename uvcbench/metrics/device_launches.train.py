@@ -1,0 +1,10 @@
+"""Device events (kernels, copies, memsets) of the traced stretch, a
+unit."""
+
+
+def read(record):
+    if record["kind"] != "train" or "trace" not in record \
+            or not record["trace"]["events"]:
+        return None
+    tr = record["trace"]
+    return len(tr["events"]) / tr["units"]
