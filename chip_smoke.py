@@ -1522,20 +1522,52 @@ def serving_phase(card):
     return {k: serve_counts[k] + eval_counts[k] for k in serve_counts}
 
 
+def _device_events(prof):
+    """The device events (kernels, copies, memsets) of a finished
+    ``torch.profiler`` session, read from its exported Chrome trace: each
+    (start us, duration us, name, the innermost ``uvc.op.*`` span open on
+    the launching thread at the launch, or None)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["tid"], e["name"])
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("uvc.op."))
+    launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = []
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") \
+                or e.get("ph") != "X":
+            continue
+        t, tid = launch.get(e["args"].get("correlation"), (None, None))
+        op = None
+        for a, b, span_tid, name in spans:
+            if a > (t if t is not None else -1):
+                break
+            if span_tid == tid and t <= b:
+                op = name
+        out.append((e["ts"], e.get("dur", 0), e["name"], op))
+    return out
+
+
 def profile_phase(card, runs, top=8, batch=BATCH, watch=None, host_top=0):
     """Device time by kernel for one batch of each path (torch.profiler),
-    and the device's busy share of the wall time (the profiler's own host
-    overhead is inside the wall time, so the busy share is a lower
-    bound).  Only events on the device are summed: a CPU range (an
-    autograd Function, an aten op) is charged the time of the kernels
-    launched inside it, which would count them twice.  ``watch``: {label:
-    kernel-name substring, or a tuple of them}, each label's device time
-    summed and printed: of every kernel whose name holds the substring, or
-    of every run of consecutive kernels (in launch order) whose names hold
-    the tuple's substrings in turn, one kernel's launches told apart from
-    another's that share some of their kernels.  ``host_top``: that many
-    host ops by their own host time, the profiler's overhead inside."""
-    from torch.autograd import DeviceType
+    the device's busy share of the wall time (the union of the device
+    intervals: copies and kernels on other streams overlap; the
+    profiler's own host overhead is inside the wall time, so the share
+    is a lower bound), and the device time under each kernel wrapper's
+    ``uvc.op.*`` span (``utils/profiler.py::span``), which tells one
+    wrapper's kernels from another's that share some of them.
+    ``watch``: {label: kernel-name substring}, the device time of every
+    kernel whose name holds the substring, summed and printed.
+    ``host_top``: that many host ops by their own host time, the
+    profiler's overhead inside."""
     from torch.profiler import ProfilerActivity, profile
 
     for label, fn in runs.items():
@@ -1547,47 +1579,41 @@ def profile_phase(card, runs, top=8, batch=BATCH, watch=None, host_top=0):
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        by_name = {}
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and e.device_time_total > 0),
-                     key=lambda e: e.time_range.start)
-        for e in evs:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.device_time_total, n + 1)
+        events = _device_events(prof)
+        by_name, by_op, busy, end = {}, {}, 0.0, float("-inf")
+        for start, us, name, op in sorted(events):
+            busy += max(0.0, start + us - max(start, end))
+            end = max(end, start + us)
+            t, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + us, n + 1)
+            if op is not None:
+                t, n = by_op.get(op, (0.0, 0))
+                by_op[op] = (t + us, n + 1)
         rows = sorted(((t, n, key) for key, (t, n) in by_name.items()),
                       reverse=True)
-        busy = sum(r[0] for r in rows)
+        total = sum(r[0] for r in rows)
         check(busy > 0, f"profile of {label}: no device time recorded")
         print(f"profile {label} (batch {batch}): device busy {busy:.1f} us "
               f"of {wall_us:.1f} us wall ({100 * busy / wall_us:.1f}%), "
-              f"{sum(r[1] for r in rows)} device events [{card}]")
+              f"{sum(r[1] for r in rows)} device events of {total:.1f} us "
+              f"[{card}]")
         own = [r for r in rows if "uvc::" in r[2]]
         own_us = sum(r[0] for r in own)
         print(f"  the port's kernels {own_us:.1f} us "
-              f"({100 * own_us / busy:.1f}%) in {sum(r[1] for r in own)} "
-              f"events; PyTorch's and the libraries' {busy - own_us:.1f} us "
-              f"in {sum(r[1] for r in rows) - sum(r[1] for r in own)}")
+              f"({100 * own_us / total:.1f}%) in {sum(r[1] for r in own)} "
+              f"events; PyTorch's and the libraries' {total - own_us:.1f} "
+              f"us in {sum(r[1] for r in rows) - sum(r[1] for r in own)}")
         for t, n, key in rows[:top]:
-            print(f"  {100 * t / busy:5.1f}%  {t:9.1f} us  x{n:<3d} "
+            print(f"  {100 * t / total:5.1f}%  {t:9.1f} us  x{n:<3d} "
                   f"{key[:110]}")
+        for op, (t, n) in sorted(by_op.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {op}: {t / 1e3:.3f} ms in {n} events "
+                  f"({100 * t / total:.1f}% of the device time)")
         for what, part in (watch or {}).items():
-            if isinstance(part, str):
-                hit = [r for r in rows if part in r[2]]
-                t, count = sum(r[0] for r in hit), sum(r[1] for r in hit)
-            else:
-                t, count, i = 0.0, 0, 0
-                while i + len(part) <= len(evs):
-                    run = evs[i:i + len(part)]
-                    if all(p in e.name for p, e in zip(part, run)):
-                        t += sum(e.device_time_total for e in run)
-                        count += 1
-                        i += len(part)
-                    else:
-                        i += 1
-            print(f"  {what}: {t / 1e3:.3f} ms in {count} "
-                  f"{'events' if isinstance(part, str) else 'calls'} "
-                  f"({100 * t / busy:.1f}% of the device time)")
+            hit = [r for r in rows if part in r[2]]
+            t, count = sum(r[0] for r in hit), sum(r[1] for r in hit)
+            print(f"  {what}: {t / 1e3:.3f} ms in {count} events "
+                  f"({100 * t / total:.1f}% of the device time)")
         if host_top:
             ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
             print(f"  host: {sum(a.self_cpu_time_total for a in ops) / 1e3:.2f} "
@@ -2161,16 +2187,6 @@ def performer_kernel_phase(digests_only=False, refused_ok=False):
 # k|v kernels, its four products (dWkqv, dWfc2, dWfc1, dWproj), the dWkqv
 # assembly and the sums
 PERF_FWD_LAUNCHES = ("fwd_sums", "fwd_apply")
-# their device time in a profiled step: the forward's two launches and
-# the backward's eight, each run in launch order
-PERFORMER_WATCH = {
-    "performer (A10 forward)": ("performer::fwd_sums_kernel",
-                                "performer::fwd_apply_kernel"),
-    "performer_bwd (A10 backward)": (
-        "performer::bwd_q_kernel", "performer::bwd_kv_kernel",
-        "gemm_wg_kernel", "gemm_wg_kernel", "gemm_wg_kernel",
-        "gemm_wg_kernel", "performer::assemble_dw_kernel",
-        "performer::finish_kernel")}
 PERF_BWD_LAUNCHES = ("bwd_q", "bwd_kv", "dWkqv GEMM", "dWfc2 GEMM",
                      "dWfc1 GEMM", "dWproj GEMM", "assemble dWkqv", "finish")
 
@@ -2330,8 +2346,7 @@ def t2t_training_phase(card, name="t2t_vit_14", label="T2T-ViT-14", seed=12,
           f"({peak / 2**20:.1f} MiB) [{card}]")
 
     profile_phase(card, {f"{label} stage-1 train step":
-                         lambda: run(state, 1)}, top=14,
-                  watch=PERFORMER_WATCH)
+                         lambda: run(state, 1)}, top=14)
 
     small = 8
     noise = draw_stage1_noise(ngen, cfg, hp, thp, small, "cpu")
@@ -2877,29 +2892,16 @@ def vit_h_phase(card):
 
     profile_phase(card, {"ViT-H/14 stage-1 train step": lambda: run(
         state, step, 1)}, top=30, batch=b,
-        watch={"A2 (LayerNorm, qkv GEMM, t GEMM, core q, core kv, ...)": (
-                   "layer_norm_kernel", "gemm_wg_kernel<0,",
-                   "gemm_wg_kernel<5,", "core_bwd_q_wg_kernel",
-                   "core_bwd_kv_wg_kernel"),
-               "the core backward, query and key side (A2; A8 on the "
+        watch={"the core backward, query and key side (A2; A8 on the "
                "composed route)": "core_bwd_",
                "A4's h and dam0 GEMMs with the activation backward "
                "(gemm_act_bwd)": "gemm_act_bwd_kernel",
                "the LayerNorm backward (A2 and A4)": "ln_bwd_kernel",
                "the in-order sums (reduce_parts_kernel)":
                    "reduce_parts_kernel",
-               "K1 (LayerNorm, qkv GEMM, core, projection GEMM)": (
-                   "layer_norm_kernel", "gemm_wg_kernel<0,",
-                   "core_fwd_wg_kernel", "gemm_wg_kernel<2,"),
                "K1's attention core (core_fwd_wg)": "core_fwd_wg_kernel",
-               "K2 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
-                   "layer_norm_kernel", "gemm_wg_kernel<1,",
-                   "gemm_wg_kernel<2,"),
                "K2's and K3's fc1 GEMMs (gemm_wg<EPI_GELU_MASK>)":
                    "gemm_wg_kernel<1,",
-               "K3 (LayerNorm, fc1 GEMM, fc2 GEMM)": (
-                   "layer_norm_kernel", "gemm_wg_kernel<1,",
-                   "gemm_wg_kernel<3,"),
                "LayerNorm (K1 64, K2 32, K3 32, A2 32, A4 32 a step)":
                    "layer_norm_kernel"})
     autograd_profile(card, "ViT-H/14 stage-1 train step",

@@ -94,7 +94,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--enable_writer", default=0, type=int)
     # device trace capture (utils/profiler.py, torch.profiler)
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="capture a TensorBoard-loadable trace here")
+                   help="capture a TensorBoard-loadable trace here; it "
+                        "carries the port's uvc.* spans (each step phase "
+                        "and kernel wrapper), which emit_nvtx turns into "
+                        "NVTX ranges for Nsight Systems")
     p.add_argument("--profile_start", default=10, type=int,
                    help="global step to start the trace (post-compile)")
     p.add_argument("--profile_steps", default=5, type=int,

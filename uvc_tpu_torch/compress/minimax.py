@@ -16,7 +16,9 @@ One ``arch_update`` call, after the weight optimizer's step:
 
 In warmup only the prox runs and the resource is reported; with pruning
 off only the dual-z ascent runs.  The JAX package's ``jax.grad`` calls
-are ``torch.autograd.grad`` here.  The resource's Gumbel draws come in as
+are ``torch.autograd.grad`` here, through ``utils/profiler.py::
+grad_in_span``, so that their backward carries the caller's
+``uvc.arch_update`` span in a trace.  The resource's Gumbel draws come in as
 ``noise = (res1, res2)`` ``[L, 2]`` tensors: ``res1`` is used twice (the
 reported resource and the primal gradient), ``res2`` once (the z ascent),
 as the JAX package uses its keys.
@@ -38,6 +40,7 @@ from uvc_tpu_torch.configs import ViTConfig
 from uvc_tpu_torch.interop import resolve_device
 from uvc_tpu_torch.ops.gumbel import block_gating_distrib
 from uvc_tpu_torch.ops.stes import least_k_sum, ste_ceil, torch_clamp
+from uvc_tpu_torch.utils.profiler import grad_in_span
 
 
 def init_compression_state(cfg: ViTConfig, hp: MinimaxHParams,
@@ -85,8 +88,8 @@ def _loss1_grads(cstate: CompressionState, scores1, scores2, scores3,
     sloss = (y[:, 0] @ least_k_sum(sc[:, 0], scores2)
              + y[:, 1] @ least_k_sum(sc[:, 1], scores3))
     rloss = (p * least_k_sum(rc, scores1)).sum()
-    (s_grad,) = torch.autograd.grad(sloss, s)
-    (r_grad,) = torch.autograd.grad(rloss, r)
+    (s_grad,) = grad_in_span(sloss, s)
+    (r_grad,) = grad_in_span(rloss, r)
     return (s_grad + sl2wd * (cstate.s / s_ub),
             r_grad + sl2wd * (cstate.r / r_ub))
 
@@ -170,7 +173,7 @@ def arch_update(params: dict, cstate: CompressionState, *,
         excess = torch_clamp(_resource(res1, s, r, g, **res_kw) - hp.budget,
                              -hp.z_grad_clip, hp.z_grad_clip)
         wrt = (s, r) if g is None else (s, r, g)
-        grads = torch.autograd.grad(excess, wrt, allow_unused=True)
+        grads = grad_in_span(excess, wrt, allow_unused=True)
     s_grad2, r_grad2 = grads[0], grads[1]
     g_grad_resource = None
     if g is not None:

@@ -34,6 +34,7 @@ import torch
 
 from uvc_tpu_torch.data import imagelib
 from uvc_tpu_torch.interop import resolve_device
+from uvc_tpu_torch.utils.profiler import span
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -128,12 +129,13 @@ def normalize_on_device(x: torch.Tensor, mean=IMAGENET_MEAN,
                         std=IMAGENET_STD) -> torch.Tensor:
     """uint8 ``[B, H, W, C]`` -> normalized f32 ``(x / 255 - mean) / std``
     on ``x``'s device (a float batch is taken as already scaled)."""
-    if x.dtype == torch.uint8:
-        x = x.float() / 255.0
-    m, s = _stats(tuple(float(v) for v in np.asarray(mean, np.float32)),
-                  tuple(float(v) for v in np.asarray(std, np.float32)),
-                  x.device)
-    return (x - m) / s
+    with span("uvc.normalize"):
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        m, s = _stats(tuple(float(v) for v in np.asarray(mean, np.float32)),
+                      tuple(float(v) for v in np.asarray(std, np.float32)),
+                      x.device)
+        return (x - m) / s
 
 
 # ---------------------------------------------------------------------------

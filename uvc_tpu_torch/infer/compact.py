@@ -27,6 +27,7 @@ from uvc_tpu_torch.ops.attention import layer_attention_ln
 from uvc_tpu_torch.ops.gumbel import (gather_tokens_with_pos,
                                       physical_topk_indices, token_scores)
 from uvc_tpu_torch.ops.mlp import mlp_ln
+from uvc_tpu_torch.utils.profiler import span
 from uvc_tpu_torch.utils.tree import tree_map
 
 
@@ -181,11 +182,17 @@ def apply_compact(layers: List[dict], top: dict, x: torch.Tensor,
     ``cfg.qk_scale`` where the config sets it, as in the trained
     forward."""
     _check_stack(cfg)
+    with span("uvc.serve"):
+        return _apply_compact(layers, top, x, cfg, dtype, token_ratio)
+
+
+def _apply_compact(layers, top, x, cfg, dtype, token_ratio):
     eps = cfg.layer_norm_eps
-    if cfg.tokens_type != "none":
-        t = get_model(cfg).embed(top, x, cfg, dtype)
-    else:
-        t = _embed_vit(top, x, cfg, dtype, token_ratio)
+    with span("uvc.embed"):
+        if cfg.tokens_type != "none":
+            t = get_model(cfg).embed(top, x, cfg, dtype)
+        else:
+            t = _embed_vit(top, x, cfg, dtype, token_ratio)
 
     scale = cfg.qk_scale if cfg.qk_scale is not None else cfg.head_size ** -0.5
     for blk in layers:
@@ -200,13 +207,15 @@ def apply_compact(layers: List[dict], top: dict, x: torch.Tensor,
             blk["fc2"]["kernel"], blk["fc2"]["bias"], blk["hidden_mask"],
             eps=eps)
 
-    t = _layer_norm(t, top["norm"]["scale"], top["norm"]["bias"], eps)
-    logits = t[:, 0].float() @ top["head"]["kernel"] + top["head"]["bias"]
-    if cfg.distilled and "head_dist" in top:
-        logits_kd = (t[:, 1].float() @ top["head_dist"]["kernel"]
-                     + top["head_dist"]["bias"])
-    else:
-        logits_kd = logits
+    with span("uvc.head"):
+        t = _layer_norm(t, top["norm"]["scale"], top["norm"]["bias"], eps)
+        logits = (t[:, 0].float() @ top["head"]["kernel"]
+                  + top["head"]["bias"])
+        if cfg.distilled and "head_dist" in top:
+            logits_kd = (t[:, 1].float() @ top["head_dist"]["kernel"]
+                         + top["head_dist"]["bias"])
+        else:
+            logits_kd = logits
     return ForwardOutput(logits=logits, logits_kd=logits_kd,
                          token_mask=None)
 

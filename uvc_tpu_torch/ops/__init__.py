@@ -7,7 +7,10 @@ where it launches its kernel.  ``launch_counts`` reads the forward kernels'
 run can show that its main path went through the kernels.  The wide-model
 backward routes (``dm > 1280``, composed in PyTorch around kernel A8 as
 the JAX package composes them) count their calls in ``calls``, read by
-``composed_counts`` and reset with the rest.
+``composed_counts`` and reset with the rest.  While a profiler session
+records, each wrapper's call is also the span ``uvc.op.<name>`` (its key
+here; ``utils/profiler.py::span``), opened at the same boundary as its
+counter, so that a trace ties each kernel to the wrapper that launched it.
 """
 
 from uvc_tpu_torch.ops.attention import (layer_attention, layer_attention_bwd,

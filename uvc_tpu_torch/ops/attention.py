@@ -29,6 +29,7 @@ import functools
 import torch
 
 from uvc_tpu_torch.ops import _cuda, _library
+from uvc_tpu_torch.utils.profiler import spanned
 
 # the LayerNorm backward keeps a row in registers (LNB_MAX_DM in
 # csrc/ln_bwd.cuh: ViT-H/14's 1280); wider models take the composed
@@ -232,6 +233,7 @@ def _layer_attention_ln_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
     return out
 
 
+@spanned("uvc.op.layer_attention_ln")
 def layer_attention_ln(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, *,
                        num_heads: int, scale: float, eps: float):
     """``x + (mask * MHA(LN1(x) @ wqkv + bqkv)) @ wproj + bproj``.
@@ -477,6 +479,7 @@ def _layer_attention_ln_bwd_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, mask,
     return grads
 
 
+@spanned("uvc.op.layer_attention_ln_bwd")
 def layer_attention_ln_bwd(x, g1, b1, wqkv, bqkv, wproj, bproj, mask, do, *,
                            num_heads: int, scale: float, eps: float):
     """Gradients of ``layer_attention_ln`` with respect to its eight tensor
@@ -562,6 +565,7 @@ def _layer_attention_cuda(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads,
     return out
 
 
+@spanned("uvc.op.layer_attention")
 def layer_attention(x, wqkv, bqkv, wproj, bproj, mask, *, num_heads: int,
                     scale: float):
     """``(mask * MHA(x @ wqkv + bqkv)) @ wproj + bproj``: the attention
@@ -605,6 +609,7 @@ def _layer_attention_bwd_cuda(x, wqkv, bqkv, wproj, bproj, mask, do, *,
     return grads
 
 
+@spanned("uvc.op.layer_attention_bwd")
 def layer_attention_bwd(x, wqkv, bqkv, wproj, bproj, mask, do, *,
                         num_heads: int, scale: float):
     """Gradients of ``layer_attention`` with respect to its six tensor
@@ -753,6 +758,7 @@ def _strides(*ts):
     return _cuda.longs(s for t in ts for s in t.stride()[:3])
 
 
+@spanned("uvc.op.attention")
 def attention(q, k, v, scale: float):
     """``softmax(q k^T * scale) v`` over ``[B, H, N, dh]`` tensors (kernel
     A9's forward).  On CUDA: bf16 tensors at any strides with unit stride
@@ -779,6 +785,7 @@ def attention(q, k, v, scale: float):
 attention.launches = 0
 
 
+@spanned("uvc.op.attention_bwd")
 def attention_bwd(q, k, v, do, scale: float):
     """(dq, dk, dv) of ``attention`` given the output cotangent ``do``
     (kernel A9's backward).  On CUDA: the forward's operand types, the
@@ -810,6 +817,7 @@ def attention_bwd(q, k, v, do, scale: float):
 attention_bwd.launches = 0
 
 
+@spanned("uvc.op.attention_bwd_ctx")
 def _attention_bwd_ctx_into(q, k, v, do, scale, outs):
     """``attention_bwd_ctx`` written into ``outs`` = (ctx, dq, dk, dv),
     ``[B, H, N, dh]`` tensors at any strides with unit stride along dh

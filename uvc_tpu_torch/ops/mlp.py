@@ -27,6 +27,7 @@ from uvc_tpu_torch.ops import _cuda, _library
 from uvc_tpu_torch.ops.attention import (_MAX_DM_BWD, _check_cuda,
                                          _ln_bwd_floats, _ln_rows,
                                          _sm_count, _weight_grad_splits)
+from uvc_tpu_torch.utils.profiler import spanned
 
 
 def _residual_sum32(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
@@ -109,6 +110,7 @@ def _mlp_cuda(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, eps):
     return out, err
 
 
+@spanned("uvc.op.mlp_ln")
 def mlp_ln(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, *, eps: float):
     """``x + (mask * gelu(LN2(x) @ wfc1 + bfc1)) @ wfc2 + bfc2``.
 
@@ -144,6 +146,7 @@ mlp_ln_op = _library.define(
     cpu=_mlp_ln_cpu, cuda=_mlp_ln_cuda, fake=_mlp_ln_fake)
 
 
+@spanned("uvc.op.mlp_ln_blend")
 def mlp_ln_blend(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, *,
                  eps: float):
     """``d[1] * (x + mlp_sublayer(LN2(x))) + d[0] * xin``: the gated
@@ -321,6 +324,7 @@ def _mlp_bwd_cuda(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, eps):
     return grads, err
 
 
+@spanned("uvc.op.mlp_ln_bwd")
 def mlp_ln_bwd(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, *, eps: float):
     """Gradients of ``mlp_ln`` with respect to its eight tensor inputs,
     given the output cotangent ``do``.  ``mlp_ln_bwd.launches`` counts
@@ -337,6 +341,7 @@ def mlp_ln_bwd(x, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, *, eps: float):
     return tuple(grads[k] for k in _MLP_GRADS)
 
 
+@spanned("uvc.op.mlp_ln_blend_bwd")
 def mlp_ln_blend_bwd(x, xin, d, g2, b2, wfc1, bfc1, wfc2, bfc2, mask, do, *,
                      eps: float):
     """Gradients of ``mlp_ln_blend`` with respect to its ten tensor inputs

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from uvc_tpu_torch.ops import _cuda, _library
 from uvc_tpu_torch.ops.attention import (_check_cuda, _ln_rows, _sm_count,
                                          _weight_grad_splits)
+from uvc_tpu_torch.utils.profiler import spanned
 
 # nn.LayerNorm's default eps in the reference Token_performer
 _LN_EPS = 1e-5
@@ -358,6 +359,7 @@ def _fcount(fcount, fmask):
     return float(fcount)
 
 
+@spanned("uvc.op.performer")
 def performer(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
               bfc1, wfc2, bfc2, *, fcount: float):
     """One performer stage: returns (out ``[B, N, emb]``, kptv ``[B, emb,
@@ -423,6 +425,7 @@ performer_op = _library.define(
     cpu=_performer_cpu, cuda=_performer_cuda, fake=_performer_fake)
 
 
+@spanned("uvc.op.performer_bwd")
 def performer_bwd(x, g1, b1, wkqv, bkqv, w, fmask, wproj, bproj, g2, b2, wfc1,
                   bfc1, wfc2, bfc2, kptv, kpsum, do, *, fcount: float,
                   dx: bool = True):

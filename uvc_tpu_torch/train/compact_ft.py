@@ -40,6 +40,7 @@ from uvc_tpu_torch.ops.attention import fused_layer_attention_ln
 from uvc_tpu_torch.ops.mlp import fused_mlp_ln
 from uvc_tpu_torch.train.state import TrainHParams
 from uvc_tpu_torch.train.step import _distilled_loss, _stage2_step
+from uvc_tpu_torch.utils.profiler import span
 from uvc_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -242,8 +243,10 @@ def build_compact_stage2_step(cfg: ViTConfig, hp: MinimaxHParams,
     ratio = hp.patch_ratio if hp.enable_patch_gating == 2 else None
 
     def loss_fn(ctree, teacher_params, masks, x, targets, labels):
-        out = apply_compact_ft(ctree, meta, x, cfg, dtype=thp.compute_dtype,
-                               token_ratio=ratio)
+        with span("uvc.forward"):
+            out = apply_compact_ft(ctree, meta, x, cfg,
+                                   dtype=thp.compute_dtype,
+                                   token_ratio=ratio)
         return _distilled_loss(out, x, targets, labels, teacher_params, cfg,
                                thp)
 

@@ -78,6 +78,7 @@ from uvc_tpu_torch.train.state import (TrainHParams, TrainState,
                                        clip_global_norm,
                                        make_weight_optimizer,
                                        zero_frozen_updates)
+from uvc_tpu_torch.utils.profiler import grad_in_span, span
 from uvc_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -116,7 +117,6 @@ def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
     for the CPU).  A data-parallel rank draws at the global batch and
     keeps its rows with ``shard_noise``."""
     device = resolve_device(device)
-    mix = _draw_mixup(generator, cfg, thp, batch, device)
     gating = hp.enable_block_gating and hp.use_gumbel
     l2 = (cfg.depth, 2)
 
@@ -125,12 +125,15 @@ def draw_stage1_noise(generator: torch.Generator, cfg: ViTConfig,
             return None
         return host_to_device(gumbel_noise(generator, shape), device)
 
-    return Stage1Noise(
-        mixup=mix, gate=draw(l2, gating),
-        token=draw((batch, cfg.num_patches), hp.enable_patch_gating == 2),
-        res1=draw(l2, gating), res2=draw(l2, gating),
-        part_attn=draw(l2, hp.enable_part_gating),
-        part_mlp=draw(l2, hp.enable_part_gating))
+    with span("uvc.draw"):
+        mix = _draw_mixup(generator, cfg, thp, batch, device)
+        return Stage1Noise(
+            mixup=mix, gate=draw(l2, gating),
+            token=draw((batch, cfg.num_patches),
+                       hp.enable_patch_gating == 2),
+            res1=draw(l2, gating), res2=draw(l2, gating),
+            part_attn=draw(l2, hp.enable_part_gating),
+            part_mlp=draw(l2, hp.enable_part_gating))
 
 
 class Stage2Noise(NamedTuple):
@@ -146,8 +149,9 @@ def draw_stage2_noise(generator: torch.Generator, cfg: ViTConfig,
     """Draw one stage-2 step's mixup from ``generator`` (on its device,
     usually the CPU) and move it to ``device`` (the card unless the caller
     asks for the CPU)."""
-    return Stage2Noise(mixup=_draw_mixup(generator, cfg, thp, batch,
-                                         resolve_device(device)))
+    with span("uvc.draw"):
+        return Stage2Noise(mixup=_draw_mixup(generator, cfg, thp, batch,
+                                             resolve_device(device)))
 
 
 # the axis of the batch's rows in the per-row draws of a step's noise
@@ -191,8 +195,9 @@ def _base_loss(logits, targets, labels, thp: TrainHParams):
 def _teacher_logits(teacher_params, x, cfg: ViTConfig, dtype):
     """Dense teacher forward in eval mode, without gradients."""
     model = get_model(cfg)
-    out = model.apply(teacher_params, x, cfg, dtype=dtype, train=False)
-    return model.eval_logits(out, cfg)
+    with span("uvc.teacher"):
+        out = model.apply(teacher_params, x, cfg, dtype=dtype, train=False)
+        return model.eval_logits(out, cfg)
 
 
 def _mixed(x, labels, mixup: Optional[MixupDraw], thp: TrainHParams,
@@ -200,27 +205,34 @@ def _mixed(x, labels, mixup: Optional[MixupDraw], thp: TrainHParams,
     """The step's images and soft targets: mixup / cutmix when on (with a
     mesh, against the flipped global batch's rows), else the one-hot
     labels."""
-    if thp.mixup > 0 or thp.cutmix > 0:
-        partner = None if mesh is None else flip_partners(x, labels, mesh)
-        return mixup_cutmix(x, labels, mixup, num_classes=thp.num_classes,
-                            smoothing=thp.smoothing, mode=thp.mixup_mode,
-                            partner=partner)
-    return x, torch.nn.functional.one_hot(labels.long(),
-                                          thp.num_classes).float()
+    with span("uvc.mixup"):
+        if thp.mixup > 0 or thp.cutmix > 0:
+            partner = (None if mesh is None
+                       else flip_partners(x, labels, mesh))
+            return mixup_cutmix(x, labels, mixup,
+                                num_classes=thp.num_classes,
+                                smoothing=thp.smoothing, mode=thp.mixup_mode,
+                                partner=partner)
+        return x, torch.nn.functional.one_hot(labels.long(),
+                                              thp.num_classes).float()
 
 
 def _distilled_loss(out, x, targets, labels, teacher_params,
                     cfg: ViTConfig, thp: TrainHParams):
     """The base loss plus distillation against the dense teacher (without
     distillation the teacher's forward, whose value the loss would not
-    read, is not run)."""
-    base = _base_loss(out.logits, targets, labels, thp)
-    if thp.distillation_type in (None, "none"):
-        return base
-    t_logits = _teacher_logits(teacher_params, x, cfg, thp.compute_dtype)
-    return distillation_loss(
-        base, out.logits_kd, t_logits, kind=thp.distillation_type,
-        alpha=thp.distillation_alpha, tau=thp.distillation_tau)
+    read, is not run).  The teacher runs first, so that the loss's terms
+    make one span."""
+    t_logits = None
+    if thp.distillation_type not in (None, "none"):
+        t_logits = _teacher_logits(teacher_params, x, cfg, thp.compute_dtype)
+    with span("uvc.loss"):
+        base = _base_loss(out.logits, targets, labels, thp)
+        if t_logits is None:
+            return base
+        return distillation_loss(
+            base, out.logits_kd, t_logits, kind=thp.distillation_type,
+            alpha=thp.distillation_alpha, tau=thp.distillation_tau)
 
 
 def model_axis(mesh: Optional[Mesh]) -> int:
@@ -235,7 +247,8 @@ def _value_and_grad(loss_fn, tree):
     leaves = [p.detach().requires_grad_() for p in tree_leaves(tree)]
     with torch.enable_grad():
         loss = loss_fn(tree_unflatten(tree, leaves))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("uvc.backward"):
+            grads = grad_in_span(loss, leaves, allow_unused=True)
     return loss.detach(), tree_unflatten(tree, [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(leaves, grads)])
@@ -279,8 +292,7 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
     accum = thp.accum_steps
     model = get_model(cfg)
 
-    def loss_fn(params, cstate, teacher_params, x, targets, labels, noise,
-                tau):
+    def forward(params, cstate, x, noise, tau):
         gating_distrib = None
         if hp.enable_block_gating:
             gating_distrib = block_gating_distrib(
@@ -293,7 +305,7 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
                 eps=cstate.eps, warmup=False) for n, k in (
                     (noise.part_attn, "attn_gating"),
                     (noise.part_mlp, "mlp_gating")))
-        out = model.apply(
+        return model.apply(
             params, x, cfg, gating_distrib=gating_distrib,
             attn_distrib=attn_d, mlp_distrib=mlp_d,
             tau=tau if hp.enable_patch_gating == 2 else -1.0,
@@ -301,6 +313,11 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
             patch_gate_mode=hp.enable_patch_gating,
             jumping=hp.enable_jumping, rng=noise.token, train=True,
             dtype=dtype)
+
+    def loss_fn(params, cstate, teacher_params, x, targets, labels, noise,
+                tau):
+        with span("uvc.forward"):
+            out = forward(params, cstate, x, noise, tau)
         return _distilled_loss(out, x, targets, labels, teacher_params, cfg,
                                thp)
 
@@ -308,6 +325,10 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
 
     def step(state: TrainState, teacher_params, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage1Noise, tau):
+        with span("uvc.step"):
+            return _step(state, teacher_params, x, labels, noise, tau)
+
+    def _step(state, teacher_params, x, labels, noise, tau):
         x, targets = _mixed(x, labels, noise.mixup, thp, mesh)
         teacher = gather_params(teacher_params, mesh)
         loss, grads = _value_and_grad(
@@ -317,40 +338,40 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
 
         with torch.no_grad():
             if micro:
-                new_accum = tree_map(lambda a, g: a + g / accum,
-                                     state.grad_accum,
-                                     shard_params(grads, mesh, mp))
+                with span("uvc.optimizer"):
+                    new_accum = tree_map(lambda a, g: a + g / accum,
+                                         state.grad_accum,
+                                         shard_params(grads, mesh, mp))
                 return state.replace(grad_accum=new_accum), {"loss": loss}
-            if accum > 1:
-                grads = tree_map(lambda a, g: a + g / accum,
-                                 gather_params(state.grad_accum, mesh),
-                                 grads)
-            if mesh is not None:
-                # the global batch's gradient, before the clip (its norm)
-                # and the architecture update (the gating gradient)
-                grads, loss = all_reduce_mean(grads, mesh, loss)
-            if warmup:
-                grads = dict(grads, block_gating=torch.zeros_like(
-                    grads["block_gating"]))
-            grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
-            # this rank's shard of the clipped gradient updates its shard
-            updates, opt_state = tx.update(shard_params(grads, mesh, mp),
-                                           state.opt_state, state.params)
-            updates = zero_frozen_updates(updates)
-            if warmup:
-                # decoupled weight decay would still move the frozen logits
-                updates = dict(updates, block_gating=torch.zeros_like(
-                    updates["block_gating"]))
-            new_params = gather_params(
-                tree_map(lambda p, u: p + u, state.params, updates), mesh)
-        lr = lr_fn(state.step)
-        new_params, cstate, arch_metrics = arch_update(
-            new_params, state.cstate, noise=(noise.res1, noise.res2),
-            step=state.step,
-            gating_loss_grad=(grads["block_gating"]
-                              if hp.enable_block_gating else None),
-            main_lr=float(lr), hp=hp, cfg=cfg, table=table,
-            warmup=warmup, gumbel_hard=gumbel_hard)
+            grads, loss = _fold_and_reduce(grads, loss, state, accum, mesh)
+            with span("uvc.optimizer"):
+                if warmup:
+                    grads = dict(grads, block_gating=torch.zeros_like(
+                        grads["block_gating"]))
+                grads, grad_norm = clip_global_norm(grads,
+                                                    thp.max_grad_norm)
+                # this rank's shard of the clipped gradient updates its
+                # shard
+                updates, opt_state = tx.update(shard_params(grads, mesh, mp),
+                                               state.opt_state, state.params)
+                updates = zero_frozen_updates(updates)
+                if warmup:
+                    # decoupled weight decay would still move the frozen
+                    # logits
+                    updates = dict(updates, block_gating=torch.zeros_like(
+                        updates["block_gating"]))
+                new_params = gather_params(
+                    tree_map(lambda p, u: p + u, state.params, updates),
+                    mesh)
+        with span("uvc.arch_update"):
+            lr = lr_fn(state.step)
+            new_params, cstate, arch_metrics = arch_update(
+                new_params, state.cstate, noise=(noise.res1, noise.res2),
+                step=state.step,
+                gating_loss_grad=(grads["block_gating"]
+                                  if hp.enable_block_gating else None),
+                main_lr=float(lr), hp=hp, cfg=cfg, table=table,
+                warmup=warmup, gumbel_hard=gumbel_hard)
         metrics = {"loss": loss, "grad_norm": grad_norm, "lr": lr,
                    **arch_metrics}
         grad_accum = state.grad_accum
@@ -362,6 +383,23 @@ def build_stage1_step(cfg: ViTConfig, table: MacsTable, hp: MinimaxHParams,
                           grad_accum=grad_accum), metrics
 
     return step
+
+
+def _fold_and_reduce(grads, loss, state: TrainState, accum: int,
+                     mesh: Optional[Mesh]):
+    """A full step's gradient and loss before the clip: the accumulated
+    micro-steps folded in (a ``uvc.optimizer`` span of its own), then,
+    given a mesh, averaged over the data group (``uvc.all_reduce``): the
+    global batch's gradient, before the clip (its norm) and the
+    architecture update (the gating gradient)."""
+    if accum > 1:
+        with span("uvc.optimizer"):
+            grads = tree_map(lambda a, g: a + g / accum,
+                             gather_params(state.grad_accum, mesh), grads)
+    if mesh is not None:
+        with span("uvc.all_reduce"):
+            grads, loss = all_reduce_mean(grads, mesh, loss)
+    return grads, loss
 
 
 def _zero_subtrees(tree: dict, paths) -> dict:
@@ -398,6 +436,10 @@ def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
 
     def step(state: TrainState, teacher_params, masks, x: torch.Tensor,
              labels: torch.Tensor, noise: Stage2Noise):
+        with span("uvc.step"):
+            return _step(state, teacher_params, masks, x, labels, noise)
+
+    def _step(state, teacher_params, masks, x, labels, noise):
         x, targets = _mixed(x, labels, noise.mixup, thp, mesh)
         teacher = gather_params(teacher_params, mesh)
         loss, grads = _value_and_grad(
@@ -405,24 +447,22 @@ def _stage2_step(thp: TrainHParams, loss_fn, *, frozen_grads=(),
                                    labels), gather_params(state.params, mesh))
         with torch.no_grad():
             if micro:
-                new_accum = tree_map(lambda a, g: a + g / accum,
-                                     state.grad_accum,
-                                     shard_params(grads, mesh, mp))
+                with span("uvc.optimizer"):
+                    new_accum = tree_map(lambda a, g: a + g / accum,
+                                         state.grad_accum,
+                                         shard_params(grads, mesh, mp))
                 return state.replace(grad_accum=new_accum), {"loss": loss}
-            if accum > 1:
-                grads = tree_map(lambda a, g: a + g / accum,
-                                 gather_params(state.grad_accum, mesh),
-                                 grads)
-            if mesh is not None:
-                grads, loss = all_reduce_mean(grads, mesh, loss)
-            grads = _zero_subtrees(grads, frozen_grads)
-            grads, grad_norm = clip_global_norm(grads, thp.max_grad_norm)
-            updates, opt_state = tx.update(shard_params(grads, mesh, mp),
-                                           state.opt_state, state.params)
-            # weight decay would otherwise still move the frozen leaves
-            updates = _zero_subtrees(zero_frozen_updates(updates),
-                                     frozen_updates)
-            params = tree_map(lambda p, u: p + u, state.params, updates)
+            grads, loss = _fold_and_reduce(grads, loss, state, accum, mesh)
+            with span("uvc.optimizer"):
+                grads = _zero_subtrees(grads, frozen_grads)
+                grads, grad_norm = clip_global_norm(grads,
+                                                    thp.max_grad_norm)
+                updates, opt_state = tx.update(shard_params(grads, mesh, mp),
+                                               state.opt_state, state.params)
+                # weight decay would otherwise still move the frozen leaves
+                updates = _zero_subtrees(zero_frozen_updates(updates),
+                                         frozen_updates)
+                params = tree_map(lambda p, u: p + u, state.params, updates)
         grad_accum = state.grad_accum
         if accum > 1:
             grad_accum = tree_map(torch.zeros_like, state.grad_accum)
@@ -458,13 +498,15 @@ def build_stage2_step(cfg: ViTConfig, hp: MinimaxHParams, thp: TrainHParams,
     mode = 2 if hp.enable_patch_gating == 2 else 0
 
     def loss_fn(params, teacher_params, masks, x, targets, labels):
-        g = params["block_gating"].detach()
-        keep = (g[:, 1] > g[:, 0]).float()
-        out = model.apply(
-            params, x, cfg, gating_distrib=torch.stack([1.0 - keep, keep],
-                                                       dim=-1),
-            masks=masks, patch_gate_mode=mode, patch_ratio=hp.patch_ratio,
-            patch_physical=True, train=True, dtype=thp.compute_dtype)
+        with span("uvc.forward"):
+            g = params["block_gating"].detach()
+            keep = (g[:, 1] > g[:, 0]).float()
+            out = model.apply(
+                params, x, cfg,
+                gating_distrib=torch.stack([1.0 - keep, keep], dim=-1),
+                masks=masks, patch_gate_mode=mode,
+                patch_ratio=hp.patch_ratio, patch_physical=True, train=True,
+                dtype=thp.compute_dtype)
         return _distilled_loss(out, x, targets, labels, teacher_params, cfg,
                                thp)
 

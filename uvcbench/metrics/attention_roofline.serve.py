@@ -1,0 +1,8 @@
+"""The attention sublayer's kernels' share of their roofline
+(``spans.sublayer_roofline`` over the wrappers ``spans.ATTENTION``), in %."""
+
+from uvcbench.spans import ATTENTION, sublayer_roofline
+
+
+def read(record):
+    return sublayer_roofline(record, "serve", ATTENTION)

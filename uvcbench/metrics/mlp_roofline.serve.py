@@ -1,0 +1,8 @@
+"""The MLP sublayer's kernels' share of their roofline
+(``spans.sublayer_roofline`` over the wrappers ``spans.MLP``), in %."""
+
+from uvcbench.spans import MLP, sublayer_roofline
+
+
+def read(record):
+    return sublayer_roofline(record, "serve", MLP)
